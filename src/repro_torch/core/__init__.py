@@ -1,0 +1,22 @@
+"""Algorithm 1 (SIMPLE-PAGERANK) and its power-iteration baseline.
+
+Public API:
+  CSRGraph, from_edges, exact_pagerank    — graph substrate
+  simple_pagerank (Algorithm 1)           — O(log n / eps) CONGEST rounds
+  power_iteration                         — classical baseline
+"""
+from repro_torch.core.graph import CSRGraph, exact_pagerank, from_edges
+from repro_torch.core.power_iteration import power_iteration
+from repro_torch.core.simple_pagerank import (PageRankResult,
+                                              simple_pagerank,
+                                              walks_per_node_for)
+from repro_torch.core.estimator import (l1_error, linf_error, max_rel_error,
+                                        normalized, pagerank_from_visits,
+                                        topk_overlap)
+
+__all__ = [
+    "CSRGraph", "from_edges", "exact_pagerank", "power_iteration",
+    "PageRankResult", "simple_pagerank", "walks_per_node_for",
+    "l1_error", "linf_error", "max_rel_error", "normalized",
+    "pagerank_from_visits", "topk_overlap",
+]

@@ -1,0 +1,125 @@
+"""Walk-array engine — Algorithm 1 as a dense array of walk positions.
+
+Walks are advanced with vectorized gathers; visit counters grow by a
+histogram of the round's arrivals (the `histogram` kernel on the card).
+Mathematically identical to the paper's process (walks are iid PageRank
+random walks terminated at the first eps-reset); the CONGEST message
+structure (per-edge *counts*, Lemma 1) is recovered for accounting by
+counting the per-round edge transitions.
+
+Two loops:
+  * run(...)        — steps to exact termination (or `max_rounds`).
+  * run_traced(...) — also emits a RoundTrace per round for the CONGEST
+                      accounting.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch import prng
+from repro_torch.core.accounting import RoundTrace
+from repro_torch.core.graph import CSRGraph
+from repro_torch.kernels.histogram import histogram
+
+
+@dataclasses.dataclass
+class WalkState:
+    pos: torch.Tensor    # [W] int32 current vertex
+    alive: torch.Tensor  # [W] bool
+    zeta: torch.Tensor   # [n] int32 visit counters (includes start visits)
+    key: torch.Tensor    # PRNG key (uint32 [2], host)
+    round: int
+
+
+def init_state(graph: CSRGraph, walks_per_node: int, key: torch.Tensor,
+               sources: Optional[torch.Tensor] = None) -> WalkState:
+    """K walks from every node (or explicit `sources`). Start counts as a visit."""
+    if sources is None:
+        pos = torch.arange(graph.n, dtype=torch.int32,
+                           device=graph.device).repeat(walks_per_node)
+    else:
+        pos = sources.to(device=graph.device, dtype=torch.int32)
+    zeta = torch.zeros(graph.n, dtype=torch.int32, device=graph.device)
+    zeta.index_add_(0, pos, torch.ones_like(pos))
+    return WalkState(pos=pos, alive=torch.ones_like(pos, dtype=torch.bool),
+                     zeta=zeta, key=key, round=0)
+
+
+def advance(row_ptr, col_idx, out_deg, eps: float, state: WalkState):
+    """The walk decisions of one round: (key, survive, dst, edge_ids)."""
+    key, k_term, k_edge = prng.split(state.key, 3)
+    pos = state.pos
+    u_term = prng.uniform(k_term, pos.shape, device=pos.device)
+    deg = out_deg.index_select(0, pos)
+    # dangling vertex == immediate reset (Avrachenkov convention)
+    survive = state.alive & (u_term >= eps) & (deg > 0)
+    u_edge = prng.uniform(k_edge, pos.shape, device=pos.device)
+    j = torch.minimum((u_edge * torch.clamp(deg, min=1)).to(torch.int32),
+                      torch.clamp(deg - 1, min=0))
+    edge_ids = row_ptr.index_select(0, pos) + j
+    dst = col_idx.index_select(
+        0, torch.clamp(edge_ids, 0, col_idx.shape[0] - 1))
+    return key, survive, dst, edge_ids
+
+
+def _step_core(row_ptr, col_idx, out_deg, eps: float, state: WalkState):
+    """One synchronous round. Returns (new_state, moving_mask, edge_ids)."""
+    key, survive, dst, edge_ids = advance(row_ptr, col_idx, out_deg, eps,
+                                          state)
+    arrivals = histogram(torch.where(survive, dst, -1), state.zeta.shape[0])
+    new_state = WalkState(
+        pos=torch.where(survive, dst, state.pos),
+        alive=survive,
+        zeta=state.zeta + arrivals,
+        key=key,
+        round=state.round + 1,
+    )
+    return new_state, survive, edge_ids
+
+
+def run(graph: CSRGraph, eps: float, walks_per_node: int, key: torch.Tensor,
+        *, max_rounds: int = 100_000) -> WalkState:
+    state = init_state(graph, walks_per_node, key)
+    while state.round < max_rounds and bool(state.alive.any()):
+        state, _, _ = _step_core(graph.row_ptr, graph.col_idx, graph.out_deg,
+                                 float(eps), state)
+    return state
+
+
+def _step_traced(row_ptr, col_idx, out_deg, state: WalkState, eps: float,
+                 n_edges: int):
+    new_state, survive, edge_ids = _step_core(row_ptr, col_idx, out_deg,
+                                              eps, state)
+    # CONGEST payload: count of walks per edge this round (Lemma 1 messages)
+    edge_counts = torch.zeros(n_edges, dtype=torch.int32,
+                              device=survive.device)
+    edge_counts.index_add_(0, torch.where(survive, edge_ids, 0),
+                           survive.to(torch.int32))
+    stats = dict(
+        active=int(state.alive.sum()),
+        moved=int(survive.sum()),
+        messages=int((edge_counts > 0).sum()),
+        max_edge_count=int(edge_counts.max()) if n_edges else 0,
+    )
+    return new_state, stats
+
+
+def run_traced(graph: CSRGraph, eps: float, walks_per_node: int,
+               key: torch.Tensor, *, max_rounds: int = 100_000
+               ) -> Tuple[WalkState, List[RoundTrace]]:
+    state = init_state(graph, walks_per_node, key)
+    traces: List[RoundTrace] = []
+    while state.round < max_rounds and bool(state.alive.any()):
+        state, stats = _step_traced(graph.row_ptr, graph.col_idx,
+                                    graph.out_deg, state, float(eps),
+                                    graph.m)
+        traces.append(RoundTrace(
+            active_walks=stats["active"],
+            messages=stats["messages"],
+            max_edge_count=stats["max_edge_count"],
+            total_count=stats["moved"],
+        ))
+    return state, traces

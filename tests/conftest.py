@@ -58,3 +58,9 @@ def small_graphs():
     ns = {}
     exec(SMALL_GRAPHS_SRC, ns)
     return ns["graphs"]
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); the test "
+        "skips without one")

@@ -1,0 +1,53 @@
+"""The port stands alone: no module of `src/repro_torch/`, nor
+`chip_smoke.py`, imports `jax` or the JAX package `repro`."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+
+
+SUBPROCESS_CODE = """
+import sys
+sys.modules["jax"] = None          # `import jax` now raises ImportError
+sys.modules["repro"] = None
+from repro_torch.core import power_iteration, simple_pagerank
+from repro_torch.graphs import erdos_renyi
+g = erdos_renyi(40, 4.0, seed=1, device="cpu")
+pi, _, _ = power_iteration(g, 0.2, device="cpu")
+for engine in ("walks", "counts"):
+    r = simple_pagerank(g, 0.2, walks_per_node=4, engine=engine, device="cpu")
+    assert abs(r.pi.sum() - 1.0) < 0.3 and r.logical_rounds > 0
+assert "jax" not in [m.split(".")[0] for m, v in sys.modules.items() if v]
+print("ok")
+"""
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", SUBPROCESS_CODE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"

@@ -1,0 +1,210 @@
+"""The port's kernels: each plain torch version against the JAX Pallas
+kernel (interpret mode) and its jnp reference. The CUDA kernels against
+their plain versions are in test_torch_cuda.py.
+
+Parity levels (stated per test):
+  * histogram — bit-exact (integer counts);
+  * segment_spmv — float values within 1e-6 relative (the summation order
+    differs); integer values bit-exact below and above count_bound 2**24;
+  * multinomial_rows — the counter hash bit-exact; T bit-exact where every
+    draw takes the BINV branch; conservation exact in every row; at counts
+    up to 2**28 a moments test and a row mismatch rate <= 5% (float32
+    log/exp/sqrt differ by ulps between XLA and torch in the normal branch).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.histogram.histogram import histogram_pallas
+from repro.kernels.histogram.ref import histogram_ref as j_histogram_ref
+from repro.kernels.multinomial_rows import _math as j_math
+from repro.kernels.multinomial_rows.multinomial_rows import \
+    multinomial_rows_pallas
+from repro.kernels.multinomial_rows.ref import \
+    multinomial_rows_ref as j_multinomial_ref
+from repro.kernels.segment_spmv import segment_spmv as j_segment_spmv
+from repro.kernels.segment_spmv.ref import segment_spmv_ref as j_spmv_ref
+
+from repro_torch.kernels import common
+from repro_torch.kernels.histogram import histogram
+from repro_torch.kernels.multinomial_rows import _math as t_math
+from repro_torch.kernels.multinomial_rows import multinomial_rows
+from repro_torch.kernels.segment_spmv import segment_spmv
+
+KEY_WORDS = (0xDEADBEEF, 0x12345678)
+
+
+# ---------------------------------------------------------------- histogram
+
+@pytest.mark.parametrize("W,n", [(64, 8), (1000, 100), (4096, 512),
+                                 (5000, 700), (257, 1), (1, 31), (0, 5)])
+def test_histogram_matches_jax(W, n):
+    ids = np.random.default_rng(W + n).integers(-1, n + 3, W).astype(np.int32)
+    got = histogram(torch.from_numpy(ids), n)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(histogram_pallas(jnp.asarray(ids), n,
+                                                 interpret=True)))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(j_histogram_ref(jnp.asarray(ids), n)))
+
+
+def test_histogram_out_of_range_and_padding():
+    ids = torch.tensor([-5, 0, 3, 99, 3, -1], dtype=torch.int32)
+    np.testing.assert_array_equal(histogram(ids, 4).numpy(), [1, 0, 0, 2])
+    pad = torch.full((512,), -1, dtype=torch.int32)
+    np.testing.assert_array_equal(histogram(pad, 16).numpy(),
+                                  np.zeros(16, np.int32))
+
+
+# ------------------------------------------------------------- segment_spmv
+
+@pytest.mark.parametrize("E,n", [(100, 10), (4000, 300), (999, 50),
+                                 (8192, 1024)])
+def test_spmv_float_matches_jax(E, n):
+    rng = np.random.default_rng(E)
+    val = rng.standard_normal(E).astype(np.float32)
+    dst = rng.integers(-2, n + 2, E).astype(np.int32)
+    got = segment_spmv(torch.from_numpy(val), torch.from_numpy(dst), n)
+    assert got.dtype == torch.float32
+    want = np.asarray(j_segment_spmv(jnp.asarray(val), jnp.asarray(dst), n,
+                                     interpret=True))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                               atol=1e-6 * scale)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(j_spmv_ref(jnp.asarray(val),
+                                           jnp.asarray(dst), n)),
+        rtol=1e-6, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("count_bound", [None, 2 ** 24, 2 ** 24 + 1, 2 ** 31 - 1])
+def test_spmv_integer_exact(count_bound):
+    """Below the bound the sum runs in float32 (every partial sum an
+    integer below 2**24); above it the exact integer sum is taken."""
+    rng = np.random.default_rng(5)
+    hi = 2 ** 17 if count_bound is None or count_bound <= 2 ** 24 else 2 ** 26
+    val = rng.integers(0, hi, 600).astype(np.int32)
+    dst = rng.integers(-1, 40, 600).astype(np.int32)
+    got = segment_spmv(torch.from_numpy(val), torch.from_numpy(dst), 40,
+                       count_bound=count_bound)
+    want = np.asarray(j_segment_spmv(jnp.asarray(val), jnp.asarray(dst), 40,
+                                     count_bound=count_bound, interpret=True))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    exact = np.zeros(41, np.int64)
+    np.add.at(exact, np.where(dst >= 0, dst, 40), val)
+    if hi == 2 ** 26:
+        np.testing.assert_array_equal(got.numpy(), exact[:40])
+
+
+def test_spmv_f32_exact_at_2_pow_24():
+    val = torch.tensor([2.0 ** 23, 2.0 ** 23, 1, 2, 3])
+    dst = torch.tensor([0, 0, 1, 1, 1], dtype=torch.int32)
+    np.testing.assert_array_equal(segment_spmv(val, dst, 2).numpy(),
+                                  [2.0 ** 24, 6.0])
+
+
+# --------------------------------------------------------- multinomial_rows
+
+def _rows(R, width, hi, seed):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, hi, R).astype(np.int32)
+    deg = rng.integers(0, width + 1, R).astype(np.int32)
+    rid = (np.arange(R) * 3 + 11).astype(np.int32)
+    return counts, deg, rid
+
+
+def _port(counts, deg, rid, eps, width):
+    return multinomial_rows(torch.from_numpy(counts), torch.from_numpy(deg),
+                            torch.from_numpy(rid), KEY_WORDS, eps=eps,
+                            width=width).numpy()
+
+
+def _jax(counts, deg, rid, eps, width, pallas=False):
+    args = (jnp.asarray(counts), jnp.asarray(deg), jnp.asarray(rid),
+            jnp.asarray(np.array(KEY_WORDS, np.uint32)))
+    if pallas:
+        return np.asarray(multinomial_rows_pallas(*args, eps=eps, width=width,
+                                                  interpret=True))
+    return np.asarray(j_multinomial_ref(*args, eps=eps, width=width))
+
+
+def test_counter_hash_bit_exact():
+    rid = np.concatenate([np.arange(5000), [2 ** 31 - 1, -1, -2 ** 31]]
+                         ).astype(np.int32)
+    for t in (0, 1, 16, 1000):
+        for k0, k1 in (KEY_WORDS, (0, 0), (2 ** 32 - 1, 1)):
+            a = np.asarray(j_math.counter_u01(jnp.asarray(rid), t,
+                                              np.uint32(k0), np.uint32(k1)))
+            b = t_math.counter_u01(torch.from_numpy(rid), t, k0, k1).numpy()
+            np.testing.assert_array_equal(b.view(np.uint32), a.view(np.uint32))
+            assert (b > 0).all() and (b < 1).all()
+
+
+@pytest.mark.parametrize("R,width,eps", [(64, 4, 0.2), (1000, 8, 0.1),
+                                         (4096, 16, 0.5), (257, 1, 0.3),
+                                         (1, 32, 0.2)])
+def test_multinomial_binv_regime_bit_exact(R, width, eps):
+    """Counts <= 20 put every draw in the BINV branch (the complement flip
+    keeps p <= 1/2, so the mean is <= 10): T is bit-exact there, against
+    the Pallas kernel and the jnp reference."""
+    counts, deg, rid = _rows(R, width, 21, R + width)
+    got = _port(counts, deg, rid, eps, width)
+    assert got.dtype == np.int32 and got.shape == (R, width + 1)
+    np.testing.assert_array_equal(got, _jax(counts, deg, rid, eps, width))
+    np.testing.assert_array_equal(
+        got, _jax(counts, deg, rid, eps, width, pallas=True))
+    np.testing.assert_array_equal(got.sum(axis=1), counts)
+
+
+def test_multinomial_large_counts_moments_and_mismatch():
+    """Counts up to 2**28 take the normal branch: conservation stays exact,
+    the draws' moments match the Binomial's, and at most 5% of rows differ
+    from the JAX reference (float32 transcendental ulps)."""
+    R, width, eps = 20000, 16, 0.2
+    counts, deg, rid = _rows(R, width, 2 ** 28, 9)
+    got = _port(counts, deg, rid, eps, width)
+    want = _jax(counts, deg, rid, eps, width)
+    np.testing.assert_array_equal(got.sum(axis=1), counts)
+    assert (got >= 0).all()
+    mismatch = float((got != want).any(axis=1).mean())
+    assert mismatch <= 0.05, mismatch
+    # termination ~ Bin(c, eps): standardized residuals are ~N(0, 1)
+    live = (deg > 0) & (counts > 1000)
+    c = counts[live].astype(np.float64)
+    z = (got[live, 0] - c * eps) / np.sqrt(c * eps * (1 - eps))
+    assert abs(z.mean()) < 0.05 and abs(z.std() - 1.0) < 0.05
+    # the first edge slot ~ Bin(c - term, 1/deg)
+    rem, d = c - got[live, 0], deg[live].astype(np.float64)
+    z1 = (got[live, 1] - rem / d) / np.sqrt(np.maximum(rem / d * (1 - 1 / d),
+                                                      1e-9))
+    keep = d > 1
+    assert abs(z1[keep].mean()) < 0.05 and abs(z1[keep].std() - 1.0) < 0.05
+
+
+def test_multinomial_dangling_rows_terminate_whole():
+    counts = np.array([5, 0, 77, 2 ** 20], np.int32)
+    deg = np.zeros(4, np.int32)
+    got = _port(counts, deg, np.arange(4, dtype=np.int32), 0.2, 3)
+    np.testing.assert_array_equal(got[:, 0], counts)
+    assert not got[:, 1:].any()
+
+
+# ----------------------------------------------------- dispatch and counters
+
+def test_cpu_wrappers_launch_nothing():
+    common.reset_launches()
+    ids = torch.tensor([0, 1, 1], dtype=torch.int32)
+    histogram(ids, 2)
+    segment_spmv(torch.ones(3), ids, 2)
+    segment_spmv(ids, ids, 2, count_bound=2 ** 30)
+    multinomial_rows(ids, ids, ids, KEY_WORDS, eps=0.2, width=2)
+    assert common.launches == {"histogram": 0, "segment_spmv": 0,
+                               "multinomial_rows": 0}
+
+
+def test_no_kernel_built_or_loaded_on_cpu():
+    """The CPU paths never reach nvcc or the kernel loader."""
+    assert common._libs == {}
