@@ -3,32 +3,48 @@
 
     python3 chip_smoke.py
 
-1. Builds the three CUDA kernels from the checkout's sources into
-   `build/kernels/` and prints what the compiler reports.
+1. Builds the four CUDA kernels from the checkout's sources into
+   `build/kernels/` and prints what the compiler reports (registers,
+   spills).
 2. Kernel phase: at the shapes the main path gives them, on the card, each
    kernel against its plain torch version (histogram exact,
    multinomial_rows exact or a mismatch rate under 0.5% with conservation
    exact, segment_spmv both against a float64 sum: the kernel's relative
    error at most twice the plain version's + 1e-6, since both sum with
-   atomics in different orders), with times of the kernel, the plain
-   version and a one-call PyTorch yardstick, beside the least time the card
+   atomics in different orders; walk_step exact from given uniforms (a)
+   and from key words (b), at the first round of the sharded walk engine at
+   P=2), with times of the kernel, the plain version and a one-call
+   PyTorch yardstick where there is one, beside the least time the card
    could take (bytes over the HBM rate, or operations over the FP32 rate).
-3. Main path on doc_link_graph(2**20): power_iteration, then
-   simple_pagerank with the walk engine and with the count engine (traced),
-   each with the launch counters set to 0 just before and read just after.
+3. Single-device path on doc_link_graph(2**20): power_iteration, then
+   simple_pagerank with the walk engine and with the count engine (traced).
    Each run must agree with power iteration (L1 < 0.15, top-10 >= 0.6) and
    launch its kernels; the count engine's residual must be 0.
-4. A small input checked against the CPU: the walk engine bit-exact, power
-   iteration within 1e-6 L1, the count engine against the exact PageRank.
+4. Sharded path on the same graph, P shards stacked on the card: the count
+   engine at P=4 with unpacked lanes (zeta bit-identical to step 3's count
+   engine, overflow and residual 0) and the walk engine at P=2 (nothing
+   dropped, walks alive never increasing, L1 and top-10 as above). A
+   profiled extra run of the count engine and two profiled rounds of the
+   walk engine print where the device time goes and its idle share.
+5. The launch CLI's `run()` on a small graph: walks at 2 shards and counts
+   at 4 (packed lanes), each with the accuracy gate, and each again with an
+   injected failure that must recover to the identical pi.
+6. Small inputs checked against the CPU: the single-device walk engine
+   bit-exact, power iteration within 1e-6 L1, the count engine against the
+   exact PageRank, and both sharded engines at P=8 bit-exact (counts
+   packed and unpacked).
 
-Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
-its last line `{"ok": true, "device": {...}}`. Exits non-zero, printing no
-result, when there is no CUDA card or any phase fails.
+Steps 3 and 4 are the main path: every engine is driven with the launch
+counters set to 0 just before it and read just after. Prints the card's
+name and power limit, a `{"kernels": [...]}` line, and as its last line
+`{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
+there is no CUDA card or any phase fails.
 """
 from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -42,6 +58,11 @@ N = 1 << 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, outside tensor cores
 MN_OPS_PER_DRAW = 30           # lower bound: counter hash + Binomial setup
+# 32-bit integer operations of one threefry-2x32 uniform as the kernel
+# writes it: 20 rounds of (add, two shifts, or, xor), 6 key injections of
+# two adds, and the float conversion (shift, or, subtract)
+THREEFRY_OPS_PER_DRAW = 20 * 5 + 6 * 2 + 3
+SHARDED_WALK_BUDGET_S = 90.0   # lower K for the sharded walk engine past it
 
 
 class PhaseError(Exception):
@@ -218,74 +239,336 @@ def kernel_phase(g, K):
     return rows, threefry_ms
 
 
-def main_path(g, K):
-    """power_iteration and both engines, through the public entry points."""
+def walk_step_phase(g, K):
+    """walk_step at the first round of the sharded walk engine at P=2: each
+    shard's buffer of cap = W + 128 slots, eligible = the walks it owns."""
     import torch
-    from repro_torch.core import (l1_error, normalized, power_iteration,
-                                  simple_pagerank, topk_overlap)
-    from repro_torch.kernels import common
+    from repro_torch import prng
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.core.distributed import init_state, shard_graph
+    from repro_torch.kernels.walk_step import walk_step, walk_step_keyed
+    from repro_torch.kernels.walk_step.ref import (walk_step_keyed_ref,
+                                                   walk_step_ref)
 
-    launches, out = {name: 0 for name in common.launches}, {}
+    shards, dev = 2, g.device
+    mesh = StackedMesh(shards, dev)
+    sg = shard_graph(g, shards)
+    W = g.n * K
+    cap = 2 * W // shards + shards * 64
+    state = init_state(sg, K, prng.PRNGKey(0), cap, dev)
+    # before the first step every walk sits on its own shard, so the route
+    # and the merge leave the buffers as they are
+    sid = mesh.shard_ids()[:, None]
+    pos = state.pos
+    eligible = (pos >= 0) & (torch.div(pos, sg.n_loc, rounding_mode="floor")
+                             == sid)
+    local = torch.where(eligible, pos - sid * sg.n_loc, 0).to(torch.int32)
+    alive = eligible.to(torch.int32)
+    keys = torch.stack([prng.split(k, 3) for k in state.key])
+    del state, pos, eligible
+    err, args = 0, None
+    for p in range(shards):
+        tables = (sg.row_ptr[p], sg.col_idx[p], sg.out_deg[p])
+        kt, ke = keys[p, 1], keys[p, 2]
+        u_term = prng.uniform(kt, (cap,), device=dev)
+        u_edge = prng.uniform(ke, (cap,), device=dev)
+        a = walk_step(local[p], alive[p], u_term, u_edge, *tables, eps=EPS)
+        a_ref = walk_step_ref(local[p], alive[p], u_term, u_edge, *tables,
+                              eps=EPS)
+        b = walk_step_keyed(local[p], alive[p], kt, ke, *tables, eps=EPS)
+        b_ref = walk_step_keyed_ref(local[p], alive[p], kt, ke, *tables,
+                                    eps=EPS)
+        for x, y in zip(a + b, a_ref + b_ref):
+            err = max(err, int((x - y).abs().max()))
+        if p == 0:
+            deg = sg.out_deg[0].index_select(0, local[0].long())
+            draws = int((alive[0].bool() & (deg > 0)).sum()) \
+                + int(b_ref[1].sum())
+            args = (local[0], alive[0], u_term, u_edge, kt, ke, tables,
+                    int(alive[0].sum()))
+        del a, a_ref, b, b_ref, u_term, u_edge
+    check(err == 0, f"walk_step differs from its plain version by {err}")
+    loc, alv, ut, ue, kt, ke, tables, n_elig = args
+    table_bytes = sum(4 * t.numel() for t in tables)
+    row = dict(
+        ms=cuda_ms(lambda: walk_step_keyed(loc, alv, kt, ke, *tables,
+                                           eps=EPS), 20),
+        plain_ms=cuda_ms(lambda: walk_step_keyed_ref(loc, alv, kt, ke,
+                                                     *tables, eps=EPS), 2),
+        library_ms=None, max_abs_err=err,
+        shape=f"cap={cap} slots, {n_elig} eligible, {draws} draws, "
+              f"n_loc={sg.n_loc}",
+        **bound(16 * cap + table_bytes, THREEFRY_OPS_PER_DRAW * draws))
+    entry_a = dict(
+        ms=cuda_ms(lambda: walk_step(loc, alv, ut, ue, *tables, eps=EPS), 20),
+        plain_ms=cuda_ms(lambda: walk_step_ref(loc, alv, ut, ue, *tables,
+                                               eps=EPS), 3),
+        **bound(24 * cap + table_bytes))
+    # the same integer work at the H100's INT32 throughput (64 lanes per SM
+    # per clock, 132 SMs, 1.98 GHz boost), for comparison only
+    int_ms = THREEFRY_OPS_PER_DRAW * draws / (64 * 132 * 1.98e9) * 1e3
+    log(f"walk_step: PASS, both entry points exact on both shards (max "
+        f"diff {err}); (b) keyed, the main path's: {row}; (a) from given "
+        f"uniforms: {entry_a}; (b)'s operations at the INT32 throughput "
+        f"would take {int_ms:.4f} ms")
+    row["entry_a"] = entry_a
+    return row
 
-    def drive(label, fn, must_launch):
-        common.reset_launches()
+
+class Runner:
+    """Drives entry points with the launch counters set to 0 just before
+    and read just after, summing what each run launched."""
+
+    def __init__(self):
+        from repro_torch.kernels import common
+        self.common = common
+        self.launches = {name: 0 for name in common.launches}
+
+    def __call__(self, label, fn, must_launch):
+        import torch
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.common.reset_launches()
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = dict(common.launches)
+        counts = dict(self.common.launches)
         for name, c in counts.items():
-            launches[name] += c
-        check(counts[must_launch] > 0,
-              f"{label}: the {must_launch} kernel was never launched")
-        log(f"{label}: {secs:.3f} s, launches {counts}")
-        return result, secs
+            self.launches[name] += c
+        for name in must_launch:
+            check(counts[name] > 0,
+                  f"{label}: the {name} kernel was never launched")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"{label}: {secs:.3f} s, peak memory {peak:.2f} GiB, launches "
+            f"{counts}")
+        return result, secs, peak
 
+
+def accuracy(label, pi, pi_ref, n):
+    """L1 (after normalising) and top-10 overlap against power iteration;
+    fails the phase past L1 0.15 or under top-10 0.6."""
+    import numpy as np
+    from repro_torch.core import l1_error, normalized, topk_overlap
+    pi = np.asarray(pi, dtype=np.float64)
+    check(pi.shape == (n,) and bool((pi >= 0).all())
+          and math.isfinite(float(pi.sum())), f"{label}: bad estimate")
+    l1 = l1_error(normalized(pi), pi_ref)
+    top = topk_overlap(pi, pi_ref)
+    check(l1 < 0.15, f"{label}: L1 {l1} vs power iteration")
+    check(top >= 0.6, f"{label}: top-10 overlap {top}")
+    return l1, top
+
+
+def main_path(g, K, drive):
+    """power_iteration and both single-device engines, through the public
+    entry points. Returns (runs, power-iteration pi on the host, the count
+    engine's zeta)."""
+    import torch
+    from repro_torch.core import power_iteration, simple_pagerank
+
+    out = {}
     tol, max_iters = 1e-7, 1000
-    (pi_ref, delta, iters), secs = drive(
+    (pi_ref, delta, iters), secs, _ = drive(
         "power_iteration", lambda: power_iteration(g, EPS, tol=tol,
                                                    max_iters=max_iters),
-        "segment_spmv")
+        ["segment_spmv"])
     check(bool(torch.isfinite(pi_ref).all()) and pi_ref.shape == (g.n,),
           "power_iteration: bad output")
     log(f"power_iteration: tol {tol}, {iters} iterations, final L1 delta "
         f"{delta:.3e}, stopped at max_iters: {iters >= max_iters}")
     out["power_iteration"] = dict(seconds=secs, iterations=iters)
+    pi_ref = pi_ref.cpu().numpy()
 
+    counts_zeta = None
     for engine, traced, kernel in (("walks", False, "histogram"),
                                    ("counts", True, "multinomial_rows")):
-        res, secs = drive(
+        res, secs, peak = drive(
             f"simple_pagerank[{engine}]",
             lambda: simple_pagerank(g, EPS, engine=engine, traced=traced),
-            kernel)
+            [kernel])
         zmax = int(res.zeta.max())
-        l1 = l1_error(normalized(res.pi), pi_ref)
-        top = topk_overlap(res.pi, pi_ref.cpu().numpy())
-        check(res.pi.shape == (g.n,) and bool((res.pi >= 0).all())
-              and math.isfinite(float(res.pi.sum())),
-              f"{engine}: bad estimate")
         check(zmax < 2 ** 31, f"{engine}: zeta overflows int32")
-        check(l1 < 0.15, f"{engine}: L1 {l1} vs power iteration")
-        check(top >= 0.6, f"{engine}: top-10 overlap {top}")
+        l1, top = accuracy(engine, res.pi, pi_ref, g.n)
         info = dict(seconds=secs, rounds=res.logical_rounds, K=K,
                     walks=K * g.n, l1=l1, top10=top, zeta_max=zmax,
-                    zeta_sum=int(res.zeta.sum(dtype=torch.int64)))
+                    zeta_sum=int(res.zeta.sum(dtype=torch.int64)),
+                    peak_gib=peak)
         if engine == "counts":
             # run_traced raises on any round whose residual is not 0
             info.update(residual=0,
                         congest_rounds=res.report.congest_rounds)
+            counts_zeta = res.zeta
         log(f"simple_pagerank[{engine}]: {info}")
         out[engine] = info
-    return launches, out
+        del res
+        torch.cuda.empty_cache()
+    return out, pi_ref, counts_zeta
+
+
+def profile_rounds(step, state, rounds, label, top=10):
+    """Run `rounds` steps under torch.profiler and print the device time of
+    the kernels by name, the device's busy time (kernels, copies and sets)
+    and its idle share of the wall time. Returns the last state."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            state = step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # device-side events only: an aten op's device time repeats its kernels'
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    log(f"{label}: wall {wall * 1e3 / rounds:.2f} ms a round, device busy "
+        f"{busy / rounds:.2f} ms a round, idle share "
+        f"{max(0.0, 1 - busy / 1e3 / wall):.3f}")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
+        log(f"  {dev_us(e) / 1e3 / rounds:9.3f} ms/round  "
+            f"{e.count / rounds:6.1f}x  {e.key[:100]}")
+    if not kernels:
+        log(f"{label}: the profiler recorded no device time")
+    return state
+
+
+def sharded_path(g, K, drive, pi_ref, counts_zeta):
+    """Both sharded engines at full width, their shards stacked on the
+    card: counts at P=4 (unpacked lanes: n_loc = 262,144 is past the packed
+    lanes' 16-bit ids), walks at P=2 (cap >= W, so nothing can drop)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.core.distributed import (distributed_pagerank,
+                                              init_state, shard_graph,
+                                              superstep)
+    from repro_torch.core.distributed_counts import \
+        distributed_pagerank_counts
+
+    out = {}
+    res, secs, peak = drive(
+        "distributed_pagerank_counts[P=4]",
+        lambda: distributed_pagerank_counts(
+            g, EPS, K, prng.PRNGKey(0), mesh=StackedMesh(4, g.device),
+            packed=False),
+        ["multinomial_rows"])
+    check(torch.equal(res.zeta, counts_zeta),
+          "sharded counts: zeta differs from the single-device count engine")
+    check(res.overflow == 0 and res.residual == 0,
+          f"sharded counts: overflow {res.overflow}, residual "
+          f"{res.residual}")
+    l1, top = accuracy("sharded counts", res.pi, pi_ref, g.n)
+    out["counts"] = dict(
+        seconds=secs, rounds=res.rounds, shards=4, K=K,
+        a2a_entries=res.a2a_entries_total, a2a_bytes=res.a2a_bytes_total,
+        lane_cap=res.lane_cap, overflow=res.overflow, residual=res.residual,
+        sampler_s=res.sampler_us / 1e6, occupancy=list(res.occupancy),
+        l1=l1, top10=top, peak_gib=peak, zeta_equal_single_device=True)
+    log(f"distributed_pagerank_counts[P=4]: {out['counts']}")
+    del res
+    profile_rounds(lambda _: distributed_pagerank_counts(
+        g, EPS, K, prng.PRNGKey(0), mesh=StackedMesh(4, g.device),
+        packed=False), None, 1, "sharded counts, a whole run (profiled)")
+    torch.cuda.empty_cache()
+
+    # one round at full K tells whether the whole walk engine fits its
+    # budget; past it, K (never the graph) is lowered
+    shards, mesh = 2, StackedMesh(2, g.device)
+    sg = shard_graph(g, shards)
+    W = g.n * K
+    state = init_state(sg, K, prng.PRNGKey(0), 2 * W // shards + shards * 64,
+                       g.device)
+    route_cap = max(W // shards, 64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _, _, _ = superstep(sg, state, mesh=mesh, eps=EPS,
+                               route_cap=route_cap)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    # where a round's time goes: two more rounds under the profiler
+    profile_rounds(lambda s: superstep(sg, s, mesh=mesh, eps=EPS,
+                                       route_cap=route_cap)[0], state, 2,
+                   "sharded walks, rounds 2-3")
+    del state, sg
+    torch.cuda.empty_cache()
+    rounds_guess = 90
+    K_walk = K
+    if round_s * rounds_guess > SHARDED_WALK_BUDGET_S:
+        K_walk = max(1, int(K * SHARDED_WALK_BUDGET_S
+                            / (round_s * rounds_guess)))
+    log(f"sharded walks: first round at K={K} took {round_s:.3f} s "
+        f"(~{round_s * rounds_guess:.1f} s for {rounds_guess} rounds); "
+        f"running K={K_walk}" + ("" if K_walk == K else
+                                 f" (cut from {K} to fit "
+                                 f"{SHARDED_WALK_BUDGET_S:.0f} s)"))
+
+    res, secs, peak = drive(
+        "distributed_pagerank[P=2]",
+        lambda: distributed_pagerank(g, EPS, K_walk, prng.PRNGKey(0),
+                                     mesh=mesh),
+        ["walk_step", "histogram"])
+    check(res.dropped == 0, f"sharded walks: {res.dropped} walks dropped")
+    ra = res.round_active
+    check(all(b <= a for a, b in zip(ra, ra[1:])) and ra[-1] == 0,
+          "sharded walks: walks alive increased or did not reach 0")
+    l1, top = accuracy("sharded walks", res.pi, pi_ref, g.n)
+    out["walks"] = dict(
+        seconds=secs, rounds=res.rounds, shards=shards, K=K_walk,
+        K_cut_from=K if K_walk != K else None, first_round_s=round_s,
+        a2a_entries=res.a2a_entries_total, a2a_bytes=res.a2a_bytes_total,
+        dropped=res.dropped, waited=res.waited, l1=l1, top10=top,
+        peak_gib=peak)
+    log(f"distributed_pagerank[P=2]: {out['walks']}")
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_phase():
+    """The launch CLI's run() on the card: walks at 2 shards and counts at
+    4 (packed lanes), each gated on accuracy and each recovering from an
+    injected failure to the identical pi."""
+    import numpy as np
+    from repro_torch.launch.pagerank import run
+
+    ckpt = ROOT / "build" / "smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out = {}
+    for algo, shards in (("walks", 2), ("counts", 4)):
+        args = (4096, EPS, 64, "directed_web")
+        a = run(*args, None, [], algo=algo, check=True, shards=shards)
+        b = run(*args, str(ckpt / algo), [5, 12], algo=algo, check=True,
+                shards=shards)
+        check(b.restarts >= 1, f"cli {algo}: no restart after a failure")
+        check(np.array_equal(a.pi, b.pi),
+              f"cli {algo}: the recovered run's pi differs")
+        out[algo] = dict(shards=shards, rounds=a.rounds,
+                         restarts=b.restarts, l1=a.l1, top10=a.topk)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"cli: PASS {out}")
+    return out
 
 
 def small_check():
-    """A small graph on the card against the same run on the CPU."""
+    """Small graphs on the card against the same runs on the CPU."""
     import torch
     from repro_torch import prng
     from repro_torch.core import (exact_pagerank, l1_error, normalized,
                                   power_iteration, simple_pagerank)
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.core.distributed import distributed_pagerank
+    from repro_torch.core.distributed_counts import \
+        distributed_pagerank_counts
     from repro_torch.graphs import erdos_renyi
 
     g_cpu = erdos_renyi(96, 5.0, seed=1, device="cpu")
@@ -305,8 +588,29 @@ def small_check():
                         traced=True)
     l1_c = l1_error(normalized(c.pi), exact)
     check(l1_c < 0.15, f"small counts run: L1 {l1_c} vs exact PageRank")
+
+    def walks(graph, dev):
+        r = distributed_pagerank(graph, EPS, 8, key,
+                                 mesh=StackedMesh(8, dev))
+        return (r.zeta.cpu().tolist(), r.rounds, r.dropped, r.waited,
+                r.round_active, r.a2a_entries_total, r.a2a_bytes_total)
+
+    def counts(graph, dev, packed):
+        r = distributed_pagerank_counts(graph, EPS, 8, key, packed=packed,
+                                        mesh=StackedMesh(8, dev))
+        return (r.zeta.cpu().tolist(), r.rounds, r.a2a_entries_total,
+                r.a2a_bytes_total, r.lane_cap, r.overflow, r.occupancy,
+                r.residual)
+
+    check(walks(g, "cuda") == walks(g_cpu, "cpu"),
+          "small sharded walks (P=8): card and CPU differ")
+    for packed in (True, False):
+        check(counts(g, "cuda", packed) == counts(g_cpu, "cpu", packed),
+              f"small sharded counts (P=8, packed={packed}): card and CPU "
+              f"differ")
     log(f"small check (erdos_renyi(96)): walks zeta card == CPU, power "
-        f"iteration L1 {l1_pi:.2e}, counts L1 vs exact {l1_c:.4f}")
+        f"iteration L1 {l1_pi:.2e}, counts L1 vs exact {l1_c:.4f}; sharded "
+        f"walks and counts (packed, unpacked) at P=8 card == CPU")
 
 
 def main() -> int:
@@ -322,6 +626,7 @@ def main() -> int:
     from repro_torch.graphs import doc_link_graph
     from repro_torch.kernels import common
 
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     logs = common.build_all()
     build_s = time.perf_counter() - t0
@@ -344,11 +649,28 @@ def main() -> int:
     log(f"graph: doc_link_graph({N}) n={g.n} m={g.m} max_out_deg="
         f"{g.max_out_deg} in {graph_s:.2f} s; K={K}, {K * g.n} walks")
 
+    drive = Runner()
+    phases = {}
     try:
+        t0 = time.perf_counter()
         rows, threefry_ms = kernel_phase(g, K)
+        rows["walk_step"] = walk_step_phase(g, K)
         torch.cuda.empty_cache()
-        launches, runs = main_path(g, K)
+        phases["kernels"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs, pi_ref, counts_zeta = main_path(g, K, drive)
+        phases["single_device"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sharded = sharded_path(g, K, drive, pi_ref, counts_zeta)
+        phases["sharded"] = time.perf_counter() - t0
+        del counts_zeta
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cli_phase()
+        phases["cli"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         small_check()
+        phases["small"] = time.perf_counter() - t0
     except PhaseError as e:
         log(f"FAILED: {e}")
         return 1
@@ -359,21 +681,25 @@ def main() -> int:
         f"iteration {runs['power_iteration']['seconds']:.3f} s, walks "
         f"{walks['seconds']:.3f} s (threefry ~{share:.1%}: 2 draws x "
         f"{walks['rounds']} rounds x {threefry_ms:.3f} ms), counts "
-        f"{runs['counts']['seconds']:.3f} s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        f"{runs['counts']['seconds']:.3f} s, sharded counts P=4 "
+        f"{sharded['counts']['seconds']:.3f} s, sharded walks P=2 "
+        f"{sharded['walks']['seconds']:.3f} s; by phase "
+        f"{ {k: round(v, 2) for k, v in phases.items()} }; whole script "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     replaces = {
         "histogram": "src/repro/kernels/histogram/histogram.py:67",
         "segment_spmv": "src/repro/kernels/segment_spmv/segment_spmv.py:66",
         "multinomial_rows":
             "src/repro/kernels/multinomial_rows/multinomial_rows.py:47",
+        "walk_step": "src/repro/kernels/walk_step/walk_step.py:69",
     }
     kernels = []
     for name, row in rows.items():
         kernels.append(dict(
             name=name, route="cuda",
             source=str(common.SOURCES[name].relative_to(ROOT)),
-            replaces=replaces[name], launches=launches[name],
+            replaces=replaces[name], launches=drive.launches[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))

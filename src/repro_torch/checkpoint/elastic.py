@@ -1,0 +1,175 @@
+"""Elastic re-layout: resume a sharded engine's snapshot at another shard
+count.
+
+Engine state is mesh-shaped, so changing the shard count P repartitions
+it. Every buffer is one of a few layout kinds, declared per stage by the
+engine as a `LayoutSpec` schema; `relayout_arrays` is the schema-driven
+repartitioner that the supervisor routes a resumed snapshot through when
+the manifest's shard count differs from the live mesh's:
+
+  ``walk``            [P, cap] lanes of global vertex ids (-1 = empty).
+                      Live walks are re-bucketed by their new owner and
+                      packed in sorted order, so the layout is canonical
+                      (P -> P' -> P is bit-exact). The per-shard cap grows
+                      past the declared target when one shard needs it.
+  ``vertex``          [P, n_loc, *rest] vertex-sharded values: flatten,
+                      cut the old padding at n, re-pad, re-split.
+  ``key``             [P, 2] per-shard PRNG keys, re-derived by
+                      `derive_shard_keys`: the resumed trajectory is fresh
+                      (statistically the same), not a replay.
+  ``replicated_key``  [P, 2] with the same key in every row (the count
+                      engine's layout-free RNG): row 0 is tiled to P', so
+                      its per-vertex counter draws continue bit-exactly.
+  ``replicated``      replicated scalars and arrays: unchanged.
+
+The JAX package has two more kinds, ``walk_aux`` and ``slot``, for the
+three-phase and PPR engines; they come with those engines.
+
+Snapshots are host numpy dicts (as `Checkpointer.restore` gives them), so
+this module is numpy throughout; only the key derivation uses the port's
+threefry.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import math
+from typing import Dict, Optional
+
+import numpy as np
+
+from repro_torch import prng
+from repro_torch.checkpoint.checkpointer import unpack_json
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutSpec:
+    """How one engine buffer is laid out across the mesh.
+
+    kind  walk | vertex | key | replicated_key | replicated (see the
+          module docstring).
+    n     number of real vertices (walk and vertex kinds).
+    cap   target per-shard lane capacity (walk kind); relayout grows past
+          it only when one shard's walks do not fit.
+    fill  empty-slot filler (walk kind).
+    """
+
+    kind: str
+    n: Optional[int] = None
+    cap: Optional[int] = None
+    fill: int = 0
+
+
+def derive_shard_keys(old_keys: np.ndarray, new_shards: int) -> np.ndarray:
+    """Fresh per-shard keys from an old per-shard key array: the whole old
+    [P, 2] uint32 array is hashed (blake2b over its bytes and length), the
+    63-bit digest seeds a base `PRNGKey`, and shard p's key is
+    `fold_in(base, p)`. The same as the JAX package derives them."""
+    data = np.ascontiguousarray(np.asarray(old_keys, dtype=np.uint32))
+    h = hashlib.blake2b(data.tobytes() + np.int64(data.size).tobytes(),
+                        digest_size=8).digest()
+    seed = int.from_bytes(h, "little") & (2 ** 63 - 1)
+    base = prng.PRNGKey(seed)
+    return np.stack([prng.fold_in(base, p).numpy()
+                     for p in range(int(new_shards))])
+
+
+def _relayout_vertex(arr: np.ndarray, n: int, new_shards: int) -> np.ndarray:
+    """Re-split a [P, n_loc, *rest] vertex-sharded buffer (bit-exact)."""
+    old_shards, n_loc_old = arr.shape[:2]
+    rest = arr.shape[2:]
+    flat = arr.reshape((old_shards * n_loc_old,) + rest)[:n]
+    n_loc = math.ceil(n / new_shards)
+    out = np.zeros((n_loc * new_shards,) + rest, dtype=arr.dtype)
+    out[:n] = flat
+    return out.reshape((new_shards, n_loc) + rest)
+
+
+def _relayout_walk(primary: np.ndarray, spec: LayoutSpec,
+                   new_shards: int) -> np.ndarray:
+    """Re-bucket walk lanes by new owner in canonical sorted order; the
+    per-shard cap grows to the most loaded shard when it must."""
+    old_shards, old_cap = primary.shape
+    n_loc = math.ceil(spec.n / new_shards)
+    vals = np.sort(primary[primary >= 0])
+    owner = np.minimum(vals // n_loc, new_shards - 1).astype(np.int64)
+    counts = np.bincount(owner, minlength=new_shards)
+    cap = spec.cap if spec.cap is not None else max(
+        old_cap * old_shards // new_shards + new_shards * 64, 256)
+    cap = max(int(cap), int(counts.max(initial=0)), 1)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(len(vals), dtype=np.int64) - starts[owner]
+    out = np.full((new_shards, cap), spec.fill, dtype=primary.dtype)
+    out[owner, slot] = vals
+    return out
+
+
+def relayout_arrays(arrays: Dict[str, np.ndarray],
+                    specs: Dict[str, LayoutSpec],
+                    new_shards: int) -> Dict[str, np.ndarray]:
+    """Schema-driven re-layout of one stage's host buffers onto
+    `new_shards`. Every buffer needs a `LayoutSpec` in `specs`."""
+    missing = [k for k in arrays if k not in specs]
+    if missing:
+        raise ValueError(f"no layout schema for buffer(s) {missing}; "
+                         f"schema covers {sorted(specs)}")
+    out: Dict[str, np.ndarray] = {}
+    for name, arr in arrays.items():
+        spec = specs[name]
+        arr = np.asarray(arr)
+        if spec.kind == "walk":
+            out[name] = _relayout_walk(arr, spec, new_shards)
+        elif spec.kind == "vertex":
+            out[name] = _relayout_vertex(arr, spec.n, new_shards)
+        elif spec.kind == "key":
+            out[name] = derive_shard_keys(arr, new_shards)
+        elif spec.kind == "replicated_key":
+            out[name] = np.tile(arr[:1], (new_shards, 1))
+        elif spec.kind == "replicated":
+            out[name] = arr
+        else:
+            raise ValueError(f"unknown layout kind {spec.kind!r} "
+                             f"for buffer {name!r}")
+    return out
+
+
+def relayout_staged_flat(flat: Dict[str, np.ndarray], new_shards: int,
+                         layouts: Dict[str, Dict[str, LayoutSpec]]
+                         ) -> Dict[str, np.ndarray]:
+    """Re-layout a flat staged snapshot (`runtime.staged_to_host` through
+    the `Checkpointer`) onto a new shard count, by the schema of the stage
+    it is tagged with."""
+    stage = unpack_json(flat["stage"])
+    specs = layouts.get(stage)
+    if specs is None:
+        raise ValueError(f"no layout schema declared for stage {stage!r}; "
+                         f"schemas cover stages {sorted(layouts)}")
+    arrays = {k.split("/", 1)[1]: v for k, v in flat.items()
+              if k.startswith("arrays/")}
+    relaid = relayout_arrays(arrays, specs, new_shards)
+    out = {f"arrays/{k}": v for k, v in relaid.items()}
+    out.update({k: v for k, v in flat.items() if not k.startswith("arrays/")})
+    return out
+
+
+def pagerank_state_specs(n: int, cap: int | None = None) -> Dict:
+    """The walk engine's `DistState` schema: [P, cap] walk lanes, a
+    [P, n_loc] visit shard, per-shard keys and replicated scalars."""
+    return dict(
+        pos=LayoutSpec(kind="walk", n=n, cap=cap, fill=-1),
+        zeta=LayoutSpec(kind="vertex", n=n),
+        key=LayoutSpec(kind="key"),
+        round=LayoutSpec(kind="replicated"),
+        dropped=LayoutSpec(kind="replicated"),
+        waited=LayoutSpec(kind="replicated"),
+    )
+
+
+def relayout_pagerank_state(host_state: Dict, n: int, new_shards: int,
+                            cap: int | None = None) -> Dict:
+    """Re-layout the walk engine's host state dict onto `new_shards`: the
+    multiset of live walks and the per-vertex zeta are kept bit for bit,
+    the keys are re-derived."""
+    arrays = {k: np.asarray(v) for k, v in host_state.items()}
+    return relayout_arrays(arrays, pagerank_state_specs(n, cap=cap),
+                           new_shards)

@@ -83,10 +83,66 @@ def build_layout(deg: np.ndarray, max_deg: int, *,
                  bucketed: bool = True) -> Tuple[BucketLayout, np.ndarray]:
     """Single-shard layout: (layout, perm [total_rows] int32, -1 = pad).
 
-    One shard needs no padding rows; the sharded layout, whose buckets are
-    padded to the largest shard's, comes with the sharded engines."""
+    One shard needs no padding rows; `build_layout_sharded` pads each
+    bucket to the largest shard's."""
     deg = np.ascontiguousarray(np.asarray(deg, np.int32))
     return _layout_cached(deg.tobytes(), int(max_deg), bool(bucketed))
+
+
+@lru_cache(maxsize=64)
+def _sharded_cached(deg_bytes: bytes, shards: int, max_deg: int,
+                    bucketed: bool):
+    deg = np.frombuffer(deg_bytes, dtype=np.int32).reshape(shards, -1)
+    n_loc = deg.shape[1]
+    if not bucketed or max_deg <= 1:
+        layout = BucketLayout(widths=(max(max_deg, 1),), caps=(n_loc,),
+                              n_rows=n_loc)
+        return layout, np.tile(np.arange(n_loc, dtype=np.int32), (shards, 1))
+    n_b = int(np.ceil(np.log2(max_deg))) + 1
+    widths = tuple(min(1 << b, max_deg) for b in range(n_b))
+    b_of = bucket_of(deg)
+    counts = np.stack([np.bincount(b, minlength=n_b) for b in b_of])
+    caps = tuple(int(c) for c in counts.max(axis=0))
+    starts = np.concatenate([[0], np.cumsum(caps)[:-1]]).astype(np.int64)
+    # each shard's rows grouped by bucket, in increasing row order within a
+    # bucket, each bucket padded with -1 up to the largest shard's count
+    perm = np.full((shards, int(sum(caps))), -1, np.int32)
+    for p in range(shards):
+        rows = np.argsort(b_of[p], kind="stable")
+        b = b_of[p, rows]
+        first = np.concatenate([[0], np.cumsum(counts[p])[:-1]])
+        perm[p, starts[b] + np.arange(n_loc) - first[b]] = rows
+    return BucketLayout(widths=widths, caps=caps, n_rows=n_loc), perm
+
+
+def build_layout_sharded(deg: np.ndarray, max_deg: int, *,
+                         bucketed: bool = True
+                         ) -> Tuple[BucketLayout, np.ndarray]:
+    """Shard-uniform layout from a [shards, n_loc] degree matrix:
+    (layout with caps = the max over shards, perm [shards, total_rows]
+    int32 of local row ids, -1 = padding)."""
+    deg = np.ascontiguousarray(np.asarray(deg, np.int32))
+    return _sharded_cached(deg.tobytes(), deg.shape[0], int(max_deg),
+                           bool(bucketed))
+
+
+def stack_shard_perm(perm: np.ndarray, layout: BucketLayout
+                     ) -> Tuple[BucketLayout, np.ndarray]:
+    """One permutation over all shards' rows at once: bucket b holds the
+    shards' bucket-b rows shard after shard, as row ids into the flattened
+    [shards * n_rows] row vector. Draws are counter-based per row id, so
+    one sampler call per bucket over every shard gives each shard's own
+    draws."""
+    shards = perm.shape[0]
+    base = (np.arange(shards, dtype=np.int64) * layout.n_rows)[:, None]
+    blocks = []
+    for start, cap in zip(layout.row_starts, layout.caps):
+        blk = perm[:, start:start + cap].astype(np.int64)
+        blocks.append(np.where(blk >= 0, blk + base, -1).reshape(-1))
+    stacked = BucketLayout(widths=layout.widths,
+                           caps=tuple(c * shards for c in layout.caps),
+                           n_rows=layout.n_rows * shards)
+    return stacked, np.concatenate(blocks).astype(np.int32)
 
 
 def bucketize_adjacency(nbr: np.ndarray, perm: np.ndarray,
@@ -155,7 +211,11 @@ def sample_buckets(counts, deg, rid, key_words, perm: torch.Tensor,
     return samples, torch.stack(occ).to(torch.int32), residual
 
 
-def flatten_moves(samples) -> torch.Tensor:
+def flatten_moves(samples, shards: int | None = None) -> torch.Tensor:
     """Per-edge counts [total_edges] aligned with `bucketize_adjacency`
-    (termination column dropped)."""
-    return torch.cat([T[:, 1:].reshape(-1) for _, T in samples])
+    (termination column dropped). With `shards`, the samples of a
+    `stack_shard_perm` layout give each shard's [shards, total_edges]."""
+    if shards is None:
+        return torch.cat([T[:, 1:].reshape(-1) for _, T in samples])
+    return torch.cat([T[:, 1:].reshape(shards, -1) for _, T in samples],
+                     dim=1)

@@ -1,7 +1,9 @@
 """Shared kernel utilities: the build of the CUDA sources, their loader, and
 the launch counters.
 
-Every kernel is CUDA C++ for `sm_90a` with a plain C interface. The
+There are four kernels, one for each TPU kernel of the JAX package:
+`histogram`, `segment_spmv`, `multinomial_rows` and `walk_step`. Every
+kernel is CUDA C++ for `sm_90a` with a plain C interface. The
 sources are compiled at first use, one `nvcc` per source and all at once,
 into shared libraries under `build/kernels/` at the root of the checkout,
 and loaded with `ctypes`. A library's file name carries the hash of its
@@ -28,11 +30,13 @@ SOURCES = {
     "histogram": KERNELS_DIR / "histogram" / "histogram.cu",
     "segment_spmv": KERNELS_DIR / "segment_spmv" / "segment_spmv.cu",
     "multinomial_rows": KERNELS_DIR / "multinomial_rows" / "multinomial_rows.cu",
+    "walk_step": KERNELS_DIR / "walk_step" / "walk_step.cu",
 }
 
 # No --use_fast_math, and no FMA contraction: the plain torch versions round
-# after every operation, and `multinomial_rows` must reproduce them bit for
-# bit (an FMA in its Binomial chain moves a CDF by an ulp and flips draws).
+# after every operation, and `multinomial_rows` and `walk_step` must
+# reproduce them bit for bit (an FMA in a Binomial chain moves a CDF by an
+# ulp and flips draws).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,0 +1,36 @@
+"""Plain PyTorch versions of the fused walk step."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import prng
+
+
+def walk_step_ref(pos, alive, u_term, u_edge, row_ptr, col_idx, out_deg, *,
+                  eps: float):
+    """(new_pos, new_alive) int32 [W]: one PageRank step per walk slot.
+
+    A slot survives when it is alive, draws u_term >= eps and sits on a
+    vertex with out-edges; it then moves along edge
+    min(trunc(u_edge * deg), deg - 1). Other slots keep their position."""
+    alive = alive.to(torch.bool)
+    safe_pos = torch.clamp(pos, 0, out_deg.shape[0] - 1).long()
+    deg = out_deg[safe_pos]
+    survive = alive & (u_term >= eps) & (deg > 0)
+    j = torch.minimum((u_edge * torch.clamp(deg, min=1).to(u_edge.dtype))
+                      .to(torch.int32), torch.clamp(deg - 1, min=0))
+    eid = torch.clamp(row_ptr[safe_pos] + j, 0, col_idx.shape[0] - 1)
+    dst = col_idx[eid.long()]
+    new_pos = torch.where(survive, dst, pos)
+    return new_pos.to(torch.int32), survive.to(torch.int32)
+
+
+def walk_step_keyed_ref(pos, alive, key_term, key_edge, row_ptr, col_idx,
+                        out_deg, *, eps: float):
+    """`walk_step_ref` on the uniforms `prng.uniform(key, (W,))` of the two
+    keys: what the keyed kernel draws for itself."""
+    W = pos.shape[0]
+    u_term = prng.uniform(key_term, (W,), device=pos.device)
+    u_edge = prng.uniform(key_edge, (W,), device=pos.device)
+    return walk_step_ref(pos, alive, u_term, u_edge, row_ptr, col_idx,
+                         out_deg, eps=eps)

@@ -1,0 +1,218 @@
+"""Sharded PageRank launcher: the sharded engines under checkpoint/restart.
+
+    PYTHONPATH=src python -m repro_torch.launch.pagerank --n 512 --eps 0.2 \\
+        --walks 64 --graph erdos_renyi --algo counts --shards 4
+
+Runs on the CUDA card unless `--device cpu` is given. `--shards N` holds N
+vertex shards on that one device as a stacked mesh (`core/collectives.py`):
+every lane, route, merge and all_to_all runs as it would across N devices.
+
+Engine selection (`--algo`):
+  walks     Algorithm 1, walk-routing engine (default), under the
+            checkpoint `Supervisor`.
+  counts    Algorithm 1, count-aggregated engine (Lemma-1 wire: per-vertex
+            coupon counts, payload independent of the walk count).
+  improved, directed, ppr
+            not ported yet: the run exits non-zero naming the ROADMAP item
+            that ports it. So does `--audit`.
+
+Fault tolerance: `--checkpoint-dir` enables periodic snapshots,
+`--fail-at R [R ...]` injects simulated failures at the listed rounds, and
+recovery from the latest snapshot is bit-exact: the recovered run prints
+the same pi and telemetry as an unfailed one, plus restarts > 0.
+`--resume` cold-starts from the latest snapshot in `--checkpoint-dir`,
+which this package or the JAX package may have written; with `--shards N`
+different from the snapshot's, the snapshot is re-laid out onto N shards
+(bit-exact for `counts`, a fresh key stream for `walks`).
+
+Every run is checked against power iteration (L1 and top-10 overlap);
+`--check` turns the report into a gate (non-zero exit on a miss).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import shutil
+import tempfile
+
+import numpy as np
+
+from repro_torch import prng
+from repro_torch.checkpoint import Checkpointer, relayout_pagerank_state
+from repro_torch.core import l1_error, power_iteration, topk_overlap
+from repro_torch.core.collectives import StackedMesh
+from repro_torch.core.distributed import (init_state, shard_graph,
+                                          state_from_host, state_to_host,
+                                          superstep)
+from repro_torch.core.distributed_counts import distributed_pagerank_counts
+from repro_torch.device import resolve_device
+from repro_torch.graphs import GENERATORS
+from repro_torch.runtime import FailureSchedule, Supervisor
+
+# algorithms of the JAX launcher that this package does not run yet, with
+# the ROADMAP item that ports each
+NOT_PORTED = {
+    "improved": "ROADMAP Queue 1 item 7 (Algorithm 2 and Section 5)",
+    "directed": "ROADMAP Queue 1 item 7 (Algorithm 2 and Section 5)",
+    "ppr": "ROADMAP Queue 1 item 8 (Personalized PageRank and serving)",
+    "audit": "ROADMAP Queue 1 item 11 (wire auditor)",
+}
+
+
+@dataclasses.dataclass
+class RunResult:
+    pi: np.ndarray      # float64 [n] PageRank estimate
+    rounds: int
+    restarts: int       # supervisor recoveries from injected failures
+    shards: int
+    l1: float           # against power iteration
+    topk: float         # top-10 overlap with power iteration
+
+
+def _report_accuracy(pi, g, eps: float, check: bool = False,
+                     l1_tol: float = 0.15, topk_min: float = 0.6):
+    pi = np.asarray(pi, dtype=np.float64)
+    pi_ref, _, _ = power_iteration(g, eps, device=g.device)
+    pi_ref = pi_ref.cpu().numpy()
+    l1 = l1_error(pi / pi.sum(), pi_ref)
+    topk = topk_overlap(pi, pi_ref)
+    print(f"[pagerank] L1 vs power-iter: {l1:.4f}  "
+          f"top-10 overlap: {topk:.2f}")
+    if check and (l1 >= l1_tol or topk < topk_min):
+        raise SystemExit(
+            f"[pagerank] accuracy check FAILED: L1 {l1:.4f} "
+            f"(tol {l1_tol}) top-10 {topk:.2f} (min {topk_min})")
+    return l1, topk
+
+
+def run_walks(g, eps: float, walks_per_node: int, checkpoint_dir, fail_at,
+              seed: int, resume: bool = False, mesh=None,
+              max_restarts: int = 16):
+    mesh = mesh or StackedMesh(1, g.device)
+    shards = mesh.shards
+    sg = shard_graph(g, shards, mesh.device)
+    W = g.n * walks_per_node
+    cap = 2 * W // shards + shards * 64
+    route_cap = W // shards + 64
+    state = init_state(sg, walks_per_node, prng.PRNGKey(seed), cap,
+                       mesh.device)
+
+    def step_fn(s):
+        s2, active, _, _ = superstep(sg, s, mesh=mesh, eps=eps,
+                                     route_cap=route_cap)
+        return s2, active == 0
+
+    # without a directory the snapshots go to a private temporary one,
+    # removed once the run is over
+    ckpt_dir = checkpoint_dir or tempfile.mkdtemp(prefix="pr_ckpt_")
+    sup = Supervisor(step_fn, state_to_host,
+                     lambda f: state_from_host(f, mesh),
+                     Checkpointer(ckpt_dir), checkpoint_every=10,
+                     max_restarts=max_restarts,
+                     failure_schedule=FailureSchedule(fail_at) if fail_at
+                     else None,
+                     meta_fn=lambda: dict(shards=shards),
+                     relayout=lambda f, old: relayout_pagerank_state(
+                         f, g.n, shards, cap=cap))
+    try:
+        res = sup.run(state, resume=resume)
+    finally:
+        if checkpoint_dir is None:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    zeta = res.state.zeta.reshape(-1)[: g.n].cpu().numpy()
+    pi = zeta.astype(np.float64) * eps / (g.n * walks_per_node)
+    print(f"[pagerank] algo=walks n={g.n} shards={shards} "
+          f"rounds={res.rounds} restarts={res.restarts} "
+          f"dropped={res.state.dropped}")
+    return pi, res
+
+
+def run(n: int, eps: float, walks_per_node: int, graph_kind: str,
+        checkpoint_dir: str | None, fail_at: list[int], seed: int = 0,
+        algo: str = "walks", avg_deg: float = 6.0, resume: bool = False,
+        check: bool = False, shards: int | None = None,
+        max_restarts: int = 16, device=None):
+    """Build the graph, run `algo` on `shards` stacked shards on `device`
+    (the card when None) and report its accuracy."""
+    if algo in NOT_PORTED:
+        raise SystemExit(f"[pagerank] --algo {algo} is not ported to this "
+                         f"package yet: {NOT_PORTED[algo]}")
+    if resume and not checkpoint_dir:
+        raise SystemExit("[pagerank] --resume needs --checkpoint-dir "
+                         "(there is no snapshot to cold-start from)")
+    if shards is not None and shards < 1:
+        raise SystemExit(f"[pagerank] --shards {shards} out of range")
+    mesh = StackedMesh(shards or 1, resolve_device(device))
+    g = GENERATORS[graph_kind](n, avg_deg, seed, device=mesh.device) \
+        if graph_kind != "ring" else GENERATORS[graph_kind](
+            n, device=mesh.device)
+    if algo == "walks":
+        pi, res = run_walks(g, eps, walks_per_node, checkpoint_dir, fail_at,
+                            seed, resume=resume, mesh=mesh,
+                            max_restarts=max_restarts)
+    elif algo == "counts":
+        res = distributed_pagerank_counts(
+            g, eps, walks_per_node, prng.PRNGKey(seed), mesh=mesh,
+            checkpoint_dir=checkpoint_dir, fail_at=fail_at, resume=resume,
+            max_restarts=max_restarts)
+        print(f"[pagerank] algo=counts n={g.n} shards={res.shards} "
+              f"rounds={res.rounds} restarts={res.restarts} "
+              f"lane_cap={res.lane_cap} "
+              f"a2a_bytes={res.a2a_bytes_total} overflow={res.overflow}")
+        print(f"[pagerank] sampler: {res.sampler_us:.0f} us total "
+              f"({res.sampler_us / max(res.rounds, 1):.0f} us/round) "
+              f"bucket_occupancy={list(res.occupancy)} "
+              f"residual={res.residual}")
+        pi = res.pi
+    else:
+        raise ValueError(f"unknown algo {algo!r}")
+    l1, topk = _report_accuracy(pi, g, eps, check=check)
+    return RunResult(pi=pi, rounds=res.rounds, restarts=res.restarts,
+                     shards=mesh.shards, l1=l1, topk=topk)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--eps", type=float, default=0.2)
+    ap.add_argument("--walks", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="graph-generator and PRNG seed")
+    ap.add_argument("--avg-deg", type=float, default=6.0,
+                    help="generator degree parameter (ignored by ring)")
+    ap.add_argument("--graph", default="erdos_renyi",
+                    choices=sorted(GENERATORS))
+    ap.add_argument("--algo", default="walks",
+                    choices=["walks", "counts", "improved", "directed",
+                             "ppr"])
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--fail-at", type=int, nargs="*", default=[])
+    ap.add_argument("--resume", action="store_true",
+                    help="cold-start from the latest snapshot in "
+                         "--checkpoint-dir instead of round 0; with "
+                         "--shards N unlike the snapshot's, it is re-laid "
+                         "out onto N shards")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="vertex shards of the stacked mesh on the one "
+                         "device (default 1)")
+    ap.add_argument("--device", default=None,
+                    help="torch device to run on (default: the CUDA card)")
+    ap.add_argument("--max-restarts", type=int, default=16,
+                    help="supervisor restart budget before an injected "
+                         "failure is re-raised (0 = die on the first one, "
+                         "leaving the snapshots for a resume)")
+    ap.add_argument("--check", action="store_true",
+                    help="non-zero exit if the accuracy report misses "
+                         "L1 < 0.15 / top-10 >= 0.6")
+    ap.add_argument("--audit", action="store_true",
+                    help="the CONGEST wire auditor (not ported yet)")
+    args = ap.parse_args(argv)
+    run(args.n, args.eps, args.walks, args.graph, args.checkpoint_dir,
+        args.fail_at, seed=args.seed,
+        algo="audit" if args.audit else args.algo, avg_deg=args.avg_deg,
+        resume=args.resume, check=args.check, shards=args.shards,
+        max_restarts=args.max_restarts, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,12 +9,19 @@ card's machine runs it as is:
 Parity levels: histogram and integer segment_spmv bit-exact;
 multinomial_rows bit-exact against its plain version on the same card (no
 FMA contraction on either side); float segment_spmv within 1e-5 relative
-of a float64 sum (atomic order).
+of a float64 sum (atomic order); walk_step bit-exact from given uniforms
+and from key words; both sharded engines on the card bit-exact against
+the same run on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
+from repro_torch.core.collectives import StackedMesh
+from repro_torch.core.distributed import distributed_pagerank
+from repro_torch.core.distributed_counts import distributed_pagerank_counts
+from repro_torch.graphs import directed_web
 from repro_torch.kernels import common
 from repro_torch.kernels.histogram import histogram
 from repro_torch.kernels.histogram.ref import histogram_ref
@@ -22,6 +29,9 @@ from repro_torch.kernels.multinomial_rows import multinomial_rows
 from repro_torch.kernels.multinomial_rows.ref import multinomial_rows_ref
 from repro_torch.kernels.segment_spmv import segment_spmv
 from repro_torch.kernels.segment_spmv.ref import segment_spmv_ref
+from repro_torch.kernels.walk_step import walk_step, walk_step_keyed
+from repro_torch.kernels.walk_step.ref import (walk_step_keyed_ref,
+                                               walk_step_ref)
 
 KEY_WORDS = (0xDEADBEEF, 0x12345678)
 
@@ -98,3 +108,48 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         segment_spmv(torch.zeros(4, device=cuda),
                      torch.zeros(3, dtype=torch.int32, device=cuda), 3)
+
+
+def test_cuda_walk_step_matches_plain(cuda):
+    g = directed_web(5000, 6.0, seed=1, device=cuda)
+    tables = (g.row_ptr, g.col_idx, g.out_deg)
+    rng = np.random.default_rng(4)
+    W = 1 << 20
+    pos = torch.from_numpy(rng.integers(-2, g.n + 2, W).astype(np.int32))
+    alive = torch.from_numpy((rng.random(W) < 0.8).astype(np.int32))
+    u = [torch.from_numpy(rng.random(W).astype(np.float32)) for _ in "ab"]
+    pos, alive, u = pos.to(cuda), alive.to(cuda), [x.to(cuda) for x in u]
+    before = common.launches["walk_step"]
+    got = walk_step(pos, alive, *u, *tables, eps=0.2)
+    want = walk_step_ref(pos, alive, *u, *tables, eps=0.2)
+    kt, ke = prng.split(prng.PRNGKey(9))
+    got_b = walk_step_keyed(pos, alive, kt, ke, *tables, eps=0.2)
+    want_b = walk_step_keyed_ref(pos, alive, kt, ke, *tables, eps=0.2)
+    assert common.launches["walk_step"] == before + 2
+    for a, b in zip(got + got_b, want + want_b):
+        assert torch.equal(a, b)
+    assert int(got_b[1].sum()) > 0
+
+
+def test_cuda_sharded_engines_match_cpu(cuda):
+    g_cpu = directed_web(300, 5.0, seed=2, device="cpu")
+    g = g_cpu.to(cuda)
+    key = prng.PRNGKey(5)
+    for shards in (1, 4):
+        common.reset_launches()
+        a = distributed_pagerank(g, 0.2, 8, key,
+                                 mesh=StackedMesh(shards, cuda))
+        assert common.launches["walk_step"] == shards * a.rounds
+        b = distributed_pagerank(g_cpu, 0.2, 8, key,
+                                 mesh=StackedMesh(shards, "cpu"))
+        assert torch.equal(a.zeta.cpu(), b.zeta)
+        assert (a.rounds, a.round_active, a.a2a_bytes_total) == \
+            (b.rounds, b.round_active, b.a2a_bytes_total)
+        for packed in (True, False):
+            c = distributed_pagerank_counts(g, 0.2, 8, key, packed=packed,
+                                            mesh=StackedMesh(shards, cuda))
+            d = distributed_pagerank_counts(g_cpu, 0.2, 8, key, packed=packed,
+                                            mesh=StackedMesh(shards, "cpu"))
+            assert torch.equal(c.zeta.cpu(), d.zeta)
+            assert (c.rounds, c.a2a_bytes_total, c.occupancy) == \
+                (d.rounds, d.a2a_bytes_total, d.occupancy)

@@ -1,0 +1,181 @@
+"""The port's sharded engines on a stacked mesh against the JAX package's
+shard_map engines on forced host devices.
+
+One subprocess runs the JAX engines with 8 forced host devices and prints
+JSON; the port runs the same cases in process on the CPU, with P shards
+stacked on one device. Cases: both engines on the six shared fixtures at
+P=8, and on two fixtures at P in {1, 3} (uneven padding); the count
+engine with packed and unpacked lanes. eps = 0.2, K = 8, key PRNGKey(0).
+
+Parity level: bit-exact — zeta, rounds, dropped, waited, round_active,
+a2a entries and bytes (walks); zeta, rounds, a2a entries and bytes,
+lane_cap, overflow, occupancy and residual (counts). Also bit-exact: the
+sharded count engine's zeta equals the single-device count engine's for
+the same key at any shard count (the draws are counter-based per global
+vertex id). The shard layouts (CSR cuts, the padded adjacency, the
+bucketed sampler layout and lane bounds) equal the JAX package's exactly.
+The packed lanes' two limits raise instead of dropping counts.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core.distributed import shard_graph as j_shard_graph
+from repro.core.distributed_counts import \
+    shard_graph_padded as j_shard_graph_padded
+
+from conftest import SMALL_GRAPHS_SRC, run_forced_devices
+from repro_torch import convert, prng
+from repro_torch.core import simple_pagerank
+from repro_torch.core.collectives import StackedMesh
+from repro_torch.core.distributed import distributed_pagerank, shard_graph
+from repro_torch.core.distributed_counts import (distributed_pagerank_counts,
+                                                 shard_graph_padded)
+from repro_torch.core.graph import from_edges
+from repro_torch.graphs import ring
+
+EPS, K = 0.2, 8
+NAMES = ["ring", "grid", "er", "ba", "ba_hub", "dweb"]
+CASES = [(name, 8) for name in NAMES] + [
+    (name, p) for name in ("er", "dweb") for p in (1, 3)]
+
+JAX_RUNS = SMALL_GRAPHS_SRC + """
+import json
+import jax, numpy as np
+from jax.sharding import Mesh
+from repro.core.distributed import distributed_pagerank
+from repro.core.distributed_counts import distributed_pagerank_counts
+out = {}
+for name, P in %r:
+    g = graphs[name]
+    mesh = Mesh(np.array(jax.devices()[:P]), ("shards",))
+    key = jax.random.PRNGKey(0)
+    r = distributed_pagerank(g, %r, %r, key, mesh=mesh)
+    out[f"walks/{name}/{P}"] = dict(
+        zeta=np.asarray(r.zeta).tolist(), rounds=r.rounds,
+        dropped=r.dropped, waited=r.waited, round_active=r.round_active,
+        entries=r.a2a_entries_total, bytes=r.a2a_bytes_total)
+    for packed in (True, False):
+        r = distributed_pagerank_counts(g, %r, %r, key, mesh=mesh,
+                                        packed=packed)
+        out[f"counts/{name}/{P}/{int(packed)}"] = dict(
+            zeta=np.asarray(r.zeta).tolist(), rounds=r.rounds,
+            entries=r.a2a_entries_total, bytes=r.a2a_bytes_total,
+            lane_cap=r.lane_cap, overflow=r.overflow,
+            occupancy=list(r.occupancy), residual=r.residual)
+print(json.dumps(out))
+""" % (CASES, EPS, K, EPS, K)
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    return run_forced_devices(JAX_RUNS, devices=8, timeout=900)
+
+
+@pytest.fixture(scope="module")
+def graphs(small_graphs):
+    """The shared fixtures as port graphs on the CPU."""
+    return {name: convert.graph_from_numpy(
+        np.asarray(g.row_ptr), np.asarray(g.col_idx), np.asarray(g.out_deg),
+        g.n, g.m, g.undirected, device="cpu")
+        for name, g in small_graphs.items()}
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("shards", [1, 3, 8])
+def test_shard_layouts_match_jax(small_graphs, graphs, name, shards):
+    jg, tg = small_graphs[name], graphs[name]
+    a, b = shard_graph(tg, shards), j_shard_graph(jg, shards)
+    for f in ("row_ptr", "col_idx", "out_deg"):
+        np.testing.assert_array_equal(getattr(a, f).numpy(),
+                                      np.asarray(getattr(b, f)))
+    a, b = shard_graph_padded(tg, shards), j_shard_graph_padded(jg, shards)
+    assert (a.n_loc, a.max_deg, a.lane_cap) == (b.n_loc, b.max_deg,
+                                                 b.lane_cap)
+    assert (a.layout.widths, a.layout.caps, a.layout.n_rows) == (
+        b.layout.widths, b.layout.caps, b.layout.n_rows)
+    for f in ("deg", "bperm", "bnbr"):
+        np.testing.assert_array_equal(getattr(a, f).numpy(),
+                                      np.asarray(getattr(b, f)))
+
+
+@pytest.mark.parametrize("name,shards", CASES)
+def test_walk_engine_bit_exact(jax_runs, graphs, name, shards):
+    r = distributed_pagerank(graphs[name], EPS, K, prng.PRNGKey(0),
+                             mesh=StackedMesh(shards, "cpu"))
+    want = jax_runs[f"walks/{name}/{shards}"]
+    got = dict(zeta=r.zeta.tolist(), rounds=r.rounds, dropped=r.dropped,
+               waited=r.waited, round_active=r.round_active,
+               entries=r.a2a_entries_total, bytes=r.a2a_bytes_total)
+    assert got == want
+    assert r.dropped == 0 and r.shards == shards
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("name,shards", CASES)
+def test_count_engine_bit_exact(jax_runs, graphs, name, shards, packed):
+    g = graphs[name]
+    r = distributed_pagerank_counts(g, EPS, K, prng.PRNGKey(0),
+                                    mesh=StackedMesh(shards, "cpu"),
+                                    packed=packed)
+    want = jax_runs[f"counts/{name}/{shards}/{int(packed)}"]
+    got = dict(zeta=r.zeta.tolist(), rounds=r.rounds,
+               entries=r.a2a_entries_total, bytes=r.a2a_bytes_total,
+               lane_cap=r.lane_cap, overflow=r.overflow,
+               occupancy=list(r.occupancy), residual=r.residual)
+    assert got == want
+    single = simple_pagerank(g, EPS, walks_per_node=K, key=prng.PRNGKey(0),
+                             engine="counts", device="cpu")
+    np.testing.assert_array_equal(r.zeta.numpy(), single.zeta.numpy())
+    assert r.rounds == single.logical_rounds
+
+
+def test_packed_lanes_refuse_wide_shards():
+    """n_loc > 65536 does not fit a packed lane's 16-bit local id."""
+    g = ring(2 * 65536 + 2, device="cpu")
+    with pytest.raises(ValueError, match="packed=False"):
+        distributed_pagerank_counts(g, EPS, 1, prng.PRNGKey(0),
+                                    mesh=StackedMesh(2, "cpu"))
+
+
+def _hub_graph():
+    """Vertices 0..31 (shard 0 of 2) all link to vertex 32 (shard 1), which
+    links back to 0; 33..63 form a path."""
+    src = np.concatenate([np.arange(32), [32], np.arange(33, 63), [63]])
+    dst = np.concatenate([np.full(32, 32), [0], np.arange(34, 64), [33]])
+    return from_edges(src, dst, 64, device="cpu")
+
+
+def test_packed_lanes_refuse_large_counts():
+    """With K = 5000 the hub receives ~128,000 remote counts in the first
+    round, past the 2 x 32767 a packed vertex carries: the run raises, and
+    the unpacked lanes give the single-device count engine's zeta."""
+    g = _hub_graph()
+    mesh = StackedMesh(2, "cpu")
+    with pytest.raises(RuntimeError, match="packed=False"):
+        distributed_pagerank_counts(g, EPS, 5000, prng.PRNGKey(1), mesh=mesh)
+    r = distributed_pagerank_counts(g, EPS, 5000, prng.PRNGKey(1), mesh=mesh,
+                                    packed=False)
+    single = simple_pagerank(g, EPS, walks_per_node=5000, key=prng.PRNGKey(1),
+                             engine="counts", device="cpu")
+    np.testing.assert_array_equal(r.zeta.numpy(), single.zeta.numpy())
+    assert r.overflow == 0 and r.residual == 0
+    assert int(r.zeta[32]) > 2 * 32767
+
+
+def test_one_shard_packed_has_no_limit():
+    """One shard sends nothing over the wire, so packing limits nothing."""
+    g = _hub_graph()
+    r = distributed_pagerank_counts(g, EPS, 5000, prng.PRNGKey(1),
+                                    mesh=StackedMesh(1, "cpu"))
+    assert r.a2a_entries_total == 0 and r.residual == 0
+
+
+def test_entry_points_need_a_card_or_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    g = _hub_graph()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed_pagerank(g, EPS, 2, prng.PRNGKey(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed_pagerank_counts(g, EPS, 2, prng.PRNGKey(0))

@@ -40,6 +40,19 @@ pi, _, _ = power_iteration(g, 0.2, device="cpu")
 for engine in ("walks", "counts"):
     r = simple_pagerank(g, 0.2, walks_per_node=4, engine=engine, device="cpu")
     assert abs(r.pi.sum() - 1.0) < 0.3 and r.logical_rounds > 0
+from repro_torch import prng
+from repro_torch.core.collectives import StackedMesh
+from repro_torch.core.distributed import distributed_pagerank
+from repro_torch.core.distributed_counts import distributed_pagerank_counts
+from repro_torch.launch.pagerank import run
+mesh = StackedMesh(3, "cpu")
+r = distributed_pagerank(g, 0.2, 4, prng.PRNGKey(0), mesh=mesh)
+assert r.dropped == 0 and r.rounds > 0
+r = distributed_pagerank_counts(g, 0.2, 4, prng.PRNGKey(0), mesh=mesh)
+assert r.residual == 0 and r.rounds > 0
+for algo in ("walks", "counts"):
+    assert run(40, 0.2, 4, "directed_web", None, [2], algo=algo, shards=2,
+               device="cpu").restarts == 1
 assert "jax" not in [m.split(".")[0] for m, v in sys.modules.items() if v]
 print("ok")
 """

@@ -9,8 +9,11 @@ Parity levels (stated per test):
   * multinomial_rows — the counter hash bit-exact; T bit-exact where every
     draw takes the BINV branch; conservation exact in every row; at counts
     up to 2**28 a moments test and a row mismatch rate <= 5% (float32
-    log/exp/sqrt differ by ulps between XLA and torch in the normal branch).
+    log/exp/sqrt differ by ulps between XLA and torch in the normal branch);
+  * walk_step — bit-exact (one float32 multiply, integer decisions), both
+    from given uniforms and from key words (threefry draws).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,12 +28,16 @@ from repro.kernels.multinomial_rows.ref import \
     multinomial_rows_ref as j_multinomial_ref
 from repro.kernels.segment_spmv import segment_spmv as j_segment_spmv
 from repro.kernels.segment_spmv.ref import segment_spmv_ref as j_spmv_ref
+from repro.kernels.walk_step import walk_step as j_walk_step
+from repro.kernels.walk_step.ref import walk_step_ref as j_walk_step_ref
 
+from repro_torch import convert, prng
 from repro_torch.kernels import common
 from repro_torch.kernels.histogram import histogram
 from repro_torch.kernels.multinomial_rows import _math as t_math
 from repro_torch.kernels.multinomial_rows import multinomial_rows
 from repro_torch.kernels.segment_spmv import segment_spmv
+from repro_torch.kernels.walk_step import walk_step, walk_step_keyed
 
 KEY_WORDS = (0xDEADBEEF, 0x12345678)
 
@@ -192,6 +199,100 @@ def test_multinomial_dangling_rows_terminate_whole():
     assert not got[:, 1:].any()
 
 
+# ---------------------------------------------------------------- walk_step
+
+def _tables(g):
+    """(JAX tables, port tables) of a JAX fixture graph."""
+    arrs = [np.asarray(a) for a in (g.row_ptr, g.col_idx, g.out_deg)]
+    return ([jnp.asarray(a) for a in arrs],
+            [torch.from_numpy(a.copy()) for a in arrs])
+
+
+def _walk_inputs(W, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-2, n + 2, W).astype(np.int32),
+            (rng.random(W) < 0.8).astype(np.int32),
+            rng.random(W).astype(np.float32),
+            rng.random(W).astype(np.float32))
+
+
+def _both_walk_steps(inputs, jt, tt, eps):
+    """(port, JAX Pallas, JAX ref) outputs as numpy pairs."""
+    j_in = [jnp.asarray(x) for x in inputs]
+    t_in = [torch.from_numpy(x) for x in inputs]
+    port = [x.numpy() for x in walk_step(*t_in, *tt, eps=eps)]
+    pallas = [np.asarray(x) for x in j_walk_step(*j_in, *jt, eps=eps)]
+    ref = [np.asarray(x) for x in j_walk_step_ref(*j_in, *jt, eps=eps)]
+    return port, pallas, ref
+
+
+@pytest.mark.parametrize("name,W", [("er", 1000), ("ba", 4096),
+                                    ("dweb", 257), ("ring", 1)])
+@pytest.mark.parametrize("eps", [0.1, 0.5])
+def test_walk_step_matches_jax(small_graphs, name, W, eps):
+    """Positions out of range clip, dead walks stay, and every surviving
+    walk takes the JAX kernel's edge: bit-exact."""
+    g = small_graphs[name]
+    jt, tt = _tables(g)
+    port, pallas, ref = _both_walk_steps(_walk_inputs(W, g.n, W), jt, tt,
+                                         eps)
+    for a, b, c in zip(port, pallas, ref):
+        assert a.dtype == np.int32 and a.shape == (W,)
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+
+
+def test_walk_step_dead_walks_stay(small_graphs):
+    jt, tt = _tables(small_graphs["er"])
+    pos = np.arange(10, dtype=np.int32)
+    zeros = np.zeros(10, np.float32)
+    port, pallas, _ = _both_walk_steps(
+        (pos, np.zeros(10, np.int32), zeros, zeros), jt, tt, 0.3)
+    np.testing.assert_array_equal(port[0], pos)
+    assert not port[1].any()
+    np.testing.assert_array_equal(port[0], pallas[0])
+
+
+def test_walk_step_dangling_reset():
+    """A walk on a vertex without out-edges ends there (graph 0 -> 1, 1
+    dangling)."""
+    tables = [np.array(a, np.int32) for a in ([0, 1, 1], [1], [1, 0])]
+    jt = [jnp.asarray(a) for a in tables]
+    tt = [torch.from_numpy(a) for a in tables]
+    inputs = (np.array([0, 1, 1], np.int32), np.ones(3, np.int32),
+              np.full(3, 0.99, np.float32), np.zeros(3, np.float32))
+    port, pallas, _ = _both_walk_steps(inputs, jt, tt, 0.2)
+    np.testing.assert_array_equal(port[1], [1, 0, 0])
+    assert port[0][0] == 1
+    for a, b in zip(port, pallas):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_walk_step_keyed_is_uniform_then_walk_step(small_graphs, seed):
+    """Entry point (b) draws u_term and u_edge as `uniform(key, (W,))` of
+    its two keys: it equals those draws fed to entry point (a), and the
+    JAX package's draws fed to its kernel. Bit-exact."""
+    g = small_graphs["dweb"]
+    jt, tt = _tables(g)
+    pos, alive, _, _ = _walk_inputs(3000, g.n, seed)
+    jk_term, jk_edge = jax.random.split(jax.random.PRNGKey(seed))
+    tk_term, tk_edge = (convert.key_from_numpy(np.asarray(k))
+                        for k in (jk_term, jk_edge))
+    keyed = walk_step_keyed(torch.from_numpy(pos), torch.from_numpy(alive),
+                            tk_term, tk_edge, *tt, eps=0.2)
+    u_term = prng.uniform(tk_term, (3000,))
+    u_edge = prng.uniform(tk_edge, (3000,))
+    plain = walk_step(torch.from_numpy(pos), torch.from_numpy(alive), u_term,
+                      u_edge, *tt, eps=0.2)
+    pallas = j_walk_step(jnp.asarray(pos), jnp.asarray(alive),
+                         jax.random.uniform(jk_term, (3000,)),
+                         jax.random.uniform(jk_edge, (3000,)), *jt, eps=0.2)
+    for a, b, c in zip(keyed, plain, pallas):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+
+
 # ----------------------------------------------------- dispatch and counters
 
 def test_cpu_wrappers_launch_nothing():
@@ -201,8 +302,12 @@ def test_cpu_wrappers_launch_nothing():
     segment_spmv(torch.ones(3), ids, 2)
     segment_spmv(ids, ids, 2, count_bound=2 ** 30)
     multinomial_rows(ids, ids, ids, KEY_WORDS, eps=0.2, width=2)
+    u = torch.zeros(3)
+    walk_step(ids, ids, u, u, ids, ids, ids, eps=0.2)
+    key = prng.PRNGKey(0)
+    walk_step_keyed(ids, ids, key, key, ids, ids, ids, eps=0.2)
     assert common.launches == {"histogram": 0, "segment_spmv": 0,
-                               "multinomial_rows": 0}
+                               "multinomial_rows": 0, "walk_step": 0}
 
 
 def test_no_kernel_built_or_loaded_on_cpu():

@@ -1,0 +1,72 @@
+"""The port's launch CLI (`repro_torch.launch.pagerank`) on the CPU.
+
+Parity levels:
+  * `run()` at one shard against the JAX package's `run()` at one device
+    (the in-process JAX has one CPU device) — pi bit-exact, both algos;
+  * `fail_at` recovery and `--resume` after a kill — pi bit-exact with the
+    uninterrupted run;
+  * the accuracy gate (`check=True`) at 4 shards — statistical: L1 < 0.15
+    and top-10 >= 0.6 against power iteration.
+The algorithms not ported yet, and `--audit`, exit non-zero naming the
+ROADMAP item that ports them.
+"""
+import numpy as np
+import pytest
+
+from repro.launch.pagerank import run as jax_run
+
+from repro_torch.launch.pagerank import main, run
+from repro_torch.runtime import SimulatedFailure
+
+ARGS = (128, 0.2, 16, "directed_web")
+
+
+@pytest.mark.parametrize("algo", ["walks", "counts"])
+def test_run_matches_jax_launcher(algo):
+    want = jax_run(*ARGS, None, [], seed=3, algo=algo, shards=1)
+    got = run(*ARGS, None, [], seed=3, algo=algo, shards=1, device="cpu")
+    np.testing.assert_array_equal(got.pi, np.asarray(want))
+
+
+@pytest.mark.parametrize("algo", ["walks", "counts"])
+def test_run_check_and_fail_at(tmp_path, algo):
+    a = run(*ARGS, None, [], algo=algo, check=True, shards=4, device="cpu")
+    assert a.l1 < 0.15 and a.topk >= 0.6 and a.shards == 4
+    b = run(*ARGS, str(tmp_path), [4, 9], algo=algo, check=True, shards=4,
+            device="cpu")
+    assert a.restarts == 0 and b.restarts == 2
+    np.testing.assert_array_equal(a.pi, b.pi)
+    assert a.rounds == b.rounds
+
+
+@pytest.mark.parametrize("algo", ["walks", "counts"])
+def test_resume_after_kill(tmp_path, algo):
+    a = run(*ARGS, None, [], algo=algo, shards=3, device="cpu")
+    with pytest.raises(SimulatedFailure):
+        run(*ARGS, str(tmp_path), [12], algo=algo, shards=3,
+            max_restarts=0, device="cpu")
+    b = run(*ARGS, str(tmp_path), [], algo=algo, shards=3, resume=True,
+            device="cpu")
+    np.testing.assert_array_equal(a.pi, b.pi)
+
+
+def test_resume_needs_checkpoint_dir():
+    with pytest.raises(SystemExit, match="--checkpoint-dir"):
+        run(*ARGS, None, [], resume=True, device="cpu")
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--algo", "improved"], "item 7"), (["--algo", "directed"], "item 7"),
+    (["--algo", "ppr"], "item 8"), (["--audit"], "item 11")])
+def test_unported_algos_exit_naming_the_roadmap(argv, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 {item}") as e:
+        main(argv + ["--device", "cpu"])
+    assert e.value.code != 0
+
+
+def test_main_runs_on_the_cpu(capsys):
+    main(["--device", "cpu", "--shards", "8", "--n", "64", "--walks", "8",
+          "--algo", "counts", "--graph", "directed_web"])
+    out = capsys.readouterr().out
+    assert "algo=counts n=64 shards=8" in out and "residual=0" in out
+    assert "L1 vs power-iter" in out
