@@ -7,7 +7,9 @@
    `build/kernels/` and prints what the compiler reports (registers,
    spills).
 2. Kernel phase: at the shapes the main path gives them, on the card, each
-   kernel against its plain torch version (histogram exact,
+   kernel against its plain torch version (histogram exact, on the walk
+   engine's first-round arrivals and on as many ids spread uniformly, each
+   timed, with its sample and hot-list passes timed alone,
    multinomial_rows exact or a mismatch rate under 0.5% with conservation
    exact, segment_spmv both against a float64 sum: the kernel's relative
    error at most twice the plain version's + 1e-6, since both sum with
@@ -63,6 +65,8 @@ MN_OPS_PER_DRAW = 30           # lower bound: counter hash + Binomial setup
 # two adds, and the float conversion (shift, or, subtract)
 THREEFRY_OPS_PER_DRAW = 20 * 5 + 6 * 2 + 3
 SHARDED_WALK_BUDGET_S = 90.0   # lower K for the sharded walk engine past it
+# histogram at this shape before the hot-list design (PERF.md kernel table)
+HISTOGRAM_BEFORE_MS = 16.042
 
 
 class PhaseError(Exception):
@@ -120,6 +124,7 @@ def kernel_phase(g, K):
     from repro_torch.core import engine_walks
     from repro_torch.core.graph import padded_adjacency_np
     from repro_torch.kernels.histogram import histogram
+    from repro_torch.kernels.histogram import ops as histogram_ops
     from repro_torch.kernels.histogram.ref import histogram_ref
     from repro_torch.kernels.multinomial_rows import multinomial_rows
     from repro_torch.kernels.multinomial_rows._math import key_words
@@ -130,28 +135,52 @@ def kernel_phase(g, K):
     rows = {}
     n, dev = g.n, g.device
 
-    # histogram: the arrivals of the walk engine's first round
+    # histogram: the arrivals of the walk engine's first round, and the same
+    # number of valid ids spread uniformly (no hub) in the same slots
     state = engine_walks.init_state(g, K, prng.PRNGKey(0))
     _, survive, dst, _ = engine_walks.advance(g.row_ptr, g.col_idx,
                                               g.out_deg, EPS, state)
     ids = torch.where(survive, dst, -1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    uniform = torch.where(survive, torch.randint(
+        0, n, ids.shape, generator=gen, device=dev, dtype=torch.int32), -1)
     del state, survive, dst
     W = ids.numel()
-    got, want = histogram(ids, n), histogram_ref(ids, n)
-    err = int((got - want).abs().max())
-    check(err == 0, f"histogram differs from its plain version by {err}")
-    hub_share = float(want[0]) / float(want.sum())
+    hot = {}
+    for name, x in (("real", ids), ("uniform", uniform)):
+        got, want = histogram(x, n), histogram_ref(x, n)
+        err = int((got - want).abs().max())
+        check(err == 0, f"histogram ({name} ids) differs from its plain "
+                        f"version by {err}")
+        table, count = histogram_ops.hot_list(x, n)
+        hot[name] = dict(
+            err=err, ms=cuda_ms(lambda: histogram(x, n), 20),
+            hot_list_ms=cuda_ms(lambda: histogram_ops.hot_list(x, n), 20),
+            hot_ids=int(count), hub_share=float(want.max()) / float(
+                want.sum()),
+            hot_share=float(want[table[table > 0].long() - 1].sum())
+            / float(want.sum()))
+        del got, want, table
     shifted = ids + 1
     rows["histogram"] = dict(
-        ms=cuda_ms(lambda: histogram(ids, n), 10),
+        ms=hot["real"]["ms"],
         plain_ms=cuda_ms(lambda: histogram_ref(ids, n), 3),
         library_ms=cuda_ms(lambda: torch.bincount(shifted, minlength=n + 1),
                            3),
-        max_abs_err=err, shape=f"W={W} ids, n={n}",
-        **bound(4 * W + 4 * n))
-    log(f"histogram: PASS, W={W} n={n} exact (max diff {err}); vertex 0 "
-        f"takes {hub_share:.4f} of the arrivals; {rows['histogram']}")
-    del shifted, got, want
+        max_abs_err=hot["real"]["err"], shape=f"W={W} ids, n={n}",
+        uniform_ms=hot["uniform"]["ms"], **bound(4 * W + 4 * n))
+    log(f"histogram: PASS, W={W} n={n} exact on real and uniform ids; "
+        f"{rows['histogram']}")
+    for name, h in hot.items():
+        log(f"histogram, {name} ids: {h['ms']:.4f} ms a call (before the "
+            f"redesign: {HISTOGRAM_BEFORE_MS} ms on real ids, PERF.md); "
+            f"sample + hot-list passes alone {h['hot_list_ms']:.4f} ms; "
+            f"{h['hot_ids']} hot ids (thresholds "
+            f"{histogram_ops.hot_thresholds(W)} of "
+            f"{histogram_ops.sample_size(W)} sampled) taking "
+            f"{h['hot_share']:.4f} of the counts; the largest count is "
+            f"{h['hub_share']:.4f} of them")
+    del shifted, uniform
 
     # the threefry draws of that round, for the walk engine's breakdown
     k = prng.PRNGKey(1)
@@ -434,9 +463,14 @@ def profile_rounds(step, state, rounds, label, top=10):
     log(f"{label}: wall {wall * 1e3 / rounds:.2f} ms a round, device busy "
         f"{busy / rounds:.2f} ms a round, idle share "
         f"{max(0.0, 1 - busy / 1e3 / wall):.3f}")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
-        log(f"  {dev_us(e) / 1e3 / rounds:9.3f} ms/round  "
-            f"{e.count / rounds:6.1f}x  {e.key[:100]}")
+    ranked = sorted(kernels, key=dev_us, reverse=True)
+    # the top ones, then the kernels in an anonymous namespace at file
+    # scope wherever they rank: the port's own, and a few of torch's
+    for i, e in enumerate(ranked):
+        if i < top or e.key.removeprefix("void ").startswith(
+                "(anonymous namespace)::"):
+            log(f"  {dev_us(e) / 1e3 / rounds:9.3f} ms/round  "
+                f"{e.count / rounds:6.1f}x  {e.key[:100]}")
     if not kernels:
         log(f"{label}: the profiler recorded no device time")
     return state

@@ -6,7 +6,8 @@ card's machine runs it as is:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Parity levels: histogram and integer segment_spmv bit-exact;
+Parity levels: histogram (every path: all-shared, hot list, hot list
+overfull, no hot list) and integer segment_spmv bit-exact;
 multinomial_rows bit-exact against its plain version on the same card (no
 FMA contraction on either side); float segment_spmv within 1e-5 relative
 of a float64 sum (atomic order); walk_step bit-exact from given uniforms
@@ -21,9 +22,11 @@ from repro_torch import prng
 from repro_torch.core.collectives import StackedMesh
 from repro_torch.core.distributed import distributed_pagerank
 from repro_torch.core.distributed_counts import distributed_pagerank_counts
+from repro_torch.core.routing import _hist_rows
 from repro_torch.graphs import directed_web
 from repro_torch.kernels import common
 from repro_torch.kernels.histogram import histogram
+from repro_torch.kernels.histogram import ops as histogram_ops
 from repro_torch.kernels.histogram.ref import histogram_ref
 from repro_torch.kernels.multinomial_rows import multinomial_rows
 from repro_torch.kernels.multinomial_rows.ref import multinomial_rows_ref
@@ -54,18 +57,104 @@ def _skewed_ids(rng, W, n, hub_share):
     return torch.from_numpy(ids.astype(np.int32))
 
 
-def test_cuda_histogram_matches_plain(cuda):
-    rng = np.random.default_rng(1)
-    # shared-memory counters (n small) and global atomics (n large), with
-    # and without a hub
-    for W, n, hub in ((1 << 20, 4096, 0.0), (1 << 20, 4096, 0.2),
-                      (1 << 20, 1 << 16, 0.2), (1000, 1, 0.0), (0, 5, 0.0)):
-        ids = _skewed_ids(rng, W, n, hub)
-        before = common.launches["histogram"]
-        got = histogram(ids.to(cuda), n)
-        assert common.launches["histogram"] == before + 1
-        np.testing.assert_array_equal(got.cpu().numpy(),
-                                      histogram_ref(ids, n).numpy())
+def _hub_ids(rng, W, n, hub_share, hubs):
+    """Ids in [-3, n + 3) with `hub_share` of them spread over the `hubs`;
+    a share of 1 makes every id the first hub."""
+    ids = rng.integers(-3, n + 3, W)
+    if hub_share >= 1:
+        ids[:] = hubs[0]
+    else:
+        on_hub = rng.random(W) < hub_share
+        ids[on_hub] = rng.choice(np.asarray(hubs), int(on_hub.sum()))
+    return torch.from_numpy(ids.astype(np.int32))
+
+
+# (W, n, hub share, hubs); n "max" is the all-shared path's largest n
+HISTOGRAM_CASES = {
+    "uniform": (2 ** 20 + 7, 2 ** 20, 0.0, (0,)),
+    "hub_0.21": (2 ** 20 + 7, 2 ** 20, 0.21, (0,)),
+    "hub_0.9": (2 ** 20 + 7, 2 ** 20, 0.9, (0,)),
+    "all_same": (2 ** 20 + 7, 2 ** 20, 1.0, (0,)),
+    "hub_last": (2 ** 20 + 7, 2 ** 20, 0.21, (2 ** 20 - 1,)),
+    "hubs_high": (2 ** 20 + 7, 2 ** 20, 0.3,
+                  (2 ** 20 - 1, 2 ** 20 - 2, 987_654, 2 ** 19 + 3)),
+    "W0": (0, 2 ** 20, 0.0, (0,)),
+    "W1": (1, 2 ** 20, 0.0, (0,)),
+    "W31": (31, 2 ** 20, 0.5, (7,)),
+    "W33": (33, 2 ** 20, 0.5, (7,)),
+    "n1": (2 ** 20 + 7, 1, 0.5, (0,)),
+    "n_shared_max": (2 ** 20 + 7, "max", 0.21, (0,)),
+    "n_shared_max_plus_1": (2 ** 20 + 7, "max+1", 0.21, (0,)),
+    "n_2^22": (2 ** 22 + 3, 2 ** 22, 0.21, (2 ** 22 - 1,)),
+    "shared_hub": (1 << 20, 4096, 0.2, (0,)),
+    "shared_W0": (0, 5, 0.0, (0,)),
+}
+
+
+@pytest.mark.parametrize("case", list(HISTOGRAM_CASES))
+def test_cuda_histogram_matches_plain(cuda, case):
+    W, n, hub, hubs = HISTOGRAM_CASES[case]
+    if isinstance(n, str):
+        n = histogram_ops.shared_max(cuda) + (n == "max+1")
+    ids = _hub_ids(np.random.default_rng(1), W, n, hub, hubs)
+    before = common.launches["histogram"]
+    got = histogram(ids.to(cuda), n)
+    again = histogram(ids.to(cuda), n)
+    assert common.launches["histogram"] == before + 2
+    assert torch.equal(got, again)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  histogram_ref(ids, n).numpy())
+
+
+def test_cuda_histogram_unaligned_views(cuda):
+    """Views that start 1, 2 or 3 ids past a 16-byte boundary: the ids
+    before it and after the last whole int4 are read one by one."""
+    ids = _hub_ids(np.random.default_rng(4), 2 ** 20 + 7, 2 ** 20, 0.21,
+                   (2 ** 20 - 1,))
+    dev = ids.to(cuda)
+    for start in (1, 2, 3):
+        for n in (4096, 2 ** 20):
+            got = histogram(dev[start:], n)
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), histogram_ref(ids[start:], n).numpy())
+
+
+def test_cuda_histogram_hot_list_overflow(cuda):
+    """Half of the ids on 10,000 ids, each at 1/20,000 of them: each is
+    sampled above the low threshold, so more ids are hot than the hot list
+    holds; those left off are counted in global memory, exactly."""
+    rng = np.random.default_rng(2)
+    W, n = 1 << 26, 1 << 20
+    ids = rng.integers(-1, n, W, dtype=np.int32)
+    warm = rng.random(W) < 0.5
+    ids[warm] = rng.choice(rng.permutation(n)[:10_000].astype(np.int32),
+                           int(warm.sum()))
+    ids = torch.from_numpy(ids)
+    dev = ids.to(cuda)
+    table, hot = histogram_ops.hot_list(dev, n)
+    assert int(hot) > histogram_ops.HOT_CAP
+    keys = table[table > 0].cpu().numpy()
+    assert len(keys) == histogram_ops.HOT_CAP == len(np.unique(keys))
+    assert keys.min() >= 1 and keys.max() <= n
+    np.testing.assert_array_equal(histogram(dev, n).cpu().numpy(),
+                                  histogram_ref(ids, n).numpy())
+
+
+def test_cuda_histogram_sharded_rows(cuda):
+    """The sharded engines' shape: two rows of `_hist_rows`, each offset by
+    its row, with one hub in each row."""
+    rng = np.random.default_rng(3)
+    n_loc, L = 1 << 19, 1 << 20
+    rows = [_hub_ids(rng, L, n_loc, 0.25, (hub,)).numpy()
+            for hub in (5, n_loc - 1)]
+    ids = torch.from_numpy(np.stack(rows))
+    mask = torch.from_numpy(rng.random((2, L)) < 0.8)
+    before = common.launches["histogram"]
+    got = _hist_rows(ids.to(cuda), mask.to(cuda), n_loc)
+    assert common.launches["histogram"] == before + 1
+    want = _hist_rows(ids, mask, n_loc)
+    assert got.shape == want.shape == (2, n_loc)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
 def test_cuda_segment_spmv_matches_plain(cuda):

@@ -34,6 +34,9 @@ from repro.kernels.walk_step.ref import walk_step_ref as j_walk_step_ref
 from repro_torch import convert, prng
 from repro_torch.kernels import common
 from repro_torch.kernels.histogram import histogram
+from repro_torch.kernels.histogram.ops import (HOT_BITS, HOT_CAP, HOT_HITS,
+                                               SAMPLE_CHUNK, SAMPLE_STRIDE,
+                                               hot_thresholds, sample_size)
 from repro_torch.kernels.multinomial_rows import _math as t_math
 from repro_torch.kernels.multinomial_rows import multinomial_rows
 from repro_torch.kernels.segment_spmv import segment_spmv
@@ -44,10 +47,18 @@ KEY_WORDS = (0xDEADBEEF, 0x12345678)
 
 # ---------------------------------------------------------------- histogram
 
-@pytest.mark.parametrize("W,n", [(64, 8), (1000, 100), (4096, 512),
-                                 (5000, 700), (257, 1), (1, 31), (0, 5)])
-def test_histogram_matches_jax(W, n):
-    ids = np.random.default_rng(W + n).integers(-1, n + 3, W).astype(np.int32)
+@pytest.mark.parametrize("W,n,hub", [
+    *[pytest.param(W, n, None, id=f"{W}-{n}")
+      for W, n in [(64, 8), (1000, 100), (4096, 512), (5000, 700), (257, 1),
+                   (1, 31), (0, 5)]],
+    pytest.param(5000, 700, 0.3, id="5000-700-hub0.3"),
+    pytest.param(4096, 512, 1.0, id="4096-512-all-equal")])
+def test_histogram_matches_jax(W, n, hub):
+    rng = np.random.default_rng(W + n)
+    ids = rng.integers(-1, n + 3, W).astype(np.int32)
+    if hub is not None:
+        # a web hub: `hub` of the ids on one vertex (all of them at 1.0)
+        ids[rng.random(W) < hub] = n - 3
     got = histogram(torch.from_numpy(ids), n)
     assert got.dtype == torch.int32 and got.shape == (n,)
     np.testing.assert_array_equal(
@@ -55,6 +66,30 @@ def test_histogram_matches_jax(W, n):
                                                  interpret=True)))
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(j_histogram_ref(jnp.asarray(ids), n)))
+
+
+@pytest.mark.parametrize("w", [0, 1, 31, 32, 33, SAMPLE_STRIDE - 1,
+                               SAMPLE_STRIDE + 5, SAMPLE_STRIDE * 7 + 40,
+                               HOT_HITS - 1, HOT_HITS, 2 ** 20 + 7,
+                               145_752_064, 2 * 145_752_192])
+def test_histogram_hot_thresholds(w):
+    """The hot-list plan of the card's kernel: the sample reads the first
+    SAMPLE_CHUNK ids of every SAMPLE_STRIDE; an id with HOT_HITS expected
+    hits reaches the low threshold, at most HOT_CAP / 2 ids can reach the
+    high one, and below HOT_HITS ids no id is hot."""
+    s = sample_size(w)
+    if w <= 8 * SAMPLE_STRIDE:
+        assert s == int((np.arange(w) % SAMPLE_STRIDE < SAMPLE_CHUNK).sum())
+    else:
+        assert abs(s - w * SAMPLE_CHUNK / SAMPLE_STRIDE) <= SAMPLE_CHUNK
+    low, high = hot_thresholds(w)
+    assert 1 <= low <= high and s // high <= HOT_CAP // 2
+    if w < HOT_HITS:
+        assert low > s
+    else:
+        # an id with HOT_HITS expected hits is sampled HOT_HITS * s / w times
+        assert HOT_HITS * s / w <= low < HOT_HITS * s / w + 1
+    assert 1 << HOT_BITS == 2 * HOT_CAP
 
 
 def test_histogram_out_of_range_and_padding():
