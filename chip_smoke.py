@@ -9,15 +9,20 @@
 2. Kernel phase: at the shapes the main path gives them, on the card, each
    kernel against its plain torch version (histogram exact, on the walk
    engine's first-round arrivals and on as many ids spread uniformly, each
-   timed, with its sample and hot-list passes timed alone,
-   multinomial_rows exact or a mismatch rate under 0.5% with conservation
-   exact, segment_spmv both against a float64 sum: the kernel's relative
-   error at most twice the plain version's + 1e-6, since both sum with
-   atomics in different orders; walk_step exact from given uniforms (a)
-   and from key words (b), at the first round of the sharded walk engine at
-   P=2), with times of the kernel, the plain version and a one-call
-   PyTorch yardstick where there is one, beside the least time the card
-   could take (bytes over the HBM rate, or operations over the FP32 rate).
+   timed, with its sample and hot-list passes timed alone;
+   multinomial_rows exact, with conservation exact, at the count engines'
+   first round: the per-bucket entry on every bucket, and the fused entry
+   the engines launch, on the single-device layout and the stacked P=4
+   one, each timed against the per-bucket round it replaces;
+   segment_spmv on the power-iteration push against a float64 sum, the
+   kernel's relative error at most twice the plain version's + 1e-6, since
+   both sum with atomics in different orders, and exact on the count
+   engines' first-round sums, single-device and sharded; walk_step exact
+   from given uniforms (a) and from key words (b), at the first round of
+   the sharded walk engine at P=2), with times of the kernel, the plain
+   version and a one-call PyTorch yardstick where there is one, beside the
+   least time the card could take (bytes over the HBM rate, or operations
+   over the FP32 rate).
 3. Single-device path on doc_link_graph(2**20): power_iteration, then
    simple_pagerank with the walk engine and with the count engine (traced).
    Each run must agree with power iteration (L1 < 0.15, top-10 >= 0.6) and
@@ -26,8 +31,9 @@
    engine at P=4 with unpacked lanes (zeta bit-identical to step 3's count
    engine, overflow and residual 0) and the walk engine at P=2 (nothing
    dropped, walks alive never increasing, L1 and top-10 as above). A
-   profiled extra run of the count engine and two profiled rounds of the
-   walk engine print where the device time goes and its idle share.
+   profiled extra run of the count engine (its device time split into the
+   fused sampler, segment_spmv and the rest) and two profiled rounds of
+   the walk engine print where the device time goes and its idle share.
 5. The launch CLI's `run()` on a small graph: walks at 2 shards and counts
    at 4 (packed lanes), each with the accuracy gate, and each again with an
    injected failure that must recover to the identical pi.
@@ -67,6 +73,8 @@ THREEFRY_OPS_PER_DRAW = 20 * 5 + 6 * 2 + 3
 SHARDED_WALK_BUDGET_S = 90.0   # lower K for the sharded walk engine past it
 # histogram at this shape before the hot-list design (PERF.md kernel table)
 HISTOGRAM_BEFORE_MS = 16.042
+# the kernels of a segment_spmv call (the float entry rounds in a second)
+SPMV_KERNELS = ("segment_sum_kernel", "round_to_float")
 
 
 class PhaseError(Exception):
@@ -83,7 +91,9 @@ def log(*args) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean device time of `fn` over `iters` calls, by CUDA events."""
+    """Mean time of a call of `fn` over `iters` calls, between CUDA events:
+    the card's time, or the host's where it launches short kernels slower
+    than the card runs them."""
     import torch
     for _ in range(warmup):
         fn()
@@ -96,6 +106,32 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def device_ms(fn, iters: int, *parts) -> float:
+    """Device time of `fn`'s kernels whose names hold one of `parts`, a
+    call, from torch.profiler over `iters` calls after a warm-up. Where a
+    call's kernels are short, the CUDA events of `cuda_ms` time the host
+    launching them; this is the time they hold the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_dev_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and any(p in e.key for p in parts))
+    check(us > 0, f"the profiler recorded no device time for {parts}")
+    return us / 1e3 / iters
 
 
 def bound(nbytes: float, ops: float = 0.0) -> dict:
@@ -117,18 +153,13 @@ def nvidia_smi_line() -> str:
 
 def kernel_phase(g, K):
     """Each kernel against its plain version at the main path's shapes."""
-    import numpy as np
     import torch
     from repro_torch import prng
-    from repro_torch.core import aggregate_sampler as agg
     from repro_torch.core import engine_walks
-    from repro_torch.core.graph import padded_adjacency_np
     from repro_torch.kernels.histogram import histogram
     from repro_torch.kernels.histogram import ops as histogram_ops
     from repro_torch.kernels.histogram.ref import histogram_ref
-    from repro_torch.kernels.multinomial_rows import multinomial_rows
-    from repro_torch.kernels.multinomial_rows._math import key_words
-    from repro_torch.kernels.multinomial_rows.ref import multinomial_rows_ref
+    from repro_torch.kernels.segment_spmv import hot_list as segment_hot_list
     from repro_torch.kernels.segment_spmv import segment_spmv
     from repro_torch.kernels.segment_spmv.ref import segment_spmv_ref
 
@@ -196,7 +227,8 @@ def kernel_phase(g, K):
     E = contrib.numel()
     exact = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
         0, g.col_idx, contrib.double())
-    y_k = segment_spmv(contrib, g.col_idx, n)
+    hot = segment_hot_list(g.col_idx, n)
+    y_k = segment_spmv(contrib, g.col_idx, n, hot=hot)
     y_p = segment_spmv_ref(contrib, g.col_idx, n)
     pos = exact > 0
 
@@ -211,28 +243,66 @@ def kernel_phase(g, K):
     check(rel_k <= 2 * rel_p + 1e-6,
           f"segment_spmv: relative error {rel_k} > 2 * {rel_p} + 1e-6")
     rows["segment_spmv"] = dict(
-        ms=cuda_ms(lambda: segment_spmv(contrib, g.col_idx, n), 20),
+        ms=device_ms(lambda: segment_spmv(contrib, g.col_idx, n, hot=hot), 20,
+                     *SPMV_KERNELS),
+        call_ms=cuda_ms(lambda: segment_spmv(contrib, g.col_idx, n, hot=hot),
+                        20),
         plain_ms=cuda_ms(lambda: segment_spmv_ref(contrib, g.col_idx, n), 5),
         library_ms=cuda_ms(lambda: torch.zeros(n, device=dev).index_add_(
             0, g.col_idx, contrib), 5),
         max_abs_err=float((y_k - y_p).abs().max()),
-        shape=f"E={E} edges, n={n}", **bound(8 * E + 4 * n))
+        shape=f"E={E} edges, n={n}", **bound(8 * E + 4 * n),
+        ms_hot_list_in_call=cuda_ms(
+            lambda: segment_spmv(contrib, g.col_idx, n), 20),
+        hot_list_ms=cuda_ms(lambda: segment_hot_list(g.col_idx, n), 20),
+        hot_ids=int((hot > 0).sum()))
     log(f"segment_spmv: PASS, E={E} n={n} max rel err vs a float64 sum: "
         f"kernel {rel_k:.3e}, plain {rel_p:.3e}, float32 index_add_ "
         f"{rel_lib:.3e}; {rows['segment_spmv']}")
-    del src, deg_e, x0, contrib, exact, y_k, y_p, pos
+    del src, deg_e, x0, contrib, exact, y_k, y_p, pos, hot
 
-    # multinomial_rows: every bucket of the count engine's first round
+    return rows, threefry_ms
+
+
+def sampler_phase(g, K, rows):
+    """multinomial_rows at the count engines' first round: the per-bucket
+    entry (the TPU kernel's counterpart) on every bucket, exact, then the
+    fused entry the engines launch, exact against its plain version and
+    the per-bucket round on the single-device layout and the stacked P=4
+    one, each timed against the per-bucket round. Then segment_spmv's
+    integer entry on the sums of those first rounds, each exact and timed
+    against int32 index_add_. Fills rows["multinomial_rows"] and adds the
+    count sums to rows["segment_spmv"]."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import aggregate_sampler as agg
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.core.distributed_counts import (shard_graph_padded,
+                                                     sum_plan)
+    from repro_torch.core.graph import padded_adjacency_np
+    from repro_torch.kernels.multinomial_rows import (multinomial_buckets,
+                                                      multinomial_rows)
+    from repro_torch.kernels.multinomial_rows._math import key_words
+    from repro_torch.kernels.multinomial_rows.ref import (
+        multinomial_buckets_ref, multinomial_rows_ref)
+    from repro_torch.kernels.segment_spmv import hot_list, segment_sum_int
+    from repro_torch.kernels.segment_spmv.ref import segment_sum_int_ref
+
+    n, dev = g.n, g.device
     row_ptr, col, deg = g.numpy()
     nbr, _ = padded_adjacency_np(row_ptr, col, deg, g.max_out_deg)
-    layout, perm = agg.build_layout(deg, nbr.shape[1])
-    perm = torch.from_numpy(np.ascontiguousarray(perm)).to(dev)
+    layout, perm_np = agg.build_layout(deg, nbr.shape[1])
+    perm = torch.from_numpy(np.ascontiguousarray(perm_np)).to(dev)
     counts = torch.full((n,), K, dtype=torch.int32, device=dev)
     rid = torch.arange(n, dtype=torch.int32, device=dev)
     kw = key_words(prng.split(prng.PRNGKey(0))[1])
+
+    # the per-bucket entry on every bucket: exact, as PR 11 and PR 13
+    # measured it on this card (0 of 1,048,576 rows differing)
     buckets = [(c_b, d_b, r_b, w) for _, c_b, d_b, r_b, w in
                agg.bucket_rows(counts, g.out_deg, rid, perm, layout)]
-    mism = total = draws = nbytes = max_err = 0
+    mism = total = draws = max_err = 0
     for c_b, d_b, r_b, w in buckets:
         T_k = multinomial_rows(c_b, d_b, r_b, kw, eps=EPS, width=w)
         T_p = multinomial_rows_ref(c_b, d_b, r_b, kw, eps=EPS, width=w)
@@ -248,24 +318,115 @@ def kernel_phase(g, K):
         slot = torch.arange(w, device=dev)[None, :]
         draws += int(((c_b > 0) & (d_b > 0)).sum()) \
             + int(((rem > 0) & (slot < d_b[:, None])).sum())
-        nbytes += 12 * c_b.numel() + 4 * (w + 1) * c_b.numel()
-    rate = mism / max(total, 1)
-    check(rate <= 0.005, f"multinomial_rows: {rate:.4%} of rows differ")
+    check(mism == 0, f"multinomial_rows: {mism} of {total} rows differ from "
+                     f"its plain version")
+    def per_bucket():
+        return [multinomial_rows(c, d, r, kw, eps=EPS, width=w)
+                for c, d, r, w in buckets]
 
-    def all_buckets(fn):
-        return lambda: [fn(c, d, r, kw, eps=EPS, width=w)
-                        for c, d, r, w in buckets]
+    per_bucket_ms = cuda_ms(per_bucket, 10)
+    per_bucket_dev = device_ms(per_bucket, 10, "multinomial_rows_kernel")
+    log(f"multinomial_rows, per-bucket entry: PASS, 0 of {total} rows "
+        f"differ, conservation exact; the {len(buckets)} calls of a round "
+        f"{per_bucket_ms:.4f} ms ({per_bucket_dev:.4f} ms of it on the "
+        f"card)")
+    del buckets
 
+    # the fused entry on both layouts of the count engines
+    sg = shard_graph_padded(g, 4)
+    layouts = {
+        "single-device": (counts, g.out_deg, rid, perm, layout, 1),
+        "stacked P=4": (counts.reshape(-1), sg.deg.reshape(-1),
+                        torch.arange(4 * sg.n_loc, dtype=torch.int32,
+                                     device=dev),
+                        sg.stacked_perm, sg.stacked_layout, 4)}
+    fused, first = {}, {}
+    for label, (c, d, r, pm, lay, P) in layouts.items():
+        def kernel():
+            return multinomial_buckets(c, d, r, kw, pm, lay.widths, lay.caps,
+                                       eps=EPS, shards=P)
+
+        def plain():
+            return multinomial_buckets_ref(c, d, r, kw, pm, lay.widths,
+                                           lay.caps, eps=EPS, shards=P)
+
+        def six_calls():
+            samples, occ, res = agg.sample_buckets(c, d, r, kw, pm, lay,
+                                                   eps=EPS)
+            return agg.flatten_moves(samples, P if P > 1 else None), occ, res
+
+        got, want, old = kernel(), plain(), six_calls()
+        diff = int((got[0] != want[0]).sum())
+        check(diff == 0 and torch.equal(got[0], old[0].reshape(-1)),
+              f"multinomial_buckets ({label}): {diff} moves differ from its "
+              f"plain version, or it differs from the per-bucket round")
+        check(torch.equal(got[1], want[1]) and torch.equal(got[1], old[1])
+              and int(got[2]) == int(want[2]) == int(old[2]) == 0,
+              f"multinomial_buckets ({label}): occupancy or residual differ "
+              f"(residual {int(got[2])})")
+        first[label] = got[0]
+        fused[label] = dict(
+            ms=device_ms(kernel, 20, "multinomial_buckets_kernel"),
+            call_ms=cuda_ms(kernel, 20),
+            six_call_round_ms=cuda_ms(six_calls, 10),
+            six_call_round_device_ms=device_ms(six_calls, 10, ""),
+            plain_ms=cuda_ms(plain, 2),
+            shape=f"{pm.numel()} slots, {c.numel()} rows, "
+                  f"{lay.total_edges} moves, {len(lay.caps)} buckets",
+            **bound(4 * pm.numel() + 12 * c.numel() + 4 * lay.total_edges,
+                    MN_OPS_PER_DRAW * draws))
+        log(f"multinomial_buckets ({label}): PASS, exact (0 moves differ, "
+            f"occupancy equal, residual 0) against its plain version and "
+            f"the per-bucket round; {fused[label]}")
+    single = fused["single-device"]
     rows["multinomial_rows"] = dict(
-        ms=cuda_ms(all_buckets(multinomial_rows), 10),
-        plain_ms=cuda_ms(all_buckets(multinomial_rows_ref), 2),
-        library_ms=None, max_abs_err=max_err,
-        shape=f"{len(buckets)} buckets, widths {list(layout.widths)}, "
-              f"{total} rows, {draws} draws",
-        **bound(nbytes, MN_OPS_PER_DRAW * draws))
-    log(f"multinomial_rows: PASS, mismatch {mism}/{total} rows ({rate:.4%}, "
-        f"gate 0.5%), conservation exact; {rows['multinomial_rows']}")
-    return rows, threefry_ms
+        ms=single["ms"], plain_ms=single["plain_ms"], library_ms=None,
+        max_abs_err=max_err, shape=single["shape"] + f", {draws} draws",
+        per_bucket_calls_ms=per_bucket_ms,
+        per_bucket_calls_device_ms=per_bucket_dev,
+        stacked_p4=fused["stacked P=4"],
+        **{k: single[k] for k in ("call_ms", "six_call_round_ms",
+                                  "six_call_round_device_ms", "bound_ms",
+                                  "bound_by", "bound_bytes", "bound_ops")})
+
+    # segment_spmv's integer entry on the count engines' first-round sums
+    bnbr = torch.from_numpy(agg.bucketize_adjacency(nbr, perm_np, layout)
+                            ).to(dev)
+    plan = sum_plan(sg, StackedMesh(4, dev))
+    flat4 = first["stacked P=4"]
+    sums = {
+        "single-device count sum": (first["single-device"], bnbr, n,
+                                    hot_list(bnbr, n)),
+        "sharded local sum (P=4)": (flat4, plan.local_ids.reshape(-1),
+                                    4 * sg.n_loc, plan.local_hot),
+        "sharded remote sum (P=4)": (flat4, plan.remote_ids.reshape(-1),
+                                     4 * sg.n_pad, plan.remote_hot)}
+    extra = {}
+    for label, (vals, ids, segs, hot) in sums.items():
+        got = segment_sum_int(vals, ids, segs, hot=hot)
+        err = int((got - segment_sum_int_ref(vals, ids, segs)).abs().max())
+        check(err == 0, f"segment_spmv ({label}): differs from its plain "
+                        f"version by {err}")
+        E = vals.numel()
+        # index_add_ takes no id outside the output: dropped ids to a spare
+        lib_ids = torch.where(ids >= 0, ids, segs)
+        extra[label] = dict(
+            ms=device_ms(lambda: segment_sum_int(vals, ids, segs, hot=hot),
+                         20, *SPMV_KERNELS),
+            call_ms=cuda_ms(
+                lambda: segment_sum_int(vals, ids, segs, hot=hot), 20),
+            ms_hot_list_in_call=cuda_ms(
+                lambda: segment_sum_int(vals, ids, segs), 20),
+            plain_ms=cuda_ms(lambda: segment_sum_int_ref(vals, ids, segs), 5),
+            library_ms=cuda_ms(lambda: torch.zeros(
+                segs + 1, dtype=torch.int32, device=dev).index_add_(
+                    0, lib_ids, vals), 5),
+            max_abs_err=err,
+            live_share=float(((vals != 0) & (ids >= 0)).sum()) / E,
+            hot_ids=int((hot > 0).sum()) if hot is not None else 0,
+            shape=f"E={E}, n={segs}", **bound(8 * E + 4 * segs))
+        log(f"segment_spmv ({label}): PASS, exact; {extra[label]}")
+    rows["segment_spmv"]["count_sums"] = extra
 
 
 def walk_step_phase(g, K):
@@ -410,12 +571,13 @@ def main_path(g, K, drive):
     pi_ref = pi_ref.cpu().numpy()
 
     counts_zeta = None
-    for engine, traced, kernel in (("walks", False, "histogram"),
-                                   ("counts", True, "multinomial_rows")):
+    for engine, traced, kernels in (
+            ("walks", False, ["histogram"]),
+            ("counts", True, ["multinomial_rows", "segment_spmv"])):
         res, secs, peak = drive(
             f"simple_pagerank[{engine}]",
             lambda: simple_pagerank(g, EPS, engine=engine, traced=traced),
-            [kernel])
+            kernels)
         zmax = int(res.zeta.max())
         check(zmax < 2 ** 31, f"{engine}: zeta overflows int32")
         l1, top = accuracy(engine, res.pi, pi_ref, g.n)
@@ -435,10 +597,12 @@ def main_path(g, K, drive):
     return out, pi_ref, counts_zeta
 
 
-def profile_rounds(step, state, rounds, label, top=10):
+def profile_rounds(step, state, rounds, label, top=10, groups=None):
     """Run `rounds` steps under torch.profiler and print the device time of
     the kernels by name, the device's busy time (kernels, copies and sets)
-    and its idle share of the wall time. Returns the last state."""
+    and its idle share of the wall time, and the device time of each of
+    `groups` (label: a part of the kernel's name) and of the rest. Returns
+    the last state."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -452,27 +616,30 @@ def profile_rounds(step, state, rounds, label, top=10):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     # device-side events only: an aten op's device time repeats its kernels'
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in kernels) / 1e3
+               if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+    busy = sum(_dev_us(e) for e in kernels) / 1e3
     log(f"{label}: wall {wall * 1e3 / rounds:.2f} ms a round, device busy "
         f"{busy / rounds:.2f} ms a round, idle share "
         f"{max(0.0, 1 - busy / 1e3 / wall):.3f}")
-    ranked = sorted(kernels, key=dev_us, reverse=True)
+    ranked = sorted(kernels, key=_dev_us, reverse=True)
     # the top ones, then the kernels in an anonymous namespace at file
     # scope wherever they rank: the port's own, and a few of torch's
     for i, e in enumerate(ranked):
         if i < top or e.key.removeprefix("void ").startswith(
                 "(anonymous namespace)::"):
-            log(f"  {dev_us(e) / 1e3 / rounds:9.3f} ms/round  "
+            log(f"  {_dev_us(e) / 1e3 / rounds:9.3f} ms/round  "
                 f"{e.count / rounds:6.1f}x  {e.key[:100]}")
     if not kernels:
         log(f"{label}: the profiler recorded no device time")
+    if groups:
+        split = {name: sum(_dev_us(e) for e in kernels if part in e.key) / 1e3
+                 for name, part in groups.items()}
+        split["the rest"] = busy - sum(split.values())
+        log(f"{label}: device ms by kernel: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" (of {busy:.3f} busy)")
     return state
 
 
@@ -495,7 +662,7 @@ def sharded_path(g, K, drive, pi_ref, counts_zeta):
         lambda: distributed_pagerank_counts(
             g, EPS, K, prng.PRNGKey(0), mesh=StackedMesh(4, g.device),
             packed=False),
-        ["multinomial_rows"])
+        ["multinomial_rows", "segment_spmv"])
     check(torch.equal(res.zeta, counts_zeta),
           "sharded counts: zeta differs from the single-device count engine")
     check(res.overflow == 0 and res.residual == 0,
@@ -512,7 +679,9 @@ def sharded_path(g, K, drive, pi_ref, counts_zeta):
     del res
     profile_rounds(lambda _: distributed_pagerank_counts(
         g, EPS, K, prng.PRNGKey(0), mesh=StackedMesh(4, g.device),
-        packed=False), None, 1, "sharded counts, a whole run (profiled)")
+        packed=False), None, 1, "sharded counts, a whole run (profiled)",
+        groups={"fused sampler": "multinomial_buckets_kernel",
+                "segment_spmv": "segment_sum_kernel"})
     torch.cuda.empty_cache()
 
     # one round at full K tells whether the whole walk engine fits its
@@ -688,6 +857,8 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         rows, threefry_ms = kernel_phase(g, K)
+        sampler_phase(g, K, rows)
+        torch.cuda.empty_cache()
         rows["walk_step"] = walk_step_phase(g, K)
         torch.cuda.empty_cache()
         phases["kernels"] = time.perf_counter() - t0

@@ -7,8 +7,14 @@ power-of-two degree buckets: bucket b holds rows with degree in
 (2^(b-1), 2^b] (bucket 0: degree 0 and 1) and scans width
 min(2^b, max_deg) <= 2 * degree, so per-round sampler work is
 sum_v O(deg(v)) instead of n * max_deg. The grouping is a static
-permutation computed on the host and memoized; the per-round work is a
-loop over the O(log max_deg) buckets, each one `multinomial_rows` call.
+permutation computed on the host and memoized.
+
+The engines draw a round with one `multinomial_buckets` call over every
+bucket of a layout (its widths and caps), which writes the per-edge counts
+straight into the flat layout of `bucketize_adjacency`. `sample_buckets` +
+`flatten_moves` are the same round as the JAX package computes it, a loop
+over the O(log max_deg) buckets with one `multinomial_rows` call each; the
+tests and the card's smoke run hold the fused round against them.
 
 `bucketed=False` is the same machinery with a single bucket of width
 max_deg.

@@ -14,11 +14,13 @@ fit is counted in `overflow`, which must stay 0.
 Per superstep, per shard:
   1. terminations ~ Binomial(counts, eps)                (paper lines 4-5)
   2. survivors split over out-edges by the conditional-binomial chain
-     (the degree-bucketed sampler of `core/aggregate_sampler`, the
-     `multinomial_rows` kernel on the card)
+     (the degree-bucketed sampler of `core/aggregate_sampler`, one launch
+     of the `multinomial_rows` kernel's fused entry on the card)
   3. per-edge counts summed per destination vertex and exchanged with one
      all_to_all of (vertex, count) lanes                  (Lemma-1 wire)
   4. arrivals summed into counts and into the visit counters zeta
+Every sum of counts by vertex runs through `segment_spmv`'s exact integer
+entry.
 
 Draws are a counter-based function of (round key, global padded vertex id,
 slot), and the round key is the same on every shard, so the trajectory
@@ -48,13 +50,15 @@ from repro_torch.checkpoint import LayoutSpec
 from repro_torch.core.aggregate_sampler import (BucketLayout,
                                                 build_layout_sharded,
                                                 bucketize_adjacency,
-                                                flatten_moves, sample_buckets,
                                                 stack_shard_perm)
 from repro_torch.core.collectives import StackedMesh
 from repro_torch.core.estimator import pagerank_from_visits
 from repro_torch.core.graph import CSRGraph
-from repro_torch.core.routing import entry_nbytes, lane_slots, pack_lanes
+from repro_torch.core.routing import (_offset_ids, entry_nbytes,
+                                      lane_slots, pack_lanes)
+from repro_torch.kernels.multinomial_rows import multinomial_buckets
 from repro_torch.kernels.multinomial_rows._math import key_words
+from repro_torch.kernels.segment_spmv import hot_list, segment_sum_int
 from repro_torch.runtime import Stage, StagedState, StageSchedule, run_staged
 
 _I32 = torch.int32
@@ -131,26 +135,52 @@ def _sample_step(sg: ShardedPaddedGraph, counts: torch.Tensor,
                          "every shard")
     n_loc = sg.n_loc
     rid = torch.arange(mesh.shards * n_loc, dtype=_I32, device=counts.device)
-    samples, occ, residual = sample_buckets(
+    lay = sg.stacked_layout
+    flat_T, occ, residual = multinomial_buckets(
         counts.reshape(-1), sg.deg.reshape(-1), rid, key_words(keys[0, 1]),
-        sg.stacked_perm, sg.stacked_layout, eps=eps)
-    return (flatten_moves(samples, mesh.shards), keys[:, 0].clone(), occ,
+        sg.stacked_perm, lay.widths, lay.caps, eps=eps, shards=mesh.shards)
+    return (flat_T.reshape(mesh.shards, -1), keys[:, 0].clone(), occ,
             residual)
 
 
-def _segment_sum(values: torch.Tensor, seg: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
-    """[S, num_segments] int32 sums of each shard's values by segment id
-    (ids in range by construction)."""
+def _segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
+                 hot=None) -> torch.Tensor:
+    """[S, num_segments] int32 sums of each shard's values by segment, at
+    the ids of `routing._offset_ids` (-1 dropped); `hot` is their hot list,
+    built here when None."""
     S = values.shape[0]
-    base = torch.arange(S, device=seg.device).reshape(S, 1) * num_segments
-    out = torch.zeros(S * num_segments, dtype=_I32, device=values.device)
-    out.index_add_(0, (base + seg).reshape(-1), values.reshape(-1).to(_I32))
-    return out.reshape(S, num_segments)
+    return segment_sum_int(values.reshape(-1), ids.reshape(-1),
+                           S * num_segments, hot=hot).reshape(S, num_segments)
 
 
-def _exchange_step(sg: ShardedPaddedGraph, flat_T: torch.Tensor,
-                   zeta: torch.Tensor, *, mesh: StackedMesh, packed: bool):
+@dataclasses.dataclass(frozen=True)
+class SumPlan:
+    """The segment ids of the two sums of each round's per-edge counts,
+    which stay the same every round, with their hot lists: local
+    destinations (slots that leave the shard dropped), and global
+    destination vertices (slots that stay dropped)."""
+
+    local_ids: torch.Tensor
+    local_hot: Optional[torch.Tensor]
+    remote_ids: torch.Tensor
+    remote_hot: Optional[torch.Tensor]
+
+
+def sum_plan(sg: ShardedPaddedGraph, mesh: StackedMesh) -> SumPlan:
+    n_loc, S = sg.n_loc, sg.bnbr.shape[0]
+    sid = mesh.shard_ids().reshape(-1, 1)
+    local = torch.div(sg.bnbr, n_loc, rounding_mode="floor") == sid
+    local_ids = _offset_ids(sg.bnbr - sid * n_loc, local, n_loc)
+    remote_ids = _offset_ids(sg.bnbr, ~local, sg.n_pad)
+    return SumPlan(local_ids=local_ids,
+                   local_hot=hot_list(local_ids, S * n_loc),
+                   remote_ids=remote_ids,
+                   remote_hot=hot_list(remote_ids, S * sg.n_pad))
+
+
+def _exchange_step(sg: ShardedPaddedGraph, plan: SumPlan,
+                   flat_T: torch.Tensor, zeta: torch.Tensor, *,
+                   mesh: StackedMesh, packed: bool):
     """Second half of the superstep: sum counts per destination vertex and
     run the Lemma-1 (vertex, count) lane exchange.
 
@@ -159,17 +189,13 @@ def _exchange_step(sg: ShardedPaddedGraph, flat_T: torch.Tensor,
     n_loc, shards, lane_cap = sg.n_loc, mesh.shards, sg.lane_cap
     sid = mesh.shard_ids().reshape(-1, 1)
     S = flat_T.shape[0]
-    flat_dst = sg.bnbr
-    local_mask = torch.div(flat_dst, n_loc, rounding_mode="floor") == sid
     # local arrivals: a direct segment sum
-    arrive = _segment_sum(torch.where(local_mask, flat_T, 0),
-                          torch.clamp(flat_dst - sid * n_loc, 0, n_loc - 1),
-                          n_loc)
+    arrive = _segment_sum(flat_T, plan.local_ids, n_loc, plan.local_hot)
 
     # cross-shard: counts per destination vertex first, so the lane bound is
     # the number of distinct vertices, not edges
-    per_vertex = _segment_sum(torch.where(local_mask, 0, flat_T), flat_dst,
-                              sg.n_pad)
+    per_vertex = _segment_sum(flat_T, plan.remote_ids, sg.n_pad,
+                              plan.remote_hot)
     vid = torch.arange(sg.n_pad, dtype=_I32, device=flat_T.device)
     if packed and shards > 1:
         most = int(per_vertex.max())
@@ -197,10 +223,8 @@ def _exchange_step(sg: ShardedPaddedGraph, flat_T: torch.Tensor,
         payload = (vid2 % n_loc) | (cnt2 << 16)
         lanes = pack_lanes(lane_idx, payload, ok, shards, lane_cap)
         recv = mesh.all_to_all(lanes)
-        got = recv >= 0
-        rc = torch.where(got, recv >> 16, 0)
-        rv = torch.where(got, recv & 0xFFFF, 0)
-        arrive = arrive + _segment_sum(rc, rv, n_loc)
+        arrive = arrive + _segment_sum(
+            recv >> 16, _offset_ids(recv & 0xFFFF, recv >= 0, n_loc), n_loc)
         wire_entries = (lanes >= 0).sum(dim=1)
         bytes_per = entry_nbytes(lanes)
     else:
@@ -208,10 +232,9 @@ def _exchange_step(sg: ShardedPaddedGraph, flat_T: torch.Tensor,
         lanes_c = pack_lanes(lane_idx, cnt2, ok, shards, lane_cap, fill=0)
         recv_v = mesh.all_to_all(lanes_v)
         recv_c = mesh.all_to_all(lanes_c)
-        got = recv_v >= 0
         arrive = arrive + _segment_sum(
-            torch.where(got, recv_c, 0),
-            torch.clamp(recv_v - sid * n_loc, 0, n_loc - 1), n_loc)
+            recv_c, _offset_ids(recv_v - sid * n_loc, recv_v >= 0, n_loc),
+            n_loc)
         wire_entries = (lanes_v >= 0).sum(dim=1)
         bytes_per = entry_nbytes(lanes_v, lanes_c)
     active = mesh.psum(arrive.sum(dim=1))
@@ -282,6 +305,7 @@ def distributed_pagerank_counts(graph: CSRGraph, eps: float,
     # the same round key on every shard: the trajectory depends on the
     # seed and the graph only, not on the shard count
     keys = key.reshape(1, 2).repeat(shards, 1)
+    plan = sum_plan(sg, mesh)
 
     def _step(ms: StagedState):
         a = ms.arrays
@@ -292,7 +316,7 @@ def distributed_pagerank_counts(graph: CSRGraph, eps: float,
             torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
         counts, zeta, active, entries, nbytes, ovf = _exchange_step(
-            sg, flat_T, a["zeta"], mesh=mesh, packed=packed)
+            sg, plan, flat_T, a["zeta"], mesh=mesh, packed=packed)
         a.update(counts=counts, zeta=zeta, key=key2,
                  round=a["round"] + 1)
         h = ms.host

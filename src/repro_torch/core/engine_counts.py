@@ -8,9 +8,11 @@ matrix T[v, j] of per-edge counts *is* the message set of the round
 (Lemma 1: counts, never identities).
 
 The per-round splits run through the degree-bucketed aggregate sampler
-(`core/aggregate_sampler`, the `multinomial_rows` kernel on the card), so
-per-round sampler work is sum_v O(deg(v)). `bucketed=False` keeps the
-single-bucket max_deg-wide layout.
+(`core/aggregate_sampler`, one launch of the `multinomial_rows` kernel's
+fused entry a round on the card), so per-round sampler work is
+sum_v O(deg(v)). `bucketed=False` keeps the single-bucket max_deg-wide
+layout. The per-edge counts are summed per destination by `segment_spmv`'s
+exact integer entry.
 """
 from __future__ import annotations
 
@@ -23,10 +25,11 @@ import torch
 from repro_torch import prng
 from repro_torch.core.accounting import RoundTrace
 from repro_torch.core.aggregate_sampler import (build_layout,
-                                                bucketize_adjacency,
-                                                flatten_moves, sample_buckets)
+                                                bucketize_adjacency)
 from repro_torch.core.graph import CSRGraph, padded_adjacency_np
+from repro_torch.kernels.multinomial_rows import multinomial_buckets
 from repro_torch.kernels.multinomial_rows._math import key_words
+from repro_torch.kernels.segment_spmv import hot_list, segment_sum_int
 
 
 @dataclasses.dataclass
@@ -44,19 +47,20 @@ def init_state(graph: CSRGraph, walks_per_node: int,
     return CountState(counts=c0, zeta=c0.clone(), key=key, round=0)
 
 
-def _step(bnbr, perm, deg, state: CountState, eps: float, n: int, layout):
-    """One super-step through the degree-bucketed sampler: each bucket
-    draws its fused Binomial(eps) termination + conditional-binomial edge
-    split (dangling rows terminate whole), then the per-edge counts route
-    through one segment-sum over the flat bucketed adjacency."""
+def _step(bnbr, perm, deg, state: CountState, eps: float, n: int, layout,
+          hot):
+    """One super-step through the degree-bucketed sampler: every row draws
+    its fused Binomial(eps) termination + conditional-binomial edge split
+    (dangling rows terminate whole), then the per-edge counts route
+    through one exact segment sum over the flat bucketed adjacency (`hot`:
+    the hot list of `bnbr`)."""
     key, k_sample = prng.split(state.key)
     rid = torch.arange(n, dtype=torch.int32, device=deg.device)
-    samples, _, residual = sample_buckets(
-        state.counts, deg, rid, key_words(k_sample), perm, layout, eps=eps)
-    flat_T = flatten_moves(samples)
+    flat_T, _, residual = multinomial_buckets(
+        state.counts, deg, rid, key_words(k_sample), perm, layout.widths,
+        layout.caps, eps=eps)
     # route: new_counts[u] = sum over bucketed edge slots with dst == u
-    new_counts = torch.zeros(n, dtype=torch.int32, device=deg.device)
-    new_counts.index_add_(0, bnbr, flat_T)
+    new_counts = segment_sum_int(flat_T, bnbr, n, hot=hot)
     new_state = CountState(
         counts=new_counts,
         zeta=state.zeta + new_counts,
@@ -83,11 +87,12 @@ def run_traced(graph: CSRGraph, eps: float, walks_per_node: int,
     bnbr = torch.from_numpy(
         bucketize_adjacency(nbr, perm_np, layout)).to(graph.device)
     perm = torch.from_numpy(np.ascontiguousarray(perm_np)).to(graph.device)
+    hot = hot_list(bnbr, graph.n)   # bnbr is the same every round
     state = init_state(graph, walks_per_node, key)
     traces: List[RoundTrace] = []
     while state.round < max_rounds and int(state.counts.sum()) > 0:
         state, stats = _step(bnbr, perm, graph.out_deg, state, float(eps),
-                             graph.n, layout)
+                             graph.n, layout, hot)
         stats = {k: int(v) for k, v in stats.items()}
         if stats["residual"] != 0:
             raise RuntimeError(f"multinomial split leaked mass: residual "

@@ -4,7 +4,8 @@ against in the distributed setting:
     pi_{t+1} = eps/n + (1-eps) * (Q^T pi_t + dangling_mass/n)
 
 The push over the CSR edge list is a segment-sum, which runs through the
-`segment_spmv` kernel on the card.
+`segment_spmv` kernel on the card, with the hot list of the destinations
+built once for all iterations.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.core.graph import CSRGraph
 from repro_torch.device import resolve_device
-from repro_torch.kernels.segment_spmv import segment_spmv
+from repro_torch.kernels.segment_spmv import hot_list, segment_spmv
 
 
 def spmv_push(graph: CSRGraph, x: torch.Tensor) -> torch.Tensor:
@@ -39,10 +40,12 @@ def _power_iterate(col_idx, out_deg, edge_src, n: int, eps: float,
     damp = float(np.float32(1.0) - np.float32(eps))
     tol = float(np.float32(tol))
 
+    hot = hot_list(col_idx, n)
     x = torch.full((n,), 1.0 / n, dtype=torch.float32, device=out_deg.device)
     err, it = float("inf"), 0
     while err > tol and it < max_iters:
-        y = segment_spmv(x.index_select(0, edge_src) / deg_e, col_idx, n)
+        y = segment_spmv(x.index_select(0, edge_src) / deg_e, col_idx, n,
+                         hot=hot)
         dang_mass = torch.where(dangling, x, 0.0).sum()
         x_new = base + damp * (y + dang_mass / n)
         err = float((x_new - x).abs().sum())

@@ -148,8 +148,11 @@ def entry_nbytes(*columns) -> int:
 def _offset_ids(ids: torch.Tensor, valid: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Per-shard segment ids [S, N] rebased into one [S * num_segments]
-    range; invalid or out-of-range ids become -1 (dropped)."""
+    int32 range; invalid or out-of-range ids become -1 (dropped)."""
     S = ids.shape[0]
+    if S * num_segments >= 2 ** 31:
+        raise ValueError(f"{S} shards x {num_segments} segments exceed the "
+                         f"int32 segment ids of one device")
     ok = valid & (ids >= 0) & (ids < num_segments)
     base = torch.arange(S, dtype=_I32, device=ids.device).reshape(S, 1)
     return torch.where(ok, base * num_segments + ids, -1).to(_I32)

@@ -21,7 +21,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.histogram.ref import histogram_ref
+from repro_torch.kernels.histogram.ref import histogram_ref, hot_list_ref
 
 # an id expected to take more hits than this is hot: above it, an id's
 # atomics in L2, one after another, cost more than ~7 us
@@ -43,15 +43,15 @@ def sample_size(w: int) -> int:
     return SAMPLE_CHUNK * whole + min(part, SAMPLE_CHUNK)
 
 
-def hot_thresholds(w: int) -> Tuple[int, int]:
+def hot_thresholds(w: int, hits: int = HOT_HITS) -> Tuple[int, int]:
     """(low, high): the sampled counts at which an id of `w` is hot.
 
-    `low` is that of an id with HOT_HITS expected hits. No more than
+    `low` is that of an id with `hits` expected hits. No more than
     HOT_CAP / 2 ids can reach `high`, so all of those make the list; the
     ids between `low` and `high` fill what room is left. Above
-    `sample_size(w)` (fewer than HOT_HITS ids) no id is hot."""
+    `sample_size(w)` (fewer than `hits` ids) no id is hot."""
     s = sample_size(w)
-    low = max(1, math.ceil(HOT_HITS * s / max(w, 1)))
+    low = max(1, math.ceil(hits * s / max(w, 1)))
     return low, max(low, math.ceil(2 * s / HOT_CAP))
 
 
@@ -84,15 +84,19 @@ def _check(ids: torch.Tensor, num_segments: int) -> None:
                    "histogram: num_segments out of range")
 
 
-def hot_list(ids: torch.Tensor, num_segments: int
+def hot_list(ids: torch.Tensor, num_segments: int, hits: int = HOT_HITS
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sample and hot-list passes alone: (table, hot), where `table`
     holds 2 HOT_CAP slots of id + 1 (0 when empty) and `hot` counts the ids
-    that reached the low threshold; past HOT_CAP the rest stay off the
-    list."""
-    _check(ids, num_segments)
+    that reached the low threshold of `hits` expected hits; past HOT_CAP
+    the rest stay off the list. `segment_spmv` keeps its hot ids in the
+    same table."""
     n, w = num_segments, ids.numel()
-    low, high = hot_thresholds(w)
+    low, high = hot_thresholds(w, hits)
+    if ids.device.type == "cpu":
+        return hot_list_ref(ids, n, chunk=SAMPLE_CHUNK, stride=SAMPLE_STRIDE,
+                            low=low, high=high, cap=HOT_CAP, bits=HOT_BITS)
+    _check(ids, num_segments)
     slots = 1 << HOT_BITS
     scratch = torch.zeros(n + slots + 1, dtype=torch.int32,
                           device=ids.device)

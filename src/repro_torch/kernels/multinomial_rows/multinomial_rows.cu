@@ -17,6 +17,8 @@
 // reads 12 B and writes 4 (width + 1) B; its arithmetic is a few dozen
 // float and integer operations per draw, far below the card's rate. The
 // cost that remains is latency: each draw depends on the previous one.
+// The fused entry reads 4 B of the permutation a slot and 12 B a row, and
+// writes 4 B a per-edge word.
 //
 // Design: one thread per row runs the whole chain in registers, so there
 // is no shared state and rows finish independently. The chain stops as
@@ -25,6 +27,32 @@
 // never decreases, so no later step would count); the slots left are
 // zeros. Both shortcuts return exactly what the full 48-step, full-width
 // evaluation returns. Only the branch a draw uses is evaluated.
+//
+// Two entry points share that chain:
+//  * multinomial_rows_launch, the counterpart of the TPU kernel: the rows
+//    of one degree bucket in, T[R, width + 1] out;
+//  * multinomial_buckets_launch, a whole round of the degree-bucketed
+//    sampler in one launch. Its Python caller issued six calls of the
+//    first entry a round, each wrapped in a dozen gathers, selects and
+//    reductions, then copied the per-edge columns into one flat tensor:
+//    some 80 short launches, which set the round's time, not the draws.
+//    Here one thread takes one slot s of the bucket-grouped permutation,
+//    gathers its row's count, degree and id itself (perm[s] = -1 is a
+//    padding slot: zeros), finds its bucket b in the per-bucket table,
+//    and writes its width(b) edge counts straight to their place in the
+//    flat per-edge layout of the bucketed adjacency:
+//        i = s - row_start(b),  p = i / cap(b)  (the shard; cap is one
+//        shard's slots of the bucket, the shards' slots follow each other;
+//        0 with one shard),
+//        word = p * shard_edges + edge_start(b) + (i - p cap(b)) width(b).
+//    The termination count is not stored. A warp whose 32 rows write one
+//    run of 32 width words (one bucket, one shard, width <= 32) stages
+//    its rows in shared memory and stores the run with neighbouring lanes
+//    on neighbouring words; any other warp stores each row where it goes.
+//    Each block counts its rows that hold coupons per bucket and sums the
+//    rows' leftover counts (c minus all it drew, which must be 0) in
+//    shared memory, then adds them to the outputs with one atomic per
+//    bucket and block.
 //
 // Bit-exactness with the plain torch version on the same card: the hash is
 // native uint32 arithmetic; the float chain is built with --fmad=false and
@@ -40,6 +68,11 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kBinvIters = 48;
+constexpr unsigned kFull = 0xffffffffu;
+// the fused entry: threads a block, most buckets, widest staged row
+constexpr int kBucketThreads = 256;
+constexpr int kMaxBuckets = 32;
+constexpr int kStageWidth = 32;
 
 #define F(x) static_cast<float>(x)
 
@@ -122,6 +155,29 @@ __device__ int binomial_counter(int n, float p, float u) {
   return flip ? n - x : x;
 }
 
+// Draws the row's termination (returned) and its chain over `width`
+// slots, slot j's count into moves[j]; *left is the count no slot took.
+__device__ __forceinline__ int sample_row(int c, int d, uint32_t id,
+                                          uint32_t k0, uint32_t k1,
+                                          float eps, int width,
+                                          int32_t* moves, int* left) {
+  const int term = d > 0 ? binomial_counter(c, eps, counter_u01(id, 0, k0, k1))
+                         : c;
+  int rem = c - term;
+  for (int j = 0; j < width; ++j) {
+    int t = 0;
+    if (rem > 0 && j < d) {
+      const float u = counter_u01(id, static_cast<uint32_t>(j + 1), k0, k1);
+      const float p = 1.0f / static_cast<float>(d - j);
+      t = min(binomial_counter(rem, p, u), rem);
+      rem -= t;
+    }
+    moves[j] = t;
+  }
+  *left = rem;
+  return term;
+}
+
 __global__ void multinomial_rows_kernel(const int32_t* __restrict__ counts,
                                         const int32_t* __restrict__ deg,
                                         const int32_t* __restrict__ rid,
@@ -130,25 +186,106 @@ __global__ void multinomial_rows_kernel(const int32_t* __restrict__ counts,
                                         int32_t* __restrict__ out) {
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < rows;
        r += gridDim.x * blockDim.x) {
-    const int c = counts[r];
-    const int d = deg[r];
-    const uint32_t id = static_cast<uint32_t>(rid[r]);
     int32_t* row = out + static_cast<long long>(r) * (width + 1);
-    const int term = d > 0 ? binomial_counter(c, eps, counter_u01(id, 0, k0, k1))
-                           : c;
-    row[0] = term;
-    int rem = c - term;
-    for (int j = 0; j < width; ++j) {
-      int t = 0;
-      if (rem > 0 && j < d) {
-        const float u = counter_u01(id, static_cast<uint32_t>(j + 1), k0, k1);
-        const float p = 1.0f / static_cast<float>(d - j);
-        t = min(binomial_counter(rem, p, u), rem);
-        rem -= t;
-      }
-      row[1 + j] = t;
+    int left = 0;
+    row[0] = sample_row(counts[r], deg[r], static_cast<uint32_t>(rid[r]), k0,
+                        k1, eps, width, row + 1, &left);
+  }
+}
+
+// The fused entry's per-bucket table (see the header), passed by value and
+// read in place from the kernel's parameter space (__grid_constant__).
+// Slots are counted in int: perm has fewer than 2^31.
+struct BucketTable {
+  long long edge_start[kMaxBuckets];
+  int row_start[kMaxBuckets];
+  int cap[kMaxBuckets];
+  int width[kMaxBuckets];
+  int buckets;
+  int shards;
+  int slots;
+  long long shard_edges;
+};
+
+__global__ void __launch_bounds__(kBucketThreads)
+multinomial_buckets_kernel(const int32_t* __restrict__ perm,
+                           const int32_t* __restrict__ counts,
+                           const int32_t* __restrict__ deg,
+                           const int32_t* __restrict__ rid, int n_rows,
+                           uint32_t k0, uint32_t k1, float eps,
+                           const __grid_constant__ BucketTable tbl,
+                           int32_t* __restrict__ moves,
+                           int32_t* __restrict__ occupancy,
+                           unsigned long long* __restrict__ residual) {
+  __shared__ int occ[kMaxBuckets];
+  __shared__ unsigned long long left_sum;
+  // a staged row of width w takes w + 1 words when w is even, so that the
+  // lanes' rows start in different banks
+  __shared__ int32_t stage[kBucketThreads / 32][32 * (kStageWidth + 1)];
+  if (threadIdx.x < kMaxBuckets) occ[threadIdx.x] = 0;
+  if (threadIdx.x == 0) left_sum = 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const long long slot =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool valid = slot < tbl.slots;
+  const int s = static_cast<int>(valid ? slot : 0);
+  int b = 0, w = 0, c = 0, d = 0;
+  uint32_t id = 0;
+  long long word = 0;
+  if (valid) {
+    while (b + 1 < tbl.buckets && s >= tbl.row_start[b + 1]) ++b;
+    w = tbl.width[b];
+    int i = s - tbl.row_start[b];
+    int p = 0;
+    if (tbl.shards > 1) {
+      p = i / tbl.cap[b];
+      i -= p * tbl.cap[b];
+    }
+    word = p * tbl.shard_edges + tbl.edge_start[b] +
+           static_cast<long long>(i) * w;
+    const int r = perm[s];
+    if (r >= 0) {
+      const int row = min(r, n_rows - 1);
+      c = counts[row];
+      d = deg[row];
+      id = static_cast<uint32_t>(rid[row]);
     }
   }
+  // every lane of the warp reaches the shuffles: nothing above returns
+  const long long word0 = __shfl_sync(kFull, word, 0);
+  const int w0 = __shfl_sync(kFull, w, 0);
+  const bool staged = __all_sync(
+      kFull, valid && w == w0 && w <= kStageWidth &&
+                 word == word0 + static_cast<long long>(lane) * w);
+  const int stride = w0 | 1;
+  int32_t* warp_stage = stage[threadIdx.x >> 5];
+  int left = 0;
+  if (valid) {
+    sample_row(c, d, id, k0, k1, eps, w,
+               staged ? warp_stage + lane * stride : moves + word, &left);
+    if (c > 0) atomicAdd(occ + b, 1);
+  }
+  if (staged) {
+    __syncwarp();
+    // word e of the run is word j of row r; e < 32 * 32, so a 16-bit
+    // reciprocal divides exactly
+    const unsigned inv = (65535u + static_cast<unsigned>(w0)) /
+                         static_cast<unsigned>(w0);
+    for (int e = lane; e < 32 * w0; e += 32) {
+      const int r = static_cast<int>((static_cast<unsigned>(e) * inv) >> 16);
+      moves[word0 + e] = warp_stage[r * stride + e - r * w0];
+    }
+  }
+  long long l = left;
+  for (int o = 16; o > 0; o >>= 1) l += __shfl_down_sync(kFull, l, o);
+  if (lane == 0 && l != 0)
+    atomicAdd(&left_sum, static_cast<unsigned long long>(l));
+  __syncthreads();
+  if (threadIdx.x < tbl.buckets && occ[threadIdx.x] != 0)
+    atomicAdd(occupancy + threadIdx.x, occ[threadIdx.x]);
+  if (threadIdx.x == 0 && left_sum != 0) atomicAdd(residual, left_sum);
 }
 
 }  // namespace
@@ -165,6 +302,44 @@ int multinomial_rows_launch(const int32_t* counts, const int32_t* deg,
   int blocks = want < 16 * sms ? want : 16 * sms;
   multinomial_rows_kernel<<<blocks, kThreads, 0, stream>>>(
       counts, deg, rid, rows, k0, k1, eps, width, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One round of the degree-bucketed sampler: moves[shards * shard_edges]
+// (written whole), occupancy[buckets] and *residual (both zero on entry)
+// as the header says. Bucket b holds the slots [row_start[b],
+// row_start[b] + shards * cap[b]) of perm[slots], slots < 2^31. Returns a
+// cudaError_t.
+int multinomial_buckets_launch(const int32_t* perm, const int32_t* counts,
+                               const int32_t* deg, const int32_t* rid,
+                               int n_rows, uint32_t k0, uint32_t k1, float eps,
+                               int buckets, const long long* row_start,
+                               const long long* edge_start, const int* cap,
+                               const int* width, int shards,
+                               long long shard_edges, long long slots,
+                               int32_t* moves, int32_t* occupancy,
+                               unsigned long long* residual,
+                               cudaStream_t stream) {
+  if (slots == 0) return 0;
+  if (buckets < 1 || buckets > kMaxBuckets || shards < 1 ||
+      slots >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  BucketTable tbl = {};
+  for (int b = 0; b < buckets; ++b) {
+    tbl.row_start[b] = static_cast<int>(row_start[b]);
+    tbl.edge_start[b] = edge_start[b];
+    tbl.cap[b] = cap[b];
+    tbl.width[b] = width[b];
+  }
+  tbl.buckets = buckets;
+  tbl.shards = shards;
+  tbl.slots = static_cast<int>(slots);
+  tbl.shard_edges = shard_edges;
+  const long long blocks = (slots + kBucketThreads - 1) / kBucketThreads;
+  multinomial_buckets_kernel<<<static_cast<unsigned>(blocks), kBucketThreads,
+                               0, stream>>>(perm, counts, deg, rid, n_rows, k0,
+                                            k1, eps, tbl, moves, occupancy,
+                                            residual);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,3 +1,4 @@
-from repro_torch.kernels.segment_spmv.ops import segment_spmv
+from repro_torch.kernels.segment_spmv.ops import (hot_list, segment_spmv,
+                                                  segment_sum_int)
 
-__all__ = ["segment_spmv"]
+__all__ = ["hot_list", "segment_spmv", "segment_sum_int"]

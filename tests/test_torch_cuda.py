@@ -7,18 +7,19 @@ card's machine runs it as is:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Parity levels: histogram (every path: all-shared, hot list, hot list
-overfull, no hot list) and integer segment_spmv bit-exact;
-multinomial_rows bit-exact against its plain version on the same card (no
-FMA contraction on either side); float segment_spmv within 1e-5 relative
-of a float64 sum (atomic order); walk_step bit-exact from given uniforms
-and from key words; both sharded engines on the card bit-exact against
-the same run on the CPU.
+overfull, no hot list) and integer segment_spmv (with and without a hot
+list) bit-exact; multinomial_rows, both entries, bit-exact against its
+plain version on the same card (no FMA contraction on either side); float
+segment_spmv within 1e-5 relative of a float64 sum (atomic order);
+walk_step bit-exact from given uniforms and from key words; both sharded
+engines on the card bit-exact against the same run on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import prng
+from repro_torch.core import aggregate_sampler as agg
 from repro_torch.core.collectives import StackedMesh
 from repro_torch.core.distributed import distributed_pagerank
 from repro_torch.core.distributed_counts import distributed_pagerank_counts
@@ -28,10 +29,14 @@ from repro_torch.kernels import common
 from repro_torch.kernels.histogram import histogram
 from repro_torch.kernels.histogram import ops as histogram_ops
 from repro_torch.kernels.histogram.ref import histogram_ref
-from repro_torch.kernels.multinomial_rows import multinomial_rows
-from repro_torch.kernels.multinomial_rows.ref import multinomial_rows_ref
-from repro_torch.kernels.segment_spmv import segment_spmv
-from repro_torch.kernels.segment_spmv.ref import segment_spmv_ref
+from repro_torch.kernels.multinomial_rows import (multinomial_buckets,
+                                                  multinomial_rows)
+from repro_torch.kernels.multinomial_rows.ref import (multinomial_buckets_ref,
+                                                      multinomial_rows_ref)
+from repro_torch.kernels.segment_spmv import (hot_list, segment_spmv,
+                                              segment_sum_int)
+from repro_torch.kernels.segment_spmv.ref import (segment_spmv_ref,
+                                                  segment_sum_int_ref)
 from repro_torch.kernels.walk_step import walk_step, walk_step_keyed
 from repro_torch.kernels.walk_step.ref import (walk_step_keyed_ref,
                                                walk_step_ref)
@@ -191,12 +196,132 @@ def test_cuda_multinomial_matches_plain(cuda):
         np.testing.assert_array_equal(got, want)
 
 
+# (rows, degrees drawn from, count bound, shards); a list of degrees with
+# no 3 or 4 leaves bucket 2 empty, a single 17 makes bucket 5 one row, 40
+# makes a bucket wider than the kernel's staged rows
+BUCKET_CASES = {
+    "random": (50_001, list(range(18)), 2 ** 20, None),
+    "stacked_P4": (50_001, list(range(18)), 2 ** 20, 4),
+    "large_counts": (50_001, list(range(18)), 2 ** 28, None),
+    "small_counts": (50_001, list(range(18)), 21, 3),
+    "empty_and_one_row_buckets": (4099, [0, 1, 2, 5, 9, 16, 17], 2 ** 12, 2),
+    "wide": (20_000, [0, 1, 3, 33, 40], 2 ** 16, None),
+    "flat": (20_000, list(range(18)), 2 ** 16, "flat"),
+}
+
+
+@pytest.mark.parametrize("case", list(BUCKET_CASES))
+def test_cuda_multinomial_buckets_matches_plain(cuda, case):
+    """The fused round against its plain version on the card and against
+    the per-bucket kernel round: moves, occupancy and residual exact."""
+    rows, choices, hi, shards = BUCKET_CASES[case]
+    rng = np.random.default_rng(len(case))
+    deg = rng.choice(choices, rows).astype(np.int32)
+    if case == "empty_and_one_row_buckets":
+        deg[deg == 17] = 16
+        deg[-1] = 17
+    P = shards if isinstance(shards, int) else 1
+    rows = -(-rows // P) * P
+    deg = np.concatenate([deg, np.zeros(rows - len(deg), np.int32)])
+    counts = rng.integers(0, hi, rows).astype(np.int32)
+    counts[rng.random(rows) < 0.2] = 0
+    md = int(deg.max())
+    if isinstance(shards, int):
+        layout, bperm = agg.build_layout_sharded(deg.reshape(P, -1), md)
+        layout, perm = agg.stack_shard_perm(bperm, layout)
+    else:
+        layout, perm = agg.build_layout(deg, md, bucketed=shards != "flat")
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (counts, deg, np.arange(rows, dtype=np.int32))]
+    perm = torch.from_numpy(perm).to(cuda)
+    before = common.launches["multinomial_rows"]
+    got = multinomial_buckets(*args, KEY_WORDS, perm, layout.widths,
+                              layout.caps, eps=0.2, shards=P)
+    assert common.launches["multinomial_rows"] == before + 1
+    want = multinomial_buckets_ref(*args, KEY_WORDS, perm, layout.widths,
+                                   layout.caps, eps=0.2, shards=P)
+    samples, occ, res = agg.sample_buckets(*args, KEY_WORDS, perm, layout,
+                                           eps=0.2)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[0].reshape(P, -1),
+                       agg.flatten_moves(samples, P if P > 1 else None)
+                       .reshape(P, -1))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[1], occ)
+    assert int(got[2]) == int(want[2]) == int(res) == 0
+    # every count left over by the terminations went down some edge
+    assert int(got[0].sum(dtype=torch.int64)) <= int(counts.sum(
+        dtype=np.int64))
+
+
+def _spmv_ids(rng, case, e, n):
+    """Ids in [-5, n + 5) shaped by `case`: a hub taking 90% of them, every
+    id the same, or 10,000 warm ids taking half of them, each too common
+    for the hot list to hold them all."""
+    ids = rng.integers(-5, n + 5, e)
+    if case in ("hub_0.9", "zeros_at_hub"):
+        ids[rng.random(e) < 0.9] = 0
+    elif case == "all_equal":
+        ids[:] = n - 1
+    elif case == "overfull":
+        warm = rng.random(e) < 0.5
+        ids[warm] = rng.choice(rng.permutation(n)[:10_000], int(warm.sum()))
+    return torch.from_numpy(ids.astype(np.int32))
+
+
+SPMV_CASES = ["hub_0.9", "zeros_at_hub", "uniform", "all_equal", "overfull",
+              "unaligned", "E0"]
+
+
+@pytest.mark.parametrize("case", SPMV_CASES)
+def test_cuda_segment_spmv_hot_list_matches_plain(cuda, case):
+    """Both entries against the plain version, with the hot list built in
+    the call and passed in: the integer sums exact, the float sums within
+    1e-5 of the float64 sum."""
+    rng = np.random.default_rng(len(case))
+    e = {"E0": 0, "overfull": 1 << 26}.get(case, (1 << 22) + 3)
+    n = 1 << 20
+    dst = _spmv_ids(rng, case, e, n)
+    ival = torch.from_numpy(rng.integers(0, 1000, e).astype(np.int32))
+    fval = torch.from_numpy(rng.random(e).astype(np.float32))
+    if case == "zeros_at_hub":
+        ival[dst == 0] = 0
+        fval[(dst == 0) & torch.from_numpy(rng.random(e) < 0.5)] = 0
+    views = [(0, 0)] if case != "unaligned" else [(1, 1), (2, 1), (3, 0)]
+    d_dst, d_ival, d_fval = dst.to(cuda), ival.to(cuda), fval.to(cuda)
+    if case == "overfull":
+        _, hot = histogram_ops.hot_list(d_dst, n)
+        assert int(hot) > histogram_ops.HOT_CAP
+    for sv, sd in views:
+        # values and ids starting sv and sd ids past a 16-byte boundary
+        m = e - max(sv, sd)
+        dv, dd = slice(sv, sv + m), slice(sd, sd + m)
+        want_i = segment_sum_int_ref(ival[dv], dst[dd], n)
+        want_f = segment_spmv_ref(fval[dv].double(), dst[dd], n)
+        hot = hot_list(d_dst[dd], n)
+        before = common.launches["segment_spmv"]
+        for kw in ({}, {"hot": hot}):
+            got_i = segment_sum_int(d_ival[dv], d_dst[dd], n, **kw)
+            np.testing.assert_array_equal(got_i.cpu().numpy(),
+                                          want_i.numpy())
+            got_f = segment_spmv(d_fval[dv], d_dst[dd], n, **kw)
+            np.testing.assert_allclose(got_f.cpu().numpy(), want_f.numpy(),
+                                       rtol=1e-5)
+        assert common.launches["segment_spmv"] == before + 4
+
+
 def test_cuda_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         histogram(torch.zeros(4, dtype=torch.int64, device=cuda), 3)
     with pytest.raises(ValueError):
         segment_spmv(torch.zeros(4, device=cuda),
                      torch.zeros(3, dtype=torch.int32, device=cuda), 3)
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        segment_sum_int(ids, ids, 3, hot=torch.zeros(8, dtype=torch.int32,
+                                                     device=cuda))
+    with pytest.raises(ValueError):   # a bucket that splits a shard
+        multinomial_buckets(ids, ids, ids, KEY_WORDS, ids, (1, 2), (1, 3),
+                            eps=0.2, shards=2)
 
 
 def test_cuda_walk_step_matches_plain(cuda):

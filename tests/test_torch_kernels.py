@@ -38,8 +38,10 @@ from repro_torch.kernels.histogram.ops import (HOT_BITS, HOT_CAP, HOT_HITS,
                                                SAMPLE_CHUNK, SAMPLE_STRIDE,
                                                hot_thresholds, sample_size)
 from repro_torch.kernels.multinomial_rows import _math as t_math
-from repro_torch.kernels.multinomial_rows import multinomial_rows
-from repro_torch.kernels.segment_spmv import segment_spmv
+from repro_torch.kernels.multinomial_rows import (multinomial_buckets,
+                                                  multinomial_rows)
+from repro_torch.kernels.segment_spmv import (hot_list, segment_spmv,
+                                              segment_sum_int)
 from repro_torch.kernels.walk_step import walk_step, walk_step_keyed
 
 KEY_WORDS = (0xDEADBEEF, 0x12345678)
@@ -336,7 +338,10 @@ def test_cpu_wrappers_launch_nothing():
     histogram(ids, 2)
     segment_spmv(torch.ones(3), ids, 2)
     segment_spmv(ids, ids, 2, count_bound=2 ** 30)
+    segment_sum_int(ids, ids, 2, hot=hot_list(ids.repeat(1000), 2))
     multinomial_rows(ids, ids, ids, KEY_WORDS, eps=0.2, width=2)
+    multinomial_buckets(ids, ids, ids, KEY_WORDS, ids, (1, 2), (1, 2),
+                        eps=0.2)
     u = torch.zeros(3)
     walk_step(ids, ids, u, u, ids, ids, ids, eps=0.2)
     key = prng.PRNGKey(0)
