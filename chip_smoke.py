@@ -34,15 +34,34 @@
    profiled extra run of the count engine (its device time split into the
    fused sampler, segment_spmv and the rest) and two profiled rounds of
    the walk engine print where the device time goes and its idle share.
-5. The launch CLI's `run()` on a small graph: walks at 2 shards and counts
+   The kernel phase also times segment_spmv on the count engine's
+   received-lane sum (its first round's lanes at P=4).
+5. Algorithm 2 and Section 5: the three-phase engine at P=4 on
+   erdos_renyi(2^20, 8), eps 0.2, K = 139 (S = 6.6e8 coupons), beside the
+   sharded count engine on the same graph; a second run of it splits its
+   wall time by phase and captures each phase's first histogram and
+   segment sum, each then timed at that shape and held exact against its
+   plain version; the fused sampler's dense-cell mode at that run's first
+   Phase-1 round (4 x 4 x 2^18 rows, md 28), exact against its plain
+   version and scatter_cells(sample_buckets()); the single-device engine
+   on erdos_renyi(2^19, 8) (cut from 2^20: its [lam, S] tables and
+   threefry temporaries) beside the count engine; both Section-5 engines
+   on doc_link_graph(2^14) (uniform pools: 13,720 coupons a node); and an
+   eta=1 probe on erdos_renyi(2^16, 8) whose walks finish in the tail,
+   launching walk_step. Each against power iteration (L1 < 0.15, top-10
+   >= 0.6) and the conservation guards (residual and dropped 0, every
+   walk terminated by a coupon or in the tail, coupons used at most once,
+   total visits within 7% of n*K/eps, phase 1 within lam rounds, phase 3
+   one exchange).
+6. The launch CLI's `run()` on a small graph: walks at 2 shards and counts
    at 4 (packed lanes), each with the accuracy gate, and each again with an
    injected failure that must recover to the identical pi.
-6. Small inputs checked against the CPU: the single-device walk engine
+7. Small inputs checked against the CPU: the single-device walk engine
    bit-exact, power iteration within 1e-6 L1, the count engine against the
-   exact PageRank, and both sharded engines at P=8 bit-exact (counts
-   packed and unpacked).
+   exact PageRank, and the sharded engines at P=8 bit-exact (walks, counts
+   packed and unpacked, improved, directed).
 
-Steps 3 and 4 are the main path: every engine is driven with the launch
+Steps 3 to 5 are the main path: every engine is driven with the launch
 counters set to 0 just before it and read just after. Prints the card's
 name and power limit, a `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
@@ -56,6 +75,7 @@ import shutil
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -63,6 +83,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 EPS = 0.2
 N = 1 << 20
+# the single-device Algorithm 2 holds [lam, S] trajectory, edge and move
+# tables and threefry temporaries over its S coupons: at n = 2^20 (S =
+# 6.6e8) some 50 GB, so it runs at half the width
+N_SINGLE_IMPROVED = 1 << 19
+# Section 5 gives every node eta * ceil(ln n) coupons: 13,720 a node at
+# n = 2^14 (S = 2.25e8); at 2^20 no card holds its pools
+N_DIRECTED = 1 << 14
+N_PROBE = 1 << 16              # the eta=1 probe, most walks in the tail
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, outside tensor cores
 MN_OPS_PER_DRAW = 30           # lower bound: counter hash + Binomial setup
@@ -392,15 +420,20 @@ def sampler_phase(g, K, rows):
     # segment_spmv's integer entry on the count engines' first-round sums
     bnbr = torch.from_numpy(agg.bucketize_adjacency(nbr, perm_np, layout)
                             ).to(dev)
-    plan = sum_plan(sg, StackedMesh(4, dev))
+    mesh = StackedMesh(4, dev)
+    plan = sum_plan(sg, mesh)
     flat4 = first["stacked P=4"]
+    recv_c, recv_ids = received_lanes(sg, plan, flat4, mesh)
     sums = {
         "single-device count sum": (first["single-device"], bnbr, n,
                                     hot_list(bnbr, n)),
         "sharded local sum (P=4)": (flat4, plan.local_ids.reshape(-1),
                                     4 * sg.n_loc, plan.local_hot),
         "sharded remote sum (P=4)": (flat4, plan.remote_ids.reshape(-1),
-                                     4 * sg.n_pad, plan.remote_hot)}
+                                     4 * sg.n_pad, plan.remote_hot),
+        # the engine builds this sum's hot list in every call
+        "sharded received-lane sum (P=4)": (recv_c, recv_ids, 4 * sg.n_loc,
+                                            None)}
     extra = {}
     for label, (vals, ids, segs, hot) in sums.items():
         got = segment_sum_int(vals, ids, segs, hot=hot)
@@ -427,6 +460,30 @@ def sampler_phase(g, K, rows):
             shape=f"E={E}, n={segs}", **bound(8 * E + 4 * segs))
         log(f"segment_spmv ({label}): PASS, exact; {extra[label]}")
     rows["segment_spmv"]["count_sums"] = extra
+
+
+def received_lanes(sg, plan, flat_T, mesh):
+    """The (count, offset id) lanes each shard of the sharded count engine
+    receives in the round whose per-edge counts are `flat_T`, with
+    unpacked lanes, as `distributed_counts._exchange_step` builds them:
+    the inputs of its received-lane sum."""
+    import torch
+    from repro_torch.core.routing import _offset_ids, lane_slots, pack_lanes
+    from repro_torch.kernels.segment_spmv import segment_sum_int
+
+    P, n_loc = mesh.shards, sg.n_loc
+    per_vertex = segment_sum_int(flat_T.reshape(-1), plan.remote_ids.reshape(
+        -1), P * sg.n_pad, hot=plan.remote_hot).reshape(P, sg.n_pad)
+    vid = torch.arange(sg.n_pad, dtype=torch.int32,
+                       device=flat_T.device).expand(P, -1)
+    owner = torch.div(vid, n_loc, rounding_mode="floor")
+    ok, idx = lane_slots(owner, per_vertex > 0, P, sg.lane_cap)
+    recv_v = mesh.all_to_all(pack_lanes(idx, vid, ok, P, sg.lane_cap))
+    recv_c = mesh.all_to_all(pack_lanes(idx, per_vertex, ok, P, sg.lane_cap,
+                                        fill=0))
+    sid = mesh.shard_ids().reshape(-1, 1)
+    ids = _offset_ids(recv_v - sid * n_loc, recv_v >= 0, n_loc)
+    return recv_c.reshape(-1), ids.reshape(-1)
 
 
 def walk_step_phase(g, K):
@@ -737,6 +794,443 @@ def sharded_path(g, K, drive, pi_ref, counts_zeta):
     return out
 
 
+class PhaseCalls:
+    """Within `capture()`, records how often each phase of a three-phase
+    run calls `histogram` and `segment_spmv` through the routing layer,
+    and keeps the inputs of each phase's first call of each, for timing
+    at the engine's own shapes afterwards. Also splits the run's wall time
+    by phase: a phase's time runs from its first round's entry (the card
+    synchronised) to the next phase's."""
+
+    PHASES = {"_p1_request": "phase1", "_p2_local": "phase2",
+              "_p3_local": "phase3", "superstep": "tail"}
+
+    def __init__(self):
+        self.calls = {}           # (phase, kernel) -> [count, args, kw]
+        self.phase = None
+        self.seconds = {}
+        self._since = None
+
+    def _enter(self, phase):
+        import torch
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if self.phase is not None:
+            self.seconds[self.phase] = (self.seconds.get(self.phase, 0.0)
+                                        + now - self._since)
+        self.phase, self._since = phase, now
+
+    def _record(self, kernel, args, kw):
+        entry = self.calls.setdefault((self.phase, kernel), [0, args, kw])
+        entry[0] += 1
+
+    @contextmanager
+    def capture(self):
+        from repro_torch.core import distributed_improved as di
+        from repro_torch.core import routing
+        saved = {name: getattr(di, name) for name in self.PHASES}
+        saved_kernels = routing.histogram, routing.segment_spmv
+
+        def phase(name):
+            def run(*args, **kw):
+                self._enter(self.PHASES[name])
+                return saved[name](*args, **kw)
+            return run
+
+        def kernel(name, fn):
+            def run(*args, **kw):
+                self._record(name, args, kw)
+                return fn(*args, **kw)
+            return run
+
+        for name in self.PHASES:
+            setattr(di, name, phase(name))
+        routing.histogram = kernel("histogram", saved_kernels[0])
+        routing.segment_spmv = kernel("segment_spmv", saved_kernels[1])
+        try:
+            yield self
+            self._enter(None)
+        finally:
+            for name, fn in saved.items():
+                setattr(di, name, fn)
+            routing.histogram, routing.segment_spmv = saved_kernels
+
+
+def phase_kernel_rows(calls):
+    """Each phase's first histogram and segment sum of a three-phase run,
+    timed: the kernel, its plain version and a one-call PyTorch yardstick,
+    beside the bound of its bytes; each exact against its plain version."""
+    import torch
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.kernels.histogram.ref import histogram_ref
+    from repro_torch.kernels.segment_spmv import segment_spmv
+    from repro_torch.kernels.segment_spmv.ref import (segment_spmv_ref,
+                                                      segment_sum_int_ref)
+    from repro_torch.kernels.segment_spmv.ops import F32_EXACT_MAX
+
+    out = {}
+    for (phase, kernel), (count, args, kw) in sorted(calls.items()):
+        if kernel == "histogram":
+            ids, n = args
+            W = ids.numel()
+            got, want = histogram(ids, n), histogram_ref(ids, n)
+            err = int((got - want).abs().max()) if n else 0
+            del got, want
+            shifted = ids + 1
+            row = dict(
+                ms=cuda_ms(lambda: histogram(ids, n), 5),
+                plain_ms=cuda_ms(lambda: histogram_ref(ids, n), 1),
+                library_ms=cuda_ms(lambda: torch.bincount(
+                    shifted, minlength=n + 1), 1),
+                shape=f"W={W} ids, n={n}", **bound(4 * W + 4 * n))
+            del shifted
+        else:
+            values, dst, n = args
+            cb = kw.get("count_bound")
+            wide = cb is not None and int(cb) > F32_EXACT_MAX
+            plain = segment_sum_int_ref if wide else segment_spmv_ref
+            got = segment_spmv(values, dst, n, count_bound=cb)
+            want = plain(values if wide else values.float(), dst, n)
+            err = float((got.double() - want.double()).abs().max()) \
+                if n else 0
+            E = values.numel()
+            spare = torch.where((dst >= 0) & (dst < n), dst, n)
+            row = dict(
+                ms=device_ms(lambda: segment_spmv(values, dst, n,
+                                                  count_bound=cb), 10,
+                             *SPMV_KERNELS),
+                call_ms=cuda_ms(lambda: segment_spmv(values, dst, n,
+                                                     count_bound=cb), 10),
+                plain_ms=cuda_ms(lambda: plain(values if wide
+                                               else values.float(), dst, n),
+                                 2),
+                library_ms=cuda_ms(lambda: torch.zeros(
+                    n + 1, dtype=torch.int32, device=dst.device).index_add_(
+                        0, spare, values), 5),
+                shape=f"E={E}, n={n}, integer entry {wide}",
+                **bound(8 * E + 4 * n))
+            del spare
+        check(err == 0, f"{phase} {kernel}: differs from its plain version "
+                        f"by {err}")
+        row.update(launches=count, max_abs_err=err)
+        out[f"{phase} {kernel}"] = row
+        log(f"{phase} {kernel}: PASS, exact; {row}")
+    return out
+
+
+def three_phase_checks(label, res, n, K, pi_ref, *, probe=False):
+    """The three-phase engines' guards: nothing lost (residual, dropped),
+    every walk accounted for through Phase 2, coupons used at most once,
+    total visits near n*K/eps, Phase 1 within lam rounds and Phase 3 one
+    exchange, and the accuracy policy. Returns the run's summary."""
+    check(res.residual == 0 and res.dropped == 0,
+          f"{label}: residual {res.residual}, dropped {res.dropped}")
+    active = n * K
+    for t, rec in enumerate(res.phase2_records):
+        active -= rec["terminated"] + rec["exhausted"]
+        check(rec["active"] == active,
+              f"{label}: phase-2 record {t} breaks conservation: {rec}")
+    check(active == 0, f"{label}: {active} walks left after phase 2")
+    check(res.terminated_by_coupon + res.tail_walks == n * K
+          and res.tail_walks == res.exhausted_walks,
+          f"{label}: terminated {res.terminated_by_coupon} + tail "
+          f"{res.tail_walks} != n*K, or tail != exhausted "
+          f"{res.exhausted_walks}")
+    stitched = sum(r["stitched"] for r in res.phase2_records)
+    check(stitched == res.coupons_used <= res.coupons_created,
+          f"{label}: stitched {stitched}, used {res.coupons_used}, created "
+          f"{res.coupons_created}")
+    if probe:
+        check(res.coupons_used == res.coupons_created and res.tail_walks > 0,
+              f"{label}: the probe did not exhaust the pools")
+    expect = n * K / EPS
+    check(abs(res.total_visits - expect) / expect < 0.07,
+          f"{label}: {res.total_visits} visits, expected ~{expect:.0f}")
+    check(res.phase1_rounds <= res.lam and res.phase3_rounds == 1,
+          f"{label}: phase-1 rounds {res.phase1_rounds} (lam {res.lam}), "
+          f"phase-3 rounds {res.phase3_rounds}")
+    l1, top = accuracy(label, res.pi, pi_ref, n)
+    return dict(
+        rounds=res.rounds, phase1=res.phase1_rounds, phase2=res.phase2_rounds,
+        phase3=res.phase3_rounds, tail=res.tail_rounds, lam=res.lam,
+        eta=res.eta, K=K, wire=res.a2a_bytes_by_phase,
+        entries=res.a2a_entries_by_site, created=res.coupons_created,
+        used=res.coupons_used, exhausted=res.exhausted_walks,
+        tail_walks=res.tail_walks, waited=res.waited,
+        sampler_s=res.sampler_us / 1e6,
+        sampler_ms_a_round=res.sampler_us / 1e3 / max(res.phase1_rounds, 1),
+        occupancy=list(res.p1_occupancy), l1=l1, top10=top)
+
+
+def phase1_cells_check(g, K):
+    """The fused sampler's dense-cell mode at the Phase-1 shape of the
+    P=4 run on `g`: P x P x n_loc (home, vertex) rows of the first round,
+    each owner under its first round key, against its plain version on the
+    card and against scatter_cells of the per-bucket round; timed."""
+    import math
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import aggregate_sampler as agg
+    from repro_torch.core.distributed_improved import plan_three_phase
+    from repro_torch.core.improved_pagerank import coupon_pool_sizes
+    from repro_torch.kernels.multinomial_rows import multinomial_buckets
+    from repro_torch.kernels.multinomial_rows.ref import \
+        multinomial_buckets_ref
+
+    P, dev = 4, g.device
+    lam = max(1, math.ceil(math.sqrt(math.log(g.n))))
+    _, pool = coupon_pool_sizes(g, EPS, K, lam)
+    plan = plan_three_phase(g, P, pool, K)
+    n_loc, md, lay = plan.n_loc, plan.md, plan.layout
+    n_pad = P * n_loc
+    # the first round: every coupon at its own vertex, home = owner
+    c = torch.zeros((P, P, n_loc), dtype=torch.int32, device=dev)
+    psize = torch.from_numpy(plan.psize_sh).to(torch.int32).to(dev)
+    for p in range(P):
+        c[p, p] = psize[p]
+    c = c.reshape(P, n_pad)
+    _, k1, _ = prng.split(prng.PRNGKey(0), 3)
+    keys = torch.stack([prng.split(k, 3)[1] for k in prng.split(k1, P)])
+    deg_row = plan.sg.out_deg.repeat(1, P)
+    rid = torch.arange(P * n_pad, dtype=torch.int32, device=dev)
+    perm = torch.from_numpy(plan.rows_perm).to(dev)
+    args = (c.reshape(-1), deg_row.reshape(-1), rid, keys, perm,
+            plan.rows_layout.widths, plan.rows_layout.caps)
+
+    def kernel():
+        return multinomial_buckets(*args, eps=EPS, shards=P, cells=md)
+
+    def plain():
+        return multinomial_buckets_ref(*args, eps=EPS, shards=P, cells=md)
+
+    lay_t = lay.tile(P)
+    offs = torch.arange(P, device=dev).reshape(P, 1) * n_loc
+    perms = []
+    for p in range(P):
+        bp = torch.from_numpy(plan.bperm_np[p]).to(dev)
+        perms.append(torch.cat([
+            torch.where(bp[None, s:s + cap] < 0, -1,
+                        offs + bp[None, s:s + cap]).reshape(-1)
+            for s, cap in zip(lay.row_starts, lay.caps)]).to(torch.int32))
+
+    def per_bucket():
+        return torch.cat([agg.scatter_cells(agg.sample_buckets(
+            c[p], deg_row[p], rid[p * n_pad:(p + 1) * n_pad],
+            tuple(keys[p].to(torch.int64).tolist()), perms[p], lay_t,
+            eps=EPS)[0], lay_t, md) for p in range(P)])
+
+    got, want, old = kernel(), plain(), per_bucket()
+    diff = int((got[0] != want[0]).sum())
+    check(diff == 0 and torch.equal(got[0], old),
+          f"multinomial_buckets cells: {diff} cells differ from its plain "
+          f"version, or it differs from scatter_cells(sample_buckets())")
+    check(torch.equal(got[1], want[1]) and int(got[2]) == int(want[2]) == 0,
+          "multinomial_buckets cells: occupancy or residual differ")
+    cells = want[0].reshape(-1, md + 1)
+    cr, dr = c.reshape(-1), deg_row.reshape(-1)
+    check(torch.equal(cells.sum(1), cr), "cells: a row's cells do not sum "
+                                         "to its count")
+    rem = cr[:, None] - cells[:, 0:1] - torch.cumsum(cells[:, 1:], 1) \
+        + cells[:, 1:]
+    slot = torch.arange(md, device=dev)[None, :]
+    draws = int(((cr > 0) & (dr > 0)).sum()) \
+        + int(((rem > 0) & (slot < dr[:, None])).sum())
+    rows = cr.numel()
+    row = dict(
+        ms=device_ms(kernel, 10, "multinomial_buckets_kernel"),
+        call_ms=cuda_ms(kernel, 10), plain_ms=cuda_ms(plain, 1),
+        per_bucket_round_ms=cuda_ms(per_bucket, 2), library_ms=None,
+        max_abs_err=diff, launches_a_round=1,
+        shape=f"{perm.numel()} slots, {rows} rows (P={P} owners x {P} homes "
+              f"x n_loc={n_loc}), md={md}, {len(lay.caps)} buckets, "
+              f"{draws} draws",
+        **bound(4 * perm.numel() + 12 * rows + 4 * rows * (md + 1),
+                MN_OPS_PER_DRAW * draws))
+    log(f"multinomial_buckets, dense cells (phase 1): PASS, exact (0 of "
+        f"{got[0].numel()} cells differ from its plain version on the card "
+        f"and from scatter_cells(sample_buckets())); {row}")
+    return row
+
+
+def three_phase_path(drive, sharded_rounds):
+    """Algorithm 2 and Section 5 at full width on the card: the sharded
+    three-phase engine at P=4 on erdos_renyi(2^20, 8) beside the sharded
+    count engine (Algorithm 1) on the same graph, once more with each
+    phase's kernel calls captured and timed at their shapes; the dense-cell
+    sampler at that run's Phase-1 shape; the single-device engine on
+    erdos_renyi(2^19, 8) beside Algorithm 1's count engine; both Section-5
+    engines on doc_link_graph(2^14); and an eta=1 probe whose walks fall
+    back to the tail, which launches walk_step."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import (directed_local_pagerank, improved_pagerank,
+                                  power_iteration, simple_pagerank,
+                                  walks_per_node_for)
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.core.distributed_counts import \
+        distributed_pagerank_counts
+    from repro_torch.core.distributed_directed import \
+        distributed_directed_pagerank
+    from repro_torch.core.distributed_improved import \
+        distributed_improved_pagerank
+    from repro_torch.graphs import doc_link_graph, erdos_renyi
+
+    out = {}
+    three = ["histogram", "segment_spmv", "multinomial_rows"]
+
+    def oracle(g, label):
+        (pi, _, iters), secs, _ = drive(
+            f"power_iteration[{label}]",
+            lambda: power_iteration(g, EPS, tol=1e-7, max_iters=1000),
+            ["segment_spmv"])
+        return pi.cpu().numpy()
+
+    def report(label, res, secs, peak, summary):
+        summary.update(seconds=secs, peak_gib=peak)
+        out[label] = summary
+        log(f"{label}: {summary}")
+
+    # ---- Algorithm 2, sharded, P=4, erdos_renyi(2^20, 8) ----
+    t0 = time.perf_counter()
+    g = erdos_renyi(N, 8.0, seed=0)
+    K = walks_per_node_for(g.n, EPS)
+    log(f"graph: erdos_renyi({N}, 8) n={g.n} m={g.m} max_out_deg="
+        f"{g.max_out_deg} in {time.perf_counter() - t0:.2f} s; K={K}")
+    pi_ref = oracle(g, f"erdos_renyi({g.n})")
+    mesh = StackedMesh(4, g.device)
+    res, secs, peak = drive(
+        f"distributed_pagerank_counts[erdos_renyi({g.n}), P=4]",
+        lambda: distributed_pagerank_counts(g, EPS, K, prng.PRNGKey(0),
+                                            mesh=mesh, packed=False),
+        ["multinomial_rows", "segment_spmv"])
+    l1, top = accuracy("counts on erdos_renyi", res.pi, pi_ref, g.n)
+    out["alg1 counts P=4, erdos_renyi"] = dict(
+        seconds=secs, rounds=res.rounds, l1=l1, top10=top, peak_gib=peak)
+    del res
+    torch.cuda.empty_cache()
+
+    def improved():
+        return distributed_improved_pagerank(g, EPS, K, prng.PRNGKey(0),
+                                             mesh=mesh)
+
+    res, secs, peak = drive("distributed_improved_pagerank[P=4]", improved,
+                            three)
+    report("improved P=4, erdos_renyi", res, secs, peak,
+           three_phase_checks("improved P=4", res, g.n, K, pi_ref))
+    zeta = res.zeta
+    del res
+    torch.cuda.empty_cache()
+    log(f"rounds: Algorithm 2 (P=4) "
+        f"{out['improved P=4, erdos_renyi']['rounds']} against "
+        f"Algorithm 1's count engine "
+        f"{out['alg1 counts P=4, erdos_renyi']['rounds']} on erdos_renyi("
+        f"{g.n}) and {sharded_rounds} on doc_link_graph({N})")
+
+    # the same run with each phase's kernel calls captured, then timed
+    calls = PhaseCalls()
+    with calls.capture():
+        again = improved()
+    check(torch.equal(again.zeta, zeta), "improved P=4: a second run with "
+                                         "the same key differs")
+    hist_calls = {phase: entry[0] for (phase, kernel), entry
+                  in calls.calls.items() if kernel == "histogram"}
+    log(f"improved P=4: wall seconds by phase (a second run, the card "
+        f"synchronised at each phase's rounds): "
+        f"{ {k: round(v, 3) for k, v in calls.seconds.items()} }; "
+        f"histogram calls by phase {hist_calls}")
+    out["improved P=4, erdos_renyi"]["phase_seconds"] = calls.seconds
+    del again, zeta
+    torch.cuda.empty_cache()
+    phase_rows = phase_kernel_rows(calls.calls)
+    del calls
+    torch.cuda.empty_cache()
+    cells_row = phase1_cells_check(g, K)
+    del g, mesh
+    torch.cuda.empty_cache()
+
+    # ---- Algorithm 2, single device, erdos_renyi(2^19, 8) ----
+    g = erdos_renyi(N_SINGLE_IMPROVED, 8.0, seed=0)
+    K2 = walks_per_node_for(g.n, EPS)
+    pi_ref = oracle(g, f"erdos_renyi({g.n})")
+    res, secs, peak = drive(
+        f"simple_pagerank[counts, erdos_renyi({g.n})]",
+        lambda: simple_pagerank(g, EPS, engine="counts", traced=True),
+        ["multinomial_rows", "segment_spmv"])
+    out["alg1 counts single-device, erdos_renyi"] = dict(
+        seconds=secs, rounds=res.logical_rounds, peak_gib=peak)
+    del res
+    res, secs, peak = drive(f"improved_pagerank[erdos_renyi({g.n})]",
+                            lambda: improved_pagerank(g, EPS), ["histogram"])
+    l1, top = accuracy("improved single-device", res.pi, pi_ref, g.n)
+    expect = g.n * K2 / EPS
+    visits = int(res.zeta.sum(dtype=torch.int64))
+    check(abs(visits - expect) / expect < 0.07
+          and res.coupons_used <= res.coupons_created,
+          f"improved single-device: {visits} visits, expected ~{expect:.0f}, "
+          f"or more coupons used than created")
+    report("improved single-device, erdos_renyi", res, secs, peak, dict(
+        rounds=res.logical_rounds, phase1=res.phase1_rounds,
+        phase2=res.phase2_rounds, phase3=res.phase3_rounds,
+        tail=res.tail_rounds, lam=res.lam, eta=res.eta, K=K2,
+        created=res.coupons_created, used=res.coupons_used,
+        exhausted=res.exhausted_walks, l1=l1, top10=top))
+    del res, g
+    torch.cuda.empty_cache()
+
+    # ---- Section 5, doc_link_graph(2^14): sharded P=4 and single device --
+    g = doc_link_graph(N_DIRECTED, seed=0)
+    K3 = walks_per_node_for(g.n, EPS)
+    pi_ref = oracle(g, f"doc_link_graph({g.n})")
+    res, secs, peak = drive(
+        f"distributed_pagerank_counts[doc_link_graph({g.n}), P=4]",
+        lambda: distributed_pagerank_counts(
+            g, EPS, K3, prng.PRNGKey(0), mesh=StackedMesh(4, g.device),
+            packed=False),
+        ["multinomial_rows", "segment_spmv"])
+    out["alg1 counts P=4, doc_link_graph"] = dict(
+        seconds=secs, rounds=res.rounds, peak_gib=peak)
+    del res
+    res, secs, peak = drive(
+        "distributed_directed_pagerank[P=4]",
+        lambda: distributed_directed_pagerank(
+            g, EPS, K3, prng.PRNGKey(0), mesh=StackedMesh(4, g.device)),
+        three)
+    summary = three_phase_checks("directed P=4", res, g.n, K3, pi_ref)
+    summary.update(uniform_budget=res.uniform_budget,
+                   dangling=res.dangling_nodes)
+    report("directed P=4, doc_link_graph", res, secs, peak, summary)
+    del res
+    torch.cuda.empty_cache()
+    res, secs, peak = drive(f"directed_local_pagerank[doc_link_graph({g.n})]",
+                            lambda: directed_local_pagerank(g, EPS),
+                            ["histogram"])
+    l1, top = accuracy("directed single-device", res.pi, pi_ref, g.n)
+    report("directed single-device, doc_link_graph", res, secs, peak,
+           dict(rounds=res.logical_rounds, phase1=res.phase1_rounds,
+                phase2=res.phase2_rounds, tail=res.tail_rounds, lam=res.lam,
+                eta=res.eta, K=K3, created=res.coupons_created,
+                used=res.coupons_used, exhausted=res.exhausted_walks, l1=l1,
+                top10=top))
+    del res, g
+    torch.cuda.empty_cache()
+
+    # ---- the exhaustion probe: eta=1, erdos_renyi(2^16, 8), P=4 ----
+    g = erdos_renyi(N_PROBE, 8.0, seed=0)
+    K4 = walks_per_node_for(g.n, EPS)
+    pi_ref = oracle(g, f"erdos_renyi({g.n})")
+    res, secs, peak = drive(
+        "distributed_improved_pagerank[eta=1, P=4]",
+        lambda: distributed_improved_pagerank(
+            g, EPS, K4, prng.PRNGKey(0), mesh=StackedMesh(4, g.device),
+            eta=1), three + ["walk_step"])
+    report("probe eta=1 P=4, erdos_renyi", res, secs, peak,
+           three_phase_checks("probe eta=1", res, g.n, K4, pi_ref,
+                              probe=True))
+    del res, g
+    torch.cuda.empty_cache()
+    return out, phase_rows, cells_row
+
+
 def cli_phase():
     """The launch CLI's run() on the card: walks at 2 shards and counts at
     4 (packed lanes), each gated on accuracy and each recovering from an
@@ -772,6 +1266,10 @@ def small_check():
     from repro_torch.core.distributed import distributed_pagerank
     from repro_torch.core.distributed_counts import \
         distributed_pagerank_counts
+    from repro_torch.core.distributed_directed import \
+        distributed_directed_pagerank
+    from repro_torch.core.distributed_improved import \
+        distributed_improved_pagerank
     from repro_torch.graphs import erdos_renyi
 
     g_cpu = erdos_renyi(96, 5.0, seed=1, device="cpu")
@@ -805,15 +1303,26 @@ def small_check():
                 r.a2a_bytes_total, r.lane_cap, r.overflow, r.occupancy,
                 r.residual)
 
+    def three_phase(fn, graph, dev):
+        r = fn(graph, EPS, 8, key, mesh=StackedMesh(8, dev))
+        return (r.zeta.cpu().tolist(), r.rounds, r.phase1_rounds,
+                r.phase2_rounds, r.tail_rounds, r.a2a_bytes_by_phase,
+                r.a2a_entries_by_site, r.coupons_used, r.p1_occupancy,
+                r.residual, r.dropped)
+
     check(walks(g, "cuda") == walks(g_cpu, "cpu"),
           "small sharded walks (P=8): card and CPU differ")
+    for fn in (distributed_improved_pagerank, distributed_directed_pagerank):
+        check(three_phase(fn, g, "cuda") == three_phase(fn, g_cpu, "cpu"),
+              f"small {fn.__name__} (P=8): card and CPU differ")
     for packed in (True, False):
         check(counts(g, "cuda", packed) == counts(g_cpu, "cpu", packed),
               f"small sharded counts (P=8, packed={packed}): card and CPU "
               f"differ")
     log(f"small check (erdos_renyi(96)): walks zeta card == CPU, power "
         f"iteration L1 {l1_pi:.2e}, counts L1 vs exact {l1_c:.4f}; sharded "
-        f"walks and counts (packed, unpacked) at P=8 card == CPU")
+        f"walks, counts (packed, unpacked), improved and directed at P=8 "
+        f"card == CPU")
 
 
 def main() -> int:
@@ -871,6 +1380,12 @@ def main() -> int:
         del counts_zeta
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        three, phase_rows, cells_row = three_phase_path(
+            drive, sharded["counts"]["rounds"])
+        rows["multinomial_rows"]["phase1_cells"] = cells_row
+        rows["three_phase_calls"] = phase_rows
+        phases["three_phase"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         cli_phase()
         phases["cli"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -888,7 +1403,8 @@ def main() -> int:
         f"{walks['rounds']} rounds x {threefry_ms:.3f} ms), counts "
         f"{runs['counts']['seconds']:.3f} s, sharded counts P=4 "
         f"{sharded['counts']['seconds']:.3f} s, sharded walks P=2 "
-        f"{sharded['walks']['seconds']:.3f} s; by phase "
+        f"{sharded['walks']['seconds']:.3f} s; three-phase "
+        f"{ {k: round(v['seconds'], 3) for k, v in three.items()} }; by phase "
         f"{ {k: round(v, 2) for k, v in phases.items()} }; whole script "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -900,7 +1416,8 @@ def main() -> int:
         "walk_step": "src/repro/kernels/walk_step/walk_step.py:69",
     }
     kernels = []
-    for name, row in rows.items():
+    for name in replaces:
+        row = rows[name]
         kernels.append(dict(
             name=name, route="cuda",
             source=str(common.SOURCES[name].relative_to(ROOT)),
@@ -908,6 +1425,7 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    log("kernel detail: " + json.dumps(rows, default=str))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -22,8 +22,15 @@ the manifest's shard count differs from the live mesh's:
                       its per-vertex counter draws continue bit-exactly.
   ``replicated``      replicated scalars and arrays: unchanged.
 
-The JAX package has two more kinds, ``walk_aux`` and ``slot``, for the
-three-phase and PPR engines; they come with those engines.
+  ``slot``            [P, S_loc_pad, *rest] coupon-slot buffers of the
+                      three-phase engines (pos, alive, traj, used, dest,
+                      cterm). Vertex v's coupons sit in contiguous slots
+                      at pstart[owner(v), v_loc] under every shard count,
+                      a pure function of the pool sizes (``pool``) and P,
+                      so the re-layout is a bit-exact bijection.
+
+The JAX package has one more kind, ``walk_aux``, for the PPR engine; it
+comes with that engine.
 
 Snapshots are host numpy dicts (as `Checkpointer.restore` gives them), so
 this module is numpy throughout; only the key derivation uses the port's
@@ -46,16 +53,18 @@ from repro_torch.checkpoint.checkpointer import unpack_json
 class LayoutSpec:
     """How one engine buffer is laid out across the mesh.
 
-    kind  walk | vertex | key | replicated_key | replicated (see the
-          module docstring).
-    n     number of real vertices (walk and vertex kinds).
+    kind  walk | vertex | slot | key | replicated_key | replicated (see
+          the module docstring).
+    n     number of real vertices (walk, vertex and slot kinds).
+    pool  per-vertex coupon pool sizes, length n (slot kind).
     cap   target per-shard lane capacity (walk kind); relayout grows past
           it only when one shard's walks do not fit.
-    fill  empty-slot filler (walk kind).
+    fill  empty-slot filler (walk and slot kinds).
     """
 
     kind: str
     n: Optional[int] = None
+    pool: Optional[np.ndarray] = None
     cap: Optional[int] = None
     fill: int = 0
 
@@ -83,6 +92,43 @@ def _relayout_vertex(arr: np.ndarray, n: int, new_shards: int) -> np.ndarray:
     out = np.zeros((n_loc * new_shards,) + rest, dtype=arr.dtype)
     out[:n] = flat
     return out.reshape((new_shards, n_loc) + rest)
+
+
+def _slot_index(pool: np.ndarray, n: int, shards: int):
+    """Flat slot index of every real coupon under a P-shard pool layout:
+    (flat_idx [S_total], S_loc_pad). Coupon (v, j), the j-th coupon of
+    vertex v, lives at owner(v) * S_loc_pad + pstart[owner(v), v_loc] + j,
+    the placement the three-phase engines build."""
+    n_loc = math.ceil(n / shards)
+    n_pad = n_loc * shards
+    pool_pad = np.zeros(n_pad, dtype=np.int64)
+    pool_pad[:n] = np.asarray(pool, dtype=np.int64)[:n]
+    psize = pool_pad.reshape(shards, n_loc)
+    pstart = np.zeros_like(psize)
+    pstart[:, 1:] = np.cumsum(psize, axis=1)[:, :-1]
+    S_loc_pad = max(int(psize.sum(axis=1).max()), 1)
+    v = np.repeat(np.arange(n_pad), pool_pad)
+    starts = np.concatenate([[0], np.cumsum(pool_pad)[:-1]])
+    within = np.arange(len(v), dtype=np.int64) - np.repeat(starts, pool_pad)
+    flat = (v // n_loc) * S_loc_pad + pstart.reshape(-1)[v] + within
+    return flat, S_loc_pad
+
+
+def _relayout_slot(arr: np.ndarray, spec: LayoutSpec,
+                   new_shards: int) -> np.ndarray:
+    """Re-home a coupon-slot buffer (bit-exact bijection)."""
+    old_shards = arr.shape[0]
+    old_idx, S_old = _slot_index(spec.pool, spec.n, old_shards)
+    new_idx, S_new = _slot_index(spec.pool, spec.n, new_shards)
+    if arr.shape[:2] != (old_shards, S_old):
+        raise ValueError(
+            f"slot buffer shape {arr.shape[:2]} does not match the "
+            f"{old_shards}-shard pool layout {(old_shards, S_old)}")
+    rest = arr.shape[2:]
+    flat = arr.reshape((old_shards * S_old,) + rest)
+    out = np.full((new_shards * S_new,) + rest, spec.fill, dtype=arr.dtype)
+    out[new_idx] = flat[old_idx]
+    return out.reshape((new_shards, S_new) + rest)
 
 
 def _relayout_walk(primary: np.ndarray, spec: LayoutSpec,
@@ -121,6 +167,8 @@ def relayout_arrays(arrays: Dict[str, np.ndarray],
             out[name] = _relayout_walk(arr, spec, new_shards)
         elif spec.kind == "vertex":
             out[name] = _relayout_vertex(arr, spec.n, new_shards)
+        elif spec.kind == "slot":
+            out[name] = _relayout_slot(arr, spec, new_shards)
         elif spec.kind == "key":
             out[name] = derive_shard_keys(arr, new_shards)
         elif spec.kind == "replicated_key":

@@ -16,6 +16,9 @@ straight into the flat layout of `bucketize_adjacency`. `sample_buckets` +
 over the O(log max_deg) buckets with one `multinomial_rows` call each; the
 tests and the card's smoke run hold the fused round against them.
 
+The three-phase engines' Phase 1 draws (home, vertex) rows into dense
+outcome cells (`scatter_cells`, or the fused entry's `cells=` mode).
+
 `bucketed=False` is the same machinery with a single bucket of width
 max_deg.
 """
@@ -60,6 +63,13 @@ class BucketLayout:
             out.append(s)
             s += c
         return tuple(out)
+
+    def tile(self, copies: int) -> "BucketLayout":
+        """Layout for `copies` stacked replicas of the same row set (the
+        Phase-1 home-major (home, vertex) row matrix)."""
+        return BucketLayout(widths=self.widths,
+                            caps=tuple(c * copies for c in self.caps),
+                            n_rows=self.n_rows * copies)
 
 
 def bucket_of(deg: np.ndarray) -> np.ndarray:
@@ -225,3 +235,22 @@ def flatten_moves(samples, shards: int | None = None) -> torch.Tensor:
         return torch.cat([T[:, 1:].reshape(-1) for _, T in samples])
     return torch.cat([T[:, 1:].reshape(shards, -1) for _, T in samples],
                      dim=1)
+
+
+def scatter_cells(samples, layout: BucketLayout, max_deg: int
+                  ) -> torch.Tensor:
+    """Dense per-row outcome cells [n_rows * (max_deg + 1)] int32 of
+    `sample_buckets`' samples: cell r*(max_deg+1) is row r's termination
+    count, cell r*(max_deg+1)+1+j its out-edge-j count (0 beyond the row's
+    bucket width). The Phase-1 reply layout of the three-phase engines,
+    and the plain version of `multinomial_buckets(..., cells=max_deg)`."""
+    size = layout.n_rows * (max_deg + 1)
+    dev = samples[0][1].device if samples else "cpu"
+    out = torch.zeros(size + 1, dtype=torch.int32, device=dev)
+    for (rows_b, T_b), w in zip(samples, layout.widths):
+        base = torch.where(rows_b < 0, size,
+                           rows_b.to(torch.int64) * (max_deg + 1))
+        offs = torch.arange(w + 1, dtype=torch.int64, device=dev)
+        idx = torch.clamp(base[:, None] + offs[None, :], max=size)
+        out[idx.reshape(-1)] = T_b.reshape(-1)
+    return out[:size]

@@ -53,6 +53,14 @@
 //    rows' leftover counts (c minus all it drew, which must be 0) in
 //    shared memory, then adds them to the outputs with one atomic per
 //    bucket and block.
+//    Its dense-cell mode (cell_width = md + 1 > 0) is the Phase-1 sampler
+//    of the three-phase engines: the same draws, but each slot writes its
+//    row r's whole outcome block to cells[r * cell_width + k], k = 0 the
+//    termination count, k = 1 + j the count on out-edge j, and zeros from
+//    width(b) + 1 to md; padding slots write nothing. Rows are (home,
+//    vertex) pairs there and every owner shard draws under its own round
+//    key, so shard_keys, when given, holds the key words of each shard p
+//    (the p of the slot arithmetic above) in place of (k0, k1).
 //
 // Bit-exactness with the plain torch version on the same card: the hash is
 // native uint32 arithmetic; the float chain is built with --fmad=false and
@@ -214,7 +222,9 @@ multinomial_buckets_kernel(const int32_t* __restrict__ perm,
                            const int32_t* __restrict__ rid, int n_rows,
                            uint32_t k0, uint32_t k1, float eps,
                            const __grid_constant__ BucketTable tbl,
-                           int32_t* __restrict__ moves,
+                           const uint32_t* __restrict__ shard_keys,
+                           int cell_width, int32_t* __restrict__ moves,
+                           int32_t* __restrict__ cells,
                            int32_t* __restrict__ occupancy,
                            unsigned long long* __restrict__ residual) {
   __shared__ int occ[kMaxBuckets];
@@ -231,8 +241,8 @@ multinomial_buckets_kernel(const int32_t* __restrict__ perm,
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool valid = slot < tbl.slots;
   const int s = static_cast<int>(valid ? slot : 0);
-  int b = 0, w = 0, c = 0, d = 0;
-  uint32_t id = 0;
+  int b = 0, w = 0, c = 0, d = 0, row = -1;
+  uint32_t id = 0, kk0 = k0, kk1 = k1;
   long long word = 0;
   if (valid) {
     while (b + 1 < tbl.buckets && s >= tbl.row_start[b + 1]) ++b;
@@ -245,9 +255,13 @@ multinomial_buckets_kernel(const int32_t* __restrict__ perm,
     }
     word = p * tbl.shard_edges + tbl.edge_start[b] +
            static_cast<long long>(i) * w;
+    if (shard_keys != nullptr) {
+      kk0 = shard_keys[2 * p];
+      kk1 = shard_keys[2 * p + 1];
+    }
     const int r = perm[s];
     if (r >= 0) {
-      const int row = min(r, n_rows - 1);
+      row = min(r, n_rows - 1);
       c = counts[row];
       d = deg[row];
       id = static_cast<uint32_t>(rid[row]);
@@ -257,13 +271,20 @@ multinomial_buckets_kernel(const int32_t* __restrict__ perm,
   const long long word0 = __shfl_sync(kFull, word, 0);
   const int w0 = __shfl_sync(kFull, w, 0);
   const bool staged = __all_sync(
-      kFull, valid && w == w0 && w <= kStageWidth &&
+      kFull, cell_width == 0 && valid && w == w0 && w <= kStageWidth &&
                  word == word0 + static_cast<long long>(lane) * w);
   const int stride = w0 | 1;
   int32_t* warp_stage = stage[threadIdx.x >> 5];
   int left = 0;
-  if (valid) {
-    sample_row(c, d, id, k0, k1, eps, w,
+  if (valid && cell_width > 0) {
+    if (row >= 0) {
+      int32_t* out = cells + static_cast<long long>(row) * cell_width;
+      out[0] = sample_row(c, d, id, kk0, kk1, eps, w, out + 1, &left);
+      for (int k = w + 1; k < cell_width; ++k) out[k] = 0;
+    }
+    if (c > 0) atomicAdd(occ + b, 1);
+  } else if (valid) {
+    sample_row(c, d, id, kk0, kk1, eps, w,
                staged ? warp_stage + lane * stride : moves + word, &left);
     if (c > 0) atomicAdd(occ + b, 1);
   }
@@ -308,7 +329,10 @@ int multinomial_rows_launch(const int32_t* counts, const int32_t* deg,
 // One round of the degree-bucketed sampler: moves[shards * shard_edges]
 // (written whole), occupancy[buckets] and *residual (both zero on entry)
 // as the header says. Bucket b holds the slots [row_start[b],
-// row_start[b] + shards * cap[b]) of perm[slots], slots < 2^31. Returns a
+// row_start[b] + shards * cap[b]) of perm[slots], slots < 2^31. With
+// cell_width > 0 it writes cells[n_rows * cell_width] (the rows of the
+// slots, zeroed on entry for rows no slot names) and not moves, with
+// shard_keys[2 * shards] (or null) the key words of each shard. Returns a
 // cudaError_t.
 int multinomial_buckets_launch(const int32_t* perm, const int32_t* counts,
                                const int32_t* deg, const int32_t* rid,
@@ -317,12 +341,14 @@ int multinomial_buckets_launch(const int32_t* perm, const int32_t* counts,
                                const long long* edge_start, const int* cap,
                                const int* width, int shards,
                                long long shard_edges, long long slots,
-                               int32_t* moves, int32_t* occupancy,
+                               const uint32_t* shard_keys, int cell_width,
+                               int32_t* moves, int32_t* cells,
+                               int32_t* occupancy,
                                unsigned long long* residual,
                                cudaStream_t stream) {
   if (slots == 0) return 0;
   if (buckets < 1 || buckets > kMaxBuckets || shards < 1 ||
-      slots >= (1LL << 31))
+      slots >= (1LL << 31) || cell_width < 0)
     return cudaErrorInvalidValue;
   BucketTable tbl = {};
   for (int b = 0; b < buckets; ++b) {
@@ -338,8 +364,9 @@ int multinomial_buckets_launch(const int32_t* perm, const int32_t* counts,
   const long long blocks = (slots + kBucketThreads - 1) / kBucketThreads;
   multinomial_buckets_kernel<<<static_cast<unsigned>(blocks), kBucketThreads,
                                0, stream>>>(perm, counts, deg, rid, n_rows, k0,
-                                            k1, eps, tbl, moves, occupancy,
-                                            residual);
+                                            k1, eps, tbl, shard_keys,
+                                            cell_width, moves, cells,
+                                            occupancy, residual);
   return static_cast<int>(cudaGetLastError());
 }
 

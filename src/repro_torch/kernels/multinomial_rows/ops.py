@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -74,23 +74,41 @@ def _c_tables(widths: tuple, caps: tuple, shards: int):
             (_int * nb)(*cap), (_int * nb)(*widths), shard_edges)
 
 
+def _shard_words(key_words, shards: int, dev) -> torch.Tensor:
+    """[shards * 2] int32 (the bits of the uint32 key words) of per-shard
+    key words given as a [shards, 2] tensor."""
+    words = torch.as_tensor(key_words).to(torch.int64).reshape(-1)
+    common.require(words.numel() == 2 * shards,
+                   f"multinomial_buckets: {shards} shards need [{shards}, 2] "
+                   f"key words")
+    words = words & 0xFFFFFFFF
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32).to(dev).contiguous()
+
+
 def multinomial_buckets(counts: torch.Tensor, deg: torch.Tensor,
                         rid: torch.Tensor, key_words, perm: torch.Tensor,
                         widths: Sequence[int], caps: Sequence[int], *,
-                        eps: float, shards: int = 1):
+                        eps: float, shards: int = 1,
+                        cells: Optional[int] = None):
     """A whole round of the degree-bucketed sampler in one launch.
 
     counts/deg/rid: [n_rows] int32 in row order; perm: [sum(caps)] int32
     row ids grouped by bucket (-1 = padding), bucket b of width widths[b]
     holding `shards` runs of caps[b] // shards slots, one shard's after
-    another. Returns (moves, occupancy, residual) as
-    `multinomial_buckets_ref` defines them: each row's per-edge counts at
-    their place in the flat bucketed adjacency ([shards * edges of one
-    shard], shard after shard), the slots per bucket whose row holds
-    coupons, and the int64 count no slot took (0)."""
+    another. `key_words` is the (k0, k1) pair of the round's key, or a
+    [shards, 2] tensor of each shard's words (uint32 or int64). Returns (moves, occupancy,
+    residual) as `multinomial_buckets_ref` defines them: each row's
+    per-edge counts at their place in the flat bucketed adjacency
+    ([shards * edges of one shard], shard after shard), the slots per
+    bucket whose row holds coupons, and the int64 count no slot took (0).
+    With `cells=md` the first output is the dense outcome cells
+    [n_rows * (md + 1)] instead (`aggregate_sampler.scatter_cells`'
+    layout: the termination count, then the count of each out-edge)."""
     if counts.device.type == "cpu":
         return multinomial_buckets_ref(counts, deg, rid, key_words, perm,
-                                       widths, caps, eps=eps, shards=shards)
+                                       widths, caps, eps=eps, shards=shards,
+                                       cells=cells)
     dev = counts.device
     common.require(dev.type == "cuda",
                    f"multinomial_buckets: unsupported device {dev}")
@@ -109,8 +127,20 @@ def multinomial_buckets(counts: torch.Tensor, deg: torch.Tensor,
     common.require((0 < rows < 2 ** 31 or perm.numel() == 0)
                    and perm.numel() < 2 ** 31,
                    "multinomial_buckets: no rows to draw, or 2**31 slots")
+    common.require(cells is None or 0 <= max(widths) <= int(cells),
+                   "multinomial_buckets: a bucket wider than the cells")
     *tables, shard_edges = _c_tables(tuple(widths), tuple(caps), shards)
-    moves = torch.empty(shards * shard_edges, dtype=torch.int32, device=dev)
+    if cells is None:
+        moves = torch.empty(shards * shard_edges, dtype=torch.int32,
+                            device=dev)
+        out, cell_width = None, 0
+    else:
+        moves, cell_width = None, int(cells) + 1
+        out = torch.zeros(rows * cell_width, dtype=torch.int32, device=dev)
+    keys = None
+    if isinstance(key_words, torch.Tensor):
+        keys = _shard_words(key_words, shards, dev)
+        key_words = (0, 0)
     # one fill for both small outputs: the residual, then the occupancy
     scratch = torch.zeros(1 + common.cdiv(nb, 2), dtype=torch.int64,
                           device=dev)
@@ -118,15 +148,17 @@ def multinomial_buckets(counts: torch.Tensor, deg: torch.Tensor,
     fn = common.library("multinomial_rows").multinomial_buckets_launch
     fn.argtypes = [_ptr, _ptr, _ptr, _ptr, _int, _u32, _u32, ctypes.c_float,
                    _int, _ptr, _ptr, _ptr, _ptr, _int, _i64, _i64, _ptr,
-                   _ptr, _ptr, _ptr]
+                   _int, _ptr, _ptr, _ptr, _ptr, _ptr]
     fn.restype = ctypes.c_int
     stream, _ = common.launch_args(counts)
     with torch.cuda.device(dev):
         err = fn(perm.data_ptr(), counts.data_ptr(), deg.data_ptr(),
                  rid.data_ptr(), rows, *_words(key_words), float(eps), nb,
                  *tables, shards, shard_edges, perm.numel(),
-                 moves.data_ptr(), occupancy.data_ptr(), residual.data_ptr(),
-                 stream)
+                 None if keys is None else keys.data_ptr(), cell_width,
+                 None if moves is None else moves.data_ptr(),
+                 None if out is None else out.data_ptr(),
+                 occupancy.data_ptr(), residual.data_ptr(), stream)
     common.check_launch("multinomial_rows", err)
     common.launches["multinomial_rows"] += 1
-    return moves, occupancy, residual
+    return (moves if out is None else out), occupancy, residual

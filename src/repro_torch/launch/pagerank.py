@@ -12,9 +12,20 @@ Engine selection (`--algo`):
             checkpoint `Supervisor`.
   counts    Algorithm 1, count-aggregated engine (Lemma-1 wire: per-vertex
             coupon counts, payload independent of the walk count).
-  improved, directed, ppr
-            not ported yet: the run exits non-zero naming the ROADMAP item
-            that ports it. So does `--audit`.
+  improved  Algorithm 2 (IMPROVED-PAGERANK), the three-phase engine:
+            sqrt(log n)-step short walks from degree-proportional coupon
+            pools, count-aggregated stitching, one counting exchange.
+  directed  Section 5 (directed/LOCAL): the same three phases with
+            uniform coupon pools, sqrt(log n / eps)-step short walks and
+            dangling-node resets. Pair it with `--graph directed_web`.
+  ppr       not ported yet: the run exits non-zero naming the ROADMAP
+            item that ports it. So does `--audit`.
+
+Telemetry of `improved` and `directed`: rounds by phase (phase1 <= lam,
+report always 0, phase2 the stitches, phase3 always 1, tail the naive
+fallback), coupons created and used, exhausted and tail walks, wire
+bytes by phase, `dropped` (must be 0) and `waited`, the Phase-1 sampler's
+time, bucket occupancy and residual (must be 0).
 
 Fault tolerance: `--checkpoint-dir` enables periodic snapshots,
 `--fail-at R [R ...]` injects simulated failures at the listed rounds, and
@@ -23,7 +34,8 @@ the same pi and telemetry as an unfailed one, plus restarts > 0.
 `--resume` cold-starts from the latest snapshot in `--checkpoint-dir`,
 which this package or the JAX package may have written; with `--shards N`
 different from the snapshot's, the snapshot is re-laid out onto N shards
-(bit-exact for `counts`, a fresh key stream for `walks`).
+(bit-exact for `counts` and for the three-phase engines' Phases 2 and 3,
+a fresh key stream for `walks`, Phase 1 and the tail).
 
 Every run is checked against power iteration (L1 and top-10 overlap);
 `--check` turns the report into a gate (non-zero exit on a miss).
@@ -45,6 +57,10 @@ from repro_torch.core.distributed import (init_state, shard_graph,
                                           state_from_host, state_to_host,
                                           superstep)
 from repro_torch.core.distributed_counts import distributed_pagerank_counts
+from repro_torch.core.distributed_directed import \
+    distributed_directed_pagerank
+from repro_torch.core.distributed_improved import \
+    distributed_improved_pagerank
 from repro_torch.device import resolve_device
 from repro_torch.graphs import GENERATORS
 from repro_torch.runtime import FailureSchedule, Supervisor
@@ -52,8 +68,6 @@ from repro_torch.runtime import FailureSchedule, Supervisor
 # algorithms of the JAX launcher that this package does not run yet, with
 # the ROADMAP item that ports each
 NOT_PORTED = {
-    "improved": "ROADMAP Queue 1 item 7 (Algorithm 2 and Section 5)",
-    "directed": "ROADMAP Queue 1 item 7 (Algorithm 2 and Section 5)",
     "ppr": "ROADMAP Queue 1 item 8 (Personalized PageRank and serving)",
     "audit": "ROADMAP Queue 1 item 11 (wire auditor)",
 }
@@ -163,6 +177,31 @@ def run(n: int, eps: float, walks_per_node: int, graph_kind: str,
               f"({res.sampler_us / max(res.rounds, 1):.0f} us/round) "
               f"bucket_occupancy={list(res.occupancy)} "
               f"residual={res.residual}")
+        pi = res.pi
+    elif algo in ("improved", "directed"):
+        engine = (distributed_improved_pagerank if algo == "improved"
+                  else distributed_directed_pagerank)
+        res = engine(g, eps, walks_per_node, prng.PRNGKey(seed), mesh=mesh,
+                     checkpoint_dir=checkpoint_dir, fail_at=fail_at,
+                     resume=resume, max_restarts=max_restarts)
+        print(f"[pagerank] algo={algo} n={g.n} shards={res.shards} "
+              f"lam={res.lam} eta={res.eta} ell={res.ell} "
+              f"rounds={res.rounds} restarts={res.restarts} "
+              f"(p1={res.phase1_rounds} "
+              f"report={res.report_rounds} p2={res.phase2_rounds} "
+              f"p3={res.phase3_rounds} tail={res.tail_rounds})")
+        print(f"[pagerank] coupons created={res.coupons_created} "
+              f"used={res.coupons_used} exhausted_walks="
+              f"{res.exhausted_walks} tail_walks={res.tail_walks}")
+        print(f"[pagerank] wire by phase: {res.a2a_bytes_by_phase} "
+              f"dropped={res.dropped} waited={res.waited}")
+        print(f"[pagerank] p1 sampler: {res.sampler_us:.0f} us total "
+              f"({res.sampler_us / max(res.phase1_rounds, 1):.0f} us/round)"
+              f" bucket_occupancy={list(res.p1_occupancy)} "
+              f"residual={res.residual}")
+        if algo == "directed":
+            print(f"[pagerank] uniform budget={res.uniform_budget} "
+                  f"coupons/node dangling_nodes={res.dangling_nodes}")
         pi = res.pi
     else:
         raise ValueError(f"unknown algo {algo!r}")

@@ -11,8 +11,10 @@ overfull, no hot list) and integer segment_spmv (with and without a hot
 list) bit-exact; multinomial_rows, both entries, bit-exact against its
 plain version on the same card (no FMA contraction on either side); float
 segment_spmv within 1e-5 relative of a float64 sum (atomic order);
-walk_step bit-exact from given uniforms and from key words; both sharded
-engines on the card bit-exact against the same run on the CPU.
+walk_step bit-exact from given uniforms and from key words; the sharded
+engines (walks, counts, and the three-phase Algorithm 2 and Section 5) on
+the card bit-exact against the same run on the CPU, at counts whose draws
+stay in the inverse-CDF regime.
 """
 import numpy as np
 import pytest
@@ -23,8 +25,13 @@ from repro_torch.core import aggregate_sampler as agg
 from repro_torch.core.collectives import StackedMesh
 from repro_torch.core.distributed import distributed_pagerank
 from repro_torch.core.distributed_counts import distributed_pagerank_counts
+from repro_torch.core.distributed_directed import \
+    distributed_directed_pagerank
+from repro_torch.core.distributed_improved import (
+    distributed_improved_pagerank, plan_three_phase)
+from repro_torch.core.improved_pagerank import coupon_pool_sizes
 from repro_torch.core.routing import _hist_rows
-from repro_torch.graphs import directed_web
+from repro_torch.graphs import directed_web, erdos_renyi
 from repro_torch.kernels import common
 from repro_torch.kernels.histogram import histogram
 from repro_torch.kernels.histogram import ops as histogram_ops
@@ -251,6 +258,73 @@ def test_cuda_multinomial_buckets_matches_plain(cuda, case):
     # every count left over by the terminations went down some edge
     assert int(got[0].sum(dtype=torch.int64)) <= int(counts.sum(
         dtype=np.int64))
+
+
+@pytest.mark.parametrize("shards,most", [(1, 2 ** 20), (4, 2 ** 12),
+                                         (3, 21)])
+def test_cuda_multinomial_buckets_cells_match_plain(cuda, shards, most):
+    """The fused entry's dense-cell mode over the Phase-1 (home, vertex)
+    rows of a three-phase plan, each owner under its own key: exact
+    against its plain version on the card and against
+    scatter_cells(sample_buckets()) owner by owner, one launch."""
+    g = directed_web(2000, 6.0, seed=3, device="cpu")
+    _, pool = coupon_pool_sizes(g, 0.2, 8, 3)
+    plan = plan_three_phase(g, shards, pool, 8, device=cuda)
+    n_loc, md, lay = plan.n_loc, plan.md, plan.layout
+    n_pad = shards * n_loc
+    rng = np.random.default_rng(shards)
+    c = torch.from_numpy(rng.integers(0, most, (shards, n_pad)).astype(
+        np.int32)).to(cuda)
+    deg_row = plan.sg.out_deg.repeat(1, shards)
+    rid = torch.arange(shards * n_pad, dtype=torch.int32, device=cuda)
+    keys = torch.stack([prng.split(prng.PRNGKey(p), 3)[1]
+                        for p in range(shards)])
+    perm = torch.from_numpy(plan.rows_perm).to(cuda)
+    args = (c.reshape(-1), deg_row.reshape(-1), rid, keys, perm,
+            plan.rows_layout.widths, plan.rows_layout.caps)
+    before = common.launches["multinomial_rows"]
+    got = multinomial_buckets(*args, eps=0.2, shards=shards, cells=md)
+    assert common.launches["multinomial_rows"] == before + 1
+    want = multinomial_buckets_ref(*args, eps=0.2, shards=shards, cells=md)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[2]) == int(want[2]) == 0
+    cells = got[0].reshape(shards, -1)
+    lay_t = lay.tile(shards)
+    offs = np.arange(shards)[:, None] * n_loc
+    for p in range(shards):
+        perm_t = np.concatenate([
+            np.where(pb[None, :] < 0, -1, offs + pb[None, :]).reshape(-1)
+            for pb in (plan.bperm_np[p, s:s + cap]
+                       for s, cap in zip(lay.row_starts, lay.caps))]
+        ).astype(np.int32)
+        samples, _, _ = agg.sample_buckets(
+            c[p], deg_row[p], rid[p * n_pad:(p + 1) * n_pad],
+            tuple(keys[p].to(torch.int64).tolist()),
+            torch.from_numpy(perm_t).to(cuda), lay_t, eps=0.2)
+        assert torch.equal(cells[p], agg.scatter_cells(samples, lay_t, md))
+    assert torch.equal(cells.reshape(shards, n_pad, md + 1).sum(-1), c)
+
+
+def test_cuda_three_phase_engines_match_cpu(cuda):
+    """Both three-phase engines on the card against the CPU at P=1 and 4,
+    and with eta=1, where the naive tail launches walk_step."""
+    g_cpu = erdos_renyi(96, 5.0, seed=1, device="cpu")
+    g = g_cpu.to(cuda)
+    key = prng.PRNGKey(5)
+    for fn, kw in ((distributed_improved_pagerank, {}),
+                   (distributed_directed_pagerank, {}),
+                   (distributed_improved_pagerank, dict(eta=1))):
+        for shards in (1, 4):
+            common.reset_launches()
+            a = fn(g, 0.2, 8, key, mesh=StackedMesh(shards, cuda), **kw)
+            for name in ("histogram", "segment_spmv", "multinomial_rows"):
+                assert common.launches[name] > 0, name
+            assert (common.launches["walk_step"] > 0) == (a.tail_rounds > 0)
+            b = fn(g_cpu, 0.2, 8, key, mesh=StackedMesh(shards, "cpu"), **kw)
+            assert torch.equal(a.zeta.cpu(), b.zeta)
+            for f in ("rounds", "a2a_bytes_by_phase", "p1_occupancy",
+                      "coupons_used", "tail_walks", "residual", "dropped"):
+                assert getattr(a, f) == getattr(b, f), f
 
 
 def _spmv_ids(rng, case, e, n):

@@ -50,7 +50,17 @@ r = distributed_pagerank(g, 0.2, 4, prng.PRNGKey(0), mesh=mesh)
 assert r.dropped == 0 and r.rounds > 0
 r = distributed_pagerank_counts(g, 0.2, 4, prng.PRNGKey(0), mesh=mesh)
 assert r.residual == 0 and r.rounds > 0
-for algo in ("walks", "counts"):
+from repro_torch.core import directed_local_pagerank, improved_pagerank
+from repro_torch.core.distributed_directed import \
+    distributed_directed_pagerank
+from repro_torch.core.distributed_improved import \
+    distributed_improved_pagerank
+for fn in (improved_pagerank, directed_local_pagerank):
+    assert fn(g, 0.2, walks_per_node=4, device="cpu").coupons_used > 0
+for fn in (distributed_improved_pagerank, distributed_directed_pagerank):
+    r = fn(g, 0.2, 4, prng.PRNGKey(0), mesh=mesh)
+    assert r.residual == 0 and r.dropped == 0 and r.phase3_rounds == 1
+for algo in ("walks", "counts", "improved", "directed"):
     assert run(40, 0.2, 4, "directed_web", None, [2], algo=algo, shards=2,
                device="cpu").restarts == 1
 assert "jax" not in [m.split(".")[0] for m, v in sys.modules.items() if v]

@@ -2,12 +2,14 @@
 
 Parity levels:
   * `run()` at one shard against the JAX package's `run()` at one device
-    (the in-process JAX has one CPU device) — pi bit-exact, both algos;
+    (the in-process JAX has one CPU device) — pi bit-exact, every algo;
   * `fail_at` recovery and `--resume` after a kill — pi bit-exact with the
     uninterrupted run;
   * the accuracy gate (`check=True`) at 4 shards — statistical: L1 < 0.15
     and top-10 >= 0.6 against power iteration.
-The algorithms not ported yet, and `--audit`, exit non-zero naming the
+`--algo improved|directed` run the three-phase engines on the CPU and
+print their telemetry; `--fail-at` and `--resume` give their pi bit for
+bit. `--algo ppr` and `--audit`, not ported yet, exit non-zero naming the
 ROADMAP item that ports them.
 """
 import numpy as np
@@ -21,7 +23,8 @@ from repro_torch.runtime import SimulatedFailure
 ARGS = (128, 0.2, 16, "directed_web")
 
 
-@pytest.mark.parametrize("algo", ["walks", "counts"])
+@pytest.mark.parametrize("algo", ["walks", "counts", "improved",
+                                  "directed"])
 def test_run_matches_jax_launcher(algo):
     want = jax_run(*ARGS, None, [], seed=3, algo=algo, shards=1)
     got = run(*ARGS, None, [], seed=3, algo=algo, shards=1, device="cpu")
@@ -56,12 +59,43 @@ def test_resume_needs_checkpoint_dir():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--algo", "improved"], "item 7"), (["--algo", "directed"], "item 7"),
     (["--algo", "ppr"], "item 8"), (["--audit"], "item 11")])
 def test_unported_algos_exit_naming_the_roadmap(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 {item}") as e:
         main(argv + ["--device", "cpu"])
     assert e.value.code != 0
+
+
+@pytest.mark.parametrize("algo,graph", [("improved", "erdos_renyi"),
+                                        ("directed", "directed_web")])
+def test_three_phase_algos_run_on_the_cpu(capsys, algo, graph):
+    """`--algo improved|directed` run the three-phase engines and print
+    the JAX launcher's telemetry lines; `--check` gates on accuracy."""
+    main(["--device", "cpu", "--shards", "8", "--n", "128", "--walks", "16",
+          "--algo", algo, "--graph", graph, "--check"])
+    out = capsys.readouterr().out
+    assert f"algo={algo} n=128 shards=8" in out and "report=0" in out
+    assert "p3=1" in out and "coupons created=" in out
+    assert "dropped=0" in out and "residual=0" in out
+    assert ("uniform budget=" in out) == (algo == "directed")
+    assert "L1 vs power-iter" in out
+
+
+@pytest.mark.parametrize("algo", ["improved", "directed"])
+def test_three_phase_fail_at_and_resume(tmp_path, algo):
+    """Recovery from injected failures, and a cold resume of a killed run,
+    give the uninterrupted run's pi bit for bit."""
+    args = (64, 0.2, 8, "directed_web")
+    a = run(*args, None, [], algo=algo, shards=3, device="cpu")
+    b = run(*args, None, [2, 7], algo=algo, shards=3, device="cpu")
+    assert b.restarts == 2 and b.rounds == a.rounds
+    np.testing.assert_array_equal(a.pi, b.pi)
+    with pytest.raises(SimulatedFailure):
+        run(*args, str(tmp_path), [6], algo=algo, shards=3, max_restarts=0,
+            device="cpu")
+    c = run(*args, str(tmp_path), [], algo=algo, shards=3, resume=True,
+            device="cpu")
+    np.testing.assert_array_equal(a.pi, c.pi)
 
 
 def test_main_runs_on_the_cpu(capsys):
