@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the four CUDA kernels from the checkout's sources into
+1. Builds the five CUDA kernels from the checkout's sources into
    `build/kernels/` and prints what the compiler reports (registers,
    spills).
 2. Kernel phase: at the shapes the main path gives them, on the card, each
@@ -19,10 +19,12 @@
    both sum with atomics in different orders, and exact on the count
    engines' first-round sums, single-device and sharded; walk_step exact
    from given uniforms (a) and from key words (b), at the first round of
-   the sharded walk engine at P=2), with times of the kernel, the plain
-   version and a one-call PyTorch yardstick where there is one, beside the
-   least time the card could take (bytes over the HBM rate, or operations
-   over the FP32 rate).
+   the sharded walk engine at P=2; uniform bit-equal to its plain version
+   at the walk engine's 1.46e8 draws on the card, and at 2^20 draws to the
+   plain version on the CPU), with times of the kernel, the plain version
+   and a one-call PyTorch yardstick where there is one, beside the least
+   time the card could take (bytes over the HBM rate, or operations over
+   the FP32 rate).
 3. Single-device path on doc_link_graph(2**20): power_iteration, then
    simple_pagerank with the walk engine and with the count engine (traced).
    Each run must agree with power iteration (L1 < 0.15, top-10 >= 0.6) and
@@ -53,15 +55,30 @@
    walk terminated by a coupon or in the tail, coupons used at most once,
    total visits within 7% of n*K/eps, phase 1 within lam rounds, phase 3
    one exchange).
-6. The launch CLI's `run()` on a small graph: walks at 2 shards and counts
+6. Personalized PageRank on doc_link_graph(2^20) (no dangling vertex,
+   asserted), eps 0.2: the batched engine at P=4 with 16 queries drawn as
+   the CLI's run_ppr draws them, 2^21 walks each (2^25 in flight), its
+   first superstep's kernels (walk_step (b) on one shard's buffer, the
+   histogram of 2^27 virtual ids into 2^26 segments, the received-lane
+   segment_spmv) timed at their shapes and exact against their plain
+   versions, one superstep profiled; the single-query engine on query 0;
+   and the PPR service (16 slots, P=4) answering 64 requests (48 distinct,
+   16 repeats) on an injected clock, resized to P=2 after 20 completions.
+   Checks: dropped == admit_dropped == 0, live walks never increasing,
+   each query's visits within 2% of W/eps, L1 < 0.15 and top-10 >= 0.6
+   against a personalized power iteration through segment_spmv (to an L1
+   change under 1e-7), cached answers equal to their stored vectors, no
+   request rejected, every request completed, some after the resize.
+7. The launch CLI's `run()` on a small graph: walks at 2 shards and counts
    at 4 (packed lanes), each with the accuracy gate, and each again with an
    injected failure that must recover to the identical pi.
-7. Small inputs checked against the CPU: the single-device walk engine
+8. Small inputs checked against the CPU: the single-device walk engine
    bit-exact, power iteration within 1e-6 L1, the count engine against the
-   exact PageRank, and the sharded engines at P=8 bit-exact (walks, counts
-   packed and unpacked, improved, directed).
+   exact PageRank, the sharded engines at P=8 bit-exact (walks, counts
+   packed and unpacked, improved, directed), and both PPR engines
+   bit-exact (batched at P=8).
 
-Steps 3 to 5 are the main path: every engine is driven with the launch
+Steps 3 to 6 are the main path: every engine is driven with the launch
 counters set to 0 just before it and read just after. Prints the card's
 name and power limit, a `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
@@ -91,6 +108,8 @@ N_SINGLE_IMPROVED = 1 << 19
 # n = 2^14 (S = 2.25e8); at 2^20 no card holds its pools
 N_DIRECTED = 1 << 14
 N_PROBE = 1 << 16              # the eta=1 probe, most walks in the tail
+PPR_QUERIES = 16               # the batched PPR engine's query slots
+PPR_WALKS = 1 << 21            # walks a PPR query
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, outside tensor cores
 MN_OPS_PER_DRAW = 30           # lower bound: counter hash + Binomial setup
@@ -145,19 +164,26 @@ def device_ms(fn, iters: int, *parts) -> float:
     """Device time of `fn`'s kernels whose names hold one of `parts`, a
     call, from torch.profiler over `iters` calls after a warm-up. Where a
     call's kernels are short, the CUDA events of `cuda_ms` time the host
-    launching them; this is the time they hold the card."""
+    launching them; this is the time they hold the card. A session that
+    records no device time (a whole session's kernels have been seen to go
+    missing from CUPTI's records) is repeated, up to three in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_dev_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and any(p in e.key for p in parts))
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_dev_us(e) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and any(p in e.key for p in parts))
+        if us > 0:
+            break
+        log(f"device_ms: profiler session {attempt + 1} recorded no "
+            f"device time for {parts}")
     check(us > 0, f"the profiler recorded no device time for {parts}")
     return us / 1e3 / iters
 
@@ -241,10 +267,12 @@ def kernel_phase(g, K):
             f"{h['hub_share']:.4f} of them")
     del shifted, uniform
 
-    # the threefry draws of that round, for the walk engine's breakdown
+    # the threefry draws of that round (the uniform kernel), for the walk
+    # engine's breakdown
     k = prng.PRNGKey(1)
     threefry_ms = cuda_ms(lambda: prng.uniform(k, (W,), device=dev), 3)
-    log(f"threefry uniform of {W} float32: {threefry_ms:.3f} ms")
+    log(f"prng.uniform of {W} float32 (the uniform kernel, a call): "
+        f"{threefry_ms:.3f} ms")
     del ids
 
     # segment_spmv: the power-iteration push from the uniform start vector
@@ -570,6 +598,7 @@ class Runner:
         from repro_torch.kernels import common
         self.common = common
         self.launches = {name: 0 for name in common.launches}
+        self.last = {}
 
     def __call__(self, label, fn, must_launch):
         import torch
@@ -581,6 +610,7 @@ class Runner:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = dict(self.common.launches)
+        self.last = counts
         for name, c in counts.items():
             self.launches[name] += c
         for name in must_launch:
@@ -1231,6 +1261,343 @@ def three_phase_path(drive, sharded_rounds):
     return out, phase_rows, cells_row
 
 
+def uniform_phase(W, dev):
+    """The uniform kernel at the walk engine's draw, W = n*K float32:
+    bit-equal to its plain version on the card, and at 2^20 draws to the
+    plain version on the CPU; timed against its bound and the plain
+    version. The kernel computes the counter's high word as the plain
+    version does, but no check reaches it: a draw of 2^32 elements would
+    need over 100 GB of the plain version's int64 temporaries."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels.uniform import uniform
+    from repro_torch.kernels.uniform.ref import uniform_ref
+
+    key = prng.PRNGKey(11)
+    got = uniform(key, (W,), device=dev)
+    want = uniform_ref(key, (W,), device=dev)
+    diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    check(diff == 0, f"uniform: {diff} of {W} draws differ from its plain "
+                     f"version on the card")
+    err = float((got - want).abs().max())
+    del got, want
+    small = 1 << 20
+    host = uniform_ref(key, (small,))
+    check(torch.equal(uniform(key, (small,), device=dev).cpu().view(
+        torch.int32), host.view(torch.int32)),
+        "uniform: 2^20 draws differ from the plain version on the CPU")
+    del host
+    row = dict(
+        ms=device_ms(lambda: uniform(key, (W,), device=dev), 10,
+                     "uniform_kernel"),
+        call_ms=cuda_ms(lambda: uniform(key, (W,), device=dev), 10),
+        plain_ms=cuda_ms(lambda: uniform_ref(key, (W,), device=dev), 2),
+        library_ms=None, max_abs_err=err,
+        torch_rand_ms=cuda_ms(lambda: torch.rand(W, device=dev), 10),
+        shape=f"{W} float32 draws",
+        **bound(4 * W, THREEFRY_OPS_PER_DRAW * W))
+    log(f"uniform: PASS, {W} draws bit-equal to the plain version on the "
+        f"card, and 2^20 to it on the CPU; {row} (torch.rand, another "
+        f"generator and so not the same function, for scale only)")
+    return row
+
+
+def ppr_queries(n, count, seed=0):
+    """Queries drawn as the launch CLI's run_ppr draws them: 1-3 distinct
+    uniform sources each, no weights."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        k = int(rng.integers(1, 4))
+        out.append((rng.choice(n, size=k, replace=False), None))
+    return out
+
+
+def ppr_oracle(g, queries, tol=1e-7, max_iters=1000):
+    """Personalized power iteration of every query at once, through the
+    port's segment_spmv push: x <- eps s + (1-eps) Q^T x until every
+    query's L1 change is under `tol`. With no dangling vertex this is the
+    system exact_ppr solves densely. Returns [len(queries), n] float64 on
+    the host."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.segment_spmv import hot_list, segment_spmv
+
+    check(int((g.out_deg == 0).sum()) == 0,
+          "the PPR oracle needs a graph without dangling vertices")
+    n, dev, nq = g.n, g.device, len(queries)
+    s = torch.zeros((nq, n), dtype=torch.float32, device=dev)
+    for q, (src, w) in enumerate(queries):
+        w = np.full(len(src), 1.0 / len(src)) if w is None else \
+            np.asarray(w, dtype=np.float64) / np.sum(w)
+        s[q, torch.as_tensor(np.asarray(src), device=dev).long()] = \
+            torch.as_tensor(w, dtype=torch.float32, device=dev)
+    src_e = g.edge_src()
+    deg_e = g.out_deg.float().index_select(0, src_e)
+    off = torch.arange(nq, dtype=torch.int32, device=dev)[:, None] * n
+    dst = (off + g.col_idx[None, :]).reshape(-1)
+    hot = hot_list(dst, nq * n)
+    x, it, err = s.clone(), 0, float("inf")
+    while err > tol and it < max_iters:
+        y = segment_spmv((x[:, src_e.long()] / deg_e).reshape(-1), dst,
+                         nq * n, hot=hot).reshape(nq, n)
+        x_new = EPS * s + (1 - EPS) * y
+        err = float((x_new - x).abs().sum(dim=1).max())
+        x, it = x_new, it + 1
+    log(f"ppr oracle: {nq} queries, {it} iterations, largest final L1 "
+        f"change {err:.3e} (tol {tol}, converged {err <= tol})")
+    return x.double().cpu().numpy()
+
+
+def ppr_accuracy(label, est, ref, walks):
+    """A PPR estimate against its oracle: total visits within 2% of
+    walks/eps (the estimate sums to visits * eps / walks), L1 < 0.15 and
+    top-10 overlap >= 0.6."""
+    import numpy as np
+    from repro_torch.core import l1_error, normalized, topk_overlap
+    est = np.asarray(est, dtype=np.float64)
+    check(bool(np.isfinite(est).all()) and bool((est >= 0).all()),
+          f"{label}: bad estimate")
+    mass = float(est.sum())
+    check(abs(mass - 1.0) < 0.02, f"{label}: visits {mass * walks / EPS:.0f}"
+                                  f", expected ~{walks / EPS:.0f}")
+    l1 = l1_error(normalized(est), normalized(ref))
+    top = topk_overlap(est, ref)
+    check(l1 < 0.15, f"{label}: L1 {l1} vs the PPR oracle")
+    check(top >= 0.6, f"{label}: top-10 overlap {top}")
+    return l1, top, mass
+
+
+class PPRCalls:
+    """Within `capture()`, keeps the inputs of the first call of each
+    kernel that a batched PPR superstep makes through the routing layer
+    (shard 0's walk_step, the virtual histogram, the received-lane sum),
+    keyed as `PhaseCalls` keys them (phase "ppr"), and counts the calls."""
+
+    NAMES = {"walk_step_keyed": "walk_step", "histogram": "histogram",
+             "segment_spmv": "segment_spmv"}
+
+    def __init__(self):
+        self.calls = {}
+
+    @contextmanager
+    def capture(self):
+        from repro_torch.core import routing
+        saved = {name: getattr(routing, name) for name in self.NAMES}
+
+        def wrap(name):
+            def run(*args, **kw):
+                entry = self.calls.setdefault(("ppr", self.NAMES[name]),
+                                              [0, args, kw])
+                entry[0] += 1
+                return saved[name](*args, **kw)
+            return run
+
+        for name in self.NAMES:
+            setattr(routing, name, wrap(name))
+        try:
+            yield self
+        finally:
+            for name, fn in saved.items():
+                setattr(routing, name, fn)
+
+
+def ppr_walk_step_row(count, args, kw):
+    """walk_step (b) on one shard's buffer of a batched PPR superstep,
+    exact against its plain version and timed beside its bound."""
+    from repro_torch.kernels.walk_step import walk_step_keyed
+    from repro_torch.kernels.walk_step.ref import walk_step_keyed_ref
+
+    pos, alive, kt, ke, rp, ci, dg = args
+    got = walk_step_keyed(*args, **kw)
+    want = walk_step_keyed_ref(*args, **kw)
+    err = max(int((a - b).abs().max()) for a, b in zip(got, want))
+    check(err == 0, f"ppr walk_step: differs from its plain version by {err}")
+    deg = dg.index_select(0, pos.long())
+    draws = int((alive.bool() & (deg > 0)).sum()) + int(want[1].sum())
+    del got, want, deg
+    row = dict(
+        ms=cuda_ms(lambda: walk_step_keyed(*args, **kw), 10),
+        plain_ms=cuda_ms(lambda: walk_step_keyed_ref(*args, **kw), 2),
+        library_ms=None, max_abs_err=err, launches=count,
+        shape=f"one shard's cap = {pos.numel()} slots, "
+              f"{int(alive.sum())} live, {draws} draws",
+        **bound(16 * pos.numel() + 4 * (rp.numel() + ci.numel()
+                                        + dg.numel()),
+                THREEFRY_OPS_PER_DRAW * draws))
+    log(f"ppr walk_step: PASS, exact; {row}")
+    return row
+
+
+def ppr_path(g, drive):
+    """Personalized PageRank at full width on doc_link_graph(2^20): the
+    batched engine at P=4 with 16 queries of 2^21 walks (the kernels of
+    its first superstep timed at their shapes, one superstep profiled),
+    the single-query engine on query 0, and the service answering 64
+    requests on an injected clock with a resize from P=4 to P=2. Each
+    query against the personalized power iteration."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.core.personalized import personalized_pagerank
+    from repro_torch.core.personalized_batch import (
+        BatchedPPREngine, batched_personalized_pagerank)
+
+    out = {}
+    dev = g.device
+    queries = ppr_queries(g.n, PPR_QUERIES)
+    W = PPR_WALKS
+    t0 = time.perf_counter()
+    ref = ppr_oracle(g, queries)
+    out["oracle_s"] = time.perf_counter() - t0
+    mesh = StackedMesh(4, dev)
+
+    res, secs, peak = drive(
+        "batched_personalized_pagerank[P=4]",
+        lambda: batched_personalized_pagerank(g, EPS, queries, W,
+                                              prng.PRNGKey(0), mesh=mesh),
+        ["walk_step", "histogram", "segment_spmv"])
+    check(res.dropped == 0 and res.admit_dropped == 0,
+          f"batched PPR: dropped {res.dropped}, admit_dropped "
+          f"{res.admit_dropped}")
+    tr = res.active_trace
+    check(all(b <= a for a, b in zip(tr, tr[1:])) and tr[-1] == 0,
+          "batched PPR: live walks increased or did not reach 0")
+    accs = [ppr_accuracy(f"batched PPR query {q}", res.ppr[q], ref[q], W)
+            for q in range(len(queries))]
+    out["batched"] = dict(
+        seconds=secs, supersteps=res.rounds, shards=4, queries=len(queries),
+        walks_per_query=W, a2a_entries=res.a2a_entries,
+        a2a_bytes=res.a2a_bytes, dropped=res.dropped,
+        admit_dropped=res.admit_dropped, peak_gib=peak,
+        launches=dict(drive.last),
+        worst_l1=max(a[0] for a in accs), worst_top10=min(a[1] for a in accs),
+        mass_range=[min(a[2] for a in accs), max(a[2] for a in accs)])
+    log(f"batched_personalized_pagerank[P=4]: {out['batched']}")
+    del res
+    torch.cuda.empty_cache()
+
+    # the first superstep's kernels at their shapes, then one profiled
+    # superstep (the second) of the same engine
+    engine = BatchedPPREngine(g, EPS, num_slots=len(queries),
+                              walks_per_query=W, mesh=mesh)
+    key = prng.PRNGKey(0)
+    engine.reset(prng.fold_in(key, 0xBA7C))
+    for i, (src, w) in enumerate(queries):
+        engine.admit(i, src, w, key=prng.fold_in(key, i))
+    calls = PPRCalls()
+    with calls.capture():
+        engine.superstep()
+    rows = phase_kernel_rows({k: v for k, v in calls.calls.items()
+                              if k[1] != "walk_step"})
+    rows["ppr walk_step"] = ppr_walk_step_row(*calls.calls[("ppr",
+                                                            "walk_step")])
+    del calls
+    torch.cuda.empty_cache()
+    profile_rounds(lambda _: engine.superstep(), None, 1,
+                   "batched PPR, superstep 2 (profiled)",
+                   groups={"walk_step": "walk_step_keyed_kernel",
+                           "histogram": "histogram",
+                           "segment_spmv": "segment_sum_kernel"})
+    del engine
+    torch.cuda.empty_cache()
+
+    src0, w0 = queries[0]
+    vec, secs, peak = drive(
+        "personalized_pagerank[query 0]",
+        lambda: personalized_pagerank(g, EPS, src0, W, key=prng.PRNGKey(0),
+                                      weights=w0),
+        ["uniform", "histogram"])
+    l1, top, mass = ppr_accuracy("single-query PPR", vec.cpu().numpy(),
+                                 ref[0], W)
+    out["single"] = dict(seconds=secs, rounds=drive.last["histogram"],
+                         walks=W, l1=l1, top10=top, mass=mass,
+                         peak_gib=peak, launches=dict(drive.last))
+    log(f"personalized_pagerank[query 0]: {out['single']}")
+    del vec
+    torch.cuda.empty_cache()
+
+    out["service"] = drive("PPRService[P=4 -> 2]",
+                           lambda: ppr_service_run(g, queries, ref),
+                           ["walk_step", "histogram", "segment_spmv"])[0]
+    return out, rows
+
+
+def ppr_service_run(g, batch_queries, batch_ref):
+    """The service at P=4: 16 slots of 2^21 walks answering 64 requests on
+    an injected clock (one tick a superstep), 48 distinct queries and 16
+    repeats of earlier ones; after 20 completions it resizes to P=2. Holds
+    cached answers to their stored vectors and the first 16 queries (the
+    batched run's) to the oracle."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.serve import PPRService, query_cache_key
+
+    # the first 16 distinct queries are the batched run's
+    distinct = ppr_queries(g.n, 48)
+    rng = np.random.default_rng(1)
+    repeats = [distinct[int(i)] for i in rng.choice(24, 16, replace=False)]
+    # four distinct queries a tick for 12 ticks, then the repeats, two a
+    # tick, from tick 100 on (after the first waves have completed)
+    arrivals = [(t // 4, q) for t, q in enumerate(distinct)] + [
+        (100 + t // 2, q) for t, q in enumerate(repeats)]
+    svc = PPRService(g, EPS, slots=16, walks_per_query=PPR_WALKS,
+                     mesh=StackedMesh(4, g.device), key=prng.PRNGKey(3))
+    reqs, tick, resized_at = [], 0, None
+    pending = sorted(arrivals, key=lambda a: a[0])
+    while pending or svc.busy:
+        while pending and pending[0][0] <= tick:
+            _, (src, w) = pending.pop(0)
+            reqs.append(svc.submit(src, w, now=float(tick)))
+        svc.step(now=float(tick))
+        tick += 1
+        if resized_at is None and svc.stats.completed >= 20:
+            svc.resize(shards=2)
+            resized_at = tick
+        check(tick < 2000, "service: requests still open after 2000 ticks")
+    s = svc.stats
+    check(s.dropped_walks == 0 and s.admit_dropped == 0 and s.rejected == 0,
+          f"service: dropped {s.dropped_walks}, admit_dropped "
+          f"{s.admit_dropped}, rejected {s.rejected}")
+    check(all(r.done and r.result is not None for r in reqs),
+          "service: a request did not complete")
+    check(resized_at is not None and svc.engine.shards == 2,
+          "service: no resize")
+    # a cached answer is the vector stored by the latest completion of its
+    # query before it was submitted
+    computed = {}
+    for r in reqs:
+        if not r.cached:
+            computed.setdefault((r.sources, r.weights), []).append(r)
+    for r in reqs:
+        if r.cached:
+            before = [c for c in computed.get((r.sources, r.weights), [])
+                      if c.t_done < r.t_submit]
+            check(bool(before) and np.array_equal(
+                r.result, max(before, key=lambda c: c.t_done).result),
+                "service: a cached answer is not its stored vector")
+    late = [r for r in reqs if not r.cached and r.t_done >= resized_at]
+    check(len(late) > 0, "service: no request completed after the resize")
+    for q, (src, w) in enumerate(batch_queries):
+        ppr_accuracy(f"service query {q}",
+                     computed[query_cache_key(src, w, g.n)][0].result,
+                     batch_ref[q], PPR_WALKS)
+    lat = np.asarray([r.latency for r in reqs])
+    info = dict(
+        requests=len(reqs), completed=s.completed, cache_hits=s.cache_hits,
+        supersteps=s.supersteps, ticks=tick, resized_at_tick=resized_at,
+        completed_after_resize=len(late),
+        max_active_queries=s.max_active_queries, a2a_bytes=s.a2a_bytes,
+        latency_supersteps_p50=float(np.percentile(lat, 50)),
+        latency_supersteps_p99=float(np.percentile(lat, 99)),
+        latency_computed_p50=float(np.percentile(
+            [r.latency for r in reqs if not r.cached], 50)))
+    log(f"PPRService[P=4 -> 2]: {info}")
+    return info
+
+
 def cli_phase():
     """The launch CLI's run() on the card: walks at 2 shards and counts at
     4 (packed lanes), each gated on accuracy and each recovering from an
@@ -1270,6 +1637,9 @@ def small_check():
         distributed_directed_pagerank
     from repro_torch.core.distributed_improved import \
         distributed_improved_pagerank
+    from repro_torch.core.personalized import personalized_pagerank
+    from repro_torch.core.personalized_batch import \
+        batched_personalized_pagerank
     from repro_torch.graphs import erdos_renyi
 
     g_cpu = erdos_renyi(96, 5.0, seed=1, device="cpu")
@@ -1312,6 +1682,22 @@ def small_check():
 
     check(walks(g, "cuda") == walks(g_cpu, "cpu"),
           "small sharded walks (P=8): card and CPU differ")
+    queries = ppr_queries(g.n, 5, seed=2)
+
+    def batched_ppr(graph, dev):
+        r = batched_personalized_pagerank(graph, EPS, queries, 3000, key,
+                                          mesh=StackedMesh(8, dev))
+        return (r.ppr.tolist(), r.rounds, r.active_trace, r.a2a_entries,
+                r.a2a_bytes, r.dropped, r.admit_dropped)
+
+    check(batched_ppr(g, "cuda") == batched_ppr(g_cpu, "cpu"),
+          "small batched PPR (P=8): card and CPU differ")
+    src, w = queries[0]
+    check(torch.equal(
+        personalized_pagerank(g, EPS, src, 5000, key=key, weights=w).cpu(),
+        personalized_pagerank(g_cpu, EPS, src, 5000, key=key, weights=w,
+                              device="cpu")),
+        "small single-query PPR: card and CPU differ")
     for fn in (distributed_improved_pagerank, distributed_directed_pagerank):
         check(three_phase(fn, g, "cuda") == three_phase(fn, g_cpu, "cpu"),
               f"small {fn.__name__} (P=8): card and CPU differ")
@@ -1321,8 +1707,8 @@ def small_check():
               f"differ")
     log(f"small check (erdos_renyi(96)): walks zeta card == CPU, power "
         f"iteration L1 {l1_pi:.2e}, counts L1 vs exact {l1_c:.4f}; sharded "
-        f"walks, counts (packed, unpacked), improved and directed at P=8 "
-        f"card == CPU")
+        f"walks, counts (packed, unpacked), improved and directed, batched "
+        f"PPR at P=8 and the single-query PPR engine card == CPU")
 
 
 def main() -> int:
@@ -1370,6 +1756,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         rows["walk_step"] = walk_step_phase(g, K)
         torch.cuda.empty_cache()
+        rows["uniform"] = uniform_phase(g.n * K, g.device)
+        torch.cuda.empty_cache()
         phases["kernels"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         runs, pi_ref, counts_zeta = main_path(g, K, drive)
@@ -1386,6 +1774,10 @@ def main() -> int:
         rows["three_phase_calls"] = phase_rows
         phases["three_phase"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        ppr, rows["ppr_superstep"] = ppr_path(g, drive)
+        phases["ppr"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         cli_phase()
         phases["cli"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -1399,12 +1791,17 @@ def main() -> int:
     share = 2 * walks["rounds"] * threefry_ms / 1e3 / walks["seconds"]
     log(f"phases: build {build_s:.2f} s, graph {graph_s:.2f} s, power "
         f"iteration {runs['power_iteration']['seconds']:.3f} s, walks "
-        f"{walks['seconds']:.3f} s (threefry ~{share:.1%}: 2 draws x "
+        f"{walks['seconds']:.3f} s (uniform kernel ~{share:.1%}: 2 draws x "
         f"{walks['rounds']} rounds x {threefry_ms:.3f} ms), counts "
         f"{runs['counts']['seconds']:.3f} s, sharded counts P=4 "
         f"{sharded['counts']['seconds']:.3f} s, sharded walks P=2 "
         f"{sharded['walks']['seconds']:.3f} s; three-phase "
-        f"{ {k: round(v['seconds'], 3) for k, v in three.items()} }; by phase "
+        f"{ {k: round(v['seconds'], 3) for k, v in three.items()} }; PPR "
+        f"batched {ppr['batched']['seconds']:.3f} s "
+        f"({ppr['batched']['supersteps']} supersteps), single-query "
+        f"{ppr['single']['seconds']:.3f} s ({ppr['single']['rounds']} "
+        f"rounds), service {ppr['service']['supersteps']} supersteps; by "
+        f"phase "
         f"{ {k: round(v, 2) for k, v in phases.items()} }; whole script "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -1414,6 +1811,8 @@ def main() -> int:
         "multinomial_rows":
             "src/repro/kernels/multinomial_rows/multinomial_rows.py:47",
         "walk_step": "src/repro/kernels/walk_step/walk_step.py:69",
+        # no TPU kernel: XLA fused jax.random.uniform into its consumers
+        "uniform": "src/repro/core/engine_walks.py:59",
     }
     kernels = []
     for name in replaces:

@@ -12,6 +12,11 @@ the manifest's shard count differs from the live mesh's:
                       packed in sorted order, so the layout is canonical
                       (P -> P' -> P is bit-exact). The per-shard cap grows
                       past the declared target when one shard needs it.
+  ``walk_aux``        a companion lane of a ``walk`` buffer (the query-id
+                      lane of the batched PPR engine), declared by the
+                      primary's ``aux=(name, ...)``. It follows the
+                      primary's placement slot for slot; the canonical
+                      order sorts by vertex, then by the aux lanes.
   ``vertex``          [P, n_loc, *rest] vertex-sharded values: flatten,
                       cut the old padding at n, re-pad, re-split.
   ``key``             [P, 2] per-shard PRNG keys, re-derived by
@@ -29,9 +34,6 @@ the manifest's shard count differs from the live mesh's:
                       a pure function of the pool sizes (``pool``) and P,
                       so the re-layout is a bit-exact bijection.
 
-The JAX package has one more kind, ``walk_aux``, for the PPR engine; it
-comes with that engine.
-
 Snapshots are host numpy dicts (as `Checkpointer.restore` gives them), so
 this module is numpy throughout; only the key derivation uses the port's
 threefry.
@@ -41,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -53,13 +55,15 @@ from repro_torch.checkpoint.checkpointer import unpack_json
 class LayoutSpec:
     """How one engine buffer is laid out across the mesh.
 
-    kind  walk | vertex | slot | key | replicated_key | replicated (see
-          the module docstring).
+    kind  walk | walk_aux | vertex | slot | key | replicated_key |
+          replicated (see the module docstring).
     n     number of real vertices (walk, vertex and slot kinds).
     pool  per-vertex coupon pool sizes, length n (slot kind).
     cap   target per-shard lane capacity (walk kind); relayout grows past
           it only when one shard's walks do not fit.
-    fill  empty-slot filler (walk and slot kinds).
+    fill  empty-slot filler (walk, walk_aux and slot kinds).
+    aux   names of the walk_aux buffers that follow this walk buffer's
+          placement (walk kind).
     """
 
     kind: str
@@ -67,6 +71,7 @@ class LayoutSpec:
     pool: Optional[np.ndarray] = None
     cap: Optional[int] = None
     fill: int = 0
+    aux: Tuple[str, ...] = ()
 
 
 def derive_shard_keys(old_keys: np.ndarray, new_shards: int) -> np.ndarray:
@@ -131,13 +136,24 @@ def _relayout_slot(arr: np.ndarray, spec: LayoutSpec,
     return out.reshape((new_shards, S_new) + rest)
 
 
-def _relayout_walk(primary: np.ndarray, spec: LayoutSpec,
-                   new_shards: int) -> np.ndarray:
-    """Re-bucket walk lanes by new owner in canonical sorted order; the
-    per-shard cap grows to the most loaded shard when it must."""
+def _relayout_walk(primary: np.ndarray, auxes: Dict[str, np.ndarray],
+                   aux_fills: Dict[str, int], spec: LayoutSpec,
+                   new_shards: int) -> Dict[str, np.ndarray]:
+    """Re-bucket walk lanes by new owner in canonical order (by vertex,
+    then by the aux lanes, then stable; with no aux lane that is sorted
+    order); the aux lanes follow the primary slot for slot. The per-shard
+    cap grows to the most loaded shard when it must. Returns the primary
+    under the key "__primary__" and each aux lane under its name."""
     old_shards, old_cap = primary.shape
     n_loc = math.ceil(spec.n / new_shards)
-    vals = np.sort(primary[primary >= 0])
+    flat = primary.reshape(-1)
+    live = flat >= 0
+    vals = flat[live]
+    aux_vals = {k: a.reshape(-1)[live] for k, a in auxes.items()}
+    keys = tuple(aux_vals[k] for k in reversed(sorted(aux_vals))) + (vals,)
+    order = np.lexsort(keys)
+    vals = vals[order]
+    aux_vals = {k: a[order] for k, a in aux_vals.items()}
     owner = np.minimum(vals // n_loc, new_shards - 1).astype(np.int64)
     counts = np.bincount(owner, minlength=new_shards)
     cap = spec.cap if spec.cap is not None else max(
@@ -145,8 +161,14 @@ def _relayout_walk(primary: np.ndarray, spec: LayoutSpec,
     cap = max(int(cap), int(counts.max(initial=0)), 1)
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     slot = np.arange(len(vals), dtype=np.int64) - starts[owner]
-    out = np.full((new_shards, cap), spec.fill, dtype=primary.dtype)
-    out[owner, slot] = vals
+    out = {}
+    new_p = np.full((new_shards, cap), spec.fill, dtype=primary.dtype)
+    new_p[owner, slot] = vals
+    out["__primary__"] = new_p
+    for k, a in aux_vals.items():
+        buf = np.full((new_shards, cap), aux_fills[k], dtype=auxes[k].dtype)
+        buf[owner, slot] = a
+        out[k] = buf
     return out
 
 
@@ -154,7 +176,8 @@ def relayout_arrays(arrays: Dict[str, np.ndarray],
                     specs: Dict[str, LayoutSpec],
                     new_shards: int) -> Dict[str, np.ndarray]:
     """Schema-driven re-layout of one stage's host buffers onto
-    `new_shards`. Every buffer needs a `LayoutSpec` in `specs`."""
+    `new_shards`. Every buffer needs a `LayoutSpec` in `specs`; a walk_aux
+    buffer is re-laid out with its primary."""
     missing = [k for k in arrays if k not in specs]
     if missing:
         raise ValueError(f"no layout schema for buffer(s) {missing}; "
@@ -164,7 +187,13 @@ def relayout_arrays(arrays: Dict[str, np.ndarray],
         spec = specs[name]
         arr = np.asarray(arr)
         if spec.kind == "walk":
-            out[name] = _relayout_walk(arr, spec, new_shards)
+            auxes = {a: np.asarray(arrays[a]) for a in spec.aux}
+            fills = {a: specs[a].fill for a in spec.aux}
+            got = _relayout_walk(arr, auxes, fills, spec, new_shards)
+            out[name] = got.pop("__primary__")
+            out.update(got)
+        elif spec.kind == "walk_aux":
+            continue                      # re-laid out with its primary
         elif spec.kind == "vertex":
             out[name] = _relayout_vertex(arr, spec.n, new_shards)
         elif spec.kind == "slot":

@@ -34,7 +34,7 @@ from repro_torch.core.collectives import StackedMesh
 from repro_torch.core.estimator import pagerank_from_visits
 from repro_torch.core.graph import CSRGraph
 from repro_torch.core.routing import (advance_owned, count_owned_arrivals,
-                                      merge_walks, route_walks)
+                                      merge_walks, rank_within, route_walks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +87,13 @@ class DistState:
 
 
 def superstep(sg: ShardedGraph, state: DistState, *, mesh: StackedMesh,
-              eps: float, route_cap: int):
+              eps: float, route_cap: int, work_cap: int = 0):
     """One superstep on every shard. Returns (state, active, a2a_entries,
-    a2a_bytes), the three counts summed over shards."""
+    a2a_bytes), the three counts summed over shards.
+
+    `work_cap` > 0 bounds the steps a shard takes in a round (a straggler
+    bound): only its first `work_cap` owned walks in buffer order step,
+    the rest keep their place for a later round."""
     n_loc, shards = sg.n_loc, mesh.shards
     sid = mesh.shard_ids()
     pos, zeta = state.pos, state.zeta
@@ -104,14 +108,18 @@ def superstep(sg: ShardedGraph, state: DistState, *, mesh: StackedMesh,
     # ---- merge buffer: kept walks + arrivals, compact into cap slots ----
     pos, _, dropped = merge_walks(kept, {}, recv, {}, cap)
 
-    # ---- step: advance the walks each shard owns ----
+    # ---- step: advance the walks each shard owns (straggler-bounded) ----
     keys = torch.stack([prng.split(k, 3) for k in state.key])  # [P, 3, 2]
     owned = (pos >= 0) & (torch.div(pos, n_loc, rounding_mode="floor")
                           == sid[:, None])
+    stepped = owned
+    if work_cap:
+        owned_rank, _ = rank_within(torch.where(owned, 0, 1).to(torch.int32))
+        stepped = owned & (owned_rank < work_cap)
     survive, dst = advance_owned(sg.row_ptr, sg.col_idx, sg.out_deg, pos,
-                                 owned, keys[:, 1], keys[:, 2], eps, sid,
+                                 stepped, keys[:, 1], keys[:, 2], eps, sid,
                                  n_loc)
-    new_pos = torch.where(survive, dst, torch.where(owned, -1, pos))
+    new_pos = torch.where(survive, dst, torch.where(stepped, -1, pos))
     # arrivals within the shard are counted at once
     local_arrival = survive & (torch.div(dst, n_loc, rounding_mode="floor")
                                == sid[:, None])
@@ -169,10 +177,12 @@ def distributed_pagerank(graph: CSRGraph, eps: float, walks_per_node: int,
                          mesh: Optional[StackedMesh] = None,
                          cap: Optional[int] = None,
                          route_cap: Optional[int] = None,
+                         work_cap: int = 0,
                          max_rounds: int = 100_000,
                          device=None) -> DistributedResult:
     """Algorithm 1 with walk routing across the shards of `mesh` (one shard
-    on `device`, the card when None, if no mesh is given)."""
+    on `device`, the card when None, if no mesh is given). `work_cap` > 0
+    steps at most that many owned walks a shard in a round."""
     mesh = mesh or StackedMesh(1, device)
     shards = mesh.shards
     sg = shard_graph(graph, shards, mesh.device)
@@ -186,7 +196,8 @@ def distributed_pagerank(graph: CSRGraph, eps: float, walks_per_node: int,
     round_active: List[int] = []
     while state.round < max_rounds:
         state, active, entries, nbytes = superstep(
-            sg, state, mesh=mesh, eps=float(eps), route_cap=int(route_cap))
+            sg, state, mesh=mesh, eps=float(eps), route_cap=int(route_cap),
+            work_cap=int(work_cap))
         a2a_total += nbytes
         entries_total += entries
         round_active.append(active)

@@ -80,13 +80,19 @@ def _step_core(row_ptr, col_idx, out_deg, eps: float, state: WalkState):
     return new_state, survive, edge_ids
 
 
+def _run_while(row_ptr, col_idx, out_deg, state: WalkState, eps: float,
+               max_rounds: int) -> WalkState:
+    """Step `state` until no walk is alive or `max_rounds` is reached."""
+    while state.round < max_rounds and bool(state.alive.any()):
+        state, _, _ = _step_core(row_ptr, col_idx, out_deg, eps, state)
+    return state
+
+
 def run(graph: CSRGraph, eps: float, walks_per_node: int, key: torch.Tensor,
         *, max_rounds: int = 100_000) -> WalkState:
     state = init_state(graph, walks_per_node, key)
-    while state.round < max_rounds and bool(state.alive.any()):
-        state, _, _ = _step_core(graph.row_ptr, graph.col_idx, graph.out_deg,
-                                 float(eps), state)
-    return state
+    return _run_while(graph.row_ptr, graph.col_idx, graph.out_deg, state,
+                      float(eps), int(max_rounds))
 
 
 def _step_traced(row_ptr, col_idx, out_deg, state: WalkState, eps: float,

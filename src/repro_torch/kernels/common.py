@@ -1,8 +1,9 @@
 """Shared kernel utilities: the build of the CUDA sources, their loader, and
 the launch counters.
 
-There are four kernels, one for each TPU kernel of the JAX package:
-`histogram`, `segment_spmv`, `multinomial_rows` and `walk_step`. Every
+There are five kernels: one for each TPU kernel of the JAX package
+(`histogram`, `segment_spmv`, `multinomial_rows` and `walk_step`), and
+`uniform`, the threefry draw behind `prng.uniform`. Every
 kernel is CUDA C++ for `sm_90a` with a plain C interface. The
 sources are compiled at first use, one `nvcc` per source and all at once,
 into shared libraries under `build/kernels/` at the root of the checkout,
@@ -31,6 +32,7 @@ SOURCES = {
     "segment_spmv": KERNELS_DIR / "segment_spmv" / "segment_spmv.cu",
     "multinomial_rows": KERNELS_DIR / "multinomial_rows" / "multinomial_rows.cu",
     "walk_step": KERNELS_DIR / "walk_step" / "walk_step.cu",
+    "uniform": KERNELS_DIR / "uniform" / "uniform.cu",
 }
 
 # No --use_fast_math, and no FMA contraction: the plain torch versions round

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import prng
+from repro_torch.kernels.uniform.ref import uniform_ref
 
 
 def walk_step_ref(pos, alive, u_term, u_edge, row_ptr, col_idx, out_deg, *,
@@ -28,9 +28,10 @@ def walk_step_ref(pos, alive, u_term, u_edge, row_ptr, col_idx, out_deg, *,
 def walk_step_keyed_ref(pos, alive, key_term, key_edge, row_ptr, col_idx,
                         out_deg, *, eps: float):
     """`walk_step_ref` on the uniforms `prng.uniform(key, (W,))` of the two
-    keys: what the keyed kernel draws for itself."""
+    keys: what the keyed kernel draws for itself. The draws take the plain
+    version too, so no kernel is held against another."""
     W = pos.shape[0]
-    u_term = prng.uniform(key_term, (W,), device=pos.device)
-    u_edge = prng.uniform(key_edge, (W,), device=pos.device)
+    u_term = uniform_ref(key_term, (W,), device=pos.device)
+    u_edge = uniform_ref(key_edge, (W,), device=pos.device)
     return walk_step_ref(pos, alive, u_term, u_edge, row_ptr, col_idx,
                          out_deg, eps=eps)

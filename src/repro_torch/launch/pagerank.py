@@ -18,8 +18,17 @@ Engine selection (`--algo`):
   directed  Section 5 (directed/LOCAL): the same three phases with
             uniform coupon pools, sqrt(log n / eps)-step short walks and
             dangling-node resets. Pair it with `--graph directed_web`.
-  ppr       not ported yet: the run exits non-zero naming the ROADMAP
-            item that ports it. So does `--audit`.
+  ppr       batched Personalized PageRank (`core.personalized_batch`):
+            `--queries` seed-drawn queries of 1-3 sources each, each with
+            `--walks` * n walks, advance together, every superstep moving
+            all queries' walks over one `route_counts` exchange (the query
+            id folded into a virtual vertex id). Prints rounds,
+            a2a_bytes, dropped and admit_dropped (both must be 0) and the
+            peak of live walks; each query is checked against its own
+            `exact_ppr` (a dense solve: `--check` is refused above n =
+            4096).
+  `--audit` is not ported yet: the run exits non-zero naming the ROADMAP
+  item that ports it.
 
 Telemetry of `improved` and `directed`: rounds by phase (phase1 <= lam,
 report always 0, phase2 the stitches, phase3 always 1, tail the naive
@@ -37,8 +46,9 @@ different from the snapshot's, the snapshot is re-laid out onto N shards
 (bit-exact for `counts` and for the three-phase engines' Phases 2 and 3,
 a fresh key stream for `walks`, Phase 1 and the tail).
 
-Every run is checked against power iteration (L1 and top-10 overlap);
-`--check` turns the report into a gate (non-zero exit on a miss).
+Every run but `ppr` is checked against power iteration (L1 and top-10
+overlap); `--check` turns the report into a gate (non-zero exit on a
+miss).
 """
 from __future__ import annotations
 
@@ -51,7 +61,8 @@ import numpy as np
 
 from repro_torch import prng
 from repro_torch.checkpoint import Checkpointer, relayout_pagerank_state
-from repro_torch.core import l1_error, power_iteration, topk_overlap
+from repro_torch.core import (l1_error, normalized, power_iteration,
+                              topk_overlap)
 from repro_torch.core.collectives import StackedMesh
 from repro_torch.core.distributed import (init_state, shard_graph,
                                           state_from_host, state_to_host,
@@ -61,6 +72,9 @@ from repro_torch.core.distributed_directed import \
     distributed_directed_pagerank
 from repro_torch.core.distributed_improved import \
     distributed_improved_pagerank
+from repro_torch.core.personalized import exact_ppr
+from repro_torch.core.personalized_batch import \
+    batched_personalized_pagerank
 from repro_torch.device import resolve_device
 from repro_torch.graphs import GENERATORS
 from repro_torch.runtime import FailureSchedule, Supervisor
@@ -68,9 +82,11 @@ from repro_torch.runtime import FailureSchedule, Supervisor
 # algorithms of the JAX launcher that this package does not run yet, with
 # the ROADMAP item that ports each
 NOT_PORTED = {
-    "ppr": "ROADMAP Queue 1 item 8 (Personalized PageRank and serving)",
     "audit": "ROADMAP Queue 1 item 11 (wire auditor)",
 }
+
+# `exact_ppr` solves a dense n x n system: the largest n `--check` takes
+PPR_CHECK_MAX_N = 4096
 
 
 @dataclasses.dataclass
@@ -141,13 +157,64 @@ def run_walks(g, eps: float, walks_per_node: int, checkpoint_dir, fail_at,
     return pi, res
 
 
+def run_ppr(g, eps: float, walks_per_query: int, num_queries: int,
+            seed: int, check: bool = False, l1_tol: float = 0.15,
+            topk_min: float = 0.6, mesh=None):
+    """Batched PPR: seed-drawn multi-source queries, one shared engine.
+
+    Each query is checked against its own `exact_ppr` (PPR has no single
+    power-iteration reference). Returns the [num_queries, n] estimator
+    matrix."""
+    if check and g.n > PPR_CHECK_MAX_N:
+        raise SystemExit(
+            f"[pagerank] --check with --algo ppr solves a dense n x n "
+            f"system per query (exact_ppr): n = {g.n} is above "
+            f"{PPR_CHECK_MAX_N}; run without --check or on a smaller graph")
+    rng = np.random.default_rng(seed)
+    queries = []
+    for _ in range(num_queries):
+        k = int(rng.integers(1, 4))
+        sources = rng.choice(g.n, size=k, replace=False)
+        queries.append((sources, None))
+    res = batched_personalized_pagerank(
+        g, eps, queries, walks_per_query, prng.PRNGKey(seed), mesh=mesh)
+    peak = max(res.active_trace) if res.active_trace else 0
+    print(f"[pagerank] algo=ppr n={g.n} shards={res.shards} "
+          f"queries={num_queries} walks/query={walks_per_query} "
+          f"rounds={res.rounds} a2a_bytes={res.a2a_bytes} "
+          f"dropped={res.dropped} admit_dropped={res.admit_dropped} "
+          f"peak_active={peak}")
+    if g.n > PPR_CHECK_MAX_N:
+        print(f"[pagerank] no exact_ppr report above n = {PPR_CHECK_MAX_N} "
+              f"(a dense n x n solve per query)")
+        return res.ppr
+    worst_l1, worst_topk = 0.0, 1.0
+    for i, (sources, weights) in enumerate(queries):
+        ref = exact_ppr(g, eps, sources, weights=weights)
+        est = res.ppr[i]
+        l1 = l1_error(normalized(est), normalized(ref))
+        topk = topk_overlap(est, ref)
+        print(f"[pagerank]   query {i} sources={list(map(int, sources))} "
+              f"L1 vs exact_ppr: {l1:.4f}  top-10 overlap: {topk:.2f}")
+        worst_l1, worst_topk = max(worst_l1, l1), min(worst_topk, topk)
+    if check and (worst_l1 >= l1_tol or worst_topk < topk_min
+                  or res.dropped or res.admit_dropped):
+        raise SystemExit(
+            f"[pagerank] ppr check FAILED: worst L1 {worst_l1:.4f} "
+            f"(tol {l1_tol}) worst top-10 {worst_topk:.2f} "
+            f"(min {topk_min}) dropped={res.dropped} "
+            f"admit_dropped={res.admit_dropped}")
+    return res.ppr
+
+
 def run(n: int, eps: float, walks_per_node: int, graph_kind: str,
         checkpoint_dir: str | None, fail_at: list[int], seed: int = 0,
         algo: str = "walks", avg_deg: float = 6.0, resume: bool = False,
-        check: bool = False, shards: int | None = None,
+        check: bool = False, num_queries: int = 4, shards: int | None = None,
         max_restarts: int = 16, device=None):
     """Build the graph, run `algo` on `shards` stacked shards on `device`
-    (the card when None) and report its accuracy."""
+    (the card when None) and report its accuracy. `--algo ppr` returns the
+    [num_queries, n] PPR estimator matrix instead of a `RunResult`."""
     if algo in NOT_PORTED:
         raise SystemExit(f"[pagerank] --algo {algo} is not ported to this "
                          f"package yet: {NOT_PORTED[algo]}")
@@ -160,6 +227,9 @@ def run(n: int, eps: float, walks_per_node: int, graph_kind: str,
     g = GENERATORS[graph_kind](n, avg_deg, seed, device=mesh.device) \
         if graph_kind != "ring" else GENERATORS[graph_kind](
             n, device=mesh.device)
+    if algo == "ppr":
+        return run_ppr(g, eps, walks_per_node * g.n, num_queries, seed,
+                       check=check, mesh=mesh)
     if algo == "walks":
         pi, res = run_walks(g, eps, walks_per_node, checkpoint_dir, fail_at,
                             seed, resume=resume, mesh=mesh,
@@ -224,6 +294,10 @@ def main(argv=None):
     ap.add_argument("--algo", default="walks",
                     choices=["walks", "counts", "improved", "directed",
                              "ppr"])
+    ap.add_argument("--queries", type=int, default=4,
+                    help="(--algo ppr) seed-drawn multi-source queries "
+                         "batched into one engine; each gets --walks * n "
+                         "walks")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--fail-at", type=int, nargs="*", default=[])
     ap.add_argument("--resume", action="store_true",
@@ -242,14 +316,16 @@ def main(argv=None):
                          "leaving the snapshots for a resume)")
     ap.add_argument("--check", action="store_true",
                     help="non-zero exit if the accuracy report misses "
-                         "L1 < 0.15 / top-10 >= 0.6")
+                         "L1 < 0.15 / top-10 >= 0.6 (--algo ppr: each "
+                         "query against exact_ppr, n <= 4096)")
     ap.add_argument("--audit", action="store_true",
                     help="the CONGEST wire auditor (not ported yet)")
     args = ap.parse_args(argv)
     run(args.n, args.eps, args.walks, args.graph, args.checkpoint_dir,
         args.fail_at, seed=args.seed,
         algo="audit" if args.audit else args.algo, avg_deg=args.avg_deg,
-        resume=args.resume, check=args.check, shards=args.shards,
+        resume=args.resume, check=args.check, num_queries=args.queries,
+        shards=args.shards,
         max_restarts=args.max_restarts, device=args.device)
 
 

@@ -2,9 +2,10 @@
 mode (the default of jax 0.9).
 
 A key is a uint32 tensor of shape [2] that lives on the host and is passed
-explicitly, as JAX passes its keys. `uniform` draws on any device. The
-uint32 arithmetic runs in int64 masked with 0xFFFFFFFF, because torch's
-uint32 tensors support neither `+` nor `>>` on the CPU.
+explicitly, as JAX passes its keys. `uniform` draws on any device: on a
+CUDA device through the `uniform` kernel, elsewhere through its plain
+version. The plain uint32 arithmetic runs in int64 masked with 0xFFFFFFFF,
+because torch's uint32 tensors support neither `+` nor `>>` on the CPU.
 
 Counter layout (partitionable mode): element i of a draw of shape S uses
 the 64-bit counter i (row-major flat index), split into the words
@@ -14,10 +15,8 @@ words as its 32 random bits.
 """
 from __future__ import annotations
 
-import math
 from typing import Sequence, Tuple
 
-import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -89,13 +88,8 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape: Sequence[int] | int = (), *,
             device=None) -> torch.Tensor:
     """`jax.random.uniform(key, shape)`: float32 in [0, 1) on `device`
-    (the host when None)."""
-    shape = (shape,) if isinstance(shape, int) else tuple(shape)
-    size = math.prod(shape)
-    k0, k1 = _words(key)
-    hi, lo = _counter_words(size, device)
-    b0, b1 = threefry2x32(k0, k1, hi, lo)
-    # 23 random mantissa bits under the exponent of 1.0, then minus 1
-    bits = b0.bitwise_xor_(b1).bitwise_right_shift_(9).bitwise_or_(
-        int(np.float32(1.0).view(np.uint32)))
-    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
+    (the host when None). A CUDA device draws with the `uniform` kernel,
+    the CPU with its plain version (`kernels/uniform/ref.py`)."""
+    # imported here: the kernel's modules import this one
+    from repro_torch.kernels.uniform import uniform as draw
+    return draw(key, shape, device=device)

@@ -186,6 +186,7 @@ class Supervisor:
     def __init__(self, step_fn: Callable, to_host: Callable,
                  from_host: Callable, checkpointer: Checkpointer, *,
                  checkpoint_every: int = 10, max_restarts: int = 16,
+                 async_checkpoints: bool = False,
                  failure_schedule: Optional[FailureSchedule] = None,
                  meta_fn: Optional[Callable[[], dict]] = None,
                  relayout: Optional[Callable[[dict, int], dict]] = None):
@@ -195,6 +196,7 @@ class Supervisor:
         self.ckpt = checkpointer
         self.checkpoint_every = checkpoint_every
         self.max_restarts = max_restarts
+        self.async_checkpoints = async_checkpoints
         self.failures = failure_schedule
         self.meta_fn = meta_fn
         self.relayout = relayout
@@ -203,8 +205,9 @@ class Supervisor:
     def _meta(self) -> dict:
         return self.meta_fn() if self.meta_fn is not None else {}
 
-    def _save(self, round_idx: int, state: Any):
-        self.ckpt.save(round_idx, self.to_host(state), metadata=self._meta())
+    def _save(self, round_idx: int, state: Any, blocking: bool = True):
+        self.ckpt.save(round_idx, self.to_host(state), metadata=self._meta(),
+                       blocking=blocking)
 
     def run(self, state: Any, *, max_rounds: int = 100_000,
             resume: bool = False) -> SupervisorResult:
@@ -261,9 +264,11 @@ class Supervisor:
                 round_idx = int(manifest["step"])
                 continue
             self.heartbeat.record(round_idx, time.perf_counter() - t0)
-            # a finished run always leaves its final state on disk
+            # a finished run always leaves its final state on disk, and
+            # writes it blocking: nothing overlaps a finished run
             if done or round_idx % self.checkpoint_every == 0:
-                self._save(round_idx, state)
+                self._save(round_idx, state,
+                           blocking=done or not self.async_checkpoints)
                 ckpts += 1
             if done:
                 break

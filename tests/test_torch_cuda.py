@@ -11,10 +11,12 @@ overfull, no hot list) and integer segment_spmv (with and without a hot
 list) bit-exact; multinomial_rows, both entries, bit-exact against its
 plain version on the same card (no FMA contraction on either side); float
 segment_spmv within 1e-5 relative of a float64 sum (atomic order);
-walk_step bit-exact from given uniforms and from key words; the sharded
-engines (walks, counts, and the three-phase Algorithm 2 and Section 5) on
-the card bit-exact against the same run on the CPU, at counts whose draws
-stay in the inverse-CDF regime.
+walk_step bit-exact from given uniforms and from key words; uniform
+bit-exact against its plain version on the card and on the CPU; the
+sharded engines (walks, counts, and the three-phase Algorithm 2 and
+Section 5) and both PPR engines and the PPR service on the card bit-exact
+against the same run on the CPU, at counts whose draws stay in the
+inverse-CDF regime.
 """
 import numpy as np
 import pytest
@@ -44,6 +46,11 @@ from repro_torch.kernels.segment_spmv import (hot_list, segment_spmv,
                                               segment_sum_int)
 from repro_torch.kernels.segment_spmv.ref import (segment_spmv_ref,
                                                   segment_sum_int_ref)
+from repro_torch.core.personalized import personalized_pagerank
+from repro_torch.core.personalized_batch import \
+    batched_personalized_pagerank
+from repro_torch.kernels.uniform import uniform
+from repro_torch.kernels.uniform.ref import uniform_ref
 from repro_torch.kernels.walk_step import walk_step, walk_step_keyed
 from repro_torch.kernels.walk_step.ref import (walk_step_keyed_ref,
                                                walk_step_ref)
@@ -441,3 +448,44 @@ def test_cuda_sharded_engines_match_cpu(cuda):
             assert torch.equal(c.zeta.cpu(), d.zeta)
             assert (c.rounds, c.a2a_bytes_total, c.occupancy) == \
                 (d.rounds, d.a2a_bytes_total, d.occupancy)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 32 - 1])
+@pytest.mark.parametrize("shape", [(0,), (1,), (1000,), (3, 4099),
+                                   (1 << 22,)])
+def test_cuda_uniform_matches_plain(cuda, seed, shape):
+    key = prng.PRNGKey(seed)
+    before = common.launches["uniform"]
+    got = uniform(key, shape, device=cuda)
+    assert got.shape == shape and got.device.type == "cuda"
+    assert common.launches["uniform"] == before + (1 if got.numel() else 0)
+    want = uniform_ref(key, shape, device=cuda)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    host = uniform_ref(key, shape)
+    assert torch.equal(got.cpu().view(torch.int32), host.view(torch.int32))
+    # prng.uniform on the card is the kernel
+    assert torch.equal(prng.uniform(key, shape, device=cuda), got)
+
+
+def test_cuda_ppr_engines_match_cpu(cuda):
+    g_cpu = directed_web(300, 5.0, seed=2, device="cpu")
+    g = g_cpu.to(cuda)
+    key = prng.PRNGKey(5)
+    common.reset_launches()
+    a = personalized_pagerank(g, 0.2, [0, 7], 3000, key=key, device=cuda)
+    assert common.launches["uniform"] > 0 and common.launches["histogram"] > 0
+    b = personalized_pagerank(g_cpu, 0.2, [0, 7], 3000, key=key,
+                              device="cpu")
+    assert torch.equal(a.cpu(), b)
+    queries = [([0, 5], None), ([17], None), ([3, 40], [0.8, 0.2])]
+    for shards in (1, 4):
+        common.reset_launches()
+        c = batched_personalized_pagerank(g, 0.2, queries, 2000, key,
+                                          mesh=StackedMesh(shards, cuda))
+        for name in ("walk_step", "histogram", "segment_spmv"):
+            assert common.launches[name] > 0, name
+        d = batched_personalized_pagerank(g_cpu, 0.2, queries, 2000, key,
+                                          mesh=StackedMesh(shards, "cpu"))
+        assert np.array_equal(c.ppr, d.ppr)
+        assert (c.rounds, c.active_trace, c.a2a_bytes, c.dropped) == \
+            (d.rounds, d.active_trace, d.a2a_bytes, d.dropped)

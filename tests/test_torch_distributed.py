@@ -6,6 +6,8 @@ JSON; the port runs the same cases in process on the CPU, with P shards
 stacked on one device. Cases: both engines on the six shared fixtures at
 P=8, and on two fixtures at P in {1, 3} (uneven padding); the count
 engine with packed and unpacked lanes. eps = 0.2, K = 8, key PRNGKey(0).
+The walk engine's `work_cap` straggler bound on erdos_renyi(64, 4), K = 4,
+at P in {1, 3}.
 
 Parity level: bit-exact — zeta, rounds, dropped, waited, round_active,
 a2a entries and bytes (walks); zeta, rounds, a2a entries and bytes,
@@ -32,9 +34,10 @@ from repro_torch.core.distributed import distributed_pagerank, shard_graph
 from repro_torch.core.distributed_counts import (distributed_pagerank_counts,
                                                  shard_graph_padded)
 from repro_torch.core.graph import from_edges
-from repro_torch.graphs import ring
+from repro_torch.graphs import erdos_renyi, ring
 
 EPS, K = 0.2, 8
+WORK_CAP_SHARDS = [1, 3]
 NAMES = ["ring", "grid", "er", "ba", "ba_hub", "dweb"]
 CASES = [(name, 8) for name in NAMES] + [
     (name, p) for name in ("er", "dweb") for p in (1, 3)]
@@ -63,8 +66,18 @@ for name, P in %r:
             entries=r.a2a_entries_total, bytes=r.a2a_bytes_total,
             lane_cap=r.lane_cap, overflow=r.overflow,
             occupancy=list(r.occupancy), residual=r.residual)
+from repro.graphs import erdos_renyi
+g = erdos_renyi(64, 4.0, seed=0)
+for P in %r:
+    mesh = Mesh(np.array(jax.devices()[:P]), ("shards",))
+    r = distributed_pagerank(g, %r, 4, jax.random.PRNGKey(0), mesh=mesh,
+                             work_cap=8)
+    out[f"work_cap/{P}"] = dict(
+        zeta=np.asarray(r.zeta).tolist(), rounds=r.rounds,
+        dropped=r.dropped, waited=r.waited, round_active=r.round_active,
+        entries=r.a2a_entries_total, bytes=r.a2a_bytes_total)
 print(json.dumps(out))
-""" % (CASES, EPS, K, EPS, K)
+""" % (CASES, EPS, K, EPS, K, WORK_CAP_SHARDS, EPS)
 
 
 @pytest.fixture(scope="module")
@@ -169,6 +182,26 @@ def test_one_shard_packed_has_no_limit():
     r = distributed_pagerank_counts(g, EPS, 5000, prng.PRNGKey(1),
                                     mesh=StackedMesh(1, "cpu"))
     assert r.a2a_entries_total == 0 and r.residual == 0
+
+
+@pytest.mark.parametrize("shards", WORK_CAP_SHARDS)
+def test_work_cap_bit_exact(jax_runs, shards):
+    """`work_cap=8` steps at most 8 owned walks a shard in a round: on
+    erdos_renyi(64, 4) with K = 4 the JAX engine takes 161 rounds at one
+    shard (25 without the cap); the port matches it bit for bit."""
+    g = erdos_renyi(64, 4.0, seed=0, device="cpu")
+    r = distributed_pagerank(g, EPS, 4, prng.PRNGKey(0),
+                             mesh=StackedMesh(shards, "cpu"), work_cap=8)
+    want = jax_runs[f"work_cap/{shards}"]
+    got = dict(zeta=r.zeta.tolist(), rounds=r.rounds, dropped=r.dropped,
+               waited=r.waited, round_active=r.round_active,
+               entries=r.a2a_entries_total, bytes=r.a2a_bytes_total)
+    assert got == want
+    if shards == 1:
+        assert r.rounds == 161
+        free = distributed_pagerank(g, EPS, 4, prng.PRNGKey(0),
+                                    mesh=StackedMesh(1, "cpu"))
+        assert free.rounds == 25
 
 
 def test_entry_points_need_a_card_or_cpu():

@@ -14,7 +14,11 @@ Parity levels:
   * the walk state's re-layout and the re-derived shard keys — bit-exact
     against the JAX package's `relayout_pagerank_state`; a walk run
     resumed at another shard count draws fresh keys, so it is held to the
-    accuracy gate (statistical) with nothing dropped.
+    accuracy gate (statistical) with nothing dropped;
+  * `Supervisor(async_checkpoints=True)` — the walk engine recovered from
+    injected failures, and killed and resumed, with its periodic snapshots
+    written in the background: bit-exact with the blocking run and with
+    the JAX package's uninterrupted run.
 """
 import os
 import shutil
@@ -32,10 +36,14 @@ from repro_torch import convert, prng
 from repro_torch.checkpoint import (Checkpointer, relayout_pagerank_state,
                                     restore_into)
 from repro_torch.core.collectives import StackedMesh
+from repro_torch.core.distributed import (init_state, shard_graph,
+                                          state_from_host, state_to_host,
+                                          superstep)
 from repro_torch.core.distributed_counts import distributed_pagerank_counts
 from repro_torch.graphs import directed_web, erdos_renyi
 from repro_torch.launch.pagerank import run, run_walks
-from repro_torch.runtime import SimulatedFailure
+from repro_torch.runtime import (FailureSchedule, SimulatedFailure,
+                                 Supervisor)
 
 EPS, K = 0.2, 8
 
@@ -251,6 +259,65 @@ def test_jax_count_snapshot_resumes_in_port(jax_snapshots):
             checkpoint_dir=copy, resume=True)
         np.testing.assert_array_equal(res.zeta.numpy(), out["counts_zeta"])
         assert res.rounds == out["counts_rounds"]
+
+
+def _supervised_walks(ckpt_dir, fail_at, *, async_checkpoints,
+                      max_restarts=16):
+    """The walk engine at P=4 on the JAX snapshot run's graph and seed,
+    under a Supervisor snapshotting every 2 rounds. Returns (supervisor,
+    initial state, pi of a result)."""
+    g = erdos_renyi(96, 5.0, seed=1, device="cpu")
+    mesh = StackedMesh(4, "cpu")
+    sg = shard_graph(g, 4)
+    W = g.n * K
+    route_cap = W // 4 + 64
+    state = init_state(sg, K, prng.PRNGKey(9), 2 * W // 4 + 4 * 64, "cpu")
+
+    def step_fn(s):
+        s2, active, _, _ = superstep(sg, s, mesh=mesh, eps=EPS,
+                                     route_cap=route_cap)
+        return s2, active == 0
+
+    sup = Supervisor(step_fn, state_to_host,
+                     lambda f: state_from_host(f, mesh),
+                     Checkpointer(str(ckpt_dir)), checkpoint_every=2,
+                     max_restarts=max_restarts,
+                     async_checkpoints=async_checkpoints,
+                     failure_schedule=FailureSchedule(fail_at) if fail_at
+                     else None)
+
+    def pi(res):
+        zeta = res.state.zeta.reshape(-1)[: g.n].numpy()
+        return zeta.astype(np.float64) * EPS / (g.n * K)
+
+    return sup, state, pi
+
+
+def test_async_checkpoints_resume_bit_exact(tmp_path, jax_snapshots):
+    _, out = jax_snapshots
+    runs = {}
+    for mode in (True, False):
+        sup, state, pi = _supervised_walks(tmp_path / str(mode), [3, 14],
+                                           async_checkpoints=mode)
+        res = sup.run(state)
+        runs[mode] = (pi(res), res.restarts, res.checkpoints_written,
+                      res.rounds)
+    assert runs[True][1] == 2 and runs[True][1:] == runs[False][1:]
+    np.testing.assert_array_equal(runs[True][0], runs[False][0])
+    np.testing.assert_array_equal(runs[True][0], out["walks_pi"])
+    # killed mid-run with a background write in flight, then resumed
+    sup, state, pi = _supervised_walks(tmp_path / "killed", [9],
+                                       async_checkpoints=True,
+                                       max_restarts=0)
+    with pytest.raises(SimulatedFailure):
+        sup.run(state)
+    sup.ckpt.wait()
+    assert sup.ckpt.latest_step() == 8
+    sup, state, pi = _supervised_walks(tmp_path / "killed", [],
+                                       async_checkpoints=True)
+    res = sup.run(state, resume=True)
+    np.testing.assert_array_equal(pi(res), out["walks_pi"])
+    assert res.rounds == runs[True][3]
 
 
 def test_jax_walk_snapshot_resumes_in_port(jax_snapshots):

@@ -63,6 +63,21 @@ for fn in (distributed_improved_pagerank, distributed_directed_pagerank):
 for algo in ("walks", "counts", "improved", "directed"):
     assert run(40, 0.2, 4, "directed_web", None, [2], algo=algo, shards=2,
                device="cpu").restarts == 1
+from repro_torch.core.personalized import personalized_pagerank
+from repro_torch.core.personalized_batch import \
+    batched_personalized_pagerank
+from repro_torch.serve import PPRService
+assert personalized_pagerank(g, 0.2, [0, 3], 200, device="cpu").sum() > 0
+r = batched_personalized_pagerank(g, 0.2, [([0], None), ([5, 6], None)],
+                                  100, prng.PRNGKey(1), mesh=mesh)
+assert r.dropped == 0 and r.ppr.shape == (2, 40)
+svc = PPRService(g, 0.2, slots=2, walks_per_query=50, mesh=mesh)
+req = svc.submit([1], now=0.0)
+svc.drain(now=1.0)
+svc.resize(shards=2)
+assert req.done and svc.submit([1], now=2.0).cached
+assert run(40, 0.2, 4, "directed_web", None, [], algo="ppr", shards=2,
+           device="cpu").shape == (4, 40)
 assert "jax" not in [m.split(".")[0] for m, v in sys.modules.items() if v]
 print("ok")
 """

@@ -346,8 +346,10 @@ def test_cpu_wrappers_launch_nothing():
     walk_step(ids, ids, u, u, ids, ids, ids, eps=0.2)
     key = prng.PRNGKey(0)
     walk_step_keyed(ids, ids, key, key, ids, ids, ids, eps=0.2)
+    prng.uniform(key, (3,), device="cpu")
     assert common.launches == {"histogram": 0, "segment_spmv": 0,
-                               "multinomial_rows": 0, "walk_step": 0}
+                               "multinomial_rows": 0, "walk_step": 0,
+                               "uniform": 0}
 
 
 def test_no_kernel_built_or_loaded_on_cpu():

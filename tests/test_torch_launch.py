@@ -9,8 +9,10 @@ Parity levels:
     and top-10 >= 0.6 against power iteration.
 `--algo improved|directed` run the three-phase engines on the CPU and
 print their telemetry; `--fail-at` and `--resume` give their pi bit for
-bit. `--algo ppr` and `--audit`, not ported yet, exit non-zero naming the
-ROADMAP item that ports them.
+bit. `--algo ppr` gives the JAX launcher's `run_ppr` matrix bit for bit
+at one shard and refuses `--check` above n = 4096 (a dense solve per
+query). `--audit`, not ported yet, exits non-zero naming the ROADMAP item
+that ports it.
 """
 import numpy as np
 import pytest
@@ -58,8 +60,7 @@ def test_resume_needs_checkpoint_dir():
         run(*ARGS, None, [], resume=True, device="cpu")
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--algo", "ppr"], "item 8"), (["--audit"], "item 11")])
+@pytest.mark.parametrize("argv,item", [(["--audit"], "item 11")])
 def test_unported_algos_exit_naming_the_roadmap(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 {item}") as e:
         main(argv + ["--device", "cpu"])
@@ -104,3 +105,29 @@ def test_main_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "algo=counts n=64 shards=8" in out and "residual=0" in out
     assert "L1 vs power-iter" in out
+
+
+def test_ppr_matches_jax_launcher(capsys):
+    """`--algo ppr` at one shard: the [queries, n] estimator matrix of the
+    JAX launcher's `run_ppr`, bit for bit, each query checked against its
+    own exact_ppr."""
+    args = (96, 0.2, 20, "directed_web", None, [])
+    want = jax_run(*args, seed=5, algo="ppr", num_queries=3, shards=1)
+    got = run(*args, seed=5, algo="ppr", num_queries=3, shards=1,
+              check=True, device="cpu")
+    assert got.shape == (3, 96)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    main(["--device", "cpu", "--shards", "4", "--n", "96", "--walks", "20",
+          "--algo", "ppr", "--queries", "2", "--graph", "directed_web",
+          "--check"])
+    out = capsys.readouterr().out
+    assert "algo=ppr n=96 shards=4 queries=2 walks/query=1920" in out
+    assert "dropped=0 admit_dropped=0" in out
+    assert out.count("L1 vs exact_ppr") == 2 + 3 + 3
+
+
+def test_ppr_check_refused_above_dense_limit():
+    with pytest.raises(SystemExit, match="above 4096") as e:
+        main(["--device", "cpu", "--n", "4097", "--walks", "1", "--algo",
+              "ppr", "--check"])
+    assert e.value.code != 0

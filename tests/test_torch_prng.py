@@ -1,10 +1,16 @@
-"""The port's threefry PRNG against `jax.random` (parity level: bit-exact)."""
+"""The port's threefry PRNG against `jax.random` (parity level: bit-exact).
+
+`prng.uniform` on the CPU runs the `uniform` kernel's plain version,
+`kernels/uniform/ref.py::uniform_ref`; both are held against
+`jax.random.uniform` (the kernel itself is held against `uniform_ref` on
+the card, in tests/test_torch_cuda.py)."""
 import jax
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import prng
+from repro_torch.kernels.uniform.ref import uniform_ref
 
 SEEDS = [0, 1, 7, 42, 12345, 2 ** 31 - 1, 2 ** 32 - 1, 2 ** 33 + 9, -1, -7]
 SHAPES = [(0,), (1,), (7,), (128,), (1001,), (3, 5), (4, 0), (2, 3, 4)]
@@ -44,6 +50,15 @@ def test_fold_in(seed):
 def test_uniform(seed, shape):
     jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
     _same_bits(jax.random.uniform(jk, shape), prng.uniform(tk, shape).numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 3, 2 ** 32 - 1, -7])
+@pytest.mark.parametrize("shape", [(0,), (5,), (1000,), (2, 3, 4)])
+def test_uniform_ref(seed, shape):
+    jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    want = jax.random.uniform(jk, shape)
+    _same_bits(want, uniform_ref(tk, shape).numpy())
+    _same_bits(want, uniform_ref(tk, shape, device="cpu").numpy())
 
 
 def test_chained_keys_stay_identical():
