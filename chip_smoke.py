@@ -1093,6 +1093,7 @@ def three_phase_path(drive, sharded_rounds):
     back to the tail, which launches walk_step."""
     import torch
     from repro_torch import prng
+    from repro_torch.analysis.congest import RecordingMesh
     from repro_torch.core import (directed_local_pagerank, improved_pagerank,
                                   power_iteration, simple_pagerank,
                                   walks_per_node_for)
@@ -1156,12 +1157,19 @@ def three_phase_path(drive, sharded_rounds):
         f"{out['alg1 counts P=4, erdos_renyi']['rounds']} on erdos_renyi("
         f"{g.n}) and {sharded_rounds} on doc_link_graph({N})")
 
-    # the same run with each phase's kernel calls captured, then timed
+    # the same run with each phase's kernel calls captured, then timed,
+    # and its exchanges recorded for the full-width wire audit
+    rec = RecordingMesh(4, g.device, lints=False)
     calls = PhaseCalls()
     with calls.capture():
-        again = improved()
+        again = distributed_improved_pagerank(g, EPS, K, prng.PRNGKey(0),
+                                              mesh=rec)
     check(torch.equal(again.zeta, zeta), "improved P=4: a second run with "
                                          "the same key differs")
+    three_phase_checks("improved P=4 (recorded)", again, g.n, K, pi_ref)
+    out["improved P=4, erdos_renyi"]["audit"] = full_width_audit(
+        "improved P=4, erdos_renyi", "improved", g, K, rec, again)
+    del rec
     hist_calls = {phase: entry[0] for (phase, kernel), entry
                   in calls.calls.items() if kernel == "histogram"}
     log(f"improved P=4: wall seconds by phase (a second run, the card "
@@ -1451,6 +1459,7 @@ def ppr_path(g, drive):
     t0 = time.perf_counter()
     ref = ppr_oracle(g, queries)
     out["oracle_s"] = time.perf_counter() - t0
+    out["queries"], out["oracle"] = queries, ref
     mesh = StackedMesh(4, dev)
 
     res, secs, peak = drive(
@@ -1596,6 +1605,170 @@ def ppr_service_run(g, batch_queries, batch_ref):
             [r.latency for r in reqs if not r.cached], 50)))
     log(f"PPRService[P=4 -> 2]: {info}")
     return info
+
+
+def full_width_audit(label, engine, g, K, rec, res, **spec_kw):
+    """A full-width run recorded by `rec` against its engine's spec at that
+    size, with no lints: every program call (site count and order, no site
+    twice, payloads exact, psums at most 256 B), count-class lanes within
+    their W-free budget, nothing unscoped, and the telemetry bytes equal to
+    entries x width. Walk-class sites are held to their runtime lanes
+    (payload and telemetry only: their W-scaling is by design). Returns
+    a summary: per site the lanes (a walk-class site's at runtime), budget
+    and recorded bytes a shard, and where the run's telemetry gives it per
+    round, the most entries of a round over all shards (Phase 1's request
+    and reply together)."""
+    import numpy as np
+    from repro_torch.analysis.congest import (audit_engine_spec, spec_for,
+                                              telemetry_checks, walk_lanes)
+    spec = spec_for(engine, g, rec, eps=EPS, K=K, **spec_kw)
+    runtime = walk_lanes(engine, g, rec.shards, K)
+    entry = audit_engine_spec(spec, rec.calls, unscoped=rec.unscoped,
+                              walk_lanes=runtime, lints=False)
+    checks = telemetry_checks(engine, res, spec)
+    check(not entry["violations"],
+          f"{label}: wire audit violations {entry['violations']}")
+    check(all(c["ok"] for c in checks), f"{label}: telemetry {checks}")
+    most = {}
+    if engine in ("improved", "directed"):
+        traces = [t.messages for t in res.report.traces]
+        bounds = np.cumsum([0, res.phase1_rounds, res.phase2_rounds,
+                            res.phase3_rounds, res.tail_rounds])
+        for i, name in enumerate(("phase1", "phase2", "phase3", "tail")):
+            part = traces[bounds[i]:bounds[i + 1]]
+            most[name] = max(part) if part else 0
+    sites = {}
+    for row in entry["sites"]:
+        sites[row["site"]] = dict(
+            lanes=runtime.get(row["site"], row["lane_entries"]),
+            budget=row["budget_entries"],
+            recorded_bytes=row["recorded_payload_bytes"],
+            wire_class=row["wire_class"],
+            most_entries_a_round=most.get(row["stage"]))
+    summary = dict(program_calls=len(rec.calls), sites=sites,
+                   psums_a_call=entry["psum_sites"],
+                   psum_max_bytes=entry["psum_max_bytes"],
+                   telemetry=[(c["name"], c["runtime_bytes"], c["entries"])
+                              for c in checks], violations=0)
+    log(f"audit {label}: PASS; {summary}")
+    return summary
+
+
+def audit_path(g, K, drive, pi_ref, ppr_out):
+    """The CONGEST wire audit on the card. The fixture audit of the five
+    engines at 8 stacked shards, with its lints and the JAX gate's resume
+    classes; then, on doc_link_graph(2^20) relabelled by
+    degree_balanced_relabel(g, 4), the sharded count engine at P=4
+    (unpacked lanes) and the batched PPR engine at P=4 (16 queries x 2^21
+    walks), each recorded and held to its spec at full width, with the
+    guards of its earlier phase (estimates mapped back through the
+    permutation). Sharded Algorithm 2 is recorded in `three_phase_path`."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.analysis.congest import (RecordingMesh,
+                                              audit_all_engines,
+                                              format_wire_table)
+    from repro_torch.core.distributed_counts import \
+        distributed_pagerank_counts
+    from repro_torch.core.personalized_batch import \
+        batched_personalized_pagerank
+    from repro_torch.graphs.partition import (degree_balanced_relabel,
+                                              shard_load_stats)
+    from repro_torch.kernels import common
+
+    out = {}
+    rep, secs, _ = drive("audit_all_engines[8 shards]", audit_all_engines,
+                         list(common.launches))
+    log(format_wire_table(rep))
+    eng = rep["engines"]
+    check(rep["ok"] and rep["violations_total"] == 0,
+          f"fixture audit: {rep['violations_total']} violations: "
+          f"{[v for e in eng.values() for v in e['violations']]}")
+    check(sorted(eng) == ["counts", "directed", "improved", "ppr", "walks"]
+          and all(e["telemetry"]["ok"] and e["w_independent"]
+                  for e in eng.values()),
+          "fixture audit: an engine missing, telemetry off or W-bound")
+    resume = {k: e["resume"] for k, e in eng.items()}
+    check(resume["counts"]["counts"] == "bit-exact (replicated key)"
+          and resume["improved"]["phase2"] == resume["improved"]["phase3"]
+          == resume["directed"]["phase2"] == "bit-exact (RNG-free)"
+          and all(r.startswith("statistical") for r in (
+              resume["improved"]["phase1"], resume["walks"]["walks"],
+              resume["ppr"]["serve"])),
+          f"fixture audit: resume classes {resume}")
+    out["fixture"] = dict(seconds=secs, shards=rep["devices"],
+                          rows=sum(len(e["sites"]) for e in eng.values()),
+                          notes=sum(len(e["notes"]) for e in eng.values()))
+    log(f"fixture audit: PASS {out['fixture']}; resume {resume}")
+
+    t0 = time.perf_counter()
+    before = shard_load_stats(g, 4)
+    g4, perm = degree_balanced_relabel(g, 4)
+    after = shard_load_stats(g4, 4)
+    relabel_s = time.perf_counter() - t0
+    check(g4.n == g.n and g4.m == g.m, "relabel: n or m changed")
+    in_edges = [np.bincount(x.col_idx.cpu().numpy() // (x.n // 4),
+                            minlength=4).tolist() for x in (g, g4)]
+    out["relabel"] = dict(seconds=relabel_s, out_degree_before=before,
+                          out_degree_after=after,
+                          in_edges_before=in_edges[0],
+                          in_edges_after=in_edges[1])
+    log(f"degree_balanced_relabel(doc_link_graph({g.n}), 4): "
+        f"{out['relabel']}")
+
+    rec = RecordingMesh(4, g.device, lints=False)
+    res, secs, peak = drive(
+        "distributed_pagerank_counts[relabelled, P=4]",
+        lambda: distributed_pagerank_counts(g4, EPS, K, prng.PRNGKey(0),
+                                            mesh=rec, packed=False),
+        ["multinomial_rows", "segment_spmv"])
+    check(res.overflow == 0 and res.residual == 0,
+          f"relabelled counts: overflow {res.overflow}, residual "
+          f"{res.residual}")
+    l1, top = accuracy("relabelled counts", res.pi[perm], pi_ref, g.n)
+    out["counts"] = dict(
+        seconds=secs, rounds=res.rounds, a2a_entries=res.a2a_entries_total,
+        entries_a_round=res.a2a_entries_total / res.rounds,
+        l1=l1, top10=top, peak_gib=peak,
+        audit=full_width_audit("counts P=4, relabelled", "counts", g4, K,
+                               rec, res, packed=False))
+    log(f"relabelled counts P=4: {out['counts']}")
+    del res, rec
+    torch.cuda.empty_cache()
+
+    queries, ref = ppr_out["queries"], ppr_out["oracle"]
+    q4 = [(perm[np.asarray(src)], w) for src, w in queries]
+    rec = RecordingMesh(4, g.device, lints=False)
+    res, secs, peak = drive(
+        "batched_personalized_pagerank[relabelled, P=4]",
+        lambda: batched_personalized_pagerank(g4, EPS, q4, PPR_WALKS,
+                                              prng.PRNGKey(0), mesh=rec),
+        ["walk_step", "histogram", "segment_spmv"])
+    check(res.dropped == 0 and res.admit_dropped == 0,
+          f"relabelled PPR: dropped {res.dropped}, admit_dropped "
+          f"{res.admit_dropped}")
+    tr = res.active_trace
+    check(all(b <= a for a, b in zip(tr, tr[1:])) and tr[-1] == 0,
+          "relabelled PPR: live walks increased or did not reach 0")
+    accs = [ppr_accuracy(f"relabelled PPR query {q}", res.ppr[q][perm],
+                         ref[q], PPR_WALKS) for q in range(len(queries))]
+    out["ppr"] = dict(
+        seconds=secs, supersteps=res.rounds, a2a_entries=res.a2a_entries,
+        a2a_entries_unrelabelled=ppr_out["batched"]["a2a_entries"],
+        a2a_bytes=res.a2a_bytes, peak_gib=peak,
+        worst_l1=max(a[0] for a in accs),
+        worst_top10=min(a[1] for a in accs),
+        audit=full_width_audit("batched PPR P=4, relabelled", "ppr", g4,
+                               K, rec, res, num_slots=len(queries),
+                               walks_per_query=PPR_WALKS))
+    check(out["ppr"]["audit"]["sites"]["ppr"]["lanes"]
+          == 4 * (g.n // 4) * len(queries),
+          "relabelled PPR: lanes a shard are not P * n_loc * Q")
+    log(f"relabelled batched PPR P=4: {out['ppr']}")
+    del res, rec, g4
+    torch.cuda.empty_cache()
+    return out
 
 
 def cli_phase():
@@ -1776,6 +1949,10 @@ def main() -> int:
         t0 = time.perf_counter()
         ppr, rows["ppr_superstep"] = ppr_path(g, drive)
         phases["ppr"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        audit = audit_path(g, K, drive, pi_ref, ppr)
+        phases["audit"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         cli_phase()

@@ -12,8 +12,16 @@ the leading dimension (S == P). An all_to_all is a block transpose on that
 device and a psum a sum over dim 0; no tensor leaves the device. This is
 how the JAX package runs on forced host devices, and it lets one card do
 the lane packing, routing, merging and exchange at full width.
+
+Each engine runs the programs of its stages inside `mesh.program(stage,
+name)`, the names its `audit_spec` declares. Here the scope does nothing;
+the CONGEST auditor's `analysis.congest.RecordingMesh` overrides it, and
+the collectives, to record what every program call sends.
 """
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
@@ -31,6 +39,11 @@ class StackedMesh:
 
     def __repr__(self) -> str:
         return f"StackedMesh(shards={self.shards}, device={self.device})"
+
+    def program(self, stage: str, name: str):
+        """The scope of one call of the program `stage/name`: a no-op
+        context here."""
+        return contextlib.nullcontext()
 
     def shard_ids(self) -> torch.Tensor:
         """[S] int32 global shard id of each local row
@@ -52,3 +65,15 @@ class StackedMesh:
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of a per-shard x [S, ...] over all shards, the same on each."""
         return x.sum(dim=0)
+
+
+def in_program(stage: str, name: str):
+    """Decorator: run a step function, which takes the mesh as its keyword
+    `mesh`, as one call of the program `stage/name` of that mesh."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, mesh, **kw):
+            with mesh.program(stage, name):
+                return fn(*args, mesh=mesh, **kw)
+        return run
+    return wrap

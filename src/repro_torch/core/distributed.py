@@ -87,13 +87,23 @@ class DistState:
 
 
 def superstep(sg: ShardedGraph, state: DistState, *, mesh: StackedMesh,
-              eps: float, route_cap: int, work_cap: int = 0):
+              eps: float, route_cap: int, work_cap: int = 0,
+              stage: str = "walks"):
     """One superstep on every shard. Returns (state, active, a2a_entries,
     a2a_bytes), the three counts summed over shards.
 
     `work_cap` > 0 bounds the steps a shard takes in a round (a straggler
     bound): only its first `work_cap` owned walks in buffer order step,
-    the rest keep their place for a later round."""
+    the rest keep their place for a later round. The superstep runs as the
+    program `stage/step` of the mesh (the three-phase tail passes
+    "tail")."""
+    with mesh.program(stage, "step"):
+        return _superstep(sg, state, mesh=mesh, eps=eps,
+                          route_cap=route_cap, work_cap=work_cap)
+
+
+def _superstep(sg: ShardedGraph, state: DistState, *, mesh: StackedMesh,
+               eps: float, route_cap: int, work_cap: int):
     n_loc, shards = sg.n_loc, mesh.shards
     sid = mesh.shard_ids()
     pos, zeta = state.pos, state.zeta
@@ -172,6 +182,12 @@ class DistributedResult:
     round_active: List[int] = dataclasses.field(default_factory=list)
 
 
+def default_route_cap(walks: int, shards: int) -> int:
+    """The lanes a shard pair of a run of `walks` walks when the caller
+    gives none: max(W // P, 64)."""
+    return max(walks // shards, 64)
+
+
 def distributed_pagerank(graph: CSRGraph, eps: float, walks_per_node: int,
                          key: torch.Tensor, *,
                          mesh: Optional[StackedMesh] = None,
@@ -190,7 +206,7 @@ def distributed_pagerank(graph: CSRGraph, eps: float, walks_per_node: int,
     if cap is None:
         cap = max(2 * W // shards + shards * 64, 256)
     if route_cap is None:
-        route_cap = max(W // shards, 64)
+        route_cap = default_route_cap(W, shards)
     state = init_state(sg, walks_per_node, key, cap, mesh.device)
     a2a_total = entries_total = 0
     round_active: List[int] = []
@@ -230,3 +246,41 @@ def state_from_host(d: dict, mesh: StackedMesh) -> DistState:
         key=torch.from_numpy(np.array(d["key"], np.uint32)),
         round=int(d["round"]), dropped=int(d["dropped"]),
         waited=int(d["waited"]))
+
+
+# --------------------------------------------------------------------------
+# static wire-budget declaration (consumed by `analysis.congest`)
+# --------------------------------------------------------------------------
+
+def audit_spec(graph: CSRGraph, mesh: StackedMesh, *, eps: float = 0.2,
+               walks_per_node: int = 2):
+    """The walk engine's `EngineAuditSpec` for the CONGEST auditor.
+
+    The runtime `route_cap` scales with W/P, so this engine's lanes are
+    walk-class wire: the declaration PINS `route_cap` at n_loc (legal:
+    overflowing walks wait and retry, any cap is correct), which makes the
+    checked capacity a W-free function of the partition; the auditor runs
+    one superstep at that cap to hold it. The walk-buffer `cap` never
+    touches the wire and is pinned too. `eps` shapes no lane."""
+    from repro_torch.checkpoint import pagerank_state_specs
+    from repro_torch.core.accounting import (EngineAuditSpec, ExchangeSite,
+                                             StageProgram)
+    shards = mesh.shards
+    n_loc = math.ceil(graph.n / shards)
+    route_cap = cap = n_loc
+    site = ExchangeSite(
+        site="route", entry_nbytes=4, lane_entries=shards * route_cap,
+        budget_entries=shards * n_loc,
+        budget_formula="P * n_loc lane slots (auditor-pinned "
+                       "route_cap = n_loc)",
+        wire_class="walk",
+        note="runtime route_cap scales with W/P; overflow waits rather "
+             "than widening the lane, so any pinned cap is correct")
+    prog = StageProgram(stage="walks", program="step", sites=(site,),
+                        count_bound=graph.n * walks_per_node)
+    return EngineAuditSpec(
+        engine="walks", programs=[prog],
+        stage_arrays={"walks": ("pos", "zeta", "key", "round", "dropped",
+                                "waited")},
+        layouts={"walks": pagerank_state_specs(graph.n, cap=cap)},
+        meta=dict(shards=shards, n=graph.n, walks_per_node=walks_per_node))

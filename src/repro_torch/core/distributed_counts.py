@@ -51,11 +51,12 @@ from repro_torch.core.aggregate_sampler import (BucketLayout,
                                                 build_layout_sharded,
                                                 bucketize_adjacency,
                                                 stack_shard_perm)
-from repro_torch.core.collectives import StackedMesh
+from repro_torch.core.collectives import StackedMesh, in_program
 from repro_torch.core.estimator import pagerank_from_visits
 from repro_torch.core.graph import CSRGraph
 from repro_torch.core.routing import (_offset_ids, entry_nbytes,
-                                      lane_slots, pack_lanes)
+                                      exchange_stacked, lane_slots,
+                                      pack_lanes)
 from repro_torch.kernels.multinomial_rows import multinomial_buckets
 from repro_torch.kernels.multinomial_rows._math import key_words
 from repro_torch.kernels.segment_spmv import hot_list, segment_sum_int
@@ -85,6 +86,15 @@ class ShardedPaddedGraph:
     stacked_perm: torch.Tensor    # [sum(stacked caps)] rows of [P*n_loc]
 
 
+def _lane_cap(src: np.ndarray, col: np.ndarray, n_loc: int,
+              shards: int) -> int:
+    """The static lane bound: the edges from shard p to shard q, at most
+    n_loc distinct vertices."""
+    cut = np.bincount((src // n_loc) * shards + col // n_loc,
+                      minlength=shards * shards)
+    return int(min(cut.max(initial=0), n_loc)) or 1
+
+
 def shard_graph_padded(graph: CSRGraph, shards: int, *,
                        bucketed: bool = True,
                        device=None) -> ShardedPaddedGraph:
@@ -99,11 +109,7 @@ def shard_graph_padded(graph: CSRGraph, shards: int, *,
     nbr = np.zeros((n_pad, md), np.int32)     # padding slots carry 0 counts
     nbr[src, slot] = col
     deg_pad = np.concatenate([degs, np.zeros(n_pad - graph.n, np.int32)])
-    # static lane bound: edges from shard p to shard q, at most n_loc
-    # distinct vertices
-    cut = np.bincount((src // n_loc) * shards + col // n_loc,
-                      minlength=shards * shards)
-    lane_cap = int(min(cut.max(initial=0), n_loc)) or 1
+    lane_cap = _lane_cap(src, col, n_loc, shards)
     deg_sh = deg_pad.reshape(shards, n_loc)
     nbr_sh = nbr.reshape(shards, n_loc, md)
     layout, bperm = build_layout_sharded(deg_sh, md, bucketed=bucketed)
@@ -121,6 +127,7 @@ def shard_graph_padded(graph: CSRGraph, shards: int, *,
         stacked_perm=dev(stacked_perm))
 
 
+@in_program("counts", "sample")
 def _sample_step(sg: ShardedPaddedGraph, counts: torch.Tensor,
                  key: torch.Tensor, *, eps: float, mesh: StackedMesh):
     """First half of the superstep: the degree-bucketed aggregate draw.
@@ -128,19 +135,20 @@ def _sample_step(sg: ShardedPaddedGraph, counts: torch.Tensor,
     Returns (flat_T [P, total_edges] per-edge counts aligned with
     `sg.bnbr`, the advanced [P, 2] keys, per-bucket occupancy summed over
     shards, the conservation residual, which must be 0)."""
-    keys = torch.stack([prng.split(k) for k in key])     # [P, 2, 2]
-    words = keys[:, 1].to(torch.int64)
-    if not bool((words == words[0]).all()):
+    rows = key.to(torch.int64)
+    if not bool((rows == rows[0]).all()):
         raise ValueError("the count engine's round key must be the same on "
                          "every shard")
+    # the key is replicated: one split serves every shard
+    k_next, k_sample = prng.split(key[0])
     n_loc = sg.n_loc
     rid = torch.arange(mesh.shards * n_loc, dtype=_I32, device=counts.device)
     lay = sg.stacked_layout
     flat_T, occ, residual = multinomial_buckets(
-        counts.reshape(-1), sg.deg.reshape(-1), rid, key_words(keys[0, 1]),
+        counts.reshape(-1), sg.deg.reshape(-1), rid, key_words(k_sample),
         sg.stacked_perm, lay.widths, lay.caps, eps=eps, shards=mesh.shards)
-    return (flat_T.reshape(mesh.shards, -1), keys[:, 0].clone(), occ,
-            residual)
+    return (flat_T.reshape(mesh.shards, -1), k_next.repeat(mesh.shards, 1),
+            occ, residual)
 
 
 def _segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
@@ -178,6 +186,7 @@ def sum_plan(sg: ShardedPaddedGraph, mesh: StackedMesh) -> SumPlan:
                    remote_hot=hot_list(remote_ids, S * sg.n_pad))
 
 
+@in_program("counts", "exchange")
 def _exchange_step(sg: ShardedPaddedGraph, plan: SumPlan,
                    flat_T: torch.Tensor, zeta: torch.Tensor, *,
                    mesh: StackedMesh, packed: bool):
@@ -230,8 +239,10 @@ def _exchange_step(sg: ShardedPaddedGraph, plan: SumPlan,
     else:
         lanes_v = pack_lanes(lane_idx, vid2, ok, shards, lane_cap)
         lanes_c = pack_lanes(lane_idx, cnt2, ok, shards, lane_cap, fill=0)
-        recv_v = mesh.all_to_all(lanes_v)
-        recv_c = mesh.all_to_all(lanes_c)
+        # one 8-B (vertex, count) entry a slot, as the audit spec declares;
+        # the kernels take the received columns contiguous
+        recv_v, recv_c = (r.contiguous() for r in
+                          exchange_stacked([lanes_v, lanes_c], mesh))
         arrive = arrive + _segment_sum(
             recv_c, _offset_ids(recv_v - sid * n_loc, recv_v >= 0, n_loc),
             n_loc)
@@ -365,3 +376,40 @@ def distributed_pagerank_counts(graph: CSRGraph, eps: float,
                            sampler_us=float(h["sampler_us"]),
                            occupancy=tuple(h["occupancy"]),
                            residual=int(h["residual"]))
+
+
+def audit_spec(graph: CSRGraph, mesh: StackedMesh, *, eps: float = 0.2,
+               walks_per_node: int = 2, packed: bool = True):
+    """CONGEST-auditor spec: the two programs of the engine's superstep,
+    the declared wire budget of the single (vertex, count) all_to_all
+    (4-B packed entries, or 8-B (vertex, count) pairs), and the elastic
+    schema. `eps` shapes no lane."""
+    from repro_torch.core.accounting import (EngineAuditSpec, ExchangeSite,
+                                             StageProgram)
+    shards = mesh.shards
+    n_loc = math.ceil(graph.n / shards)
+    _, col, degs = graph.numpy()
+    lane_cap = _lane_cap(np.repeat(np.arange(graph.n), degs), col, n_loc,
+                         shards)
+    width = 4 if packed else 8
+    site = ExchangeSite(
+        site="counts", entry_nbytes=width,
+        lane_entries=shards * lane_cap,
+        budget_entries=shards * n_loc,
+        budget_formula=("P * min(cut_max, n_loc) distinct (vertex, count) "
+                        "cells <= P * n_loc"),
+        wire_class="count",
+        note="Lemma 1: lane bound counts distinct destination vertices, "
+             "never walk multiplicity W")
+    progs = [
+        StageProgram(stage="counts", program="sample", sites=(),
+                     count_bound=graph.n * walks_per_node),
+        StageProgram(stage="counts", program="exchange", sites=(site,),
+                     count_bound=graph.n * walks_per_node),
+    ]
+    return EngineAuditSpec(
+        engine="counts", programs=progs,
+        stage_arrays={"counts": ("counts", "zeta", "key", "round")},
+        layouts={"counts": count_layouts(graph.n)},
+        meta=dict(shards=shards, n=graph.n, lane_cap=lane_cap,
+                  packed=packed, walks_per_node=walks_per_node))

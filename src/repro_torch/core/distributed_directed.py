@@ -34,7 +34,8 @@ import torch
 from repro_torch import prng
 from repro_torch.core.collectives import StackedMesh
 from repro_torch.core.distributed_improved import (ImprovedDistResult,
-                                                   _run_three_phase)
+                                                   _run_three_phase,
+                                                   three_phase_audit_spec)
 from repro_torch.core.graph import CSRGraph
 from repro_torch.core.improved_pagerank import coupon_pool_sizes
 from repro_torch.core.simple_pagerank import walks_per_node_for
@@ -98,3 +99,20 @@ def distributed_directed_pagerank(
         resume=resume, result_cls=DirectedDistResult,
         uniform_budget=int(pool_np[0]),
         dangling_nodes=int((graph.out_deg == 0).sum()))
+
+
+def audit_spec(graph: CSRGraph, mesh: StackedMesh, *, eps: float = 0.2,
+               walks_per_node: int = 2):
+    """Section-5 frontend of the three-phase audit spec: the same programs,
+    uniform (LOCAL-model) coupon pools and the longer Section-5 lam, sized
+    as `distributed_directed_pagerank` sizes its run."""
+    n = graph.n
+    K = walks_per_node
+    log_n = math.log(max(n, 2))
+    lam = max(1, int(math.ceil(math.sqrt(log_n / eps))))
+    ell = max(lam + 1, int(math.ceil(log_n / eps)))
+    _, pool_np = coupon_pool_sizes(graph, eps, K, lam,
+                                   degree_proportional=False, ell=ell)
+    return three_phase_audit_spec(graph, mesh, eps=eps, K=K,
+                                  pool_np=pool_np, lam=lam,
+                                  engine="directed")

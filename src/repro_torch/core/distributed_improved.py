@@ -78,7 +78,7 @@ from repro_torch.core.accounting import (CongestReport, RoundTrace,
 from repro_torch.core.aggregate_sampler import (BucketLayout,
                                                 build_layout_sharded,
                                                 stack_shard_perm)
-from repro_torch.core.collectives import StackedMesh
+from repro_torch.core.collectives import StackedMesh, in_program
 from repro_torch.core.distributed import (DistState, ShardedGraph,
                                           shard_graph, superstep)
 from repro_torch.core.estimator import pagerank_from_visits
@@ -101,6 +101,7 @@ _KEY_END = 2 ** 62
 # Phase 1: count-aggregated short walks
 # ---------------------------------------------------------------------------
 
+@in_program("phase1", "request")
 def _p1_request(pos, alive, *, mesh: StackedMesh, n_loc: int,
                 count_bound: Optional[int] = None):
     """Per-vertex live-coupon counts to the owners. Returns (c [S, P*n_loc]
@@ -130,6 +131,7 @@ def _phase1_rows(bperm: np.ndarray, layout: BucketLayout, shards: int,
     return stack_shard_perm(perm_t, layout.tile(shards))
 
 
+@in_program("phase1", "sample")
 def _p1_sample(rows_perm: torch.Tensor, rows_layout: BucketLayout,
                dg: torch.Tensor, c: torch.Tensor, key: torch.Tensor, *,
                eps: float, mesh: StackedMesh, md: int):
@@ -196,6 +198,7 @@ def _assign_home(e_vid, e_dst, e_cnt, pos, alive, u, *, n_pad: int, C: int):
             torch.where(survive, out, -1))
 
 
+@in_program("phase1", "assign")
 def _p1_assign(rp, ci, pos, alive, traj, f_cnt, k_perm, t: int, *,
                mesh: StackedMesh, n_loc: int, md: int, rep_cap: int,
                S_loc_pad: int):
@@ -271,6 +274,7 @@ def _p1_assign(rp, ci, pos, alive, traj, f_cnt, k_perm, t: int, *,
 # Phase 2: count-aggregated coupon stitching
 # ---------------------------------------------------------------------------
 
+@in_program("phase2", "stitch")
 def _p2_local(walks, next_c, used, tail_cnt, dest, cterm, psize, pstart,
               slot_v, *, mesh: StackedMesh, n_loc: int, S_loc_pad: int,
               count_bound: Optional[int] = None):
@@ -310,6 +314,7 @@ def _p2_local(walks, next_c, used, tail_cnt, dest, cterm, psize, pstart,
 # Phase 3: one aggregated counting round over the trajectory table
 # ---------------------------------------------------------------------------
 
+@in_program("phase3", "count")
 def _p3_local(traj, used, zeta, *, mesh: StackedMesh, n_loc: int,
               count_bound: Optional[int] = None):
     """Histogram the used coupons' recorded moves and deliver the counts to
@@ -341,6 +346,11 @@ def _lane_cap(requested: Optional[int], load: int, shards: int,
         f"lane cap {cap} violates route_cap >= ceil(W/P) = {need} "
         f"(W={load}, P={shards})")
     return cap
+
+
+def tail_route_cap(walks: int, shards: int) -> int:
+    """The tail's default walk lanes a shard pair: max(ceil(W/P), 64)."""
+    return _lane_cap(None, walks, shards)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -717,7 +727,8 @@ def _run_three_phase(
                               dropped=int(a["dropped"]),
                               waited=int(a["waited"]))
             state, active, entries, nbytes = superstep(
-                sg, state, mesh=mesh, eps=float(eps), route_cap=route_cap2)
+                sg, state, mesh=mesh, eps=float(eps), route_cap=route_cap2,
+                stage="tail")
             a.update(pos=state.pos, zeta=state.zeta, key=state.key,
                      **{k: torch.tensor(getattr(state, k), dtype=_I32)
                         for k in ("round", "dropped", "waited")})
@@ -805,3 +816,93 @@ def _run_three_phase(
         sampler_us=float(h["sampler_us"]),
         p1_occupancy=tuple(h["p1_occupancy"]),
         residual=int(h["residual"]), **extra_fields)
+
+
+# ---------------------------------------------------------------------------
+# CONGEST auditor spec
+# ---------------------------------------------------------------------------
+
+def three_phase_audit_spec(graph: CSRGraph, mesh: StackedMesh, *,
+                           eps: float, K: int, pool_np: np.ndarray,
+                           lam: int, engine: str = "improved"):
+    """CONGEST-auditor spec for the three-phase engines (improved and
+    directed frontends): the six stage programs with the statics the
+    engine would use (via `plan_three_phase`), each exchange's declared
+    per-round wire budget, and the elastic layout schema.
+
+    The tail stage is a walk-class exchange whose runtime lane cap scales
+    with W/P; overflow there waits rather than widening the lane, so the
+    declaration pins route_cap = cap = n_loc, and the auditor runs one
+    tail superstep at that cap. `eps` shapes no lane."""
+    from repro_torch.core.accounting import (EngineAuditSpec, ExchangeSite,
+                                             StageProgram)
+    shards = mesh.shards
+    n = graph.n
+    plan = plan_three_phase(graph, shards, pool_np, K, device=mesh.device)
+    n_loc, md = plan.n_loc, plan.md
+    S_loc_pad, S_total = plan.S_loc_pad, plan.S_total
+    rep_cap = plan.rep_cap
+    tail_cap = n_loc                       # auditor-pinned (walk-class)
+
+    count_budget = shards * n_loc          # Lemma-1 lanes: distinct vertices
+    _count = dict(entry_nbytes=8, lane_entries=count_budget,
+                  budget_entries=count_budget, wire_class="count",
+                  budget_formula="P * n_loc distinct (vertex, count) pairs")
+    rep_site = ExchangeSite(
+        site="phase1_rep", entry_nbytes=12,
+        lane_entries=shards * rep_cap,
+        budget_entries=shards * n_loc * (md + 1),
+        budget_formula=("P * min(n_loc*(max_deg+1), S_loc_pad) distinct "
+                        "(vertex, class, count) cells <= P*n_loc*(md+1)"),
+        wire_class="count",
+        note="stacked F=3 lanes (vertex, outcome class, count)")
+    tail_site = ExchangeSite(
+        site="tail", entry_nbytes=4, lane_entries=shards * tail_cap,
+        budget_entries=shards * n_loc,
+        budget_formula="P * n_loc lane slots (auditor-pinned cap = n_loc)",
+        wire_class="walk",
+        note="naive-fallback walk routing; overflow waits, never widens")
+
+    progs = [
+        StageProgram(stage="phase1", program="request",
+                     sites=(ExchangeSite(site="phase1_req", **_count),),
+                     count_bound=S_total),
+        StageProgram(stage="phase1", program="sample", sites=(),
+                     count_bound=S_total),
+        StageProgram(stage="phase1", program="assign", sites=(rep_site,),
+                     count_bound=S_total),
+        StageProgram(stage="phase2", program="stitch",
+                     sites=(ExchangeSite(site="phase2", **_count),),
+                     count_bound=n * K),
+        StageProgram(stage="phase3", program="count",
+                     sites=(ExchangeSite(site="phase3", **_count),),
+                     count_bound=S_total),
+        StageProgram(stage="tail", program="step", sites=(tail_site,),
+                     count_bound=n * K),
+    ]
+    return EngineAuditSpec(
+        engine=engine, programs=progs,
+        stage_arrays={
+            "phase1": ("pos", "alive", "traj", "key"),
+            "phase2": ("walks", "next_c", "used", "tail_cnt", "dest",
+                       "cterm", "traj", "zeta"),
+            "phase3": ("traj", "used", "zeta", "tail_cnt"),
+            "tail": ("pos", "zeta", "key", "round", "dropped", "waited"),
+        },
+        layouts=_three_phase_layouts(n, pool_np, plan.cap2),
+        meta=dict(shards=shards, n=graph.n, K=K, lam=int(lam), md=md,
+                  rep_cap=rep_cap, S_loc_pad=S_loc_pad, S_total=S_total))
+
+
+def audit_spec(graph: CSRGraph, mesh: StackedMesh, *, eps: float = 0.2,
+               walks_per_node: int = 2):
+    """Lemma-2 (degree-proportional pools) frontend of the three-phase
+    audit spec, sized as `distributed_improved_pagerank` sizes its run."""
+    n = graph.n
+    K = walks_per_node
+    log_n = math.log(max(n, 2))
+    lam = max(1, int(math.ceil(math.sqrt(log_n))))
+    _, pool_np = coupon_pool_sizes(graph, eps, K, lam)
+    return three_phase_audit_spec(graph, mesh, eps=eps, K=K,
+                                  pool_np=pool_np, lam=lam,
+                                  engine="improved")

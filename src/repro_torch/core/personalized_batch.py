@@ -40,6 +40,7 @@ nonzero `dropped`, which must stay 0 for an exact run.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,7 +48,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.checkpoint import LayoutSpec, relayout_arrays
-from repro_torch.core.collectives import StackedMesh
+from repro_torch.core.collectives import StackedMesh, in_program
 from repro_torch.core.distributed import ShardedGraph, shard_graph
 from repro_torch.core.graph import CSRGraph
 from repro_torch.core.personalized import (DEFAULT_MAX_ROUNDS,
@@ -77,6 +78,7 @@ def ppr_state_specs(n: int, cap: int):
         key=LayoutSpec(kind="key"))
 
 
+@in_program("serve", "superstep")
 def _ppr_superstep(sg: ShardedGraph, st: BatchPPRState, *, mesh, eps: float,
                    Q: int, count_bound: Optional[int] = None):
     """One batched PPR round on every shard. Every buffered walk is owned
@@ -347,3 +349,31 @@ def batched_personalized_pagerank(
                           dropped=engine.dropped,
                           admit_dropped=engine.admit_dropped,
                           shards=engine.shards, active_trace=trace)
+
+
+def audit_spec(graph: CSRGraph, mesh: StackedMesh, *, eps: float = 0.2,
+               num_slots: int = 2, walks_per_query: int = 8):
+    """CONGEST-auditor spec for the batched PPR engine: the resident
+    engine's superstep program, its declared (vertex, query)-lane budget,
+    and the elastic schema of an engine with an auditor-pinned walk cap
+    of 64 (the virtual-lane wire bound does not depend on the buffer
+    size). `eps` shapes no lane."""
+    from repro_torch.core.accounting import (EngineAuditSpec, ExchangeSite,
+                                             StageProgram)
+    shards, Q, cap = mesh.shards, int(num_slots), 64
+    n_loc = math.ceil(graph.n / shards)
+    site = ExchangeSite(
+        site="ppr", entry_nbytes=8, lane_entries=shards * n_loc * Q,
+        budget_entries=shards * n_loc * Q,
+        budget_formula=("P * n_loc * Q distinct (vertex, query) virtual "
+                        "lanes — Lemma 1 extended by the query-id lane"),
+        wire_class="count",
+        note="bounded by distinct (vertex, query) pairs, never walk count")
+    prog = StageProgram(stage="serve", program="superstep", sites=(site,),
+                        count_bound=walks_per_query)
+    return EngineAuditSpec(
+        engine="ppr", programs=[prog],
+        stage_arrays={"serve": ("pos", "qid", "zeta", "key")},
+        layouts={"serve": ppr_state_specs(graph.n, cap)},
+        meta=dict(shards=shards, n=graph.n, Q=Q,
+                  walks_per_query=walks_per_query))

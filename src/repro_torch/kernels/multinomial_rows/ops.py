@@ -9,6 +9,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels import common
 from repro_torch.kernels.multinomial_rows.ref import (bucket_tables,
                                                       multinomial_buckets_ref,
@@ -105,6 +106,7 @@ def multinomial_buckets(counts: torch.Tensor, deg: torch.Tensor,
     With `cells=md` the first output is the dense outcome cells
     [n_rows * (md + 1)] instead (`aggregate_sampler.scatter_cells`'
     layout: the termination count, then the count of each out-edge)."""
+    prng.record_use(key_words, "multinomial_buckets")
     if counts.device.type == "cpu":
         return multinomial_buckets_ref(counts, deg, rid, key_words, perm,
                                        widths, caps, eps=eps, shards=shards,

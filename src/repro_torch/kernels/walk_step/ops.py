@@ -6,6 +6,7 @@ import ctypes
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels import common
 from repro_torch.kernels.multinomial_rows._math import key_words
 from repro_torch.kernels.walk_step.ref import (walk_step_keyed_ref,
@@ -73,6 +74,8 @@ def walk_step_keyed(pos, alive, key_term, key_edge, row_ptr, col_idx,
                     out_deg, *, eps: float):
     """(new_pos, new_alive) int32 [W], drawing u_term and u_edge as
     `prng.uniform(key, (W,))` of the two PRNG keys (entry (b))."""
+    prng.record_use(key_term, "walk_step")
+    prng.record_use(key_edge, "walk_step")
     if pos.device.type == "cpu":
         return walk_step_keyed_ref(pos, alive, key_term, key_edge, row_ptr,
                                    col_idx, out_deg, eps=eps)

@@ -27,8 +27,38 @@ Engine selection (`--algo`):
             peak of live walks; each query is checked against its own
             `exact_ppr` (a dense solve: `--check` is refused above n =
             4096).
-  `--audit` is not ported yet: the run exits non-zero naming the ROADMAP
-  item that ports it.
+
+`--audit` runs the CONGEST auditor instead of an engine
+(`analysis/congest.py`): every sharded engine runs on a fixture graph
+under a recording mesh of `--shards` shards (8 by default), each call of
+each program its `audit_spec` declares is checked against the declared
+per-round lane budget of its all_to_all sites, the RNG / dtype /
+elastic-schema lints run over the same run, the runtime telemetry is
+cross-checked against the declared widths, and AUDIT.json is written next
+to the table. Non-zero exit on any violation. Per-engine wire budgets
+(P = shards, n_loc = ceil(n/P), md = max degree, Q = PPR query slots;
+every entry is a Lemma-1 (vertex, count) cell except the walk-class
+lanes, which the declaration pins at n_loc so the checked capacity stays
+W-free):
+
+  engine    site         B/entry  per-shard-per-round lane budget
+  walks     route          4      P * n_loc walk slots       [walk-class]
+  counts    counts         4      P * min(cut_max, n_loc) cells
+  improved  phase1_req     8      P * n_loc cells
+            phase1_rep    12      P * n_loc * (md+1) (vertex,class,count)
+            phase2         8      P * n_loc cells
+            phase3         8      P * n_loc cells
+            tail           4      P * n_loc walk slots       [walk-class]
+  directed  same five sites as improved (uniform-budget coupon pools)
+  ppr       ppr            8      P * n_loc * Q (vertex, query) lanes
+
+No budget depends on the walk multiplicity W: the auditor rebuilds every
+spec at 2x walks and fails if any budget moves. The RNG lint also
+certifies which stages resume bit-exactly after an elastic restore:
+`counts` (replicated round key, counter-based RNG) and the three-phase
+engines' phase2/phase3 programs (RNG-free) are bit-exact; walks, phase1,
+tail and ppr consume per-shard key streams that are re-derived on a
+resized mesh, so their resume is statistical (tolerance-gated).
 
 Telemetry of `improved` and `directed`: rounds by phase (phase1 <= lam,
 report always 0, phase2 the stitches, phase3 always 1, tail the naive
@@ -54,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import shutil
 import tempfile
 
@@ -78,12 +109,6 @@ from repro_torch.core.personalized_batch import \
 from repro_torch.device import resolve_device
 from repro_torch.graphs import GENERATORS
 from repro_torch.runtime import FailureSchedule, Supervisor
-
-# algorithms of the JAX launcher that this package does not run yet, with
-# the ROADMAP item that ports each
-NOT_PORTED = {
-    "audit": "ROADMAP Queue 1 item 11 (wire auditor)",
-}
 
 # `exact_ppr` solves a dense n x n system: the largest n `--check` takes
 PPR_CHECK_MAX_N = 4096
@@ -215,9 +240,6 @@ def run(n: int, eps: float, walks_per_node: int, graph_kind: str,
     """Build the graph, run `algo` on `shards` stacked shards on `device`
     (the card when None) and report its accuracy. `--algo ppr` returns the
     [num_queries, n] PPR estimator matrix instead of a `RunResult`."""
-    if algo in NOT_PORTED:
-        raise SystemExit(f"[pagerank] --algo {algo} is not ported to this "
-                         f"package yet: {NOT_PORTED[algo]}")
     if resume and not checkpoint_dir:
         raise SystemExit("[pagerank] --resume needs --checkpoint-dir "
                          "(there is no snapshot to cold-start from)")
@@ -280,6 +302,26 @@ def run(n: int, eps: float, walks_per_node: int, graph_kind: str,
                      shards=mesh.shards, l1=l1, topk=topk)
 
 
+def audit(eps: float, shards: int = 8, device=None) -> dict:
+    """The CONGEST audit of every engine on `shards` stacked shards on
+    `device` (the card when None): prints the wire table, writes
+    AUDIT.json in the working directory, and exits non-zero on any
+    violation. Returns the report."""
+    from repro_torch.analysis.congest import (audit_all_engines,
+                                              format_wire_table)
+    if shards < 1:
+        raise SystemExit(f"[pagerank] --shards {shards} out of range")
+    report = audit_all_engines(StackedMesh(shards, resolve_device(device)),
+                               eps=eps)
+    print(format_wire_table(report))
+    with open("AUDIT.json", "w") as f:
+        json.dump(report, f, indent=2, sort_keys=True)
+    print("[pagerank] wrote AUDIT.json")
+    if not report["ok"]:
+        raise SystemExit("[pagerank] CONGEST audit FAILED")
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=256)
@@ -319,11 +361,18 @@ def main(argv=None):
                          "L1 < 0.15 / top-10 >= 0.6 (--algo ppr: each "
                          "query against exact_ppr, n <= 4096)")
     ap.add_argument("--audit", action="store_true",
-                    help="the CONGEST wire auditor (not ported yet)")
+                    help="run the CONGEST wire-budget + lint auditor over "
+                         "every engine instead of a PageRank run: prints "
+                         "the per-engine wire table, writes AUDIT.json, "
+                         "exits non-zero on any violation (see the module "
+                         "docstring for the budget table); --shards sets "
+                         "the mesh (default 8)")
     args = ap.parse_args(argv)
+    if args.audit:
+        audit(args.eps, shards=args.shards or 8, device=args.device)
+        return
     run(args.n, args.eps, args.walks, args.graph, args.checkpoint_dir,
-        args.fail_at, seed=args.seed,
-        algo="audit" if args.audit else args.algo, avg_deg=args.avg_deg,
+        args.fail_at, seed=args.seed, algo=args.algo, avg_deg=args.avg_deg,
         resume=args.resume, check=args.check, num_queries=args.queries,
         shards=args.shards,
         max_restarts=args.max_restarts, device=args.device)

@@ -22,6 +22,27 @@ import torch
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
+# The CONGEST auditor's RNG recorder (`analysis.congest.RecordingMesh`
+# installs it inside each program call): called as RNG_RECORDER((k0, k1),
+# what) for every consumption of a key, a split or a draw, here and in the
+# kernels that draw from key words. None outside an audit. `fold_in`
+# derives a key without consuming one, as in JAX.
+RNG_RECORDER = None
+
+
+def record_use(key, what: str) -> None:
+    """Report the consumption of `key` (a [2] key, a [S, 2] tensor of
+    per-shard keys, or a (k0, k1) pair) to the recorder, if one is
+    installed."""
+    if RNG_RECORDER is None:
+        return
+    if isinstance(key, torch.Tensor):
+        rows = key.to(torch.int64).reshape(-1, 2).tolist()
+    else:
+        rows = [key]
+    for k0, k1 in rows:
+        RNG_RECORDER((int(k0) & _M32, int(k1) & _M32), what)
+
 
 def _words(key: torch.Tensor) -> Tuple[int, int]:
     if tuple(key.shape) != (2,):
@@ -72,6 +93,7 @@ def key_data(key: torch.Tensor) -> torch.Tensor:
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """`jax.random.split`: uint32 [num, 2] new keys."""
     k0, k1 = _words(key)
+    record_use((k0, k1), "split")
     hi, lo = _counter_words(int(num), "cpu")
     b0, b1 = threefry2x32(k0, k1, hi, lo)
     return torch.stack([b0, b1], dim=1).to(torch.uint32)
@@ -92,4 +114,5 @@ def uniform(key: torch.Tensor, shape: Sequence[int] | int = (), *,
     the CPU with its plain version (`kernels/uniform/ref.py`)."""
     # imported here: the kernel's modules import this one
     from repro_torch.kernels.uniform import uniform as draw
+    record_use(key, "uniform")
     return draw(key, shape, device=device)

@@ -16,7 +16,8 @@ bit-exact against its plain version on the card and on the CPU; the
 sharded engines (walks, counts, and the three-phase Algorithm 2 and
 Section 5) and both PPR engines and the PPR service on the card bit-exact
 against the same run on the CPU, at counts whose draws stay in the
-inverse-CDF regime.
+inverse-CDF regime; the CONGEST audit report on the card equal to the CPU
+one.
 """
 import numpy as np
 import pytest
@@ -489,3 +490,19 @@ def test_cuda_ppr_engines_match_cpu(cuda):
         assert np.array_equal(c.ppr, d.ppr)
         assert (c.rounds, c.active_trace, c.a2a_bytes, c.dropped) == \
             (d.rounds, d.active_trace, d.a2a_bytes, d.dropped)
+
+
+def test_cuda_audit_report_matches_cpu(cuda):
+    """The CONGEST audit on the card: clean, its engines' kernels launched,
+    and the same report as on the CPU (the runs are bit-exact, and the
+    lints see no op inside a kernel on either device)."""
+    from repro_torch.analysis.congest import audit_all_engines
+    common.reset_launches()
+    a = audit_all_engines(StackedMesh(8, cuda))
+    for name in ("walk_step", "histogram", "segment_spmv",
+                 "multinomial_rows", "uniform"):
+        assert common.launches[name] > 0, name
+    b = audit_all_engines(StackedMesh(8, "cpu"))
+    assert a["ok"] and a["violations_total"] == 0
+    assert a.pop("device") == "cuda" and b.pop("device") == "cpu"
+    assert a == b

@@ -78,6 +78,12 @@ svc.resize(shards=2)
 assert req.done and svc.submit([1], now=2.0).cached
 assert run(40, 0.2, 4, "directed_web", None, [], algo="ppr", shards=2,
            device="cpu").shape == (4, 40)
+import repro_torch.analysis
+from repro_torch.analysis.congest import audit_all_engines, format_wire_table
+from repro_torch.graphs.partition import (degree_balanced_relabel,
+                                          shard_load_stats)
+g2, perm = degree_balanced_relabel(g, 3)
+assert g2.n == 42 and sorted(perm.tolist()) != [] and shard_load_stats(g2, 3)
 assert "jax" not in [m.split(".")[0] for m, v in sys.modules.items() if v]
 print("ok")
 """

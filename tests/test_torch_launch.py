@@ -11,11 +11,15 @@ Parity levels:
 print their telemetry; `--fail-at` and `--resume` give their pi bit for
 bit. `--algo ppr` gives the JAX launcher's `run_ppr` matrix bit for bit
 at one shard and refuses `--check` above n = 4096 (a dense solve per
-query). `--audit`, not ported yet, exits non-zero naming the ROADMAP item
-that ports it.
+query). `--audit --device cpu` prints the wire table, writes AUDIT.json
+with all five engines and exits 0 (its parity with the JAX report is
+tests/test_torch_congest_audit.py's job).
 """
+import json
+
 import numpy as np
 import pytest
+import torch
 
 from repro.launch.pagerank import run as jax_run
 
@@ -60,11 +64,30 @@ def test_resume_needs_checkpoint_dir():
         run(*ARGS, None, [], resume=True, device="cpu")
 
 
-@pytest.mark.parametrize("argv,item", [(["--audit"], "item 11")])
-def test_unported_algos_exit_naming_the_roadmap(argv, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 {item}") as e:
-        main(argv + ["--device", "cpu"])
-    assert e.value.code != 0
+def test_audit_runs_on_the_cpu(capsys, tmp_path, monkeypatch):
+    """`--audit` prints the 13-row wire table and PASS, writes AUDIT.json
+    in the working directory with `ok` and the five engines, and returns
+    (exit 0)."""
+    monkeypatch.chdir(tmp_path)
+    # many small tensor ops: one thread keeps serial speed under parallel
+    # test workers
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        main(["--audit", "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "CONGEST wire audit — 8 shards" in out
+    assert "total violations: 0 — PASS" in out
+    rows = [line for line in out.splitlines()
+            if line.split()[:1] and line.split()[0] in
+            ("walks", "counts", "improved", "directed", "ppr")]
+    assert len(rows) == 13
+    report = json.loads((tmp_path / "AUDIT.json").read_text())
+    assert report["ok"] and report["violations_total"] == 0
+    assert sorted(report["engines"]) == ["counts", "directed", "improved",
+                                         "ppr", "walks"]
 
 
 @pytest.mark.parametrize("algo,graph", [("improved", "erdos_renyi"),
