@@ -78,8 +78,26 @@
    packed and unpacked, improved, directed), and both PPR engines
    bit-exact (batched at P=8).
 
+9. LM serving (`lm_serve_path`), weights drawn on the card from a seed:
+   (a) Qwen2-7B at full width (28 layers, 7.72 B parameters, bf16):
+   decode against the full forward at B=2, T=256 (relative error < 0.05,
+   tests/test_serve.py's bound), then `ContinuousBatcher(slots=8,
+   max_seq=1024)` serving 32 requests (prompts of 32-512 tokens, budgets
+   8-64, two of 1) with exact accounting, prefill tokens/s, decode ms a
+   step at 8 active slots against the weight-read bound, one decode step
+   profiled, and 4 requests replayed alone at batch 1: where a token
+   parts from the batched one, the batch-1 top-2 margin must be below
+   the decode-vs-full error; (b) H2O-Danube3-4B at full width: decode
+   against the full forward on a prompt past its 4,096 window, and 6
+   requests of 4,200-6,000 prompt tokens on 4 slots (max_seq 8192: the
+   ring rolls); (c) DeepSeek-V2 and DBRX at full width cut to 2 layers:
+   decode against the full forward at B=2, T=256 with capacity E/k (no
+   drop), and the drops at the configs' capacity factor 1.25; (d) the
+   seven reduced configs on the card against the CPU, same weights.
+
 Steps 3 to 6 are the main path: every engine is driven with the launch
-counters set to 0 just before it and read just after. Prints the card's
+counters set to 0 just before it and read just after. The LM runs of
+step 9 are driven the same way; they launch none of the five kernels. Prints the card's
 name and power limit, a `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 there is no CUDA card or any phase fails.
@@ -707,9 +725,11 @@ def profile_rounds(step, state, rounds, label, top=10, groups=None):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
     busy = sum(_dev_us(e) for e in kernels) / 1e3
+    launched = sum(e.count for e in kernels)
     log(f"{label}: wall {wall * 1e3 / rounds:.2f} ms a round, device busy "
         f"{busy / rounds:.2f} ms a round, idle share "
-        f"{max(0.0, 1 - busy / 1e3 / wall):.3f}")
+        f"{max(0.0, 1 - busy / 1e3 / wall):.3f}, "
+        f"{launched / rounds:.0f} device ops a round")
     ranked = sorted(kernels, key=_dev_us, reverse=True)
     # the top ones, then the kernels in an anonymous namespace at file
     # scope wherever they rank: the port's own, and a few of torch's
@@ -1884,6 +1904,405 @@ def small_check():
         f"PPR at P=8 and the single-query PPR engine card == CPU")
 
 
+# ---------------------------------------------------------------------------
+# LM serving (the decoder-only transformer family behind ContinuousBatcher)
+# ---------------------------------------------------------------------------
+
+LM_SERVE_ARCH = "qwen2-7b"
+LM_SLOTS, LM_MAX_SEQ, LM_REQUESTS = 8, 1024, 32
+LM_PROMPT_LEN = (32, 512)         # drawn by numpy.random.default_rng(0)
+LM_NEW_TOKENS = (8, 64)
+LM_ONE_TOKEN = (5, 17)            # requests whose budget is 1
+LM_ISOLATED = 4                   # requests replayed alone at batch 1
+LM_FULL_B, LM_FULL_T = 2, 256     # decode against the full forward
+LM_DECODE_TOL = 0.05              # tests/test_serve.py's bound
+LM_WINDOW_ARCH = "h2o-danube-3-4b"
+LM_WINDOW_SLOTS, LM_WINDOW_MAX_SEQ, LM_WINDOW_REQUESTS = 4, 8192, 6
+LM_WINDOW_PROMPT_LEN = (4200, 6000)  # past the 4,096 window
+LM_WINDOW_NEW_TOKENS = (8, 32)
+LM_MOE_ARCHS = ("deepseek-v2-236b", "dbrx-132b")
+LM_MOE_LAYERS = 2                 # depth cut: DeepSeek 1 dense + 1 MoE
+LM_REDUCED_ARCHS = ("qwen2-7b", "qwen3-32b", "h2o-danube-3-4b",
+                    "nemotron-4-340b", "dbrx-132b", "deepseek-v2-236b",
+                    "internvl2-1b")
+# card against CPU on the reduced configs: bf16 matmuls round in other
+# places in cuBLAS and on the CPU
+LM_CARD_CPU_TOL = 0.05
+
+
+class TimedModel:
+    """Serves through `model`, timing each prefill and decode step between
+    synchronisations; each decode step is kept with the number of slots
+    of `batcher` that were active."""
+
+    def __init__(self, model):
+        self.model = model
+        self.device = model.device
+        self.batcher = None
+        self.prefill_s = 0.0
+        self.prefill_tokens = 0
+        self.decode_steps = []        # (active slots, seconds)
+
+    def init_cache(self, batch, max_seq):
+        return self.model.init_cache(batch, max_seq)
+
+    def prefill(self, tokens, **kw):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.model.prefill(tokens, **kw)
+        torch.cuda.synchronize()
+        self.prefill_s += time.perf_counter() - t0
+        self.prefill_tokens += tokens.numel()
+        return out
+
+    def decode_step(self, cache, token):
+        import torch
+        active = sum(r is not None for r in self.batcher.active)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.model.decode_step(cache, token)
+        torch.cuda.synchronize()
+        self.decode_steps.append((active, time.perf_counter() - t0))
+        return out
+
+
+def lm_param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def lm_decode_vs_full(model, tokens) -> float:
+    """max |full - decode| / max |full| of the last position's logits:
+    the full forward over tokens [B, T+1] against prefill over the first
+    T and one decode step."""
+    T = tokens.shape[1] - 1
+    full, _ = model.prefill(tokens)
+    _, cache = model.prefill(tokens[:, :T], pad_cache_to=T + 8)
+    dec, _ = model.decode_step(cache, tokens[:, T:])
+    a, b = full[:, -1], dec[:, -1]
+    check(bool(a.isfinite().all()) and bool(b.isfinite().all()),
+          f"{model.cfg.name}: logits not finite")
+    return float((a - b).abs().max() / a.abs().max())
+
+
+def lm_requests(rng, n, prompt_len, new_tokens, vocab, one_token=()):
+    from repro_torch.serve import Request
+    lens = rng.integers(prompt_len[0], prompt_len[1] + 1, n)
+    budgets = rng.integers(new_tokens[0], new_tokens[1] + 1, n)
+    budgets[list(one_token)] = 1
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(L)).astype(
+        "int32"), max_new_tokens=int(m))
+        for i, (L, m) in enumerate(zip(lens, budgets))]
+
+
+def lm_check_accounting(label, reqs, stats, slots):
+    budgets = [r.max_new_tokens for r in reqs]
+    check(stats.completed == len(reqs) and stats.prefills == len(reqs),
+          f"{label}: completed {stats.completed}, prefills "
+          f"{stats.prefills} of {len(reqs)}")
+    check(stats.tokens_out == sum(budgets),
+          f"{label}: tokens_out {stats.tokens_out} != {sum(budgets)}")
+    for r in reqs:
+        check(r.done and len(r.generated) == r.max_new_tokens,
+              f"{label}: request {r.rid} emitted {len(r.generated)} of "
+              f"{r.max_new_tokens}")
+    check(stats.max_active <= slots,
+          f"{label}: max_active {stats.max_active} > {slots}")
+
+
+def lm_greedy_isolated(model, prompt, n_new, max_seq):
+    """Batch-1 greedy decoding of `prompt` (prefilled as the batcher
+    prefills); returns the tokens and each step's top-2 logit margin
+    relative to the largest |logit|."""
+    import torch
+    dev = model.device
+    logits, cache = model.prefill(
+        torch.as_tensor(prompt[None], dtype=torch.int64, device=dev),
+        q_chunk=64, pad_cache_to=max_seq)
+    toks, margins = [], []
+    for i in range(n_new):
+        row = logits[0, -1]
+        top2 = torch.topk(row, 2).values
+        margins.append(float((top2[0] - top2[1]) / row.abs().max()))
+        toks.append(int(row.argmax()))
+        if i + 1 < n_new:
+            logits, cache = model.decode_step(
+                cache, torch.tensor([[toks[-1]]], device=dev))
+    return toks, margins
+
+
+def lm_serve_qwen(drive, smi):
+    """(a) Qwen2-7B at full width behind ContinuousBatcher."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import ContinuousBatcher
+
+    cfg = get_config(LM_SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = get_model(cfg)(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = lm_param_bytes(model)
+    log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} query heads padded to {cfg.pad_q_heads_to}, "
+        f"{cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
+        f"parameters (config count {cfg.param_count() / 1e9:.3f} B), "
+        f"{wbytes / 2 ** 30:.2f} GiB; init {init_s:.2f} s")
+
+    gen = torch.Generator(device=model.device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_FULL_B, LM_FULL_T + 1),
+                           generator=gen, device=model.device)
+    err, _, _ = drive(f"{cfg.name} decode vs full",
+                      lambda: lm_decode_vs_full(model, tokens), [])
+    check(err < LM_DECODE_TOL,
+          f"{cfg.name}: decode vs full forward {err} >= {LM_DECODE_TOL}")
+    log(f"{cfg.name}: decode vs full forward at B={LM_FULL_B}, "
+        f"T={LM_FULL_T}: relative error {err:.5f} (< {LM_DECODE_TOL})")
+
+    rng = np.random.default_rng(0)
+    reqs = lm_requests(rng, LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS,
+                       cfg.vocab_size, LM_ONE_TOKEN)
+    timed = TimedModel(model)
+    batcher = ContinuousBatcher(timed, slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    timed.batcher = batcher
+    stats, serve_s, peak = drive(f"{cfg.name} serve", lambda: batcher.run(
+        reqs), [])
+    lm_check_accounting(cfg.name, reqs, stats, LM_SLOTS)
+
+    full = [s for a, s in timed.decode_steps if a == LM_SLOTS]
+    check(bool(full), f"{cfg.name}: no decode step ran with every slot "
+          "active")
+    step_ms = 1e3 * sum(full) / len(full)
+    decode_s = sum(s for _, s in timed.decode_steps)
+    decode_tokens = sum(a for a, _ in timed.decode_steps)
+    bound_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    out = dict(
+        arch=cfg.name, params=n_params, weight_gib=wbytes / 2 ** 30,
+        init_s=init_s, decode_vs_full=err, requests=len(reqs),
+        stats=dict(vars(stats)), serve_s=serve_s, peak_gib=peak,
+        prefill_tokens=timed.prefill_tokens, prefill_s=timed.prefill_s,
+        prefill_tok_s=timed.prefill_tokens / timed.prefill_s,
+        decode_steps=len(timed.decode_steps), full_steps=len(full),
+        decode_ms_full=step_ms, decode_bound_ms=bound_ms,
+        decode_tok_s=decode_tokens / decode_s)
+    log(f"{cfg.name} serve: {stats}; {timed.prefill_tokens} prompt tokens "
+        f"prefilled in {timed.prefill_s:.3f} s ({out['prefill_tok_s']:.0f} "
+        f"tokens/s); decode {step_ms:.3f} ms a step at {LM_SLOTS} active "
+        f"slots ({len(full)} steps) against the weight-read bound "
+        f"{bound_ms:.3f} ms ({wbytes / 2 ** 30:.2f} GiB / 3.35 TB/s), "
+        f"{out['decode_tok_s']:.0f} decode tokens/s over "
+        f"{len(timed.decode_steps)} steps; peak {peak:.2f} GiB [{smi}]")
+
+    # batched against isolated greedy decoding; where they part, the
+    # isolated run's margin must be below the decode-vs-full error
+    parted = []
+    compared = [r for r in reqs if r.max_new_tokens > 1][:LM_ISOLATED]
+    for r in compared:
+        alone, margins = lm_greedy_isolated(model, r.prompt,
+                                            r.max_new_tokens, LM_MAX_SEQ)
+        diff = [i for i, (a, b) in enumerate(zip(alone, r.generated))
+                if a != b]
+        if diff:
+            i = diff[0]
+            check(margins[i] < err,
+                  f"{cfg.name}: request {r.rid} parts from batch-1 decoding "
+                  f"at step {i} with margin {margins[i]:.5f} >= {err:.5f}")
+            parted.append(dict(rid=r.rid, step=i, of=r.max_new_tokens,
+                               margin=margins[i]))
+    out["isolated"] = dict(compared=len(compared), parted=parted)
+    log(f"{cfg.name}: {len(compared)} requests replayed at batch 1: "
+        f"{len(parted)} parted from the batched tokens {parted} (each at a "
+        f"margin below {err:.5f})")
+
+    last = batcher.last_token
+    model.decode_step(batcher.cache, last)
+    profile_rounds(lambda c: model.decode_step(c, last)[1], batcher.cache,
+                   1, f"{cfg.name} decode step, {LM_SLOTS} slots, profiled")
+    del model, batcher, timed
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_serve_window(drive, smi):
+    """(b) H2O-Danube3-4B at full width, prompts past its window."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import ContinuousBatcher
+
+    cfg = get_config(LM_WINDOW_ARCH)
+    t0 = time.perf_counter()
+    model = get_model(cfg)(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    reqs = lm_requests(rng, LM_WINDOW_REQUESTS, LM_WINDOW_PROMPT_LEN,
+                       LM_WINDOW_NEW_TOKENS, cfg.vocab_size)
+    tokens = torch.as_tensor(
+        np.append(reqs[0].prompt, 7)[None], dtype=torch.int64,
+        device=model.device)
+    err, _, _ = drive(f"{cfg.name} decode vs full",
+                      lambda: lm_decode_vs_full(model, tokens), [])
+    check(err < LM_DECODE_TOL,
+          f"{cfg.name}: decode vs full forward {err} >= {LM_DECODE_TOL}")
+    timed = TimedModel(model)
+    batcher = ContinuousBatcher(timed, slots=LM_WINDOW_SLOTS,
+                                max_seq=LM_WINDOW_MAX_SEQ)
+    timed.batcher = batcher
+    stats, serve_s, peak = drive(f"{cfg.name} serve", lambda: batcher.run(
+        reqs), [])
+    lm_check_accounting(cfg.name, reqs, stats, LM_WINDOW_SLOTS)
+    ring = batcher.cache["dense"]["k"].shape[2]
+    check(ring == cfg.sliding_window, f"{cfg.name}: ring of {ring}")
+    decode_s = sum(s for _, s in timed.decode_steps)
+    out = dict(
+        arch=cfg.name, params=sum(p.numel() for p in model.parameters()),
+        weight_gib=lm_param_bytes(model) / 2 ** 30, init_s=init_s,
+        decode_vs_full=err, prompt_len=int(tokens.shape[1] - 1),
+        stats=dict(vars(stats)), serve_s=serve_s, peak_gib=peak,
+        prefill_tok_s=timed.prefill_tokens / timed.prefill_s,
+        decode_ms=1e3 * decode_s / len(timed.decode_steps))
+    log(f"{cfg.name}: window {cfg.sliding_window}, "
+        f"{out['params'] / 1e9:.3f} B parameters, "
+        f"{out['weight_gib']:.2f} GiB, init {init_s:.2f} s; decode vs full "
+        f"forward on a {out['prompt_len']}-token prompt {err:.5f}; serve "
+        f"{stats} in {serve_s:.3f} s, prompts "
+        f"{[len(r.prompt) for r in reqs]}, prefill "
+        f"{out['prefill_tok_s']:.0f} tokens/s, decode {out['decode_ms']:.3f}"
+        f" ms a step, peak {peak:.2f} GiB [{smi}]")
+    del model, batcher, timed
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_moe_path(drive, smi):
+    """(c) DeepSeek-V2 and DBRX at full width, depth cut to 2 layers."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    out = {}
+    for name in LM_MOE_ARCHS:
+        base = dataclasses.replace(get_config(name), num_layers=LM_MOE_LAYERS)
+        # drop-free: C >= N at E / k, so the full forward and decode route
+        # every assignment (the reduced configs' capacity 4.0 does the same)
+        free = dataclasses.replace(
+            base, capacity_factor=base.num_experts / base.num_experts_per_tok)
+        t0 = time.perf_counter()
+        model = get_model(free)(free, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        moes = [b.moe for b in model.moe_layers]
+        gen = torch.Generator(device=model.device).manual_seed(2)
+        tokens = torch.randint(0, base.vocab_size,
+                               (LM_FULL_B, LM_FULL_T + 1), generator=gen,
+                               device=model.device)
+        for m in moes:
+            m.dropped.zero_()
+        err, secs, peak = drive(f"{name} decode vs full",
+                                lambda: lm_decode_vs_full(model, tokens), [])
+        free_drops = sum(int(m.dropped) for m in moes)
+        check(free_drops == 0, f"{name}: {free_drops} drops at C >= N")
+        check(err < LM_DECODE_TOL,
+              f"{name}: decode vs full forward {err} >= {LM_DECODE_TOL}")
+        # the configuration's own capacity factor
+        model.cfg = base
+        for m in moes:
+            m.dropped.zero_()
+        model.prefill(tokens)
+        drops = sum(int(m.dropped) for m in moes)
+        err_cf = lm_decode_vs_full(model, tokens)
+        assignments = LM_FULL_B * (LM_FULL_T + 1) * base.num_experts_per_tok
+        out[name] = dict(
+            reduced=["num_layers"], layers=LM_MOE_LAYERS,
+            params=sum(p.numel() for p in model.parameters()),
+            weight_gib=lm_param_bytes(model) / 2 ** 30, init_s=init_s,
+            decode_vs_full=err, seconds=secs, peak_gib=peak,
+            capacity_factor=base.capacity_factor, drops=drops,
+            assignments=assignments, decode_vs_full_at_cf=err_cf)
+        log(f"{name} (reduced: num_layers {LM_MOE_LAYERS}): "
+            f"{out[name]['params'] / 1e9:.3f} B parameters, "
+            f"{out[name]['weight_gib']:.2f} GiB, init {init_s:.2f} s; "
+            f"decode vs full forward at B={LM_FULL_B}, T={LM_FULL_T}, "
+            f"capacity factor {free.capacity_factor:.2f} (no drops): "
+            f"{err:.5f}; at capacity factor {base.capacity_factor}: "
+            f"{drops} of {assignments} assignments dropped in the full "
+            f"forward, decode vs full {err_cf:.5f} (not gated); peak "
+            f"{peak:.2f} GiB [{smi}]")
+        del model, moes
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_reduced_card_vs_cpu():
+    """(d) The reduced configs on the card against the port on the CPU,
+    with the same weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import get_model
+
+    out = {}
+    rng = np.random.default_rng(3)
+    for arch in LM_REDUCED_ARCHS:
+        cfg = reduced_config(arch)
+        cpu = get_model(cfg)(cfg, device="cpu", seed=0)
+        card = get_model(cfg)(cfg, seed=None)
+        card.load_state_dict(cpu.state_dict())
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 25)))
+        extra = {}
+        if cfg.family == "vlm":
+            extra["img_embeds"] = torch.as_tensor(rng.standard_normal(
+                (2, cfg.num_image_tokens, cfg.d_model))).to(torch.bfloat16)
+        res = []
+        for m in (cpu, card):
+            dev = m.device
+            pre, cache = m.prefill(
+                toks[:, :24].to(dev), q_chunk=8, pad_cache_to=72,
+                **{k: v.to(dev) for k, v in extra.items()})
+            dec, cache = m.decode_step(cache, toks[:, 24:].to(dev))
+            res.append((pre.cpu(), dec.cpu(), {
+                k: c["idx"].cpu() for k, c in cache.items()}))
+        errs = [float((a - b).abs().max() / a.abs().max())
+                for a, b in zip(res[0][:2], res[1][:2])]
+        check(max(errs) < LM_CARD_CPU_TOL,
+              f"{arch} reduced: card vs CPU logits {errs}")
+        check(all(torch.equal(res[0][2][k], res[1][2][k])
+                  for k in res[0][2]), f"{arch} reduced: cache idx differs")
+        out[arch] = dict(prefill=errs[0], decode=errs[1])
+    log(f"reduced configs, card vs CPU (same weights): relative logit "
+        f"errors {out} (< {LM_CARD_CPU_TOL}); cache idx equal")
+    return out
+
+
+def lm_serve_path(drive, smi):
+    """The LM serving path: (a) Qwen2-7B served at full width, (b)
+    Danube3 past its window, (c) full-width 2-layer DeepSeek-V2 and DBRX,
+    (d) the reduced configs on the card against the CPU."""
+    log(f"lm serve path on {smi}")
+    out = {}
+    t0 = time.perf_counter()
+    out["qwen"] = lm_serve_qwen(drive, smi)
+    out["qwen"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["window"] = lm_serve_window(drive, smi)
+    out["window"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["moe"] = lm_moe_path(drive, smi)
+    out["moe_phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["reduced"] = lm_reduced_card_vs_cpu()
+    out["reduced_phase_s"] = time.perf_counter() - t0
+    log(f"lm serve: {smi} " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1960,6 +2379,10 @@ def main() -> int:
         t0 = time.perf_counter()
         small_check()
         phases["small"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lm = lm_serve_path(drive, smi)
+        phases["lm"] = time.perf_counter() - t0
     except PhaseError as e:
         log(f"FAILED: {e}")
         return 1

@@ -3,7 +3,8 @@
 The graph is this system's "weights": with the same CSR arrays and the same
 PRNG key, the port computes what the JAX package computes. The sharded
 engines' states carry over too, so a run started by one package can be
-continued by the other.
+continued by the other. The LMs' parameter trees carry over as well
+(`lm_params_from_numpy`).
 """
 from __future__ import annotations
 
@@ -62,3 +63,54 @@ def count_state_from_numpy(flat: dict, device=None):
         return t if name in ("key", "round") else t.to(device)
 
     return staged_from_host(flat, put)
+
+
+def _flatten_lm_tree(tree, prefix=""):
+    """{'a': {'b': x}} -> {'a.b': x}; the leaves of the layer stacks
+    (`dense_layers`, `moe_layers`, leading dim L) split into one entry a
+    layer, `dense_layers.{i}.…`, as the port's modules name them."""
+    flat = {}
+    for name, sub in tree.items():
+        path = f"{prefix}{name}"
+        if isinstance(sub, dict):
+            if not prefix and name in ("dense_layers", "moe_layers"):
+                for leaf, arr in _flatten_lm_tree(sub).items():
+                    arr = np.asarray(arr)
+                    for i in range(arr.shape[0]):
+                        flat[f"{path}.{i}.{leaf}"] = arr[i]
+            else:
+                flat.update(_flatten_lm_tree(sub, path + "."))
+        else:
+            flat[path] = np.asarray(sub)
+    return flat
+
+
+def lm_params_from_numpy(cfg, tree: dict, device=None):
+    """The port's model of `cfg` on `device` (the card when None) with the
+    weights of a JAX model's parameter tree (`init_params(cfg, key)[0]`),
+    given as nested dicts of float32 numpy arrays.
+
+    bf16 leaves are widened to float32 by the caller (exact); each is cast
+    to its parameter's dtype here (exact for values that came from bf16).
+    Raises on a leaf that is missing, extra, misshapen or not float32."""
+    from repro_torch.models import get_model
+
+    model = get_model(cfg)(cfg, device=device, seed=None)
+    params = dict(model.named_parameters())
+    flat = _flatten_lm_tree(tree)
+    missing = sorted(set(params) - set(flat))
+    extra = sorted(set(flat) - set(params))
+    if missing or extra:
+        raise ValueError(f"{cfg.name}: parameter tree does not match the "
+                         f"model: missing {missing}, extra {extra}")
+    for name, arr in flat.items():
+        p = params[name]
+        if arr.dtype != np.float32:
+            raise TypeError(f"{name}: dtype {arr.dtype}, expected float32 "
+                            "(widen bf16 leaves first)")
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)}, the model "
+                             f"has {tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(torch.from_numpy(np.array(arr)))
+    return model

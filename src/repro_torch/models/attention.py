@@ -1,0 +1,357 @@
+"""Attention: GQA (+bias, +qk-norm, +sliding-window) and MLA (DeepSeek-V2).
+
+The JAX package's `repro.models.attention`, in the same math: float32
+scores, a NEG_INF mask, float32 softmax, probabilities cast to bf16 before
+the value product. No fused attention call stands in for it.
+
+  * prefill runs blockwise over query chunks (exact: the whole key axis
+    is resident for each chunk), chunking only when T divides evenly;
+  * decode is one step of attention over the cache; MLA decode uses the
+    absorbed form, scoring against the compressed c_kv latent, which is
+    never decompressed.
+
+KV caches are laid out [B, S_max, ...] per layer, stacked [L, B, S_max,
+...] per layer stack, with a per-sequence position `idx` [B] (stacked
+[L, B]). Unlike JAX, decode writes the cache in place: the views a layer
+gets are slices of the stacked tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.common import (COMPUTE_DTYPE, apply_rope,
+                                       dense_init, param, rms_norm,
+                                       rope_tables, zeros_init)
+
+NEG_INF = -1e30
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("btd,d...->bt...", x, w): x [..., d] times w [d, *out]."""
+    return torch.matmul(x, w.reshape(w.shape[0], -1)).unflatten(
+        -1, w.shape[1:])
+
+
+def _out_proj(x: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bthk,hkd->btd", x, wo)."""
+    return torch.matmul(x.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+def _padded_heads(cfg) -> int:
+    return max(cfg.pad_q_heads_to or 0, cfg.num_heads)
+
+
+def _head_mask(cfg, device) -> Optional[torch.Tensor]:
+    """[Hp] 1/0 mask; padded heads are zeroed before the out projection so
+    they contribute no output."""
+    Hp, H = _padded_heads(cfg), cfg.num_heads
+    if Hp == H:
+        return None
+    return (torch.arange(Hp, device=device) < H).to(COMPUTE_DTYPE)
+
+
+class GQA(nn.Module):
+    """wq [d, Hp, hd] and wo [Hp, hd, d] (padded query heads zero),
+    wk, wv [d, KV, hd]; bq/bk/bv with `qkv_bias`, q_norm/k_norm [hd] with
+    `qk_norm`."""
+
+    def __init__(self, cfg, *, device, gen):
+        super().__init__()
+        d, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+        Hp, hd = _padded_heads(cfg), cfg.resolved_head_dim
+
+        def padh(w, axis):  # zero the padded head slots
+            if Hp == H:
+                return w
+            shape = list(w.shape)
+            shape[axis] = Hp - H
+            return torch.cat([w, torch.zeros(shape, dtype=w.dtype,
+                                             device=w.device)], dim=axis)
+
+        self.wq = param(padh(dense_init(gen, (d, H, hd), d, device=device),
+                             1))
+        self.wk = param(dense_init(gen, (d, KV, hd), d, device=device))
+        self.wv = param(dense_init(gen, (d, KV, hd), d, device=device))
+        self.wo = param(padh(dense_init(gen, (H, hd, d), H * hd,
+                                        device=device), 0))
+        if cfg.qkv_bias:
+            self.bq = param(zeros_init((Hp, hd), device=device))
+            self.bk = param(zeros_init((KV, hd), device=device))
+            self.bv = param(zeros_init((KV, hd), device=device))
+        if cfg.qk_norm:
+            self.q_norm = param(zeros_init((hd,), device=device))
+            self.k_norm = param(zeros_init((hd,), device=device))
+
+
+def _qkv(p: GQA, x, cfg, positions):
+    hd = cfg.resolved_head_dim
+    q = _proj(x, p.wq.to(COMPUTE_DTYPE))
+    k = _proj(x, p.wk.to(COMPUTE_DTYPE))
+    v = _proj(x, p.wv.to(COMPUTE_DTYPE))
+    if cfg.qkv_bias:
+        q = q + p.bq.to(COMPUTE_DTYPE)
+        k = k + p.bk.to(COMPUTE_DTYPE)
+        v = v + p.bv.to(COMPUTE_DTYPE)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _grouped_scores(q, k):
+    """q [B,T,H,hd], k [B,S,KV,hd] -> scores [B,KV,G,T,S] float32."""
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, T, KV, H // KV, hd)
+    s = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
+    return s / math.sqrt(hd)
+
+
+def _grouped_out(probs, v):
+    """probs [B,KV,G,T,S] float32, v [B,S,KV,hd] -> [B,T,H,hd]."""
+    B, KV, G, T, S = probs.shape
+    out = torch.einsum("bkgts,bskd->btkgd", probs.to(COMPUTE_DTYPE), v)
+    return out.reshape(B, T, KV * G, v.shape[-1])
+
+
+def _causal_mask(q_pos, k_pos, window: Optional[int]):
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= k_pos[None, :] > (q_pos[:, None] - window)
+    return m
+
+
+def _n_chunks(T: int, q_chunk: int) -> int:
+    return T // q_chunk if (q_chunk < T and T % q_chunk == 0) else 1
+
+
+def gqa_forward(p: GQA, x, cfg, positions, *, q_chunk: int = 512):
+    """Full-sequence causal attention, blockwise over query chunks.
+
+    positions: [T] int32 (shared across the batch; no packing). Returns
+    (out, k, v): prefill caches the keys and values (JAX recomputes them)."""
+    B, T, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions[None, :])
+    n_chunks = _n_chunks(T, q_chunk)
+    outs = []
+    for qi, qpi in zip(q.chunk(n_chunks, dim=1),
+                       positions.chunk(n_chunks)):
+        s = _grouped_scores(qi, k)                       # [B,KV,G,qc,S]
+        mask = _causal_mask(qpi, positions, cfg.sliding_window)
+        s = torch.where(mask, s, NEG_INF)
+        outs.append(_grouped_out(torch.softmax(s, dim=-1), v))
+    out = torch.cat(outs, dim=1) if n_chunks > 1 else outs[0]
+    mask_h = _head_mask(cfg, x.device)
+    if mask_h is not None:
+        out = out * mask_h[:, None]
+    return _out_proj(out, p.wo.to(COMPUTE_DTYPE)), k, v
+
+
+def pad_stacked_cache(cache: Dict[str, torch.Tensor], max_seq: int, cfg,
+                      prompt_len: int) -> Dict[str, torch.Tensor]:
+    """Grow a prefill-built stacked cache ([L, B, S, ...]) to decode
+    capacity `max_seq` along the sequence axis (dim 2).
+
+    Sliding-window caches are ring buffers of size `window`; instead of
+    padding they are rolled so the ring invariant slot == token % window
+    holds for subsequent decode steps."""
+    def pad(x, to):
+        return F.pad(x, [0, 0] * (x.ndim - 3) + [0, to - x.shape[2]])
+
+    if "k" in cache:  # GQA
+        S = cache["k"].shape[2]
+        if cfg.sliding_window:
+            # ring buffer of size min(window, max_seq); invariant:
+            # slot == token % size
+            target = min(cfg.sliding_window, max_seq)
+            if S == target and prompt_len >= target:
+                shift = prompt_len % target
+                return dict(cache, k=torch.roll(cache["k"], shift, dims=2),
+                            v=torch.roll(cache["v"], shift, dims=2))
+            if S < target:
+                return dict(cache, k=pad(cache["k"], target),
+                            v=pad(cache["v"], target))
+            return cache
+        if S < max_seq:
+            return dict(cache, k=pad(cache["k"], max_seq),
+                        v=pad(cache["v"], max_seq))
+        return cache
+    # MLA
+    if cache["c_kv"].shape[2] < max_seq:
+        return dict(cache, c_kv=pad(cache["c_kv"], max_seq),
+                    k_rope=pad(cache["k_rope"], max_seq))
+    return cache
+
+
+def init_gqa_cache(cfg, batch: int, max_seq: int, device
+                   ) -> Dict[str, torch.Tensor]:
+    """idx is a per-sequence position vector [B]: decode slots advance
+    independently (continuous batching admits requests at any time)."""
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    seq = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+    return dict(
+        k=torch.zeros((batch, seq, KV, hd), dtype=COMPUTE_DTYPE,
+                      device=device),
+        v=torch.zeros((batch, seq, KV, hd), dtype=COMPUTE_DTYPE,
+                      device=device),
+        idx=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def _ring_slot(idx, S: int, window: Optional[int]):
+    """Where token idx goes: idx % S in a ring buffer, else min(idx, S-1)."""
+    return idx % S if window else torch.clamp(idx, max=S - 1)
+
+
+def gqa_decode(p: GQA, x, cfg, cache):
+    """One-token decode. x [B,1,d]. Writes the new key and value into
+    `cache` (k, v [B,S,KV,hd], idx [B]) in place and advances idx.
+    Sliding-window caches are ring buffers."""
+    B = x.shape[0]
+    idx = cache["idx"]                                   # [B]
+    q, k, v = _qkv(p, x, cfg, idx[:, None])
+    S = cache["k"].shape[1]
+    slot = _ring_slot(idx, S, cfg.sliding_window).long()
+    bidx = torch.arange(B, device=x.device)
+    cache["k"][bidx, slot] = k[:, 0]
+    cache["v"][bidx, slot] = v[:, 0]
+    s = _grouped_scores(q, cache["k"])                   # [B,KV,G,1,S]
+    kpos = torch.arange(S, device=x.device)
+    if cfg.sliding_window:
+        # ring buffer: valid slots are the last min(idx+1, S) writes
+        age = (slot[:, None] - kpos[None, :]) % S
+        valid = age < torch.clamp(idx + 1, max=S)[:, None]
+    else:
+        valid = kpos[None, :] <= idx[:, None]
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    out = _grouped_out(torch.softmax(s, dim=-1), cache["v"])
+    mask_h = _head_mask(cfg, x.device)
+    if mask_h is not None:
+        out = out * mask_h[:, None]
+    idx += 1
+    return _out_proj(out, p.wo.to(COMPUTE_DTYPE))
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """Low-rank queries (wq_a, q_norm, wq_b), the compressed key/value
+    latent (wkv_a, kv_norm) and its up-projections (wkv_b_k, wkv_b_v)."""
+
+    def __init__(self, cfg, *, device, gen):
+        super().__init__()
+        d, H = cfg.d_model, cfg.num_heads
+        nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        vh, qlr, kvlr = cfg.v_head_dim, cfg.q_lora_rank, cfg.kv_lora_rank
+
+        def w(shape, fan_in):
+            return param(dense_init(gen, shape, fan_in, device=device))
+
+        self.wq_a = w((d, qlr), d)
+        self.q_norm = param(zeros_init((qlr,), device=device))
+        self.wq_b = w((qlr, H, nope + rope_d), qlr)
+        self.wkv_a = w((d, kvlr + rope_d), d)
+        self.kv_norm = param(zeros_init((kvlr,), device=device))
+        self.wkv_b_k = w((kvlr, H, nope), kvlr)
+        self.wkv_b_v = w((kvlr, H, vh), kvlr)
+        self.wo = w((H, vh, d), H * vh)
+
+
+def _mla_q(p: MLA, x, cfg, positions):
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_lat = rms_norm(torch.matmul(x, p.wq_a.to(COMPUTE_DTYPE)), p.q_norm,
+                     cfg.norm_eps)
+    q = _proj(q_lat, p.wq_b.to(COMPUTE_DTYPE))
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    cos, sin = rope_tables(positions, rope_d, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_kv_latent(p: MLA, x, cfg, positions):
+    kvlr, rope_d = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    kv = torch.matmul(x, p.wkv_a.to(COMPUTE_DTYPE))
+    c_kv = rms_norm(kv[..., :kvlr], p.kv_norm, cfg.norm_eps)
+    k_rope = kv[..., None, kvlr:]  # [B,T,1,rope_d] shared across heads
+    cos, sin = rope_tables(positions, rope_d, cfg.rope_theta)
+    return c_kv, apply_rope(k_rope, cos, sin)[..., 0, :]
+
+
+def _mla_scale(cfg) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def mla_forward(p: MLA, x, cfg, positions, *, q_chunk: int = 512):
+    """Prefill MLA: keys decompressed from the latent (exact). Returns
+    (out, c_kv, k_rope): prefill caches the latent."""
+    B, T, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, cfg, positions[None, :])
+    c_kv, k_rope = _mla_kv_latent(p, x, cfg, positions[None, :])
+    k_nope = _proj(c_kv, p.wkv_b_k.to(COMPUTE_DTYPE)).float()
+    v = _proj(c_kv, p.wkv_b_v.to(COMPUTE_DTYPE))
+    kr = k_rope.float()
+    scale = _mla_scale(cfg)
+    n_chunks = _n_chunks(T, q_chunk)
+    outs = []
+    for qni, qri, qpi in zip(q_nope.chunk(n_chunks, dim=1),
+                             q_rope.chunk(n_chunks, dim=1),
+                             positions.chunk(n_chunks)):
+        s = (torch.einsum("bthk,bshk->bhts", qni.float(), k_nope)
+             + torch.einsum("bthk,bsk->bhts", qri.float(), kr)) * scale
+        mask = _causal_mask(qpi, positions, None)
+        s = torch.where(mask, s, NEG_INF)
+        probs = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE)
+        outs.append(torch.einsum("bhts,bshk->bthk", probs, v))
+    out = torch.cat(outs, dim=1) if n_chunks > 1 else outs[0]
+    return _out_proj(out, p.wo.to(COMPUTE_DTYPE)), c_kv, k_rope
+
+
+def init_mla_cache(cfg, batch: int, max_seq: int, device
+                   ) -> Dict[str, torch.Tensor]:
+    return dict(
+        c_kv=torch.zeros((batch, max_seq, cfg.kv_lora_rank),
+                         dtype=COMPUTE_DTYPE, device=device),
+        k_rope=torch.zeros((batch, max_seq, cfg.qk_rope_head_dim),
+                           dtype=COMPUTE_DTYPE, device=device),
+        idx=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def mla_decode(p: MLA, x, cfg, cache):
+    """Absorbed-form decode: attention runs against the compressed latent.
+    Writes the new latent into `cache` in place and advances idx."""
+    B = x.shape[0]
+    idx = cache["idx"]                                   # [B]
+    positions = idx[:, None]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)        # [B,1,H,*]
+    c_new, kr_new = _mla_kv_latent(p, x, cfg, positions)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    S = c_kv.shape[1]
+    bidx = torch.arange(B, device=x.device)
+    slot = torch.clamp(idx, max=S - 1).long()
+    c_kv[bidx, slot] = c_new[:, 0]
+    k_rope[bidx, slot] = kr_new[:, 0]
+    # absorb W^UK into q: q_c [B,1,H,kv_lora]
+    q_c = torch.einsum("bthk,rhk->bthr", q_nope,
+                       p.wkv_b_k.to(COMPUTE_DTYPE))
+    s = (torch.einsum("bthr,bsr->bhts", q_c.float(), c_kv.float())
+         + torch.einsum("bthk,bsk->bhts", q_rope.float(), k_rope.float())
+         ) * _mla_scale(cfg)
+    valid = torch.arange(S, device=x.device)[None, :] <= idx[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE)
+    # attend in latent space, then decompress
+    out_lat = torch.einsum("bhts,bsr->bthr", probs, c_kv)  # [B,1,H,kv_lora]
+    out = torch.einsum("bthr,rhk->bthk", out_lat,
+                       p.wkv_b_v.to(COMPUTE_DTYPE))
+    idx += 1
+    return _out_proj(out, p.wo.to(COMPUTE_DTYPE))

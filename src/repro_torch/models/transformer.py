@@ -1,0 +1,203 @@
+"""Decoder-only transformer LM (dense + MoE): the serving path.
+
+One `Block` module per layer, in `nn.ModuleList`s. MoE architectures with
+leading dense layers (DeepSeek-V2) keep two stacks, `dense_layers` then
+`moe_layers`, in layer order, as the JAX package's
+`repro.models.transformer` stacks its layer parameters; the converter
+(`convert.lm_params_from_numpy`) splits JAX's stacked leaves into these
+modules. The JAX package's `maybe_constrain` (sharding hints, the
+identity without a mesh) has no counterpart on one card and is left out.
+`loss_fn` comes with the training slice.
+
+Serving API (the methods `ContinuousBatcher` calls):
+  init_cache(batch, max_seq)       -> cache
+  prefill(tokens, **kw)            -> (logits of the last position, cache)
+  decode_step(cache, token)        -> (logits [B,1,V], cache), in place
+
+A cache is {"dense": {...}, "moe": {...}}, one entry per layer stack, of
+stacked tensors [L, B, S, ...] and a position idx [L, B] int32: the JAX
+package's layout, so the two compare leaf by leaf.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.common import (Embedding, embed, param, rms_norm,
+                                       unembed, zeros_init)
+from repro_torch.models.mlp import MLP, mlp_forward
+from repro_torch.models.moe import MoE, moe_forward
+
+Cache = Dict[str, Dict[str, torch.Tensor]]
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, *, moe: bool, device, gen):
+        super().__init__()
+        self.is_moe = moe
+        self.ln1 = param(zeros_init((cfg.d_model,), device=device))
+        attn_cls = attn_lib.MLA if cfg.attention == "mla" else attn_lib.GQA
+        self.attn = attn_cls(cfg, device=device, gen=gen)
+        self.ln2 = param(zeros_init((cfg.d_model,), device=device))
+        if moe:
+            self.moe = MoE(cfg, device=device, gen=gen)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp, device=device,
+                           gen=gen)
+
+    def _ffn(self, x, cfg):
+        h = rms_norm(x, self.ln2, cfg.norm_eps)
+        if self.is_moe:
+            h, aux = moe_forward(self.moe, h, cfg)
+        else:
+            h, aux = mlp_forward(self.mlp, h, cfg.mlp), x.new_zeros(
+                (), dtype=torch.float32)
+        return x + h, aux
+
+    def forward(self, x, cfg, positions, *, q_chunk: int = 512):
+        """-> (x, aux, cache entries of this layer at every position)."""
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        if cfg.attention == "mla":
+            h, c_kv, k_rope = attn_lib.mla_forward(
+                self.attn, h, cfg, positions, q_chunk=q_chunk)
+            kv = dict(c_kv=c_kv, k_rope=k_rope)
+        else:
+            h, k, v = attn_lib.gqa_forward(self.attn, h, cfg, positions,
+                                           q_chunk=q_chunk)
+            kv = dict(k=k, v=v)
+        x, aux = self._ffn(x + h, cfg)
+        return x, aux, kv
+
+    def decode(self, x, cfg, cache: Dict[str, torch.Tensor]):
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        if cfg.attention == "mla":
+            h = attn_lib.mla_decode(self.attn, h, cfg, cache)
+        else:
+            h = attn_lib.gqa_decode(self.attn, h, cfg, cache)
+        return self._ffn(x + h, cfg)[0]
+
+
+def layer_split(cfg) -> Tuple[int, int]:
+    """(n_dense_layers, n_moe_layers)."""
+    if cfg.num_experts:
+        return cfg.first_dense_layers, cfg.num_layers - cfg.first_dense_layers
+    return cfg.num_layers, 0
+
+
+class Transformer(nn.Module):
+    """The decoder-only LM of `cfg` on `device` (the card when None),
+    weights drawn from a generator seeded with `seed`. With `seed` None the
+    weights are left unset, for `convert.lm_params_from_numpy` to load."""
+
+    def __init__(self, cfg, *, device=None, seed: Optional[int] = 0):
+        super().__init__()
+        device = resolve_device(device)
+        gen = (torch.Generator(device=device).manual_seed(seed)
+               if seed is not None else None)
+        self.cfg = cfg
+        self.device = device
+        n_dense, n_moe = layer_split(cfg)
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, device=device,
+                               gen=gen)
+        self.dense_layers = nn.ModuleList(
+            Block(cfg, moe=False, device=device, gen=gen)
+            for _ in range(n_dense))
+        self.moe_layers = nn.ModuleList(
+            Block(cfg, moe=True, device=device, gen=gen)
+            for _ in range(n_moe))
+        self.final_norm = param(zeros_init((cfg.d_model,), device=device))
+        self.lm_head = (None if cfg.tie_embeddings else
+                        Embedding(cfg.vocab_size, cfg.d_model, device=device,
+                                  gen=gen))
+        self._extra_init(gen)
+
+    def _extra_init(self, gen) -> None:
+        """Parameters a subclass adds (drawn after the LM's)."""
+
+    def stacks(self) -> Iterator[Tuple[str, nn.ModuleList]]:
+        """(cache key, layers) of each non-empty stack, in layer order."""
+        for key, layers in (("dense", self.dense_layers),
+                            ("moe", self.moe_layers)):
+            if len(layers):
+                yield key, layers
+
+    # ------------------------------------------------------------ forward
+    def forward_hidden(self, x, positions, *, q_chunk: int = 512):
+        """x: [B, T, d] input embeddings -> (hidden [B,T,d], aux_loss)."""
+        aux_total = x.new_zeros((), dtype=torch.float32)
+        for _, layers in self.stacks():
+            for block in layers:
+                x, aux, _ = block(x, self.cfg, positions, q_chunk=q_chunk)
+                aux_total = aux_total + aux
+        return rms_norm(x, self.final_norm, self.cfg.norm_eps), aux_total
+
+    def logits(self, hidden) -> torch.Tensor:
+        table = self.embed if self.cfg.tie_embeddings else self.lm_head
+        return unembed(table, hidden)
+
+    def embed_inputs(self, tokens, **extra) -> torch.Tensor:
+        """The input stream [B, T, d] of `tokens` [B, T]."""
+        if extra:
+            raise TypeError(f"unexpected inputs {sorted(extra)}")
+        return embed(self.embed, tokens)
+
+    # ------------------------------------------------------------ serving
+    @torch.inference_mode()
+    def init_cache(self, batch: int, max_seq: int) -> Cache:
+        if self.cfg.attention == "mla":
+            c1 = attn_lib.init_mla_cache(self.cfg, batch, max_seq,
+                                         self.device)
+        else:
+            c1 = attn_lib.init_gqa_cache(self.cfg, batch, max_seq,
+                                         self.device)
+        return {key: {name: t.expand((len(layers),) + t.shape).clone()
+                      for name, t in c1.items()}
+                for key, layers in self.stacks()}
+
+    @torch.inference_mode()
+    def prefill(self, tokens, *, q_chunk: int = 512,
+                pad_cache_to: Optional[int] = None, **extra):
+        """Full-sequence forward over `tokens` [B, T] (after any prefix a
+        subclass adds); returns the last position's logits [B,1,V] and the
+        filled cache. Sliding-window caches keep the last `window`
+        positions; `pad_cache_to` grows the cache to decode capacity."""
+        cfg = self.cfg
+        x = self.embed_inputs(tokens, **extra)
+        B, T = x.shape[:2]
+        positions = torch.arange(T, dtype=torch.int32, device=x.device)
+        window = cfg.sliding_window
+        trim = cfg.attention != "mla" and window and window < T
+        cache: Cache = {}
+        for key, layers in self.stacks():
+            entries = []
+            for block in layers:
+                x, _, kv = block(x, cfg, positions, q_chunk=q_chunk)
+                if trim:
+                    kv = {n: t[:, -window:] for n, t in kv.items()}
+                entries.append(kv)
+            c = {n: torch.stack([e[n] for e in entries])
+                 for n in entries[0]}
+            c["idx"] = torch.full((len(layers), B), T, dtype=torch.int32,
+                                  device=x.device)
+            if pad_cache_to:
+                c = attn_lib.pad_stacked_cache(c, pad_cache_to, cfg, T)
+            cache[key] = c
+        hidden = rms_norm(x[:, -1:], self.final_norm, cfg.norm_eps)
+        return self.logits(hidden), cache
+
+    @torch.inference_mode()
+    def decode_step(self, cache: Cache, token) -> Tuple[torch.Tensor, Cache]:
+        """token [B,1] int -> (logits [B,1,V], cache). Every slot decodes;
+        the cache is updated in place and returned."""
+        x = embed(self.embed, token)
+        for key, layers in self.stacks():
+            c = cache[key]
+            for i, block in enumerate(layers):
+                x = block.decode(x, self.cfg,
+                                 {n: t[i] for n, t in c.items()})
+        hidden = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self.logits(hidden), cache

@@ -1,0 +1,33 @@
+"""InternVL2-style VLM backbone (text decoder + stub vision frontend).
+
+As in the JAX package's `repro.models.vlm`, the vision frontend is a stub:
+the caller gives precomputed patch embeddings [B, num_image_tokens,
+d_model], which `vision_proj` maps into the LM stream ahead of the text.
+The image prefix takes the first positions, so the cache covers image and
+text and its idx starts at num_image_tokens + T. Without image
+embeddings the prefix is zeros.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import COMPUTE_DTYPE, dense_init, embed, param
+from repro_torch.models.transformer import Transformer
+
+
+class VLM(Transformer):
+    def _extra_init(self, gen) -> None:
+        d = self.cfg.d_model
+        # projector from the (stub) vision embedding space into the stream
+        self.vision_proj = param(dense_init(gen, (d, d), d,
+                                            device=self.device))
+
+    def embed_inputs(self, tokens, img_embeds=None) -> torch.Tensor:
+        B = tokens.shape[0]
+        if img_embeds is None:
+            img_embeds = torch.zeros(
+                (B, self.cfg.num_image_tokens, self.cfg.d_model),
+                dtype=COMPUTE_DTYPE, device=tokens.device)
+        img = torch.matmul(img_embeds.to(COMPUTE_DTYPE),
+                           self.vision_proj.to(COMPUTE_DTYPE))
+        return torch.cat([img, embed(self.embed, tokens)], dim=1)

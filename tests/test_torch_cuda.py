@@ -17,7 +17,8 @@ sharded engines (walks, counts, and the three-phase Algorithm 2 and
 Section 5) and both PPR engines and the PPR service on the card bit-exact
 against the same run on the CPU, at counts whose draws stay in the
 inverse-CDF regime; the CONGEST audit report on the card equal to the CPU
-one.
+one; the reduced LM configs' prefill and decode logits within 0.05 of
+the CPU's on the same weights, their cache idx and batcher stats equal.
 """
 import numpy as np
 import pytest
@@ -506,3 +507,45 @@ def test_cuda_audit_report_matches_cpu(cuda):
     assert a["ok"] and a["violations_total"] == 0
     assert a.pop("device") == "cuda" and b.pop("device") == "cpu"
     assert a == b
+
+
+LM_ARCHS = ["dbrx-132b", "deepseek-v2-236b", "h2o-danube-3-4b",
+            "internvl2-1b", "nemotron-4-340b", "qwen2-7b", "qwen3-32b"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_reduced_matches_cpu(cuda, arch):
+    """The reduced LM configs on the card against the same weights on the
+    CPU: prefill and decode logits within 0.05 of the largest |logit|
+    (bf16 matmuls round in other places in cuBLAS), the cache's idx
+    equal, and the batcher's accounting equal."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    cfg = reduced_config(arch)
+    cpu = get_model(cfg)(cfg, device="cpu", seed=0)
+    card = get_model(cfg)(cfg, device=cuda, seed=None)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 25)))
+    outs = []
+    for m in (cpu, card):
+        pre, cache = m.prefill(toks[:, :24].to(m.device), q_chunk=8,
+                               pad_cache_to=72)
+        dec, cache = m.decode_step(cache, toks[:, 24:].to(m.device))
+        outs.append((pre.cpu(), dec.cpu(),
+                     {k: c["idx"].cpu() for k, c in cache.items()}))
+    for a, b in zip(outs[0][:2], outs[1][:2]):
+        assert float((a - b).abs().max() / a.abs().max()) < 0.05
+    assert outs[0][2].keys() == outs[1][2].keys()
+    for k in outs[0][2]:
+        assert torch.equal(outs[0][2][k], outs[1][2][k])
+    prompts = [rng.integers(0, cfg.vocab_size, 9 + 5 * i).astype(np.int32)
+               for i in range(3)]
+    stats = []
+    for m in (cpu, card):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts, (1, 4, 6)))]
+        stats.append(vars(ContinuousBatcher(m, slots=2, max_seq=40).run(reqs)))
+    assert stats[0] == stats[1]

@@ -1,5 +1,5 @@
 """The port stands alone: no module of `src/repro_torch/`, nor
-`chip_smoke.py`, imports `jax` or the JAX package `repro`."""
+`chip_smoke.py`, imports `jax`, `ml_dtypes` or the JAX package `repro`."""
 import ast
 import os
 import subprocess
@@ -26,13 +26,15 @@ def _imported_modules(path):
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+            f"{path}: imports {mod}"
 
 
 SUBPROCESS_CODE = """
 import sys
 sys.modules["jax"] = None          # `import jax` now raises ImportError
 sys.modules["repro"] = None
+sys.modules["ml_dtypes"] = None
 from repro_torch.core import power_iteration, simple_pagerank
 from repro_torch.graphs import erdos_renyi
 g = erdos_renyi(40, 4.0, seed=1, device="cpu")
@@ -84,7 +86,19 @@ from repro_torch.graphs.partition import (degree_balanced_relabel,
                                           shard_load_stats)
 g2, perm = degree_balanced_relabel(g, 3)
 assert g2.n == 42 and sorted(perm.tolist()) != [] and shard_load_stats(g2, 3)
-assert "jax" not in [m.split(".")[0] for m, v in sys.modules.items() if v]
+import numpy as np
+from repro_torch.configs import reduced_config
+from repro_torch.models import get_model
+from repro_torch.serve import ContinuousBatcher, Request
+for arch in ("qwen2-7b", "deepseek-v2-236b"):
+    cfg = reduced_config(arch)
+    model = get_model(cfg)(cfg, device="cpu", seed=0)
+    reqs = [Request(rid=i, prompt=np.arange(5 + i, dtype=np.int32),
+                    max_new_tokens=3) for i in range(2)]
+    stats = ContinuousBatcher(model, slots=2, max_seq=16).run(reqs)
+    assert stats.completed == 2 and stats.tokens_out == 6
+assert not {"jax", "ml_dtypes"} & {m.split(".")[0]
+                                    for m, v in sys.modules.items() if v}
 print("ok")
 """
 
