@@ -92,15 +92,30 @@
    requests of 4,200-6,000 prompt tokens on 4 slots (max_seq 8192: the
    ring rolls); (c) DeepSeek-V2 and DBRX at full width cut to 2 layers:
    decode against the full forward at B=2, T=256 with capacity E/k (no
-   drop), and the drops at the configs' capacity factor 1.25; (d) the
-   seven reduced configs on the card against the CPU, same weights.
+   drop), and the drops at the configs' capacity factor 1.25; (e)
+   Mamba2-1.3B at full width and depth (48 layers, 1,343,740,928
+   parameters): decode against the full forward at B=2, T=300 (not a
+   multiple of the 128 chunk), (a)'s 32 requests on 8 slots, decode ms a
+   step against the bound of its weights plus twice the slots' state
+   (read and written), 4 requests replayed at batch 1, one decode step
+   profiled; (f) RecurrentGemma-9B at full width and depth (38 layers,
+   10,444,984,320 parameters): decode against the full forward on a
+   prompt past its 2,048 local window, 6 requests of 2,100-3,000 prompt
+   tokens on 4 slots (max_seq 4096: the ring rolls), decode ms a step
+   against the weight-read bound, the time of the 52 float32 gate casts
+   a step makes, 2 requests replayed, one step profiled; (g)
+   Whisper-tiny at full width and depth (4 + 4 layers, 1,500 frames):
+   decode against the full forward with frames drawn from a seed, 32
+   requests (prompts of 4-64 tokens, budgets 8-64) on 8 slots with
+   max_seq 448, 4 replayed, one step profiled; (d) the ten reduced
+   configs on the card against the CPU, same weights.
 
 Steps 3 to 6 are the main path: every engine is driven with the launch
 counters set to 0 just before it and read just after. The LM runs of
-step 9 are driven the same way; they launch none of the five kernels. Prints the card's
-name and power limit, a `{"kernels": [...]}` line, and as its last line
-`{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
-there is no CUDA card or any phase fails.
+step 9 are driven the same way; they launch none of the five kernels.
+Prints the card's name and power limit, a `{"kernels": [...]}` line, and
+as its last line `{"ok": true, "device": {...}}`. Exits non-zero,
+printing no result, when there is no CUDA card or any phase fails.
 """
 from __future__ import annotations
 
@@ -702,12 +717,14 @@ def main_path(g, K, drive):
     return out, pi_ref, counts_zeta
 
 
-def profile_rounds(step, state, rounds, label, top=10, groups=None):
+def profile_rounds(step, state, rounds, label, top=10, groups=None,
+                   stats=None):
     """Run `rounds` steps under torch.profiler and print the device time of
     the kernels by name, the device's busy time (kernels, copies and sets)
     and its idle share of the wall time, and the device time of each of
     `groups` (label: a part of the kernel's name) and of the rest. Returns
-    the last state."""
+    the last state; fills `stats` (a dict), when given, with a round's
+    wall and busy ms, the idle share and the device ops."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -726,10 +743,13 @@ def profile_rounds(step, state, rounds, label, top=10, groups=None):
                if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
     busy = sum(_dev_us(e) for e in kernels) / 1e3
     launched = sum(e.count for e in kernels)
+    idle = max(0.0, 1 - busy / 1e3 / wall)
     log(f"{label}: wall {wall * 1e3 / rounds:.2f} ms a round, device busy "
-        f"{busy / rounds:.2f} ms a round, idle share "
-        f"{max(0.0, 1 - busy / 1e3 / wall):.3f}, "
+        f"{busy / rounds:.2f} ms a round, idle share {idle:.3f}, "
         f"{launched / rounds:.0f} device ops a round")
+    if stats is not None:
+        stats.update(wall_ms=wall * 1e3 / rounds, busy_ms=busy / rounds,
+                     idle_share=idle, device_ops=launched / rounds)
     ranked = sorted(kernels, key=_dev_us, reverse=True)
     # the top ones, then the kernels in an anonymous namespace at file
     # scope wherever they rank: the port's own, and a few of torch's
@@ -1905,7 +1925,7 @@ def small_check():
 
 
 # ---------------------------------------------------------------------------
-# LM serving (the decoder-only transformer family behind ContinuousBatcher)
+# LM serving (the ten configs' families behind ContinuousBatcher)
 # ---------------------------------------------------------------------------
 
 LM_SERVE_ARCH = "qwen2-7b"
@@ -1922,9 +1942,26 @@ LM_WINDOW_PROMPT_LEN = (4200, 6000)  # past the 4,096 window
 LM_WINDOW_NEW_TOKENS = (8, 32)
 LM_MOE_ARCHS = ("deepseek-v2-236b", "dbrx-132b")
 LM_MOE_LAYERS = 2                 # depth cut: DeepSeek 1 dense + 1 MoE
+# (e) Mamba-2: (a)'s traffic; decode vs full at T = 300, not a multiple of
+# the 128-position chunk
+LM_SSM_ARCH = "mamba2-1.3b"
+LM_SSM_FULL_T = 300
+# (f) RecurrentGemma: prompts past the 2,048-position local window
+LM_HYBRID_ARCH = "recurrentgemma-9b"
+LM_HYBRID_SLOTS, LM_HYBRID_MAX_SEQ, LM_HYBRID_REQUESTS = 4, 4096, 6
+LM_HYBRID_PROMPT_LEN = (2100, 3000)
+LM_HYBRID_NEW_TOKENS = (8, 32)
+LM_HYBRID_ISOLATED = 2
+# (g) Whisper: max_seq 448, Whisper's published decoder context
+LM_AUDIO_ARCH = "whisper-tiny"
+LM_AUDIO_SLOTS, LM_AUDIO_MAX_SEQ, LM_AUDIO_REQUESTS = 8, 448, 32
+LM_AUDIO_PROMPT_LEN = (4, 64)
+LM_AUDIO_NEW_TOKENS = (8, 64)
+LM_AUDIO_FULL_T = 64
 LM_REDUCED_ARCHS = ("qwen2-7b", "qwen3-32b", "h2o-danube-3-4b",
                     "nemotron-4-340b", "dbrx-132b", "deepseek-v2-236b",
-                    "internvl2-1b")
+                    "internvl2-1b", "mamba2-1.3b", "recurrentgemma-9b",
+                    "whisper-tiny")
 # card against CPU on the reduced configs: bf16 matmuls round in other
 # places in cuBLAS and on the CPU
 LM_CARD_CPU_TOL = 0.05
@@ -1971,18 +2008,66 @@ def lm_param_bytes(model) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
-def lm_decode_vs_full(model, tokens) -> float:
+def lm_tree_leaves(tree):
+    """The tensors of a nested LM cache."""
+    for t in tree.values():
+        if isinstance(t, dict):
+            yield from lm_tree_leaves(t)
+        else:
+            yield t
+
+
+def lm_idx_leaves(tree, prefix=""):
+    """path -> every idx leaf of a nested LM cache, on the CPU."""
+    out = {}
+    for name, t in tree.items():
+        if isinstance(t, dict):
+            out.update(lm_idx_leaves(t, f"{prefix}{name}."))
+        elif name == "idx":
+            out[prefix + name] = t.cpu()
+    return out
+
+
+def lm_release() -> None:
+    """Free the card's memory of a phase's deleted models."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_build(cfg):
+    """The model of `cfg` on the card, weights from the port's seeded
+    init; and the seconds it took."""
+    import torch
+    from repro_torch.models import get_model
+    t0 = time.perf_counter()
+    model = get_model(cfg)(cfg, seed=0)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def lm_decode_vs_full(model, tokens, **extra) -> float:
     """max |full - decode| / max |full| of the last position's logits:
     the full forward over tokens [B, T+1] against prefill over the first
     T and one decode step."""
     T = tokens.shape[1] - 1
-    full, _ = model.prefill(tokens)
-    _, cache = model.prefill(tokens[:, :T], pad_cache_to=T + 8)
+    full, _ = model.prefill(tokens, **extra)
+    _, cache = model.prefill(tokens[:, :T], pad_cache_to=T + 8, **extra)
     dec, _ = model.decode_step(cache, tokens[:, T:])
     a, b = full[:, -1], dec[:, -1]
     check(bool(a.isfinite().all()) and bool(b.isfinite().all()),
           f"{model.cfg.name}: logits not finite")
     return float((a - b).abs().max() / a.abs().max())
+
+
+def lm_gate_decode_vs_full(drive, model, tokens, **extra) -> float:
+    name = model.cfg.name
+    err, _, _ = drive(f"{name} decode vs full",
+                      lambda: lm_decode_vs_full(model, tokens, **extra), [])
+    check(err < LM_DECODE_TOL,
+          f"{name}: decode vs full forward {err} >= {LM_DECODE_TOL}")
+    return err
 
 
 def lm_requests(rng, n, prompt_len, new_tokens, vocab, one_token=()):
@@ -2010,6 +2095,34 @@ def lm_check_accounting(label, reqs, stats, slots):
           f"{label}: max_active {stats.max_active} > {slots}")
 
 
+def lm_serve(drive, model, reqs, slots, max_seq):
+    """Serve `reqs` through `ContinuousBatcher(slots, max_seq)` with each
+    call timed; the accounting gates. Returns (numbers, batcher)."""
+    from repro_torch.serve import ContinuousBatcher
+    name = model.cfg.name
+    timed = TimedModel(model)
+    batcher = ContinuousBatcher(timed, slots=slots, max_seq=max_seq)
+    timed.batcher = batcher
+    stats, serve_s, peak = drive(f"{name} serve", lambda: batcher.run(
+        reqs), [])
+    timed.batcher = None     # no cycle left to keep the model alive
+    lm_check_accounting(name, reqs, stats, slots)
+    full = [s for a, s in timed.decode_steps if a == slots]
+    check(bool(full), f"{name}: no decode step ran with every slot active")
+    decode_s = sum(s for _, s in timed.decode_steps)
+    decode_tokens = sum(a for a, _ in timed.decode_steps)
+    out = dict(
+        requests=len(reqs), stats=dict(vars(stats)), serve_s=serve_s,
+        peak_gib=peak, prefill_tokens=timed.prefill_tokens,
+        prefill_s=timed.prefill_s,
+        prefill_tok_s=timed.prefill_tokens / timed.prefill_s,
+        decode_steps=len(timed.decode_steps), full_steps=len(full),
+        decode_ms_full=1e3 * sum(full) / len(full),
+        decode_ms=1e3 * decode_s / len(timed.decode_steps),
+        decode_tok_s=decode_tokens / decode_s)
+    return out, batcher
+
+
 def lm_greedy_isolated(model, prompt, n_new, max_seq):
     """Batch-1 greedy decoding of `prompt` (prefilled as the batcher
     prefills); returns the tokens and each step's top-2 logit margin
@@ -2031,19 +2144,49 @@ def lm_greedy_isolated(model, prompt, n_new, max_seq):
     return toks, margins
 
 
+def lm_replay_isolated(model, reqs, n, max_seq, err) -> dict:
+    """Batched against isolated greedy decoding of the first `n` requests
+    whose budget is more than 1; where they part, the isolated run's
+    margin must be below the decode-vs-full error `err`."""
+    name = model.cfg.name
+    parted = []
+    compared = [r for r in reqs if r.max_new_tokens > 1][:n]
+    for r in compared:
+        alone, margins = lm_greedy_isolated(model, r.prompt,
+                                            r.max_new_tokens, max_seq)
+        diff = [i for i, (a, b) in enumerate(zip(alone, r.generated))
+                if a != b]
+        if diff:
+            i = diff[0]
+            check(margins[i] < err,
+                  f"{name}: request {r.rid} parts from batch-1 decoding "
+                  f"at step {i} with margin {margins[i]:.5f} >= {err:.5f}")
+            parted.append(dict(rid=r.rid, step=i, of=r.max_new_tokens,
+                               margin=margins[i]))
+    log(f"{name}: {len(compared)} requests replayed at batch 1: "
+        f"{len(parted)} parted from the batched tokens {parted} (each at a "
+        f"margin below {err:.5f})")
+    return dict(compared=len(compared), parted=parted)
+
+
+def lm_profile_decode(model, batcher, label) -> dict:
+    """One decode step over the batcher's cache, profiled."""
+    last = batcher.last_token
+    model.decode_step(batcher.cache, last)
+    stats = {}
+    profile_rounds(lambda c: model.decode_step(c, last)[1], batcher.cache,
+                   1, label, stats=stats)
+    return stats
+
+
 def lm_serve_qwen(drive, smi):
     """(a) Qwen2-7B at full width behind ContinuousBatcher."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import get_model
-    from repro_torch.serve import ContinuousBatcher
 
     cfg = get_config(LM_SERVE_ARCH)
-    t0 = time.perf_counter()
-    model = get_model(cfg)(cfg, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    model, init_s = lm_build(cfg)
     n_params = sum(p.numel() for p in model.parameters())
     wbytes = lm_param_bytes(model)
     log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
@@ -2056,74 +2199,34 @@ def lm_serve_qwen(drive, smi):
     gen = torch.Generator(device=model.device).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (LM_FULL_B, LM_FULL_T + 1),
                            generator=gen, device=model.device)
-    err, _, _ = drive(f"{cfg.name} decode vs full",
-                      lambda: lm_decode_vs_full(model, tokens), [])
-    check(err < LM_DECODE_TOL,
-          f"{cfg.name}: decode vs full forward {err} >= {LM_DECODE_TOL}")
+    err = lm_gate_decode_vs_full(drive, model, tokens)
     log(f"{cfg.name}: decode vs full forward at B={LM_FULL_B}, "
         f"T={LM_FULL_T}: relative error {err:.5f} (< {LM_DECODE_TOL})")
 
     rng = np.random.default_rng(0)
     reqs = lm_requests(rng, LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS,
                        cfg.vocab_size, LM_ONE_TOKEN)
-    timed = TimedModel(model)
-    batcher = ContinuousBatcher(timed, slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
-    timed.batcher = batcher
-    stats, serve_s, peak = drive(f"{cfg.name} serve", lambda: batcher.run(
-        reqs), [])
-    lm_check_accounting(cfg.name, reqs, stats, LM_SLOTS)
-
-    full = [s for a, s in timed.decode_steps if a == LM_SLOTS]
-    check(bool(full), f"{cfg.name}: no decode step ran with every slot "
-          "active")
-    step_ms = 1e3 * sum(full) / len(full)
-    decode_s = sum(s for _, s in timed.decode_steps)
-    decode_tokens = sum(a for a, _ in timed.decode_steps)
+    served, batcher = lm_serve(drive, model, reqs, LM_SLOTS, LM_MAX_SEQ)
     bound_ms = wbytes / HBM_BYTES_PER_S * 1e3
-    out = dict(
-        arch=cfg.name, params=n_params, weight_gib=wbytes / 2 ** 30,
-        init_s=init_s, decode_vs_full=err, requests=len(reqs),
-        stats=dict(vars(stats)), serve_s=serve_s, peak_gib=peak,
-        prefill_tokens=timed.prefill_tokens, prefill_s=timed.prefill_s,
-        prefill_tok_s=timed.prefill_tokens / timed.prefill_s,
-        decode_steps=len(timed.decode_steps), full_steps=len(full),
-        decode_ms_full=step_ms, decode_bound_ms=bound_ms,
-        decode_tok_s=decode_tokens / decode_s)
-    log(f"{cfg.name} serve: {stats}; {timed.prefill_tokens} prompt tokens "
-        f"prefilled in {timed.prefill_s:.3f} s ({out['prefill_tok_s']:.0f} "
-        f"tokens/s); decode {step_ms:.3f} ms a step at {LM_SLOTS} active "
-        f"slots ({len(full)} steps) against the weight-read bound "
+    out = dict(arch=cfg.name, params=n_params, weight_gib=wbytes / 2 ** 30,
+               init_s=init_s, decode_vs_full=err, decode_bound_ms=bound_ms,
+               **served)
+    log(f"{cfg.name} serve: {served['stats']}; {out['prefill_tokens']} "
+        f"prompt tokens prefilled in {out['prefill_s']:.3f} s "
+        f"({out['prefill_tok_s']:.0f} tokens/s); decode "
+        f"{out['decode_ms_full']:.3f} ms a step at {LM_SLOTS} active slots "
+        f"({out['full_steps']} steps) against the weight-read bound "
         f"{bound_ms:.3f} ms ({wbytes / 2 ** 30:.2f} GiB / 3.35 TB/s), "
         f"{out['decode_tok_s']:.0f} decode tokens/s over "
-        f"{len(timed.decode_steps)} steps; peak {peak:.2f} GiB [{smi}]")
-
-    # batched against isolated greedy decoding; where they part, the
-    # isolated run's margin must be below the decode-vs-full error
-    parted = []
-    compared = [r for r in reqs if r.max_new_tokens > 1][:LM_ISOLATED]
-    for r in compared:
-        alone, margins = lm_greedy_isolated(model, r.prompt,
-                                            r.max_new_tokens, LM_MAX_SEQ)
-        diff = [i for i, (a, b) in enumerate(zip(alone, r.generated))
-                if a != b]
-        if diff:
-            i = diff[0]
-            check(margins[i] < err,
-                  f"{cfg.name}: request {r.rid} parts from batch-1 decoding "
-                  f"at step {i} with margin {margins[i]:.5f} >= {err:.5f}")
-            parted.append(dict(rid=r.rid, step=i, of=r.max_new_tokens,
-                               margin=margins[i]))
-    out["isolated"] = dict(compared=len(compared), parted=parted)
-    log(f"{cfg.name}: {len(compared)} requests replayed at batch 1: "
-        f"{len(parted)} parted from the batched tokens {parted} (each at a "
-        f"margin below {err:.5f})")
-
-    last = batcher.last_token
-    model.decode_step(batcher.cache, last)
-    profile_rounds(lambda c: model.decode_step(c, last)[1], batcher.cache,
-                   1, f"{cfg.name} decode step, {LM_SLOTS} slots, profiled")
-    del model, batcher, timed
-    torch.cuda.empty_cache()
+        f"{out['decode_steps']} steps; peak {out['peak_gib']:.2f} GiB "
+        f"[{smi}]")
+    out["isolated"] = lm_replay_isolated(model, reqs, LM_ISOLATED,
+                                         LM_MAX_SEQ, err)
+    out["profiled"] = lm_profile_decode(
+        model, batcher, f"{cfg.name} decode step, {LM_SLOTS} slots, "
+        "profiled")
+    del model, batcher
+    lm_release()
     return out
 
 
@@ -2132,51 +2235,34 @@ def lm_serve_window(drive, smi):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import get_model
-    from repro_torch.serve import ContinuousBatcher
 
     cfg = get_config(LM_WINDOW_ARCH)
-    t0 = time.perf_counter()
-    model = get_model(cfg)(cfg, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    model, init_s = lm_build(cfg)
     rng = np.random.default_rng(0)
     reqs = lm_requests(rng, LM_WINDOW_REQUESTS, LM_WINDOW_PROMPT_LEN,
                        LM_WINDOW_NEW_TOKENS, cfg.vocab_size)
     tokens = torch.as_tensor(
         np.append(reqs[0].prompt, 7)[None], dtype=torch.int64,
         device=model.device)
-    err, _, _ = drive(f"{cfg.name} decode vs full",
-                      lambda: lm_decode_vs_full(model, tokens), [])
-    check(err < LM_DECODE_TOL,
-          f"{cfg.name}: decode vs full forward {err} >= {LM_DECODE_TOL}")
-    timed = TimedModel(model)
-    batcher = ContinuousBatcher(timed, slots=LM_WINDOW_SLOTS,
-                                max_seq=LM_WINDOW_MAX_SEQ)
-    timed.batcher = batcher
-    stats, serve_s, peak = drive(f"{cfg.name} serve", lambda: batcher.run(
-        reqs), [])
-    lm_check_accounting(cfg.name, reqs, stats, LM_WINDOW_SLOTS)
+    err = lm_gate_decode_vs_full(drive, model, tokens)
+    served, batcher = lm_serve(drive, model, reqs, LM_WINDOW_SLOTS,
+                               LM_WINDOW_MAX_SEQ)
     ring = batcher.cache["dense"]["k"].shape[2]
     check(ring == cfg.sliding_window, f"{cfg.name}: ring of {ring}")
-    decode_s = sum(s for _, s in timed.decode_steps)
     out = dict(
         arch=cfg.name, params=sum(p.numel() for p in model.parameters()),
         weight_gib=lm_param_bytes(model) / 2 ** 30, init_s=init_s,
-        decode_vs_full=err, prompt_len=int(tokens.shape[1] - 1),
-        stats=dict(vars(stats)), serve_s=serve_s, peak_gib=peak,
-        prefill_tok_s=timed.prefill_tokens / timed.prefill_s,
-        decode_ms=1e3 * decode_s / len(timed.decode_steps))
+        decode_vs_full=err, prompt_len=int(tokens.shape[1] - 1), **served)
     log(f"{cfg.name}: window {cfg.sliding_window}, "
         f"{out['params'] / 1e9:.3f} B parameters, "
         f"{out['weight_gib']:.2f} GiB, init {init_s:.2f} s; decode vs full "
         f"forward on a {out['prompt_len']}-token prompt {err:.5f}; serve "
-        f"{stats} in {serve_s:.3f} s, prompts "
+        f"{served['stats']} in {out['serve_s']:.3f} s, prompts "
         f"{[len(r.prompt) for r in reqs]}, prefill "
         f"{out['prefill_tok_s']:.0f} tokens/s, decode {out['decode_ms']:.3f}"
-        f" ms a step, peak {peak:.2f} GiB [{smi}]")
-    del model, batcher, timed
-    torch.cuda.empty_cache()
+        f" ms a step, peak {out['peak_gib']:.2f} GiB [{smi}]")
+    del model, batcher
+    lm_release()
     return out
 
 
@@ -2185,7 +2271,6 @@ def lm_moe_path(drive, smi):
     import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import get_model
 
     out = {}
     for name in LM_MOE_ARCHS:
@@ -2194,10 +2279,7 @@ def lm_moe_path(drive, smi):
         # every assignment (the reduced configs' capacity 4.0 does the same)
         free = dataclasses.replace(
             base, capacity_factor=base.num_experts / base.num_experts_per_tok)
-        t0 = time.perf_counter()
-        model = get_model(free)(free, seed=0)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
+        model, init_s = lm_build(free)
         moes = [b.moe for b in model.moe_layers]
         gen = torch.Generator(device=model.device).manual_seed(2)
         tokens = torch.randint(0, base.vocab_size,
@@ -2236,7 +2318,172 @@ def lm_moe_path(drive, smi):
             f"forward, decode vs full {err_cf:.5f} (not gated); peak "
             f"{peak:.2f} GiB [{smi}]")
         del model, moes
-        torch.cuda.empty_cache()
+        lm_release()
+    return out
+
+
+def lm_describe(model, init_s) -> dict:
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = lm_param_bytes(model)
+    log(f"{cfg.name}: {cfg.family}, {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}: {n_params:,} parameters "
+        f"(config count {cfg.param_count():,}), {wbytes / 2 ** 30:.2f} GiB; "
+        f"init {init_s:.2f} s")
+    return dict(arch=cfg.name, params=n_params, weight_bytes=wbytes,
+                weight_gib=wbytes / 2 ** 30, init_s=init_s)
+
+
+def lm_serve_ssm(drive, smi):
+    """(e) Mamba2-1.3B at full width and depth: (a)'s traffic."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_SSM_ARCH)
+    model, init_s = lm_build(cfg)
+    out = lm_describe(model, init_s)
+    gen = torch.Generator(device=model.device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (LM_FULL_B, LM_SSM_FULL_T + 1), generator=gen,
+                           device=model.device)
+    out["decode_vs_full"] = err = lm_gate_decode_vs_full(drive, model,
+                                                         tokens)
+    rng = np.random.default_rng(0)
+    reqs = lm_requests(rng, LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS,
+                       cfg.vocab_size, LM_ONE_TOKEN)
+    served, batcher = lm_serve(drive, model, reqs, LM_SLOTS, LM_MAX_SEQ)
+    out.update(served)
+    # a decode step reads every weight once and reads and writes the
+    # slots' state (the SSM state and the conv history)
+    state = sum(t.numel() * t.element_size()
+                for t in lm_tree_leaves(batcher.cache))
+    out["state_bytes"] = state
+    out["decode_bound_ms"] = bound_ms = \
+        (out["weight_bytes"] + 2 * state) / HBM_BYTES_PER_S * 1e3
+    log(f"{cfg.name}: decode vs full forward at B={LM_FULL_B}, "
+        f"T={LM_SSM_FULL_T}: {err:.5f} (< {LM_DECODE_TOL}); serve "
+        f"{served['stats']}; prompts {[len(r.prompt) for r in reqs]}; "
+        f"prefill {served['prefill_tok_s']:.0f} tokens/s "
+        f"({served['prefill_tokens']} in {served['prefill_s']:.3f} s); "
+        f"decode {served['decode_ms_full']:.3f} ms a step at {LM_SLOTS} "
+        f"active slots ({served['full_steps']} steps) against the bound "
+        f"{bound_ms:.3f} ms (weights {out['weight_gib']:.2f} GiB + 2 x "
+        f"state {state / 1e6:.1f} MB, at 3.35 TB/s); "
+        f"{served['decode_tok_s']:.0f} decode tokens/s; peak "
+        f"{served['peak_gib']:.2f} GiB [{smi}]")
+    out["isolated"] = lm_replay_isolated(model, reqs, LM_ISOLATED,
+                                         LM_MAX_SEQ, err)
+    out["profiled"] = lm_profile_decode(
+        model, batcher, f"{cfg.name} decode step, {LM_SLOTS} slots, "
+        "profiled")
+    del model, batcher
+    lm_release()
+    return out
+
+
+def lm_serve_hybrid(drive, smi):
+    """(f) RecurrentGemma-9B at full width and depth, prompts past its
+    local window."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_HYBRID_ARCH)
+    model, init_s = lm_build(cfg)
+    out = lm_describe(model, init_s)
+    rng = np.random.default_rng(0)
+    reqs = lm_requests(rng, LM_HYBRID_REQUESTS, LM_HYBRID_PROMPT_LEN,
+                       LM_HYBRID_NEW_TOKENS, cfg.vocab_size)
+    tokens = torch.as_tensor(np.append(reqs[0].prompt, 7)[None],
+                             dtype=torch.int64, device=model.device)
+    out["decode_vs_full"] = err = lm_gate_decode_vs_full(drive, model,
+                                                         tokens)
+    out["full_prompt_len"] = int(tokens.shape[1] - 1)
+    served, batcher = lm_serve(drive, model, reqs, LM_HYBRID_SLOTS,
+                               LM_HYBRID_MAX_SEQ)
+    out.update(served)
+    ring = batcher.cache["groups"]["attn"]["k"].shape[2]
+    check(ring == cfg.local_window, f"{cfg.name}: ring of {ring}")
+    out["decode_bound_ms"] = bound_ms = \
+        out["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+    # the float32 copies of w_a and w_x each recurrent block makes a step
+    recs = [b for g in model.groups for b in g.rec] + list(model.trailing)
+    out["gate_cast_ms"] = cast_ms = cuda_ms(
+        lambda: [(b.w_a.float(), b.w_x.float()) for b in recs], 5)
+    log(f"{cfg.name}: decode vs full forward on a "
+        f"{out['full_prompt_len']}-token prompt (window "
+        f"{cfg.local_window}): {err:.5f} (< {LM_DECODE_TOL}); serve "
+        f"{served['stats']} in {served['serve_s']:.3f} s; prompts "
+        f"{[len(r.prompt) for r in reqs]}; prefill "
+        f"{served['prefill_tok_s']:.0f} tokens/s; decode "
+        f"{served['decode_ms_full']:.3f} ms a step at {LM_HYBRID_SLOTS} "
+        f"active slots ({served['full_steps']} steps) against the "
+        f"weight-read bound {bound_ms:.3f} ms; the {2 * len(recs)} float32 "
+        f"gate casts alone {cast_ms:.3f} ms "
+        f"({cast_ms / served['decode_ms_full']:.1%} of a step); peak "
+        f"{served['peak_gib']:.2f} GiB [{smi}]")
+    out["isolated"] = lm_replay_isolated(model, reqs, LM_HYBRID_ISOLATED,
+                                         LM_HYBRID_MAX_SEQ, err)
+    out["profiled"] = prof = lm_profile_decode(
+        model, batcher, f"{cfg.name} decode step, {LM_HYBRID_SLOTS} slots, "
+        "profiled")
+    out["gate_cast_share_of_busy"] = cast_ms / prof["busy_ms"]
+    log(f"{cfg.name}: the gate casts {cast_ms:.3f} ms against "
+        f"{prof['busy_ms']:.3f} ms of device time a profiled step "
+        f"({out['gate_cast_share_of_busy']:.1%})")
+    del model, batcher, recs
+    lm_release()
+    return out
+
+
+def lm_serve_audio(drive, smi):
+    """(g) Whisper-tiny at full width and depth, 1,500 frames."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_AUDIO_ARCH)
+    model, init_s = lm_build(cfg)
+    out = lm_describe(model, init_s)
+    gen = torch.Generator(device=model.device).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (LM_FULL_B, LM_AUDIO_FULL_T + 1), generator=gen,
+                           device=model.device)
+    frames = torch.randn((LM_FULL_B, cfg.encoder_seq, cfg.d_model),
+                         generator=gen, device=model.device).to(
+                             torch.bfloat16)
+    out["decode_vs_full"] = err = lm_gate_decode_vs_full(
+        drive, model, tokens, frames=frames)
+    rng = np.random.default_rng(0)
+    reqs = lm_requests(rng, LM_AUDIO_REQUESTS, LM_AUDIO_PROMPT_LEN,
+                       LM_AUDIO_NEW_TOKENS, cfg.vocab_size)
+    served, batcher = lm_serve(drive, model, reqs, LM_AUDIO_SLOTS,
+                               LM_AUDIO_MAX_SEQ)
+    out.update(served)
+    # a decode step reads every weight and the slots' self and cross
+    # keys and values once
+    cache = sum(t.numel() * t.element_size()
+                for t in lm_tree_leaves(batcher.cache))
+    out["decode_bound_ms"] = bound_ms = \
+        (out["weight_bytes"] + cache) / HBM_BYTES_PER_S * 1e3
+    log(f"{cfg.name}: decode vs full forward at B={LM_FULL_B}, "
+        f"T={LM_AUDIO_FULL_T}, {cfg.encoder_seq} frames from a seed: "
+        f"{err:.5f} (< {LM_DECODE_TOL}); serve {served['stats']}; prefill "
+        f"(encoder included) {served['prefill_tok_s']:.0f} tokens/s; "
+        f"decode {served['decode_ms_full']:.3f} ms a step at "
+        f"{LM_AUDIO_SLOTS} active slots ({served['full_steps']} steps) "
+        f"against the bound {bound_ms:.4f} ms (weights and cache "
+        f"{(out['weight_bytes'] + cache) / 1e6:.1f} MB); "
+        f"{served['decode_tok_s']:.0f} decode tokens/s; peak "
+        f"{served['peak_gib']:.2f} GiB [{smi}]")
+    out["isolated"] = lm_replay_isolated(model, reqs, LM_ISOLATED,
+                                         LM_AUDIO_MAX_SEQ, err)
+    out["profiled"] = lm_profile_decode(
+        model, batcher, f"{cfg.name} decode step, {LM_AUDIO_SLOTS} slots, "
+        "profiled")
+    del model, batcher
+    lm_release()
     return out
 
 
@@ -2260,6 +2507,9 @@ def lm_reduced_card_vs_cpu():
         if cfg.family == "vlm":
             extra["img_embeds"] = torch.as_tensor(rng.standard_normal(
                 (2, cfg.num_image_tokens, cfg.d_model))).to(torch.bfloat16)
+        if cfg.family == "audio":
+            extra["frames"] = torch.as_tensor(rng.standard_normal(
+                (2, cfg.encoder_seq, cfg.d_model))).to(torch.bfloat16)
         res = []
         for m in (cpu, card):
             dev = m.device
@@ -2267,14 +2517,15 @@ def lm_reduced_card_vs_cpu():
                 toks[:, :24].to(dev), q_chunk=8, pad_cache_to=72,
                 **{k: v.to(dev) for k, v in extra.items()})
             dec, cache = m.decode_step(cache, toks[:, 24:].to(dev))
-            res.append((pre.cpu(), dec.cpu(), {
-                k: c["idx"].cpu() for k, c in cache.items()}))
+            res.append((pre.cpu(), dec.cpu(), lm_idx_leaves(cache)))
         errs = [float((a - b).abs().max() / a.abs().max())
                 for a, b in zip(res[0][:2], res[1][:2])]
         check(max(errs) < LM_CARD_CPU_TOL,
               f"{arch} reduced: card vs CPU logits {errs}")
-        check(all(torch.equal(res[0][2][k], res[1][2][k])
-                  for k in res[0][2]), f"{arch} reduced: cache idx differs")
+        check(res[0][2].keys() == res[1][2].keys()
+              and all(torch.equal(res[0][2][k], res[1][2][k])
+                      for k in res[0][2]),
+              f"{arch} reduced: cache idx differs")
         out[arch] = dict(prefill=errs[0], decode=errs[1])
     log(f"reduced configs, card vs CPU (same weights): relative logit "
         f"errors {out} (< {LM_CARD_CPU_TOL}); cache idx equal")
@@ -2284,21 +2535,23 @@ def lm_reduced_card_vs_cpu():
 def lm_serve_path(drive, smi):
     """The LM serving path: (a) Qwen2-7B served at full width, (b)
     Danube3 past its window, (c) full-width 2-layer DeepSeek-V2 and DBRX,
-    (d) the reduced configs on the card against the CPU."""
+    (e) Mamba2-1.3B, (f) RecurrentGemma-9B past its window and (g)
+    Whisper-tiny, each at full width and depth, (d) the reduced configs
+    on the card against the CPU."""
     log(f"lm serve path on {smi}")
     out = {}
-    t0 = time.perf_counter()
-    out["qwen"] = lm_serve_qwen(drive, smi)
-    out["qwen"]["phase_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out["window"] = lm_serve_window(drive, smi)
-    out["window"]["phase_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out["moe"] = lm_moe_path(drive, smi)
-    out["moe_phase_s"] = time.perf_counter() - t0
+    for key, phase in (("qwen", lm_serve_qwen), ("window", lm_serve_window),
+                       ("moe", lm_moe_path), ("ssm", lm_serve_ssm),
+                       ("hybrid", lm_serve_hybrid),
+                       ("audio", lm_serve_audio)):
+        t0 = time.perf_counter()
+        out[key] = phase(drive, smi)
+        out[key]["phase_s"] = time.perf_counter() - t0
+        log(f"lm phase {key}: {out[key]['phase_s']:.2f} s")
     t0 = time.perf_counter()
     out["reduced"] = lm_reduced_card_vs_cpu()
     out["reduced_phase_s"] = time.perf_counter() - t0
+    log(f"lm phase reduced: {out['reduced_phase_s']:.2f} s")
     log(f"lm serve: {smi} " + json.dumps(out, default=str))
     return out
 

@@ -65,24 +65,44 @@ def count_state_from_numpy(flat: dict, device=None):
     return staged_from_host(flat, put)
 
 
-def _flatten_lm_tree(tree, prefix=""):
-    """{'a': {'b': x}} -> {'a.b': x}; the leaves of the layer stacks
-    (`dense_layers`, `moe_layers`, leading dim L) split into one entry a
-    layer, `dense_layers.{i}.…`, as the port's modules name them."""
+# The JAX package's layer stacks (leading dim = layer), by top-level name,
+# and the stacks nested in one of their entries: RG-LRU's `groups.rec` is
+# [G, n_rec, ...], a stack within each group.
+_LM_STACKS = {"dense_layers": (), "moe_layers": (), "layers": (),
+              "groups": ("rec",), "trailing": (), "enc_layers": (),
+              "dec_layers": ()}
+
+
+def _flatten_lm_tree(tree, prefix="", stacks=_LM_STACKS):
+    """{'a': {'b': x}} -> {'a.b': x}; the leaves of a layer stack (leading
+    dim L) split into one entry a layer, `layers.{i}.…`, as the port's
+    modules name them; a stack nested in a layer (`groups.{g}.rec`)
+    splits again."""
     flat = {}
     for name, sub in tree.items():
         path = f"{prefix}{name}"
-        if isinstance(sub, dict):
-            if not prefix and name in ("dense_layers", "moe_layers"):
-                for leaf, arr in _flatten_lm_tree(sub).items():
-                    arr = np.asarray(arr)
-                    for i in range(arr.shape[0]):
-                        flat[f"{path}.{i}.{leaf}"] = arr[i]
-            else:
-                flat.update(_flatten_lm_tree(sub, path + "."))
-        else:
+        if not isinstance(sub, dict):
             flat[path] = np.asarray(sub)
+        elif name in stacks:
+            inner = dict.fromkeys(stacks[name], ())
+            for i in range(_stack_len(sub)):
+                flat.update(_flatten_lm_tree(_index_tree(sub, i),
+                                             f"{path}.{i}.", inner))
+        else:
+            flat.update(_flatten_lm_tree(sub, path + ".", {}))
     return flat
+
+
+def _stack_len(tree) -> int:
+    """The leading dim of a stack's leaves (its first leaf's)."""
+    sub = next(iter(tree.values()))
+    return _stack_len(sub) if isinstance(sub, dict) else len(sub)
+
+
+def _index_tree(tree, i):
+    """Entry i of every leaf's leading dim."""
+    return {name: _index_tree(sub, i) if isinstance(sub, dict)
+            else np.asarray(sub)[i] for name, sub in tree.items()}
 
 
 def lm_params_from_numpy(cfg, tree: dict, device=None):

@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
+
 PARAM_DTYPE = torch.bfloat16
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -55,6 +57,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def causal_conv(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv in bf16, without its bias: xp [B, k-1+T, C]
+    (k-1 rows of history, then the T inputs), w [k, C] -> [B, T, C],
+    summed tap by tap in the JAX package's order."""
+    k = w.shape[0]
+    T = xp.shape[1] - (k - 1)
+    w = w.to(COMPUTE_DTYPE)
+    out = xp[:, 0:T] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + T] * w[i]
+    return out
 
 
 def rope_tables(positions: torch.Tensor, dim: int, theta: float
@@ -97,3 +112,36 @@ def embed(emb: Embedding, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(emb: Embedding, x: torch.Tensor) -> torch.Tensor:
     """Logits in float32."""
     return torch.matmul(x.to(COMPUTE_DTYPE), emb.table.t()).float()
+
+
+class LM(nn.Module):
+    """What the port's LMs share: `cfg`, the device (the card when None),
+    the input embedding, the final norm and the head (the embedding when
+    `cfg.tie_embeddings`). Weights are drawn from a generator seeded with
+    `seed` in the order embedding, `_build`'s layers, head; with `seed`
+    None they are left unset, for `convert.lm_params_from_numpy` to load."""
+
+    def __init__(self, cfg, *, device=None, seed: Optional[int] = 0):
+        super().__init__()
+        device = resolve_device(device)
+        gen = (torch.Generator(device=device).manual_seed(seed)
+               if seed is not None else None)
+        self.cfg = cfg
+        self.device = device
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, device=device,
+                               gen=gen)
+        self._build(cfg, device, gen)
+        self.final_norm = param(zeros_init((cfg.d_model,), device=device))
+        self.lm_head = (None if cfg.tie_embeddings else
+                        Embedding(cfg.vocab_size, cfg.d_model, device=device,
+                                  gen=gen))
+
+    def _build(self, cfg, device, gen) -> None:
+        """The layers, between the embedding and the head."""
+        raise NotImplementedError
+
+    def logits(self, x) -> torch.Tensor:
+        """The final norm and the head over the stream x [B, T, d]."""
+        hidden = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        table = self.embed if self.cfg.tie_embeddings else self.lm_head
+        return unembed(table, hidden)

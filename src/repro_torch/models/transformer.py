@@ -25,10 +25,8 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.common import (Embedding, embed, param, rms_norm,
-                                       unembed, zeros_init)
+from repro_torch.models.common import LM, embed, param, rms_norm, zeros_init
 from repro_torch.models.mlp import MLP, mlp_forward
 from repro_torch.models.moe import MoE, moe_forward
 
@@ -88,35 +86,19 @@ def layer_split(cfg) -> Tuple[int, int]:
     return cfg.num_layers, 0
 
 
-class Transformer(nn.Module):
-    """The decoder-only LM of `cfg` on `device` (the card when None),
-    weights drawn from a generator seeded with `seed`. With `seed` None the
-    weights are left unset, for `convert.lm_params_from_numpy` to load."""
+class Transformer(LM):
+    """The decoder-only LM of `cfg`: embedding, `dense_layers` then
+    `moe_layers`, final norm, head (see `models/common.py::LM` for the
+    device and the seed)."""
 
-    def __init__(self, cfg, *, device=None, seed: Optional[int] = 0):
-        super().__init__()
-        device = resolve_device(device)
-        gen = (torch.Generator(device=device).manual_seed(seed)
-               if seed is not None else None)
-        self.cfg = cfg
-        self.device = device
+    def _build(self, cfg, device, gen) -> None:
         n_dense, n_moe = layer_split(cfg)
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model, device=device,
-                               gen=gen)
         self.dense_layers = nn.ModuleList(
             Block(cfg, moe=False, device=device, gen=gen)
             for _ in range(n_dense))
         self.moe_layers = nn.ModuleList(
             Block(cfg, moe=True, device=device, gen=gen)
             for _ in range(n_moe))
-        self.final_norm = param(zeros_init((cfg.d_model,), device=device))
-        self.lm_head = (None if cfg.tie_embeddings else
-                        Embedding(cfg.vocab_size, cfg.d_model, device=device,
-                                  gen=gen))
-        self._extra_init(gen)
-
-    def _extra_init(self, gen) -> None:
-        """Parameters a subclass adds (drawn after the LM's)."""
 
     def stacks(self) -> Iterator[Tuple[str, nn.ModuleList]]:
         """(cache key, layers) of each non-empty stack, in layer order."""
@@ -124,20 +106,6 @@ class Transformer(nn.Module):
                             ("moe", self.moe_layers)):
             if len(layers):
                 yield key, layers
-
-    # ------------------------------------------------------------ forward
-    def forward_hidden(self, x, positions, *, q_chunk: int = 512):
-        """x: [B, T, d] input embeddings -> (hidden [B,T,d], aux_loss)."""
-        aux_total = x.new_zeros((), dtype=torch.float32)
-        for _, layers in self.stacks():
-            for block in layers:
-                x, aux, _ = block(x, self.cfg, positions, q_chunk=q_chunk)
-                aux_total = aux_total + aux
-        return rms_norm(x, self.final_norm, self.cfg.norm_eps), aux_total
-
-    def logits(self, hidden) -> torch.Tensor:
-        table = self.embed if self.cfg.tie_embeddings else self.lm_head
-        return unembed(table, hidden)
 
     def embed_inputs(self, tokens, **extra) -> torch.Tensor:
         """The input stream [B, T, d] of `tokens` [B, T]."""
@@ -186,8 +154,7 @@ class Transformer(nn.Module):
             if pad_cache_to:
                 c = attn_lib.pad_stacked_cache(c, pad_cache_to, cfg, T)
             cache[key] = c
-        hidden = rms_norm(x[:, -1:], self.final_norm, cfg.norm_eps)
-        return self.logits(hidden), cache
+        return self.logits(x[:, -1:]), cache
 
     @torch.inference_mode()
     def decode_step(self, cache: Cache, token) -> Tuple[torch.Tensor, Cache]:
@@ -199,5 +166,4 @@ class Transformer(nn.Module):
             for i, block in enumerate(layers):
                 x = block.decode(x, self.cfg,
                                  {n: t[i] for n, t in c.items()})
-        hidden = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return self.logits(hidden), cache
+        return self.logits(x), cache

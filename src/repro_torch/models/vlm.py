@@ -16,11 +16,11 @@ from repro_torch.models.transformer import Transformer
 
 
 class VLM(Transformer):
-    def _extra_init(self, gen) -> None:
-        d = self.cfg.d_model
+    def _build(self, cfg, device, gen) -> None:
+        super()._build(cfg, device, gen)
+        d = cfg.d_model
         # projector from the (stub) vision embedding space into the stream
-        self.vision_proj = param(dense_init(gen, (d, d), d,
-                                            device=self.device))
+        self.vision_proj = param(dense_init(gen, (d, d), d, device=device))
 
     def embed_inputs(self, tokens, img_embeds=None) -> torch.Tensor:
         B = tokens.shape[0]

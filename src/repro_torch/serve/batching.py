@@ -5,10 +5,11 @@ admitted as slots free up, prefilled one at a time into their slot's
 cache region, and all slots advance together through `decode_step`. The
 JAX package's `repro.serve.batching`, on a model of `repro_torch.models`.
 
-The cache is the model's stacked cache with the slots as its batch dim
-(dim 1 of every leaf); admission writes a batch-1 prefill cache into its
-slot by index, and decode updates the cache in place, all under
-`torch.inference_mode()`. Every slot decodes, a freed one included (its
+The cache is the model's cache with the slots as its batch dim (dim 1 of
+a stacked [L, B, ...] leaf, dim 2 of RG-LRU's [G, n_rec, B, ...]
+recurrent leaves); admission writes a batch-1 prefill cache into its
+slot along each leaf's batch axis, and decode updates the cache in
+place, all under `torch.inference_mode()`. Every slot decodes, a freed one included (its
 stale token takes MoE capacity as it does in JAX).
 
 Accounting is EXACT: the completion check runs after every token append,
@@ -64,10 +65,23 @@ class ContinuousBatcher:
 
     # ------------------------------------------------------------- admission
     def _write_slot(self, slot: int, pre_cache, tok: int) -> None:
-        """Copy a batch-1 prefill cache into slot `slot` of the live cache."""
-        for key, leaves in self.cache.items():
-            for name, live in leaves.items():
-                live[:, slot] = pre_cache[key][name][:, 0]
+        """Copy a batch-1 prefill cache into slot `slot` of the live cache,
+        leaf by leaf along its batch axis: the first axis where the
+        prefill leaf has 1 and the live leaf has `slots` (JAX's rule). A
+        leaf of the live leaf's shape is taken whole."""
+        def write(live, new):
+            if isinstance(live, dict):
+                for name in live:
+                    write(live[name], new[name])
+            elif new.shape == live.shape:
+                live.copy_(new)
+            else:
+                for ax in range(live.ndim):
+                    if new.shape[ax] == 1 and live.shape[ax] == self.slots:
+                        live.narrow(ax, slot, 1).copy_(new)
+                        break
+
+        write(self.cache, pre_cache)
         self.last_token[slot, 0] = tok
 
     def _finished(self, req: Request, tok: int) -> bool:

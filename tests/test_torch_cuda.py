@@ -510,7 +510,19 @@ def test_cuda_audit_report_matches_cpu(cuda):
 
 
 LM_ARCHS = ["dbrx-132b", "deepseek-v2-236b", "h2o-danube-3-4b",
-            "internvl2-1b", "nemotron-4-340b", "qwen2-7b", "qwen3-32b"]
+            "internvl2-1b", "nemotron-4-340b", "qwen2-7b", "qwen3-32b",
+            "mamba2-1.3b", "recurrentgemma-9b", "whisper-tiny"]
+
+
+def idx_leaves(cache, prefix=""):
+    """path -> every idx leaf of a nested LM cache, on the CPU."""
+    out = {}
+    for name, t in cache.items():
+        if isinstance(t, dict):
+            out.update(idx_leaves(t, f"{prefix}{name}."))
+        elif name == "idx":
+            out[prefix + name] = t.cpu()
+    return out
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -534,8 +546,7 @@ def test_cuda_lm_reduced_matches_cpu(cuda, arch):
         pre, cache = m.prefill(toks[:, :24].to(m.device), q_chunk=8,
                                pad_cache_to=72)
         dec, cache = m.decode_step(cache, toks[:, 24:].to(m.device))
-        outs.append((pre.cpu(), dec.cpu(),
-                     {k: c["idx"].cpu() for k, c in cache.items()}))
+        outs.append((pre.cpu(), dec.cpu(), idx_leaves(cache)))
     for a, b in zip(outs[0][:2], outs[1][:2]):
         assert float((a - b).abs().max() / a.abs().max()) < 0.05
     assert outs[0][2].keys() == outs[1][2].keys()

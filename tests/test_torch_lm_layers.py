@@ -12,7 +12,9 @@ roll/pad of `pad_stacked_cache`. Tolerance (level 2) for float outputs:
 output, `TOL_BF16` for a bf16 result of float32 math (one bf16 rounding
 apart) and `TOL_LAYER` for the outputs of a layer of bf16 matmuls, where
 XLA's CPU dots and torch's round in different places (measured at most
-0.008).
+0.008). `TOL_SCAN`, relative, for float32 results summed or scanned in
+another order than XLA's: Mamba-2's SSD contractions and RG-LRU's scan
+(level 2).
 """
 import dataclasses
 
@@ -25,15 +27,22 @@ import torch
 from repro.configs import reduced_config as jax_reduced_config
 from repro.models import attention as jattn
 from repro.models import common as jcommon
+from repro.models import encdec as jencdec
+from repro.models import mamba2 as jmamba
 from repro.models import mlp as jmlp
 from repro.models import moe as jmoe
+from repro.models import rglru as jrglru
 from repro_torch.configs import reduced_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
+from repro_torch.models import encdec as tencdec
+from repro_torch.models import mamba2 as tmamba
 from repro_torch.models import moe as tmoe
+from repro_torch.models import rglru as trglru
 from repro_torch.models.mlp import MLP, mlp_forward
 
 TOL_F32 = 1e-5
+TOL_SCAN = 1e-5
 TOL_BF16 = 2 ** -7
 TOL_LAYER = 2e-2
 
@@ -386,3 +395,192 @@ def test_moe_with_drops_matches_jax(name):
                           np.rint(tload.numpy() * nk))
     assert rel_err(ref, got) <= TOL_LAYER
     assert abs(float(jaux) - float(taux)) <= 1e-5 * abs(float(jaux))
+
+
+# ---------------------------------------------------------------- Mamba-2
+def mamba_setup(seed):
+    jcfg, tcfg = configs("mamba2-1.3b")
+    rng = np.random.default_rng(seed)
+    jp, _ = jmamba.init_block(jax.random.PRNGKey(0), jcfg)
+    p = random_params(jp, rng)
+    mod = tmamba.Mamba2Block(tcfg, device="cpu", gen=None)
+    load(mod, p)
+    return jcfg, tcfg, jax_tree(p, jp), mod, rng
+
+
+def test_segsum_matches_jax():
+    """-inf above the diagonal bit-exact, the cumsum differences within
+    float32 rounding."""
+    rng = np.random.default_rng(11)
+    x = (0.3 * rng.standard_normal((2, 3, 16))).astype(np.float32)
+    ref = np.asarray(jax.jit(jmamba._segsum)(jnp.asarray(x)))
+    got = tmamba._segsum(torch.tensor(x)).numpy()
+    assert np.array_equal(np.isneginf(ref), np.isneginf(got))
+    finite = np.isfinite(ref)
+    assert np.abs(ref[finite] - got[finite]).max() <= TOL_F32
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_ssd_chunked_matches_jax(chunks, init):
+    """The dual form over 1 and 3 chunks of 16, from a zero and a given
+    state: float32 contractions in another order (`TOL_SCAN`)."""
+    rng = np.random.default_rng(12)
+    b, Q, h, pd, n = 2, 16, 4, 8, 16
+    L = chunks * Q
+    x = rng.standard_normal((b, L, h, pd)).astype(np.float32)
+    dtA = -rng.uniform(0.01, 0.5, (b, L, h)).astype(np.float32)
+    Bm = rng.standard_normal((b, L, n)).astype(np.float32)
+    Cm = rng.standard_normal((b, L, n)).astype(np.float32)
+    s0 = rng.standard_normal((b, h, pd, n)).astype(np.float32) \
+        if init else None
+    jy, js = jax.jit(lambda *a: jmamba.ssd_chunked(*a[:4], Q, a[4]))(
+        x, dtA, Bm, Cm, s0)
+    ty, ts = tmamba.ssd_chunked(
+        torch.tensor(x), torch.tensor(dtA), torch.tensor(Bm),
+        torch.tensor(Cm), Q, None if s0 is None else torch.tensor(s0))
+    assert rel_err(jy, ty) <= TOL_SCAN and rel_err(js, ts) <= TOL_SCAN
+
+
+@pytest.mark.parametrize("T", [32, 24, 2])
+def test_mamba2_block_forward_matches_jax(T):
+    """T a multiple of the chunk (16), T padded to one (24 -> 32), and
+    T = 2 < k-1, whose conv state holds zero rows of the padding."""
+    jcfg, tcfg, p, mod, rng = mamba_setup(13)
+    x = bf16(rng.standard_normal((2, T, 128)))
+    ref, (jconv, jssm) = jax.jit(lambda p, x: jmamba.block_forward(
+        p, x, jcfg, want_state=True))(p, to_jax(x))
+    got, conv, ssm = tmamba.block_forward(mod, to_torch(x), tcfg)
+    assert rel_err(ref, got) <= TOL_LAYER
+    assert rel_err(jconv, conv) <= TOL_LAYER
+    assert np.array_equal(as_np(jconv) == 0, as_np(conv) == 0)
+    assert ssm.dtype == torch.float32 and rel_err(jssm, ssm) <= TOL_LAYER
+
+
+def test_mamba2_block_decode_matches_jax():
+    """One recurrent step over a given conv history and state: the kept
+    history rows bit-exact, the rest within TOL_LAYER."""
+    jcfg, tcfg, p, mod, rng = mamba_setup(14)
+    conv = bf16(rng.standard_normal((2, 3, 288)))
+    ssm = rng.standard_normal((2, 8, 32, 16)).astype(np.float32)
+    idx = np.array([5, 40], np.int32)
+    x = bf16(rng.standard_normal((2, 1, 128)))
+    ref, jc = jax.jit(lambda p, x, c: jmamba.block_decode(p, x, jcfg, c))(
+        p, to_jax(x), dict(conv=to_jax(conv), ssm=jnp.asarray(ssm),
+                           idx=jnp.asarray(idx)))
+    cache = dict(conv=to_torch(conv), ssm=torch.tensor(ssm),
+                 idx=torch.tensor(idx))
+    got = tmamba.block_decode(mod, to_torch(x), tcfg, cache)
+    assert rel_err(ref, got) <= TOL_LAYER
+    assert np.array_equal(as_np(jc["idx"]), cache["idx"].numpy())
+    assert np.array_equal(as_np(cache["conv"])[:, :2], conv[:, 1:])
+    assert rel_err(jc["conv"], cache["conv"]) <= TOL_LAYER
+    assert rel_err(jc["ssm"], cache["ssm"]) <= TOL_LAYER
+
+
+# ---------------------------------------------------------------- RG-LRU
+def rglru_setup(seed):
+    jcfg, tcfg = configs("recurrentgemma-9b")
+    rng = np.random.default_rng(seed)
+    jp, _ = jrglru.init_recurrent_block(jax.random.PRNGKey(0), jcfg)
+    p = random_params(jp, rng)
+    # JAX's init range, so a = sigmoid(lam) is near 1 and the scan carries
+    # its state far
+    p["lam"] = rng.uniform(2.2, 6.9, p["lam"].shape).astype(np.float32)
+    mod = trglru.RecurrentBlock(tcfg, device="cpu", gen=None)
+    load(mod, p)
+    return jcfg, tcfg, jax_tree(p, jp), mod, rng
+
+
+@pytest.mark.parametrize("h0", [False, True])
+def test_rglru_scan_matches_jax(h0):
+    """The doubling scan against `jax.lax.associative_scan` (another
+    association order) over T = 37, with and without an initial state."""
+    rng = np.random.default_rng(15)
+    a = rng.uniform(0.5, 1.0, (2, 37, 16)).astype(np.float32)
+    x = rng.standard_normal((2, 37, 16)).astype(np.float32)
+    h = rng.standard_normal((2, 16)).astype(np.float32) if h0 else None
+    ref = jax.jit(jrglru._rglru_scan)(x, a, h)
+    got = trglru._rglru_scan(torch.tensor(x), torch.tensor(a),
+                             None if h is None else torch.tensor(h))
+    assert rel_err(ref, got) <= TOL_SCAN
+
+
+@pytest.mark.parametrize("T", [1, 24])
+def test_recurrent_branch_matches_jax(T):
+    """The conv over a given history, the float32 gates and the scan from
+    a given state (T = 1 is decode's step)."""
+    jcfg, tcfg, p, mod, rng = rglru_setup(16)
+    hist = bf16(rng.standard_normal((2, 3, 128)))
+    h0 = rng.standard_normal((2, 128)).astype(np.float32)
+    xw = bf16(rng.standard_normal((2, T, 128)))
+    jy, (jhist, jh) = jax.jit(lambda p, x, c, h: jrglru._recurrent_branch(
+        p, x, jcfg, conv_hist=c, h0=h))(p, to_jax(xw), to_jax(hist),
+                                        jnp.asarray(h0))
+    ty, thist, th = trglru._recurrent_branch(
+        mod, to_torch(xw), tcfg, to_torch(hist), torch.tensor(h0))
+    assert rel_err(jy, ty) <= TOL_BF16
+    assert np.array_equal(as_np(jhist), as_np(thist))     # data movement
+    assert th.dtype == torch.float32 and rel_err(jh, th) <= TOL_SCAN
+
+
+def test_recurrent_block_decode_matches_jax():
+    jcfg, tcfg, p, mod, rng = rglru_setup(17)
+    c = dict(conv=bf16(rng.standard_normal((2, 3, 128))),
+             h=rng.standard_normal((2, 128)).astype(np.float32),
+             idx=np.array([3, 70], np.int32))
+    x = bf16(rng.standard_normal((2, 1, 128)))
+    ref, jc = jax.jit(lambda p, x, c: jrglru.recurrent_block_decode(
+        p, x, jcfg, c))(p, to_jax(x), {n: jnp.asarray(
+            a, jnp.bfloat16 if n == "conv" else a.dtype)
+            for n, a in c.items()})
+    cache = {n: to_torch(a) if n == "conv" else torch.tensor(a)
+             for n, a in c.items()}
+    got = trglru.recurrent_block_decode(mod, to_torch(x), tcfg, cache)
+    assert rel_err(ref, got) <= TOL_LAYER
+    assert np.array_equal(as_np(jc["idx"]), cache["idx"].numpy())
+    assert np.array_equal(as_np(cache["conv"])[:, :2], c["conv"][:, 1:])
+    for name in ("conv", "h"):
+        assert rel_err(jc[name], cache[name]) <= TOL_LAYER, name
+
+
+# ---------------------------------------------------------------- enc-dec
+def test_enc_layer_matches_jax():
+    """Bidirectional self-attention (RoPE, no mask) and the MLP."""
+    jcfg, tcfg = configs("whisper-tiny")
+    rng = np.random.default_rng(18)
+    jp, _ = jencdec.init_enc_layer(jax.random.PRNGKey(0), jcfg)
+    p = random_params(jp, rng)
+    mod = tencdec.EncLayer(tcfg, device="cpu", gen=None)
+    load(mod, p)
+    x = bf16(rng.standard_normal((2, 24, 128)))
+    pos = np.arange(24, dtype=np.int32)
+    ref = jax.jit(lambda p, x: jencdec.enc_layer_forward(
+        p, x, jcfg, jnp.asarray(pos)))(jax_tree(p, jp), to_jax(x))
+    got = tencdec.enc_layer_forward(mod, to_torch(x), tcfg,
+                                    torch.tensor(pos))
+    assert rel_err(ref, got) <= TOL_LAYER
+
+
+def test_cross_attention_matches_jax():
+    """Cross keys and values from the encoder states, then attention of
+    the decoder's queries over them (no RoPE, no mask)."""
+    jcfg, tcfg = configs("whisper-tiny")
+    rng = np.random.default_rng(19)
+    jp, _ = jencdec.init_cross_attn(jax.random.PRNGKey(0), jcfg)
+    p = random_params(jp, rng)
+    jptree = jax_tree(p, jp)
+    mod = tattn.GQA(tcfg, device="cpu", gen=None)
+    load(mod, p)
+    x = bf16(rng.standard_normal((2, 5, 128)))
+    enc = bf16(rng.standard_normal((2, 24, 128)))
+    jkv = jax.jit(lambda p, e: jencdec.cross_kv(p, e, jcfg))(
+        jptree, to_jax(enc))
+    tkv = tencdec.cross_kv(mod, to_torch(enc))
+    for j, t in zip(jkv, tkv):
+        assert rel_err(j, t) <= TOL_LAYER
+    ref = jax.jit(lambda p, x, k, v: jencdec.cross_attn_forward(
+        p, x, (k, v), jcfg))(jptree, to_jax(x), *jkv)
+    got = tencdec.cross_attn_forward(
+        mod, to_torch(x), tuple(to_torch(as_np(t)) for t in jkv))
+    assert rel_err(ref, got) <= TOL_LAYER

@@ -1,17 +1,21 @@
-"""The port's decoder-only LMs against the JAX package's, on the CPU.
+"""The port's LMs against the JAX package's, on the CPU.
 
-For each of the seven architectures of the slice (the six of
-`models/transformer.py` and the VLM), the JAX model's `init_params`
-weights are carried over by `convert.lm_params_from_numpy`, and the same
-tokens (and image embeddings) go through both packages' `prefill` and one
+For each of the ten architectures (the six of `models/transformer.py`,
+the VLM, Mamba-2, RecurrentGemma and the Whisper encoder-decoder), the
+JAX model's `init_params` weights are carried over by
+`convert.lm_params_from_numpy`, and the same tokens (and image
+embeddings, or audio frames) go through both packages' `prefill` and one
 `decode_step` at the reduced config, B=2, T=24. The JAX side runs once an
 architecture, under `jax.jit`, in a module fixture.
 
 Parity: logits of the last position within `TOL_LOGITS` of the largest
 JAX logit (level 2: bf16 matmuls round in other places in XLA's CPU dots
-and in torch; measured at most 0.014 over the seven); the cache's idx
-and which of its sequence slots hold a token (the ring's slots included)
-bit-exact (level 1), its values within `TOL_LOGITS`.
+and in torch, and XLA rounds each step of a bf16 GeLU, torch once;
+measured at most 0.014 over the decoder-only seven, 0.028 over the
+other three, RecurrentGemma's decode the largest); the cache's idx and which of its slots hold a value (the
+ring's slots included) bit-exact (level 1), its float leaves (attention
+keys and values, the SSM and RG-LRU states, the conv histories, the
+cross keys and values) within `TOL_LOGITS`.
 """
 import dataclasses
 
@@ -31,7 +35,11 @@ from repro_torch.models.transformer import Transformer
 
 TOL_LOGITS = 0.03
 LM_ARCHS = ["dbrx-132b", "deepseek-v2-236b", "h2o-danube-3-4b",
-            "internvl2-1b", "nemotron-4-340b", "qwen2-7b", "qwen3-32b"]
+            "internvl2-1b", "nemotron-4-340b", "qwen2-7b", "qwen3-32b",
+            "mamba2-1.3b", "recurrentgemma-9b", "whisper-tiny"]
+# float32 parameters: the MoE router, Mamba-2's A_log, dt_bias and D, and
+# RG-LRU's lam; every other parameter is bf16
+F32_PARAMS = ("router", "A_log", "dt_bias", "D", "lam")
 B, T, PAD = 2, 24, 72
 
 
@@ -58,12 +66,15 @@ def jax_reference(arch):
     model = jax_get_model(cfg)
     params = jax.jit(lambda k: model.init_params(cfg, k)[0])(
         jax.random.PRNGKey(0))
-    rng = np.random.default_rng(sorted(LM_ARCHS).index(arch))
+    rng = np.random.default_rng(LM_ARCHS.index(arch))
     toks = rng.integers(0, cfg.vocab_size, (B, T + 1)).astype(np.int32)
     extra = {}
     if cfg.family == "vlm":
         extra["img_embeds"] = to_np(jnp.asarray(rng.standard_normal(
             (B, cfg.num_image_tokens, cfg.d_model)), jnp.bfloat16))
+    if cfg.family == "audio":
+        extra["frames"] = to_np(jnp.asarray(rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)), jnp.bfloat16))
     jextra = {k: jnp.asarray(v, jnp.bfloat16) for k, v in extra.items()}
     prefill = jax.jit(lambda p, t, e: model.prefill(
         p, t, cfg, q_chunk=8, pad_cache_to=PAD, **e))
@@ -94,8 +105,7 @@ def refs():
             toks = torch.tensor(ref["toks"]).long()
             logits, cache = model.prefill(toks[:, :T], q_chunk=8,
                                           pad_cache_to=PAD, **extra)
-            pre_cache = {k: {n: t.clone() for n, t in c.items()}
-                         for k, c in cache.items()}
+            pre_cache = clone_tree(cache)
             dec, cache = model.decode_step(cache, toks[:, T:])
             port = dict(model=model, prefill=logits, cache=pre_cache,
                         decode=dec, dec_cache=cache)
@@ -104,27 +114,36 @@ def refs():
     return get
 
 
+def clone_tree(cache):
+    return {n: clone_tree(t) if isinstance(t, dict) else t.clone()
+            for n, t in cache.items()}
+
+
 def rel_err(ref: np.ndarray, got: torch.Tensor) -> float:
     got = got.float().numpy()
     assert ref.shape == got.shape, (ref.shape, got.shape)
     return float(np.abs(ref - got).max() / (np.abs(ref).max() + 1e-12))
 
 
-def check_cache(jcache, tcache):
-    assert sorted(jcache) == sorted(tcache)
-    for key in jcache:
-        assert sorted(jcache[key]) == sorted(tcache[key])
-        for name, ref in jcache[key].items():
-            got = tcache[key][name]
-            if name == "idx":
-                assert got.dtype == torch.int32
-                assert np.array_equal(ref, got.numpy()), (key, name)
-                continue
-            # which sequence slots hold a token: [L, B, S]
-            axes = tuple(range(3, ref.ndim))
-            assert np.array_equal((ref != 0).any(axis=axes),
-                                  (got.float().numpy() != 0).any(axis=axes))
-            assert rel_err(ref, got) <= TOL_LOGITS, (key, name)
+def check_cache(jcache, tcache, path=""):
+    """Leaf by leaf through the nested cache."""
+    assert sorted(jcache) == sorted(tcache), path
+    for name, ref in jcache.items():
+        got, where = tcache[name], path + name
+        if isinstance(ref, dict):
+            check_cache(ref, got, where + ".")
+            continue
+        if name == "idx":
+            assert got.dtype == torch.int32
+            assert np.array_equal(ref, got.numpy()), where
+            continue
+        # which slots hold a value: [L, B, S] of a stacked attention
+        # cache (the ring's slots), [L, B, k-1] of a conv history
+        axes = tuple(range(3, ref.ndim))
+        assert np.array_equal((ref != 0).any(axis=axes),
+                              (got.float().numpy() != 0).any(axis=axes)), \
+            where
+        assert rel_err(ref, got) <= TOL_LOGITS, where
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -192,7 +211,9 @@ def test_converter_refuses_bad_trees(fault, refs):
 
 
 def test_converter_splits_stacked_layers(refs):
-    """Each layer's module holds its own slice of JAX's stacked leaf."""
+    """Each layer's module holds its own slice of JAX's stacked leaf, and
+    each recurrent block of an RG-LRU group its slice of the double stack
+    [G, n_rec, ...]."""
     ref, port = refs("qwen3-32b")
     model = port["model"]
     wq = ref["tree"]["dense_layers"]["attn"]["wq"]
@@ -200,12 +221,31 @@ def test_converter_splits_stacked_layers(refs):
         assert np.array_equal(block.attn.wq.float().numpy(), wq[i])
     assert model.moe_layers is not None and len(model.moe_layers) == 0
 
+    ref, port = refs("recurrentgemma-9b")
+    model, tree = port["model"], ref["tree"]
+    groups = tree["groups"]
+    assert groups["rec"]["w_a"].shape[:2] == (1, 2)
+    for g, group in enumerate(model.groups):
+        for r, block in enumerate(group.rec):
+            assert np.array_equal(block.w_a.float().numpy(),
+                                  groups["rec"]["w_a"][g, r])
+            assert np.array_equal(block.lam.numpy(),
+                                  groups["rec"]["lam"][g, r])
+        assert np.array_equal(group.attn.attn.wk.float().numpy(),
+                              groups["attn"]["attn"]["wk"][g])
+    for i, block in enumerate(model.trailing):
+        assert np.array_equal(block.w_x.float().numpy(),
+                              tree["trailing"]["w_x"][i])
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b",
-                                  "whisper-tiny"])
-def test_get_model_refuses_unported_families(arch):
-    with pytest.raises(NotImplementedError, match="12b"):
-        get_model(reduced_config(arch))
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_get_model_serves_every_config(arch):
+    """All ten configs have a model with the serving API."""
+    cfg = reduced_config(arch)
+    model = get_model(cfg)(cfg, device="cpu", seed=0)
+    for method in ("init_cache", "prefill", "decode_step"):
+        assert callable(getattr(model, method)), method
+    assert model.device == torch.device("cpu")
 
 
 def test_entry_points_need_a_card_or_cpu(monkeypatch, refs):
@@ -219,6 +259,13 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch, refs):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_params_from_numpy(cfg, ref["tree"])
     assert Transformer(cfg, device="cpu").device == torch.device("cpu")
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b", "whisper-tiny"):
+        cfg = reduced_config(arch)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            get_model(cfg)(cfg)
+    ref, _ = refs("mamba2-1.3b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_params_from_numpy(reduced_config("mamba2-1.3b"), ref["tree"])
 
 
 def test_configs_match_jax():
@@ -239,7 +286,7 @@ def test_configs_match_jax():
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_port_params_match_jax_tree(arch, refs):
     """The port's own init builds the parameters the JAX tree has, of the
-    same shapes, bf16 but for the float32 router."""
+    same shapes, bf16 but for the float32 ones (`F32_PARAMS`)."""
     ref, port = refs(arch)
     cfg = reduced_config(arch)
     own = get_model(cfg)(cfg, device="cpu", seed=1)
@@ -248,5 +295,5 @@ def test_port_params_match_jax_tree(arch, refs):
     assert sorted(mine) == sorted(theirs)
     for name, p in mine.items():
         assert p.shape == theirs[name].shape
-        assert p.dtype == (torch.float32 if name.endswith("router")
-                           else torch.bfloat16), name
+        f32 = name.rsplit(".", 1)[-1] in F32_PARAMS
+        assert p.dtype == (torch.float32 if f32 else torch.bfloat16), name
