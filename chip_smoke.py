@@ -109,10 +109,26 @@
    requests (prompts of 4-64 tokens, budgets 8-64) on 8 slots with
    max_seq 448, 4 replayed, one step profiled; (d) the ten reduced
    configs on the card against the CPU, same weights.
+10. LM training (`lm_train_path`): (a) Qwen2-7B at full width cut to 8
+   layers (2.98 B parameters: 16 B of training state a parameter for 28
+   layers would not fit 80 GB), trained on 4 x 1,024 tokens that
+   `PageRankWeightedSampler` draws in proportion to step 3's walk-engine
+   vector of doc_link_graph(2^20): 2 microbatches, remat full, AdamW with
+   fp32 moments at lr 3e-4, a warm-up step and 4 timed steps on that
+   batch (every loss and grad norm finite, the last loss below the
+   first, peak under 72 GiB, no MoE drop), `apply_updates` timed alone,
+   model FLOPs a step against the data sheet's 989 TFLOP/s dense bf16;
+   then 2 steps with int8 moments from the same seeded weights, and the
+   peak of one microbatch's gradients under each remat policy; (b) one
+   train step of each reduced config on the card against the CPU (loss
+   within 1e-2, masters within 2.2 lr, 0.05 lr on average); (c) the
+   reduced DeepSeek-V2's loss and gradients under the three remat
+   policies against "none" (within 1e-2 of each leaf's largest).
 
 Steps 3 to 6 are the main path: every engine is driven with the launch
 counters set to 0 just before it and read just after. The LM runs of
-step 9 are driven the same way; they launch none of the five kernels.
+steps 9 and 10 are driven the same way; they launch none of the five
+kernels.
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`. Exits non-zero,
 printing no result, when there is no CUDA card or any phase fails.
@@ -673,7 +689,8 @@ def accuracy(label, pi, pi_ref, n):
 def main_path(g, K, drive):
     """power_iteration and both single-device engines, through the public
     entry points. Returns (runs, power-iteration pi on the host, the count
-    engine's zeta)."""
+    engine's zeta); runs["scores"] is the walk engine's vector."""
+    import numpy as np
     import torch
     from repro_torch.core import power_iteration, simple_pagerank
 
@@ -712,6 +729,9 @@ def main_path(g, K, drive):
             counts_zeta = res.zeta
         log(f"simple_pagerank[{engine}]: {info}")
         out[engine] = info
+        if engine == "walks":
+            # Algorithm 1's vector: the LM training path's document scores
+            out["scores"] = np.asarray(res.pi)
         del res
         torch.cuda.empty_cache()
     return out, pi_ref, counts_zeta
@@ -2556,6 +2576,312 @@ def lm_serve_path(drive, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM training (loss_fn, the microbatched train step, AdamW)
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_ARCH = "qwen2-7b"
+LM_TRAIN_LAYERS = 8               # reduced: 28 -> 8 (16 B of state a param)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO = 4, 1024, 2
+LM_TRAIN_LR = 3e-4
+LM_TRAIN_STEPS = 4                # timed, after one warm-up step
+LM_TRAIN_INT8_STEPS = 2
+LM_TRAIN_PEAK_GIB = 72.0          # past it: 6 layers
+H100_BF16_DENSE = 989e12          # H100 SXM data sheet, dense bf16 FLOP/s
+LM_REMAT_ARCH = "deepseek-v2-236b"
+# one train step, card against CPU (reduced configs): bf16 matmuls round
+# in other places in cuBLAS, and CUDA's atomic index_add_ and embedding
+# backward sum in no fixed order
+LM_TRAIN_CPU_LR = 1e-3
+LM_TRAIN_LOSS_TOL = 1e-2          # relative
+LM_TRAIN_MEAN_TOL = 0.05          # mean |master diff| / lr
+LM_REMAT_TOL = 1e-2               # card: recomputation is not bit-exact
+
+
+def lm_matmul_params(cfg) -> int:
+    """Parameters that multiply activations in Qwen2's layers and head
+    (the real 28 query heads, not the padded 32; no norms or biases)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn = d * cfg.num_heads * hd * 2 + d * cfg.num_kv_heads * hd * 2
+    mlp = 3 * d * cfg.d_ff
+    return cfg.num_layers * (attn + mlp) + cfg.vocab_size * d
+
+
+def lm_train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one step: 6 x matmul parameters x tokens, plus
+    attention's QK^T and PV over the full T x T scores as computed (no
+    causal halving), x 3 for forward and backward; remat's recomputed
+    forward not counted."""
+    tokens = batch * seq
+    attn = 3 * 2 * 2 * cfg.num_layers * cfg.num_heads \
+        * cfg.resolved_head_dim * seq * tokens
+    return 6.0 * lm_matmul_params(cfg) * tokens + attn
+
+
+def lm_train_steps(model, cfg, adam, batch, n_steps, label, smi):
+    """A warm-up step, then `n_steps` timed ones on `batch`; the gates:
+    every loss and grad norm finite, the last loss below the first."""
+    import torch
+    from repro_torch.convert import lm_param_tree
+    from repro_torch.train import init_state, make_train_step
+
+    step = make_train_step(cfg, model, adam,
+                           num_microbatches=LM_TRAIN_MICRO,
+                           loss_kwargs=dict(q_chunk=512))
+    state = init_state(lm_param_tree(model), adam)
+    losses, norms, times = [], [], []
+    for i in range(n_steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{label}: a loss or grad norm is not finite: {losses} {norms}")
+    check(losses[-1] < losses[0],
+          f"{label}: the loss did not fall: {losses}")
+    log(f"{label} on {smi}: losses {losses}, grad norms {norms}, step "
+        f"seconds {times}")
+    return state, losses, norms, times, step
+
+
+def lm_remat_peaks(model, cfg, batch, smi) -> dict:
+    """(c) Peak memory of one microbatch's gradients at (a)'s shape under
+    each remat policy (no optimizer state held)."""
+    import torch
+    from repro_torch.convert import lm_param_tree
+    from repro_torch.models.common import remat_policy
+    from repro_torch.train.train_step import accumulate_grads, \
+        split_microbatches
+
+    micro = split_microbatches(batch, LM_TRAIN_MICRO)[0]
+    params = lm_param_tree(model.requires_grad_(True))
+    out = {}
+    for policy in ("full", "dots", "none"):
+        lm_release()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        with remat_policy(policy):
+            grads, loss = accumulate_grads(model, params, micro,
+                                           loss_kwargs=dict(q_chunk=512))
+        torch.cuda.synchronize()
+        out[policy] = dict(peak_gib=torch.cuda.max_memory_allocated()
+                           / 2 ** 30, weights_gib=base, loss=float(loss))
+        del grads
+    lm_release()
+    log(f"remat peaks, one microbatch of {tuple(micro['tokens'].shape)} "
+        f"on {smi}: {out}")
+    return out
+
+
+def lm_train_full_width(drive, smi, scores):
+    """(a) Qwen2-7B at full width, 8 layers, trained on PageRank-weighted
+    batches: fp32 moments, then int8 moments from the same weights; (c)'s
+    peaks at its shape."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_param_tree
+    from repro_torch.data import DataConfig, PageRankWeightedSampler
+    from repro_torch.launch.train import make_batch
+    from repro_torch.train import AdamWConfig, apply_updates
+    from repro_torch.train.train_step import accumulate_grads
+
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
+                              num_layers=LM_TRAIN_LAYERS)
+    sampler = PageRankWeightedSampler(scores, DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+        global_batch=LM_TRAIN_BATCH, seed=0))
+    nb = sampler.batch_at(0)
+    top = np.argsort(-sampler.p)[:10]
+    log(f"lm train batch: PageRank-weighted docs {nb['doc_ids'].tolist()} "
+        f"(their score ranks {[int((sampler.p > sampler.p[d]).sum()) for d in nb['doc_ids']]}; "
+        f"top-10 docs hold {sampler.p[top].sum():.4f} of the mass)")
+    batch = make_batch(cfg, nb, "cuda")
+    out = dict(arch=cfg.name, layers=cfg.num_layers, reduced=dict(
+        num_layers=[28, cfg.num_layers]), doc_ids=nb["doc_ids"].tolist())
+
+    model, init_s = lm_build(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    out.update(lm_describe(model, init_s), params=n_params)
+    out["remat_peaks"] = lm_remat_peaks(model, cfg, batch, smi)
+
+    adam = AdamWConfig(lr=LM_TRAIN_LR)
+    (state, losses, norms, times, step), secs, peak = drive(
+        f"{cfg.name} x{cfg.num_layers} train, fp32 moments",
+        lambda: lm_train_steps(model, cfg, adam, batch, LM_TRAIN_STEPS,
+                               "train fp32", smi), [])
+    check(peak < LM_TRAIN_PEAK_GIB,
+          f"training peak {peak:.2f} GiB >= {LM_TRAIN_PEAK_GIB}")
+    profiled = {}
+    state = profile_rounds(
+        lambda st: step(st, batch)[0], state, 1,
+        f"{cfg.name} x{cfg.num_layers} train step, profiled, on {smi}",
+        top=12, stats=profiled, groups={
+            "GEMMs (nvjet)": "nvjet", "GEMMs (gemm)": "gemm",
+            "elementwise": "elementwise_kernel", "reductions": "reduce_kernel",
+            "copies": "Memcpy"})
+    step_s = sum(times[1:]) / LM_TRAIN_STEPS
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flops = lm_train_flops(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    params = lm_param_tree(model)
+    grads, _ = accumulate_grads(model, params, batch, LM_TRAIN_MICRO,
+                                loss_kwargs=dict(q_chunk=512))
+    opt_ms = cuda_ms(lambda: apply_updates(params, grads, state, adam),
+                     iters=2)
+    dropped = sum(int(b.moe.dropped) for b in model.moe_layers)
+    check(dropped == 0, f"{cfg.name}: {dropped} assignments dropped")
+    del grads, state
+    out["fp32"] = dict(
+        losses=losses, grad_norms=norms, step_s=times, step_ms=step_s * 1e3,
+        tokens_per_s=tokens / step_s, peak_gib=peak,
+        optimizer_ms=opt_ms, optimizer_share=opt_ms / (step_s * 1e3),
+        matmul_params=lm_matmul_params(cfg), model_flops=flops,
+        model_tflops_per_s=flops / step_s / 1e12,
+        share_of_989_tflops=flops / step_s / H100_BF16_DENSE,
+        dropped=dropped, profiled=profiled)
+    del model, params, step
+    lm_release()
+
+    model, _ = lm_build(cfg)
+    adam8 = AdamWConfig(lr=LM_TRAIN_LR, int8_moments=True)
+    (state, losses8, norms8, times8, _), _, peak8 = drive(
+        f"{cfg.name} x{cfg.num_layers} train, int8 moments",
+        lambda: lm_train_steps(model, cfg, adam8, batch,
+                               LM_TRAIN_INT8_STEPS - 1, "train int8", smi),
+        [])
+    out["int8"] = dict(losses=losses8, grad_norms=norms8, step_s=times8,
+                       peak_gib=peak8, peak_fall_gib=peak - peak8,
+                       peak_fall_bytes_per_param=(peak - peak8) * 2 ** 30
+                       / n_params)
+    del model, state
+    lm_release()
+    f = out["fp32"]
+    log(f"lm train (a) {cfg.name} d={cfg.d_model} x{cfg.num_layers} layers "
+        f"({n_params:,} parameters), {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} "
+        f"tokens, {LM_TRAIN_MICRO} microbatches, remat full, on {smi}: "
+        f"step {f['step_ms']:.1f} ms, {f['tokens_per_s']:.0f} tokens/s, "
+        f"peak {peak:.2f} GiB (int8 moments {peak8:.2f}), optimizer "
+        f"{opt_ms:.1f} ms ({f['optimizer_share']:.1%} of a step), "
+        f"{flops:.4g} model FLOPs a step = {f['model_tflops_per_s']:.1f} "
+        f"TFLOP/s, {f['share_of_989_tflops']:.1%} of the data sheet's "
+        f"989 TFLOP/s dense bf16")
+    return out
+
+
+def lm_master_diffs(a, b, lr) -> tuple:
+    """(max, mean) |a - b| / lr over two AdamW states' masters."""
+    from repro_torch.train.optimizer import tree_leaves
+    worst, total, count = 0.0, 0.0, 0
+    for x, y in zip(tree_leaves(a.master), tree_leaves(b.master)):
+        d = (x.cpu() - y.cpu()).abs()
+        worst = max(worst, float(d.max()))
+        total, count = total + float(d.sum()), count + d.numel()
+    return worst / lr, total / count / lr
+
+
+def lm_train_reduced_card_vs_cpu(smi):
+    """(b) One train step of each reduced config on the card against the
+    same step on the CPU, same weights and batch."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.convert import lm_param_tree
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    out = {}
+    adam = AdamWConfig(lr=LM_TRAIN_CPU_LR)
+    for arch in LM_REDUCED_ARCHS:
+        cfg = reduced_config(arch)
+        nb = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=16, global_batch=4)).batch_at(0)
+        res = []
+        cpu = get_model(cfg)(cfg, device="cpu", seed=0)
+        card = get_model(cfg)(cfg, seed=None)
+        card.load_state_dict(cpu.state_dict())
+        for m in (cpu, card):
+            step = make_train_step(cfg, m, adam, num_microbatches=2,
+                                   loss_kwargs=dict(q_chunk=8))
+            state, met = step(init_state(lm_param_tree(m), adam),
+                              make_batch(cfg, nb, m.device))
+            res.append((state, float(met["loss"]), float(met["grad_norm"])))
+        loss_err = abs(res[0][1] - res[1][1]) / abs(res[0][1])
+        worst, mean = lm_master_diffs(res[0][0], res[1][0], adam.lr)
+        check(loss_err < LM_TRAIN_LOSS_TOL and worst <= 2.2
+              and mean <= LM_TRAIN_MEAN_TOL,
+              f"{arch} reduced train step: card vs CPU loss {loss_err}, "
+              f"masters {worst} lr at most, {mean} lr on average")
+        out[arch] = dict(loss_rel=loss_err, grad_norm_rel=abs(
+            res[0][2] - res[1][2]) / res[0][2], master_max_lr=worst,
+            master_mean_lr=mean)
+    log(f"reduced configs, one train step card vs CPU on {smi}: {out} "
+        f"(loss < {LM_TRAIN_LOSS_TOL}, masters <= 2.2 lr, mean <= "
+        f"{LM_TRAIN_MEAN_TOL} lr)")
+    return out
+
+
+def lm_remat_agree(smi):
+    """(c) Loss and gradients of one reduced config on the card under the
+    three remat policies, against "none"."""
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.convert import lm_param_tree
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import get_model
+    from repro_torch.models.common import remat_policy
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import accumulate_grads
+
+    cfg = reduced_config(LM_REMAT_ARCH)
+    model = get_model(cfg)(cfg, seed=0).requires_grad_(True)
+    params = lm_param_tree(model)
+    batch = make_batch(cfg, SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)).batch_at(0),
+        "cuda")
+    runs = {}
+    for policy in ("none", "full", "dots"):
+        with remat_policy(policy):
+            grads, loss = accumulate_grads(model, params, batch,
+                                           loss_kwargs=dict(q_chunk=8))
+        runs[policy] = (float(loss), [
+            t.float() for leaf in tree_leaves(grads)
+            for t in (leaf if isinstance(leaf, list) else [leaf])])
+    out = {}
+    for policy in ("full", "dots"):
+        loss_err = abs(runs[policy][0] - runs["none"][0]) / runs["none"][0]
+        grad_err = max(float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-12)) for a, b in zip(runs[policy][1], runs["none"][1]))
+        check(loss_err < LM_REMAT_TOL and grad_err < LM_REMAT_TOL,
+              f"remat {policy} vs none: loss {loss_err}, grads {grad_err}")
+        out[policy] = dict(loss_rel=loss_err, grad_rel=grad_err)
+    log(f"remat policies on {cfg.name} reduced on {smi}, against none: "
+        f"{out} (< {LM_REMAT_TOL} of each leaf's largest)")
+    return out
+
+
+def lm_train_path(drive, smi, scores):
+    """The LM training path: (a) Qwen2-7B at full width on PageRank-
+    weighted batches, (b) the reduced configs' train step card vs CPU,
+    (c) the remat policies. Launches none of the five kernels."""
+    log(f"lm train path on {smi}")
+    out = {}
+    for key, phase in (
+            ("full_width", lambda: lm_train_full_width(drive, smi, scores)),
+            ("reduced", lambda: lm_train_reduced_card_vs_cpu(smi)),
+            ("remat", lambda: lm_remat_agree(smi))):
+        t0 = time.perf_counter()
+        out[key] = phase()
+        out[key + "_phase_s"] = time.perf_counter() - t0
+        log(f"lm train phase {key}: {out[key + '_phase_s']:.2f} s")
+        lm_release()
+    log(f"lm train: {smi} " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2636,6 +2962,9 @@ def main() -> int:
         t0 = time.perf_counter()
         lm = lm_serve_path(drive, smi)
         phases["lm"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lm_train_path(drive, smi, runs.pop("scores"))
+        phases["lm_train"] = time.perf_counter() - t0
     except PhaseError as e:
         log(f"FAILED: {e}")
         return 1

@@ -7,8 +7,11 @@ snapshot written by either package resumes in the other:
         manifest.json     — step, user metadata, flat keys, shapes/dtypes
         arrays.npz        — one entry per leaf ('/'-joined path keys)
 
-A tree is nested dicts, lists and tuples whose leaves are tensors, numpy
-arrays or Python scalars; dict keys flatten in sorted order. Writes go to a
+A tree is nested dicts, lists, tuples and NamedTuples whose leaves are
+tensors, numpy arrays or Python scalars; dict keys flatten in sorted
+order, a NamedTuple's children under their field names (as JAX keys
+them: `opt/step`, `opt/master/...`), a list's or tuple's under their
+index. Writes go to a
 temporary directory renamed into place, so a failure mid-write never
 corrupts the latest snapshot. The async writer overlaps serialisation with
 compute; the caller's tensors are copied to the host before it starts.
@@ -49,11 +52,18 @@ def to_numpy(leaf: Any) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _is_namedtuple(node: Any) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
 def _items(tree: Any, prefix: str = ""):
     """(path, leaf) pairs of a tree, in the order JAX flattens it."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _items(tree[k], f"{prefix}{k}/")
+    elif _is_namedtuple(tree):
+        for k, v in zip(tree._fields, tree):
+            yield from _items(v, f"{prefix}{k}/")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _items(v, f"{prefix}{i}/")
@@ -152,6 +162,9 @@ def restore_into(tree: Any, flat: Dict[str, np.ndarray]) -> Any:
     def rebuild(node, prefix):
         if isinstance(node, dict):
             return {k: rebuild(node[k], f"{prefix}{k}/") for k in node}
+        if _is_namedtuple(node):
+            return type(node)(*(rebuild(v, f"{prefix}{k}/")
+                                for k, v in zip(node._fields, node)))
         if isinstance(node, (list, tuple)):
             return type(node)(rebuild(v, f"{prefix}{i}/")
                               for i, v in enumerate(node))

@@ -3,8 +3,9 @@
 The graph is this system's "weights": with the same CSR arrays and the same
 PRNG key, the port computes what the JAX package computes. The sharded
 engines' states carry over too, so a run started by one package can be
-continued by the other. The LMs' parameter trees carry over as well
-(`lm_params_from_numpy`).
+continued by the other. The LMs' parameter trees carry over as well, both
+ways (`lm_params_from_numpy`, `lm_params_to_numpy`), and so does the
+AdamW state of a training run (`adam_state_from_numpy`).
 """
 from __future__ import annotations
 
@@ -116,13 +117,20 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
     from repro_torch.models import get_model
 
     model = get_model(cfg)(cfg, device=device, seed=None)
+    load_lm_params(model, tree)
+    return model
+
+
+def load_lm_params(model, tree: dict) -> None:
+    """Copy a JAX parameter tree (nested dicts of float32 numpy arrays)
+    into `model`'s parameters; raises as `lm_params_from_numpy`."""
     params = dict(model.named_parameters())
     flat = _flatten_lm_tree(tree)
     missing = sorted(set(params) - set(flat))
     extra = sorted(set(flat) - set(params))
     if missing or extra:
-        raise ValueError(f"{cfg.name}: parameter tree does not match the "
-                         f"model: missing {missing}, extra {extra}")
+        raise ValueError(f"{model.cfg.name}: parameter tree does not match "
+                         f"the model: missing {missing}, extra {extra}")
     for name, arr in flat.items():
         p = params[name]
         if arr.dtype != np.float32:
@@ -131,6 +139,119 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(arr.shape)}, the model "
                              f"has {tuple(p.shape)}")
-        with torch.no_grad():
-            p.copy_(torch.from_numpy(np.array(arr)))
-    return model
+    with torch.no_grad():
+        for name, arr in flat.items():
+            params[name].copy_(torch.from_numpy(np.array(arr)))
+
+
+class Stack(list):
+    """The per-layer tensors of one stacked JAX leaf, in JAX's order
+    (row-major over `lead`, the leaf's leading layer dims)."""
+
+    def __init__(self, tensors, lead):
+        super().__init__(tensors)
+        self.lead = tuple(lead)
+
+
+def lm_param_tree(model) -> dict:
+    """`model`'s parameters in the JAX package's tree: nested dicts of
+    JAX's names, whose leaves are the parameters, or a `Stack` of them
+    where JAX stacks layers into one leaf ([L, ...], RG-LRU's
+    `groups.rec` [G, n_rec, ...]). The tree the optimizer keeps its
+    state by."""
+    grouped = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        path, index = [parts[0]], ()
+        rest = parts[1:]
+        if parts[0] in _LM_STACKS:
+            index, rest = (int(rest[0]),), rest[1:]
+            if rest[0] in _LM_STACKS[parts[0]]:
+                path.append(rest[0])
+                index, rest = index + (int(rest[1]),), rest[2:]
+        grouped.setdefault(tuple(path + rest), []).append((index, p))
+    tree = {}
+    for path, entries in grouped.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if entries[0][0]:
+            entries.sort(key=lambda e: e[0])
+            lead = tuple(max(e[0][k] for e in entries) + 1
+                         for k in range(len(entries[0][0])))
+            node[path[-1]] = Stack([p for _, p in entries], lead)
+        else:
+            node[path[-1]] = entries[0][1]
+    return tree
+
+
+def _leaf_to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, Stack):
+        arr = np.stack([_leaf_to_numpy(t) for t in leaf])
+        return arr.reshape(leaf.lead + arr.shape[1:])
+    return leaf.detach().float().cpu().numpy()
+
+
+def lm_tree_to_numpy(tree) -> dict:
+    """A tree of `lm_param_tree`'s layout (the parameters, or tensors of
+    their shapes such as gradients) as float32 numpy arrays, each `Stack`
+    stacked into JAX's leaf."""
+    from repro_torch.train.optimizer import tree_map
+    return tree_map(_leaf_to_numpy, tree)
+
+
+def lm_params_to_numpy(model) -> dict:
+    """The inverse of `lm_params_from_numpy`: `model`'s weights as the JAX
+    package's parameter tree, nested dicts of float32 numpy arrays (bf16
+    widened exactly), layer stacks re-stacked."""
+    return lm_tree_to_numpy(lm_param_tree(model))
+
+
+def adam_state_from_numpy(model, state_tree):
+    """The port's `AdamState` for `model`'s parameters (`lm_param_tree`)
+    from a JAX `AdamState` given as numpy: an object with fields, or a
+    dict, of `step`, `master`, `m`, `v` (int8 moments as (codes, scales)
+    pairs). Raises where a leaf is missing or its length is not the
+    padded length of its parameter leaf."""
+    from repro_torch.train.optimizer import (AdamState, _pad_len,
+                                             leaf_size)
+
+    def field(name):
+        return (state_tree[name] if isinstance(state_tree, dict)
+                else getattr(state_tree, name))
+
+    params = lm_param_tree(model)
+    device = next(model.parameters()).device
+
+    def put(arr, dtype):
+        return torch.from_numpy(np.array(arr)).to(device=device,
+                                                  dtype=dtype)
+
+    def carry(params, tree, where):
+        if sorted(params) != sorted(tree):
+            raise ValueError(f"{where}: keys {sorted(tree)}, the model "
+                             f"has {sorted(params)}")
+        out = {}
+        for k, p in params.items():
+            if isinstance(p, dict):
+                out[k] = carry(p, tree[k], f"{where}/{k}")
+                continue
+            n = _pad_len(leaf_size(p))
+            leaf = tree[k]
+            if isinstance(leaf, (tuple, list)):
+                q, scale = leaf
+                if np.shape(q) != (n,):
+                    raise ValueError(f"{where}/{k}: {np.shape(q)} codes, "
+                                     f"expected ({n},)")
+                out[k] = (put(q, torch.int8), put(scale, torch.float32))
+            else:
+                if np.shape(leaf) != (n,):
+                    raise ValueError(f"{where}/{k}: shape {np.shape(leaf)},"
+                                     f" expected ({n},)")
+                out[k] = put(leaf, torch.float32)
+        return out
+
+    return AdamState(step=put(field("step"), torch.int32),
+                     master=carry(params, field("master"), "master"),
+                     m=carry(params, field("m"), "m"),
+                     v=carry(params, field("v"), "v"))

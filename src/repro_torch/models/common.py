@@ -6,17 +6,22 @@ Parameters are drawn by the port's own generator (`torch.Generator` on
 the model's device): the same seed gives other weights than JAX's, so the
 tests carry JAX's weights over with `convert.lm_params_from_numpy`.
 
-The training and dry-run helpers of the JAX module (`cross_entropy`,
-`ckpt`, `remat_policy`, `maybe_scan`, `unroll_scans`) come with those
-slices.
+Training: `param()` makes every weight without a gradient, as serving
+wants; `model.requires_grad_()` turns gradients on for training.
+`cross_entropy` is the JAX module's float32 loss; `remat_policy` and
+`ckpt` its rematerialisation, by `torch.utils.checkpoint`. The dry-run
+helpers (`maybe_scan`, `unroll_scans`) come with the dry-run slice.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -114,6 +119,91 @@ def unembed(emb: Embedding, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(COMPUTE_DTYPE), emb.table.t()).float()
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE. logits [B,T,V] float32, labels [B,T] int; with
+    `mask` [B,T], the masked mean (over at least one token)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation
+# ---------------------------------------------------------------------------
+
+_local = threading.local()
+
+# the matmul outputs that the "dots" policy keeps (JAX's checkpoint_dots)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+@contextlib.contextmanager
+def remat_policy(name: str):
+    """Active rematerialisation policy of the layers' `ckpt`: "full" (save
+    nothing but each layer's input: the default), "dots" (save matmul
+    outputs), "none" (no remat)."""
+    if name not in ("full", "dots", "none"):
+        raise ValueError(f"unknown remat policy {name!r}")
+    prev = getattr(_local, "policy", "full")
+    _local.policy = name
+    try:
+        yield
+    finally:
+        _local.policy = prev
+
+
+def recomputing() -> bool:
+    """True while `ckpt` re-runs a layer in the backward pass: side
+    effects of the forward (MoE's drop count) must not repeat there."""
+    return getattr(_local, "recomputing", False)
+
+
+@contextlib.contextmanager
+def _recompute(inner):
+    """`inner`, with `recomputing()` true inside."""
+    prev = recomputing()
+    _local.recomputing = True
+    try:
+        with inner:
+            yield
+    finally:
+        _local.recomputing = prev
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else _checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _contexts(policy: str):
+    """(forward, recompute) contexts of `torch.utils.checkpoint`."""
+    if policy == "dots":
+        fwd, rec = _checkpoint.create_selective_checkpoint_contexts(
+            _save_dots)
+    else:
+        fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+    return fwd, _recompute(rec)
+
+
+def ckpt(f):
+    """`f` under the active remat policy (see `remat_policy`), as the JAX
+    package's `jax.checkpoint`; `f` itself where no gradient is taken."""
+    def run(*args):
+        policy = getattr(_local, "policy", "full")
+        if policy == "none" or not torch.is_grad_enabled():
+            return f(*args)
+        return _checkpoint.checkpoint(
+            f, *args, use_reentrant=False,
+            context_fn=lambda: _contexts(policy))
+    return run
+
+
 class LM(nn.Module):
     """What the port's LMs share: `cfg`, the device (the card when None),
     the input embedding, the final norm and the head (the embedding when
@@ -142,6 +232,17 @@ class LM(nn.Module):
 
     def logits(self, x) -> torch.Tensor:
         """The final norm and the head over the stream x [B, T, d]."""
-        hidden = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self.logits_fn(rms_norm(x, self.final_norm,
+                                       self.cfg.norm_eps))
+
+    def logits_fn(self, hidden) -> torch.Tensor:
+        """The head over the normed stream."""
         table = self.embed if self.cfg.tie_embeddings else self.lm_head
         return unembed(table, hidden)
+
+    def loss_fn(self, batch, **kw):
+        """(loss, dict(ce, aux)) of a batch {tokens, labels [B, T], and the
+        family's extra inputs}: the JAX package's `loss_fn`. For gradients,
+        call it outside `torch.inference_mode` on a model whose parameters
+        require them (`requires_grad_()`)."""
+        raise NotImplementedError

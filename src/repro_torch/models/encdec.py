@@ -1,4 +1,4 @@
-"""Whisper-style encoder-decoder backbone (audio), the serving path.
+"""Whisper-style encoder-decoder backbone (audio): serving and training.
 
 The JAX package's `repro.models.encdec`, in the same math. As there, the
 conv frontend is a stub: the caller gives frame embeddings [B,
@@ -12,6 +12,10 @@ keys and values and each layer's cross keys and values; `decode_step`
 advances the decoder one token, writing the cache in place. The cache is
 {self: {k, v, idx} [L, B, ...], cross_k, cross_v [L, B, S_enc, KV, hd]},
 the JAX package's layout.
+
+`loss_fn` takes the frames from the batch (JAX's `make_batch` gives
+zeros); each encoder and decoder layer runs under `ckpt`, the cross keys
+and values of a decoder layer outside it, as JAX's.
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.common import (COMPUTE_DTYPE, LM, embed, param,
-                                       rms_norm, zeros_init)
+from repro_torch.models.common import (COMPUTE_DTYPE, LM, ckpt,
+                                       cross_entropy, embed, param, rms_norm,
+                                       zeros_init)
 from repro_torch.models.mlp import MLP, mlp_forward
 
 Cache = Dict[str, object]
@@ -117,8 +122,23 @@ class EncDec(LM):
         positions = torch.arange(frames.shape[1], dtype=torch.int32,
                                  device=x.device)
         for layer in self.enc_layers:
-            x = enc_layer_forward(layer, x, self.cfg, positions)
+            x = ckpt(lambda h, lp=layer: enc_layer_forward(
+                lp, h, self.cfg, positions))(x)
         return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
+
+    def loss_fn(self, batch, *, q_chunk: int = 512, **_):
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        enc = self.encode(batch["frames"])
+        x = embed(self.embed, tokens)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        for layer in self.dec_layers:
+            kv = cross_kv(layer.cross_attn, enc)
+            x = ckpt(lambda h, lp=layer, kv=kv: dec_layer_forward(
+                lp, h, kv, cfg, positions, q_chunk=q_chunk)[0])(x)
+        ce = cross_entropy(self.logits(x), batch["labels"])
+        return ce, dict(ce=ce, aux=ce.new_zeros(()))
 
     @torch.inference_mode()
     def init_cache(self, batch: int, max_seq: int) -> Cache:

@@ -1,4 +1,5 @@
-"""Mamba-2 (SSD, state-space duality) language model: the serving path.
+"""Mamba-2 (SSD, state-space duality) language model: serving and
+training.
 
 The JAX package's `repro.models.mamba2`, in the same math. Prefill runs
 the chunked dual form (quadratic within a chunk of `cfg.ssm_chunk`
@@ -16,7 +17,7 @@ full forward part if TF32 is enabled.
 
 The cache is {conv [L, B, k-1, conv_dim] bf16, ssm [L, B, H, P, N]
 float32, idx [L, B] int32}, the JAX package's layout; decode writes it
-in place.
+in place. `loss_fn` runs the full forward, each layer under `ckpt`.
 """
 from __future__ import annotations
 
@@ -26,9 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import (COMPUTE_DTYPE, LM, causal_conv,
-                                       dense_init, embed, ones_init, param,
-                                       rms_norm, zeros_init)
+from repro_torch.models.common import (COMPUTE_DTYPE, LM, causal_conv, ckpt,
+                                       cross_entropy, dense_init, embed,
+                                       ones_init, param, rms_norm,
+                                       zeros_init)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -209,6 +211,13 @@ class Mamba2(LM):
     def _build(self, cfg, device, gen) -> None:
         self.layers = nn.ModuleList(Mamba2Block(cfg, device=device, gen=gen)
                                     for _ in range(cfg.num_layers))
+
+    def loss_fn(self, batch, **_):
+        x = embed(self.embed, batch["tokens"])
+        for block in self.layers:
+            x = ckpt(lambda h, b=block: block_forward(b, h, self.cfg)[0])(x)
+        ce = cross_entropy(self.logits(x), batch["labels"])
+        return ce, dict(ce=ce, aux=ce.new_zeros(()))
 
     @torch.inference_mode()
     def init_cache(self, batch: int, max_seq: int) -> Cache:

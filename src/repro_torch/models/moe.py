@@ -20,7 +20,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from repro_torch.models.common import COMPUTE_DTYPE, dense_init, param
+from repro_torch.models.common import (COMPUTE_DTYPE, dense_init, param,
+                                       recomputing)
 from repro_torch.models.mlp import MLP, activation, is_gated, mlp_forward
 
 
@@ -125,13 +126,14 @@ def _dispatch_compute_combine(xf, logits, w_gate, w_up, w_down, cfg):
 def moe_forward(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
                                                        torch.Tensor]:
     """x [B,T,d] -> (out [B,T,d], aux_loss scalar); adds the assignments
-    dropped at capacity to `p.dropped`."""
+    dropped at capacity to `p.dropped`, except in a remat's re-run."""
     B, T, d = x.shape
     xf = x.reshape(B * T, d)
     logits = torch.matmul(xf.float(), p.router)
     out, load, imp, dropped = _dispatch_compute_combine(
         xf, logits, p.w_gate, p.w_up, p.w_down, cfg)
-    p.dropped += dropped
+    if not recomputing():
+        p.dropped += dropped
     aux = cfg.num_experts * torch.sum(load * imp)
     out = out.to(x.dtype).reshape(B, T, d)
     if p.shared is not None:

@@ -1,8 +1,8 @@
-"""Model registry: family -> the model class that serves it.
+"""Model registry: family -> the model class that serves and trains it.
 
 Every class is a `models.common.LM`: it takes `(cfg, *, device=None,
-seed=0)` and provides `init_cache`, `prefill` and `decode_step` (see
-`models/transformer.py`).
+seed=0)` and provides `init_cache`, `prefill`, `decode_step` and
+`loss_fn` (see `models/transformer.py`).
 """
 from __future__ import annotations
 

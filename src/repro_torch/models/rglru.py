@@ -1,5 +1,5 @@
 """RecurrentGemma / Griffin hybrid: RG-LRU recurrent blocks and local
-attention, the serving path.
+attention, serving and training.
 
 The JAX package's `repro.models.rglru`, in the same math. The block
 pattern (`cfg.block_pattern`, e.g. rglru, rglru, local) repeats in
@@ -19,7 +19,9 @@ with `sliding_window = cfg.local_window` (`models/attention.py`'s ring).
 
 The cache is {groups: {rec: {conv, h, idx} [G, n_rec, B, ...],
 attn: {k, v, idx} [G, B, ...]}, trailing: {conv, h, idx} [n, B, ...]},
-the JAX package's layout; decode writes it in place.
+the JAX package's layout; decode writes it in place. `loss_fn` runs the
+full forward, each block under `ckpt`; the doubling scan is
+differentiable as written.
 """
 from __future__ import annotations
 
@@ -31,9 +33,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.common import (COMPUTE_DTYPE, LM, causal_conv,
-                                       dense_init, embed, param, rms_norm,
-                                       zeros_init)
+from repro_torch.models.common import (COMPUTE_DTYPE, LM, causal_conv, ckpt,
+                                       cross_entropy, dense_init, embed,
+                                       param, rms_norm, zeros_init)
 from repro_torch.models.mlp import MLP, activation, mlp_forward
 
 C_GATE = 8.0
@@ -213,6 +215,26 @@ class RecurrentGemma(LM):
         self.trailing = nn.ModuleList(
             RecurrentBlock(cfg, device=device, gen=gen)
             for _ in range(trailing))
+
+    def loss_fn(self, batch, *, q_chunk: int = 512, **_):
+        cfg, acfg = self.cfg, _attn_cfg(self.cfg)
+        tokens = batch["tokens"]
+        x = embed(self.embed, tokens)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=x.device)
+
+        def rec(h, b):
+            return recurrent_block_forward(b, h, cfg)[0]
+
+        for group in self.groups:
+            for block in group.rec:
+                x = ckpt(rec)(x, block)
+            x = ckpt(lambda h, b=group.attn: attn_block_forward(
+                b, h, acfg, positions, q_chunk=q_chunk)[0])(x)
+        for block in self.trailing:
+            x = ckpt(rec)(x, block)
+        ce = cross_entropy(self.logits(x), batch["labels"])
+        return ce, dict(ce=ce, aux=ce.new_zeros(()))
 
     @torch.inference_mode()
     def init_cache(self, batch: int, max_seq: int) -> Cache:

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM (dense + MoE): the serving path.
+"""Decoder-only transformer LM (dense + MoE): serving and training.
 
 One `Block` module per layer, in `nn.ModuleList`s. MoE architectures with
 leading dense layers (DeepSeek-V2) keep two stacks, `dense_layers` then
@@ -7,7 +7,11 @@ leading dense layers (DeepSeek-V2) keep two stacks, `dense_layers` then
 (`convert.lm_params_from_numpy`) splits JAX's stacked leaves into these
 modules. The JAX package's `maybe_constrain` (sharding hints, the
 identity without a mesh) has no counterpart on one card and is left out.
-`loss_fn` comes with the training slice.
+
+Training API (the JAX package's, outside `torch.inference_mode`):
+  forward_hidden(x, positions)     -> (normed hidden, aux loss), each
+                                      layer under `ckpt`
+  loss_fn(batch, aux_coef, q_chunk) -> (loss, dict(ce, aux))
 
 Serving API (the methods `ContinuousBatcher` calls):
   init_cache(batch, max_seq)       -> cache
@@ -26,7 +30,8 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.common import LM, embed, param, rms_norm, zeros_init
+from repro_torch.models.common import (LM, ckpt, cross_entropy, embed, param,
+                                       rms_norm, zeros_init)
 from repro_torch.models.mlp import MLP, mlp_forward
 from repro_torch.models.moe import MoE, moe_forward
 
@@ -112,6 +117,33 @@ class Transformer(LM):
         if extra:
             raise TypeError(f"unexpected inputs {sorted(extra)}")
         return embed(self.embed, tokens)
+
+    # ----------------------------------------------------------- training
+    def forward_hidden(self, x, positions, *, q_chunk: int = 512):
+        """x [B, T, d] input stream -> (final-normed hidden, the summed
+        MoE aux loss float32), each layer rematerialised by `ckpt`."""
+        cfg = self.cfg
+        aux_total = x.new_zeros((), dtype=torch.float32)
+        for _, layers in self.stacks():
+            aux = x.new_zeros((), dtype=torch.float32)
+            for block in layers:
+                x, a = ckpt(lambda h, b=block: b(
+                    h, cfg, positions, q_chunk=q_chunk)[:2])(x)
+                aux = aux + a
+            aux_total = aux_total + aux
+        return rms_norm(x, self.final_norm, cfg.norm_eps), aux_total
+
+    def _loss(self, x, labels, n_prefix: int, aux_coef: float,
+              q_chunk: int):
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        hidden, aux = self.forward_hidden(x, positions, q_chunk=q_chunk)
+        ce = cross_entropy(self.logits_fn(hidden[:, n_prefix:]), labels)
+        return ce + aux_coef * aux, dict(ce=ce, aux=aux)
+
+    def loss_fn(self, batch, *, aux_coef: float = 0.01, q_chunk: int = 512):
+        return self._loss(self.embed_inputs(batch["tokens"]),
+                          batch["labels"], 0, aux_coef, q_chunk)
 
     # ------------------------------------------------------------ serving
     @torch.inference_mode()

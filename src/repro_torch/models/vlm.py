@@ -5,7 +5,8 @@ the caller gives precomputed patch embeddings [B, num_image_tokens,
 d_model], which `vision_proj` maps into the LM stream ahead of the text.
 The image prefix takes the first positions, so the cache covers image and
 text and its idx starts at num_image_tokens + T. Without image
-embeddings the prefix is zeros.
+embeddings the prefix is zeros. `loss_fn` takes the CE on the text
+positions only, with the aux coefficient fixed at 0.01 as JAX's.
 """
 from __future__ import annotations
 
@@ -31,3 +32,9 @@ class VLM(Transformer):
         img = torch.matmul(img_embeds.to(COMPUTE_DTYPE),
                            self.vision_proj.to(COMPUTE_DTYPE))
         return torch.cat([img, embed(self.embed, tokens)], dim=1)
+
+    def loss_fn(self, batch, *, q_chunk: int = 512, **_):
+        tokens = batch["tokens"]
+        x = self.embed_inputs(tokens, batch["img_embeds"])
+        return self._loss(x, batch["labels"], x.shape[1] - tokens.shape[1],
+                          0.01, q_chunk)

@@ -97,6 +97,18 @@ for arch in ("qwen2-7b", "deepseek-v2-236b"):
                     max_new_tokens=3) for i in range(2)]
     stats = ContinuousBatcher(model, slots=2, max_seq=16).run(reqs)
     assert stats.completed == 2 and stats.tokens_out == 6
+from repro_torch.data import DataConfig, PageRankWeightedSampler
+from repro_torch.launch.train import run_training
+from repro_torch.train import compressed_psum
+_, state, losses = run_training(reduced_config("mamba2-1.3b"), steps=2,
+                                global_batch=2, seq_len=8, device="cpu")
+assert len(losses) == 2 and int(state.step) == 2
+b = PageRankWeightedSampler(np.ones(40), DataConfig(
+    vocab_size=16, seq_len=4, global_batch=2)).batch_at(0)
+assert b["tokens"].shape == (2, 4)
+import torch
+y, _ = compressed_psum(torch.ones(3, 5), mesh, torch.zeros(3, 5))
+assert y.shape == (5,)
 assert not {"jax", "ml_dtypes"} & {m.split(".")[0]
                                     for m, v in sys.modules.items() if v}
 print("ok")
