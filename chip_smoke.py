@@ -124,11 +124,25 @@
    within 1e-2, masters within 2.2 lr, 0.05 lr on average); (c) the
    reduced DeepSeek-V2's loss and gradients under the three remat
    policies against "none" (within 1e-2 of each leaf's largest).
+11. The dry run and the sharded MoE (`dryrun_path`): (a) the cells of
+   `launch.dryrun` in DRYRUN_SMOKE_CELLS (24 of the 40; the CLI traces
+   all) traced at full width on fake card tensors, each `ok` or skipped
+   with the JAX package's reason, with FLOPs, argument and peak bytes,
+   the H100 roofline and whether the peak fits 80 GB, and all 40 cells'
+   per-device argument bytes on the 16x16 and 2x16x16 meshes; (b) step
+   10 (a)'s Qwen2-7B x8 step dry-run against the card: argument bytes
+   within 1% of the rise of `memory_allocated()` across model, state
+   and batch init, peak within 20% of `max_memory_allocated()` of a
+   step, FlopCounterMode's total equal to the same counter around the
+   real step; (c) one DBRX-132B MoE layer at full width, B=2, T=64,
+   capacity E/k: the sharded path on the 1x1 mesh equal to the gather
+   path bit for bit (deterministic algorithms), on a stacked 2x2 mesh
+   within 2e-2 of the largest |out|, 0 drops, both timed.
 
 Steps 3 to 6 are the main path: every engine is driven with the launch
 counters set to 0 just before it and read just after. The LM runs of
-steps 9 and 10 are driven the same way; they launch none of the five
-kernels.
+steps 9 and 10 and step 11's parts are driven the same way; they launch
+none of the five kernels.
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`. Exits non-zero,
 printing no result, when there is no CUDA card or any phase fails.
@@ -2882,6 +2896,271 @@ def lm_train_path(drive, smi, scores):
     return out
 
 
+# The whole sweep takes far more than the 120 s of host time the smoke
+# gives it (the >30 B configs' train cells trace 4 or 16 microbatches of
+# 40-96 layers, 2.5-13 minutes each on the card's host; PERF.md), so the
+# smoke traces these cells: Qwen2-7B's four, every decode_32k and
+# long_500k, and the train_4k cells of the hybrid and audio families.
+# `python -m repro_torch.launch.dryrun --all` traces all 40.
+DRYRUN_SMOKE_CELLS = (
+    [("qwen2-7b", s) for s in ("train_4k", "prefill_32k", "decode_32k",
+                               "long_500k")]
+    + [(a, s) for a in ("deepseek-v2-236b", "dbrx-132b", "nemotron-4-340b",
+                        "h2o-danube-3-4b", "qwen3-32b", "mamba2-1.3b",
+                        "recurrentgemma-9b", "internvl2-1b", "whisper-tiny")
+       for s in ("decode_32k", "long_500k")]
+    + [(a, "train_4k") for a in ("recurrentgemma-9b", "whisper-tiny")])
+DRYRUN_ARGS_TOL = 0.01            # (b) argument bytes, relative
+DRYRUN_PEAK_TOL = 0.20            # (b) peak bytes, relative
+MOE_SHARDED_ARCH = "dbrx-132b"
+MOE_SHARDED_B, MOE_SHARDED_T = 2, 64
+MOE_SHARDED_MESH = {"data": 2, "model": 2}
+# the 2x2 mesh against the gather path: each model shard's partial
+# output is rounded to bf16 by its own down-projection before the sum
+# (the gather path rounds once), as tests/test_torch_moe_sharded.py
+MOE_SHARDED_TOL = 2e-2            # relative to the largest |out|
+
+
+def dryrun_sweep(smi) -> dict:
+    """(a) Every (arch x shape) cell of `launch.dryrun` at full width on
+    the 1x1 mesh (fake tensors on the card, nothing allocated), with the
+    per-device argument bytes at pod16x16 and pod2x16x16; every traced
+    cell `ok`, or `skipped` with the JAX package's reason. The cells of
+    DRYRUN_SMOKE_CELLS are traced."""
+    from repro_torch.configs import ARCHS, SHAPES, get_config, \
+        shape_applicable
+    from repro_torch.launch import dryrun
+
+    cells = DRYRUN_SMOKE_CELLS
+    log(f"dryrun (a): {len(cells)} of {len(ARCHS) * len(SHAPES)} cells "
+        f"traced; per-device arguments for all {len(ARCHS) * len(SHAPES)}")
+    out, t0 = {}, time.perf_counter()
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for shape_name, shape in SHAPES.items():
+            row = {}
+            if shape_applicable(cfg, shape):
+                row = {m: dryrun.mesh_argument_bytes(cfg, shape, mp)
+                       for m, mp in dryrun.MESHES.items()}
+            if (arch, shape_name) not in cells:
+                out[f"{arch}__{shape_name}"] = dict(
+                    status="not traced", per_device_argument_bytes=row)
+                continue
+            t1 = time.perf_counter()
+            traced = {}
+
+            def trace(cfg=cfg, shape=shape, traced=traced):
+                if not traced:
+                    traced.update(dryrun.trace_cell(cfg, shape))
+                return traced
+
+            rec = {m: dryrun.cell_record(arch, shape_name, m, trace)
+                   for m in dryrun.MESHES}
+            r = rec["pod16x16"]
+            check(r["status"] in ("ok", "skipped"),
+                  f"dryrun {arch} {shape_name}: {r['status']} "
+                  f"{r.get('reason')}")
+            if r["status"] == "skipped":
+                check("long_500k needs sub-quadratic attention" in
+                      r["reason"], f"dryrun {arch} {shape_name}: skipped "
+                      f"for {r['reason']}")
+                log(f"  [skipped] {arch} {shape_name}: {r['reason']}")
+                out[f"{arch}__{shape_name}"] = dict(status="skipped")
+                continue
+            for m in dryrun.MESHES:
+                check(rec[m]["per_device"]["argument_bytes"] == row[m],
+                      f"dryrun {arch} {shape_name} {m}: per-device bytes")
+            roof = r["roofline"]
+            peak = r["memory"]["peak_bytes"]
+            row = dict(
+                status="ok", flops=r["cost"]["flops"],
+                bytes_accessed=r["cost"]["bytes_accessed"],
+                argument_gib=r["memory"]["argument_size_in_bytes"] / 2 ** 30,
+                peak_gib=peak / 2 ** 30, fits_80gb=r["fits_80gb"],
+                bottleneck=roof["bottleneck"], step_s=roof["step_time"],
+                model_flops=roof["model_flops"],
+                microbatches=r["microbatches"],
+                per_device_argument_gib={
+                    m: rec[m]["per_device"]["argument_bytes"] / 2 ** 30
+                    for m in dryrun.MESHES},
+                trace_s=r["t_trace_s"], host_s=time.perf_counter() - t1)
+            out[f"{arch}__{shape_name}"] = row
+            log(f"  [ok] {arch} {shape_name}: {row['flops']:.4g} FLOPs, "
+                f"args {row['argument_gib']:.2f} GiB, peak "
+                f"{row['peak_gib']:.2f} GiB (fits 80 GB: "
+                f"{row['fits_80gb']}), {row['bottleneck']}-bound, roofline "
+                f"step {row['step_s'] * 1e3:.3f} ms; per device "
+                f"{row['per_device_argument_gib']['pod16x16']:.3f} GiB "
+                f"(16x16), "
+                f"{row['per_device_argument_gib']['pod2x16x16']:.3f} GiB "
+                f"(2x16x16); traced in {row['trace_s']:.2f} s")
+    host_s = time.perf_counter() - t0
+    log(f"dryrun (a) on {smi}: {host_s:.1f} s of host time")
+    return dict(cells=out, host_s=host_s)
+
+
+def dryrun_vs_card(smi) -> dict:
+    """(b) The dry run of lm_train_path (a)'s step (Qwen2-7B x8, 4 x 1,024
+    tokens, 2 microbatches, remat full, fp32 moments) against the card:
+    argument bytes against the rise of memory_allocated() across model,
+    state and batch init; peak against max_memory_allocated() of a step;
+    FLOPs against FlopCounterMode around that real step."""
+    import dataclasses
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import ShardingRules, active_rules, \
+        default_rules
+
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
+                              num_layers=LM_TRAIN_LAYERS)
+    shape = ShapeConfig("lm_train_path", LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                        "train")
+    kw = dict(q_chunk=512, microbatches=LM_TRAIN_MICRO, int8_moments=False)
+    fake = dryrun.trace_cell(cfg, shape, **kw)
+    lm_release()
+    base = torch.cuda.memory_allocated()
+    cell = dryrun.build_cell(cfg, shape, resolve_device(None), seed=0, **kw)
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - base
+    rules = ShardingRules(make_local_mesh(), default_rules(False))
+    with active_rules(rules):
+        cell["run"]()                                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            cell["run"]()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    real_flops = fc.get_total_flops()
+    del cell
+    lm_release()
+    out = dict(
+        argument_bytes=fake["argument_bytes"], allocated_rise=rise,
+        argument_gap=fake["argument_bytes"] / rise - 1,
+        peak_bytes=fake["peak_bytes"], max_allocated=peak,
+        peak_gap=fake["peak_bytes"] / peak - 1,
+        fake_flops=fake["flops"], real_flops=real_flops,
+        model_flops=lm_train_flops(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+        trace_s=fake["trace_s"])
+    log(f"dryrun (b) {cfg.name} x{cfg.num_layers}, {LM_TRAIN_BATCH} x "
+        f"{LM_TRAIN_SEQ} tokens, {LM_TRAIN_MICRO} microbatches, remat full, "
+        f"fp32 moments, on {smi}: arguments {fake['argument_bytes']:,} B "
+        f"predicted, {rise:,} B allocated ({out['argument_gap']:+.4%}); "
+        f"peak {fake['peak_bytes'] / 2 ** 30:.2f} GiB predicted, "
+        f"{peak / 2 ** 30:.2f} GiB max allocated ({out['peak_gap']:+.2%}); "
+        f"FLOPs {fake['flops']:.6g} fake, {real_flops:.6g} on the card, "
+        f"{out['model_flops']:.4g} model FLOPs (lm_train_flops)")
+    check(abs(out["argument_gap"]) <= DRYRUN_ARGS_TOL,
+          f"dryrun (b): argument bytes {out['argument_gap']:+.4%} off")
+    check(abs(out["peak_gap"]) <= DRYRUN_PEAK_TOL,
+          f"dryrun (b): peak {out['peak_gap']:+.2%} off")
+    check(fake["flops"] == real_flops,
+          f"dryrun (b): {fake['flops']} fake FLOPs, {real_flops} real")
+    return out
+
+
+def moe_sharded_check(smi) -> dict:
+    """(c) One DBRX-132B MoE layer at full width (capacity E/k: nothing
+    can drop): the sharded path on the 1x1 mesh against the gather path,
+    bit for bit (deterministic algorithms on: the combine's index_add_
+    otherwise sums with atomics in no fixed order); on a stacked 2x2 mesh
+    within MOE_SHARDED_TOL; 0 drops; the time of each path."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_local_mesh, make_stacked_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import ShardingRules, active_rules, \
+        default_rules
+
+    base = get_config(MOE_SHARDED_ARCH)
+    cfg = dataclasses.replace(base, capacity_factor=base.num_experts
+                              / base.num_experts_per_tok)
+    dev = resolve_device(None)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    layer = moe.MoE(cfg, device=dev, gen=gen)
+    x = torch.randn((MOE_SHARDED_B, MOE_SHARDED_T, cfg.d_model),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    local = ShardingRules(make_local_mesh(), default_rules(False))
+    stacked = ShardingRules(make_stacked_mesh(MOE_SHARDED_MESH),
+                            default_rules(False))
+
+    def run(rules):
+        if rules is None:
+            return moe.moe_forward(layer, x, cfg)
+        with active_rules(rules):
+            return moe.moe_forward(layer, x, cfg)
+
+    out = {}
+    with torch.no_grad():
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            g_out, g_aux = run(None)
+            s_out, s_aux = run(local)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check(torch.equal(g_out, s_out),
+              "moe (c): the 1x1 sharded path differs from the gather path")
+        check(abs(float(g_aux) - float(s_aux)) < 1e-5,
+              f"moe (c): aux {float(g_aux)} vs {float(s_aux)} at 1x1")
+        layer.dropped.zero_()
+        t_out, t_aux = run(stacked)
+        err = float((t_out.float() - g_out.float()).abs().max()
+                    / g_out.float().abs().max())
+        out.update(max_rel_err_2x2=err, aux=float(g_aux),
+                   aux_2x2=float(t_aux), dropped_2x2=int(layer.dropped))
+        layer.dropped.zero_()
+        run(None)
+        out["dropped_gather"] = int(layer.dropped)
+        check(err <= MOE_SHARDED_TOL,
+              f"moe (c): 2x2 stacked {err:.3g} off the gather path")
+        check(out["dropped_2x2"] == out["dropped_gather"] == 0,
+              f"moe (c): drops {out['dropped_2x2']}, "
+              f"{out['dropped_gather']}")
+        for key, rules in (("gather_ms", None), ("sharded_1x1_ms", local),
+                           ("sharded_2x2_ms", stacked)):
+            out[key] = cuda_ms(lambda r=rules: run(r), iters=10)
+    log(f"moe (c) {cfg.name} layer (d {cfg.d_model}, {cfg.num_experts} "
+        f"experts top-{cfg.num_experts_per_tok}, moe_d_ff {cfg.moe_d_ff}), "
+        f"B={MOE_SHARDED_B} T={MOE_SHARDED_T} bf16, capacity factor "
+        f"{cfg.capacity_factor}, on {smi}: 1x1 sharded == gather bit for "
+        f"bit; 2x2 stacked max error {err:.3g} of the largest |out| "
+        f"(tolerance {MOE_SHARDED_TOL}), aux {out['aux']:.6g} / "
+        f"{out['aux_2x2']:.6g}, drops {out['dropped_gather']} / "
+        f"{out['dropped_2x2']}; gather {out['gather_ms']:.3f} ms, sharded "
+        f"1x1 {out['sharded_1x1_ms']:.3f} ms, sharded 2x2 "
+        f"{out['sharded_2x2_ms']:.3f} ms")
+    del layer, x
+    lm_release()
+    return out
+
+
+def dryrun_path(drive, smi):
+    """The dry run and the sharded MoE: (a) the sweep, (b) the dry run
+    against the card, (c) the sharded MoE on the card. Launches none of
+    the five kernels: each part is driven with the counters at 0 and
+    must leave them there."""
+    log(f"dryrun path on {smi}")
+    out = {}
+    for key, phase in (("sweep", lambda: dryrun_sweep(smi)),
+                       ("vs_card", lambda: dryrun_vs_card(smi)),
+                       ("moe_sharded", lambda: moe_sharded_check(smi))):
+        out[key], secs, _ = drive(f"dryrun {key}", phase, [])
+        check(not any(drive.last.values()),
+              f"dryrun {key} launched kernels: {drive.last}")
+        out[key + "_phase_s"] = secs
+        log(f"dryrun phase {key}: {secs:.2f} s")
+        lm_release()
+    log(f"dryrun: {smi} " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2965,6 +3244,9 @@ def main() -> int:
         t0 = time.perf_counter()
         lm_train_path(drive, smi, runs.pop("scores"))
         phases["lm_train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dryrun_path(drive, smi)
+        phases["dryrun"] = time.perf_counter() - t0
     except PhaseError as e:
         log(f"FAILED: {e}")
         return 1

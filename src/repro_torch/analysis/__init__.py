@@ -1,1 +1,2 @@
-"""The CONGEST wire auditor (`congest`) and the engine lints (`lint`)."""
+"""The CONGEST wire auditor (`congest`), the engine lints (`lint`), and the
+dry run's roofline model (`roofline`, with `hlo`'s collective parser)."""

@@ -43,12 +43,19 @@ def unpack_json(arr: Any) -> Any:
 
 def to_numpy(leaf: Any) -> np.ndarray:
     """A host numpy copy of a leaf (bfloat16 widens to float32, which numpy
-    can store)."""
+    can store). The copy owns its memory: a CPU tensor is cloned, since
+    `.cpu()` and `.numpy()` would share its storage and the async writer
+    would save whatever the caller writes into it later; a card tensor's
+    `.cpu()` is already a copy."""
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach().cpu()
-        if leaf.dtype == torch.bfloat16:
-            leaf = leaf.float()
-        return leaf.numpy()
+        src = leaf.detach()
+        host = src.cpu()
+        if host.dtype == torch.bfloat16:
+            host = host.float()
+        elif (host.untyped_storage().data_ptr()
+              == src.untyped_storage().data_ptr()):
+            host = host.clone()
+        return host.numpy()
     return np.asarray(leaf)
 
 

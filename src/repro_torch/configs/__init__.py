@@ -1,8 +1,8 @@
 """Config registry for the assigned architecture pool.
 
 The same ten configurations as the JAX package's `repro.configs`, copied
-so that the port imports nothing of it. The input shapes of the dry run
-(`SHAPES`, `input_specs`, `shape_applicable`) come with the dry-run slice.
+so that the port imports nothing of it, and the dry run's input shapes
+(`SHAPES`, `input_specs`, `shape_applicable`, in `configs.shapes`).
 """
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import (SHAPES, ShapeConfig, input_specs,
+                                        shape_applicable)
 
 from repro_torch.configs.deepseek_v2_236b import CONFIG as _deepseek
 from repro_torch.configs.dbrx_132b import CONFIG as _dbrx
@@ -69,4 +71,5 @@ def reduced_config(name: str) -> ArchConfig:
     return dataclasses.replace(cfg, **reps)
 
 
-__all__ = ["ARCHS", "ArchConfig", "get_config", "reduced_config"]
+__all__ = ["ARCHS", "ArchConfig", "SHAPES", "ShapeConfig", "get_config",
+           "input_specs", "reduced_config", "shape_applicable"]

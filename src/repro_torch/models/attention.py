@@ -63,6 +63,13 @@ class GQA(nn.Module):
     """wq [d, Hp, hd] and wo [Hp, hd, d] (padded query heads zero),
     wk, wv [d, KV, hd]; bq/bk/bv with `qkv_bias`, q_norm/k_norm [hd] with
     `qk_norm`."""
+    AXES = dict(wq=("embed", "q_heads", "head_dim"),
+                wk=("embed", "kv_heads", "head_dim"),
+                wv=("embed", "kv_heads", "head_dim"),
+                wo=("q_heads", "head_dim", "embed"),
+                bq=("q_heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                bv=("kv_heads", "head_dim"),
+                q_norm=("head_dim",), k_norm=("head_dim",))
 
     def __init__(self, cfg, *, device, gen):
         super().__init__()
@@ -193,6 +200,14 @@ def pad_stacked_cache(cache: Dict[str, torch.Tensor], max_seq: int, cfg,
     return cache
 
 
+GQA_CACHE_AXES = dict(k=("batch", "cache_seq", "kv_heads", "head_dim"),
+                      v=("batch", "cache_seq", "kv_heads", "head_dim"),
+                      idx=("batch",))
+MLA_CACHE_AXES = dict(c_kv=("batch", "cache_seq", "kv_lora"),
+                      k_rope=("batch", "cache_seq", "head_dim"),
+                      idx=("batch",))
+
+
 def init_gqa_cache(cfg, batch: int, max_seq: int, device
                    ) -> Dict[str, torch.Tensor]:
     """idx is a per-sequence position vector [B]: decode slots advance
@@ -248,6 +263,12 @@ def gqa_decode(p: GQA, x, cfg, cache):
 class MLA(nn.Module):
     """Low-rank queries (wq_a, q_norm, wq_b), the compressed key/value
     latent (wkv_a, kv_norm) and its up-projections (wkv_b_k, wkv_b_v)."""
+    AXES = dict(wq_a=("embed", "q_lora"), q_norm=("q_lora",),
+                wq_b=("q_lora", "q_heads", "head_dim"),
+                wkv_a=("embed", "kv_lora"), kv_norm=("kv_lora",),
+                wkv_b_k=("kv_lora", "q_heads", "head_dim"),
+                wkv_b_v=("kv_lora", "q_heads", "head_dim"),
+                wo=("q_heads", "head_dim", "embed"))
 
     def __init__(self, cfg, *, device, gen):
         super().__init__()

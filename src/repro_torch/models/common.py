@@ -9,8 +9,14 @@ tests carry JAX's weights over with `convert.lm_params_from_numpy`.
 Training: `param()` makes every weight without a gradient, as serving
 wants; `model.requires_grad_()` turns gradients on for training.
 `cross_entropy` is the JAX module's float32 loss; `remat_policy` and
-`ckpt` its rematerialisation, by `torch.utils.checkpoint`. The dry-run
-helpers (`maybe_scan`, `unroll_scans`) come with the dry-run slice.
+`ckpt` its rematerialisation, by `torch.utils.checkpoint`. The JAX
+module's scan helpers (`maybe_scan`, `unroll_scans`) have no counterpart:
+the port loops over its layers, and its dry run counts every op it runs.
+
+Sharding: each module class names the logical axes of its own parameters
+in `AXES`; `module_axes` assembles a model's tree of them, the second
+element of the JAX package's `init_params`, with a leading "layers" on
+every layer stack (`prepend_layers_axis`).
 """
 from __future__ import annotations
 
@@ -100,9 +106,35 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
 
 
+def prepend_layers_axis(axes_tree):
+    """Every leaf of a logical-axes tree with a leading "layers" axis."""
+    if isinstance(axes_tree, dict):
+        return {k: prepend_layers_axis(v) for k, v in axes_tree.items()}
+    return ("layers",) + axes_tree
+
+
+def module_axes(m: nn.Module) -> dict:
+    """The logical axes of `m`'s parameters in the tree of
+    `convert.lm_param_tree`: its own from its class's `AXES`, its
+    children's nested under their names, a layer stack (a non-empty
+    `nn.ModuleList`) as its first layer's with "layers" prepended."""
+    out = {name: type(m).AXES[name]
+           for name, _ in m.named_parameters(recurse=False)}
+    for name, child in m.named_children():
+        if isinstance(child, nn.ModuleList):
+            if len(child):
+                out[name] = prepend_layers_axis(module_axes(child[0]))
+        else:
+            sub = module_axes(child)
+            if sub:
+                out[name] = sub
+    return out
+
+
 class Embedding(nn.Module):
     """A [vocab, d_model] table: the input embedding, or an untied head
     (JAX's `init_embedding`)."""
+    AXES = dict(table=("vocab", "embed"))
 
     def __init__(self, vocab: int, d_model: int, *, device, gen):
         super().__init__()
@@ -209,7 +241,12 @@ class LM(nn.Module):
     the input embedding, the final norm and the head (the embedding when
     `cfg.tie_embeddings`). Weights are drawn from a generator seeded with
     `seed` in the order embedding, `_build`'s layers, head; with `seed`
-    None they are left unset, for `convert.lm_params_from_numpy` to load."""
+    None they are left unset, for `convert.lm_params_from_numpy` to load.
+
+    `param_axes()` and `cache_axes(batch, max_seq)` give the logical axes
+    of the parameters and of `init_cache`'s tensors: the JAX package's
+    axes trees."""
+    AXES = dict(final_norm=("embed",))
 
     def __init__(self, cfg, *, device=None, seed: Optional[int] = 0):
         super().__init__()
@@ -228,6 +265,12 @@ class LM(nn.Module):
 
     def _build(self, cfg, device, gen) -> None:
         """The layers, between the embedding and the head."""
+        raise NotImplementedError
+
+    def param_axes(self) -> dict:
+        return module_axes(self)
+
+    def cache_axes(self, batch: int, max_seq: int) -> dict:
         raise NotImplementedError
 
     def logits(self, x) -> torch.Tensor:

@@ -26,7 +26,8 @@ from torch import nn
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (COMPUTE_DTYPE, LM, ckpt,
-                                       cross_entropy, embed, param, rms_norm,
+                                       cross_entropy, embed, param,
+                                       prepend_layers_axis, rms_norm,
                                        zeros_init)
 from repro_torch.models.mlp import MLP, mlp_forward
 
@@ -53,6 +54,8 @@ def cross_kv(p: attn_lib.GQA, enc_states):
 
 
 class EncLayer(nn.Module):
+    AXES = dict(ln1=("embed",), ln2=("embed",))
+
     def __init__(self, cfg, *, device, gen):
         super().__init__()
         d = cfg.d_model
@@ -63,6 +66,8 @@ class EncLayer(nn.Module):
 
 
 class DecLayer(nn.Module):
+    AXES = dict(ln1=("embed",), ln_x=("embed",), ln2=("embed",))
+
     def __init__(self, cfg, *, device, gen):
         super().__init__()
         d = cfg.d_model
@@ -108,6 +113,7 @@ def dec_layer_decode(p: DecLayer, x, cache, enc_kv, cfg):
 class EncDec(LM):
     """The encoder-decoder LM of `cfg`: embedding, `enc_layers`,
     `enc_norm`, `dec_layers`, final norm, head."""
+    AXES = dict(LM.AXES, enc_norm=("embed",))
 
     def _build(self, cfg, device, gen) -> None:
         self.enc_layers = nn.ModuleList(EncLayer(cfg, device=device, gen=gen)
@@ -139,6 +145,11 @@ class EncDec(LM):
                 lp, h, kv, cfg, positions, q_chunk=q_chunk)[0])(x)
         ce = cross_entropy(self.logits(x), batch["labels"])
         return ce, dict(ce=ce, aux=ce.new_zeros(()))
+
+    def cache_axes(self, batch: int, max_seq: int) -> dict:
+        cross = ("layers", "batch", None, "kv_heads", "head_dim")
+        return dict(self=prepend_layers_axis(attn_lib.GQA_CACHE_AXES),
+                    cross_k=cross, cross_v=cross)
 
     @torch.inference_mode()
     def init_cache(self, batch: int, max_seq: int) -> Cache:

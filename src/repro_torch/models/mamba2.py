@@ -31,6 +31,7 @@ from repro_torch.models.common import (COMPUTE_DTYPE, LM, causal_conv, ckpt,
                                        cross_entropy, dense_init, embed,
                                        ones_init, param, rms_norm,
                                        zeros_init)
+from repro_torch.sharding.rules import maybe_constrain
 
 Cache = Dict[str, torch.Tensor]
 
@@ -47,6 +48,10 @@ def _dims(cfg) -> Tuple[int, int, int, int]:
 class Mamba2Block(nn.Module):
     """in_proj [d, d_in + conv_dim + H] gives z, x|B|C and dt; A_log,
     dt_bias and D [H] are float32."""
+    AXES = dict(ln=("embed",), in_proj=("embed", "ffn"),
+                conv_w=(None, "ffn"), conv_b=("ffn",),
+                A_log=("q_heads",), dt_bias=("q_heads",), D=("q_heads",),
+                norm=("ffn",), out_proj=("ffn", "embed"))
 
     def __init__(self, cfg, *, device, gen):
         super().__init__()
@@ -169,7 +174,8 @@ def block_forward(p: Mamba2Block, x, cfg):
     y, ssm_state = ssd_chunked(x_dt, dtA, Bm, Cm, chunk)
     y = y[:, :T] + xs.float() * p.D[None, None, :, None]
     y = y.reshape(B_, T, d_in).to(COMPUTE_DTYPE)
-    out = _gate_out(p, x, y, z, cfg)
+    out = maybe_constrain(_gate_out(p, x, y, z, cfg),
+                          ("batch", "seq", "embed"))
     # the last k-1 rows of the padded input, zero rows included when T is
     # shorter
     conv_state = xBC_pad[:, xBC_pad.shape[1] - (k - 1):]
@@ -218,6 +224,11 @@ class Mamba2(LM):
             x = ckpt(lambda h, b=block: block_forward(b, h, self.cfg)[0])(x)
         ce = cross_entropy(self.logits(x), batch["labels"])
         return ce, dict(ce=ce, aux=ce.new_zeros(()))
+
+    def cache_axes(self, batch: int, max_seq: int) -> dict:
+        return dict(conv=("layers", "batch", None, "ffn"),
+                    ssm=("layers", "batch", "q_heads", None, "state"),
+                    idx=("layers", "batch"))
 
     @torch.inference_mode()
     def init_cache(self, batch: int, max_seq: int) -> Cache:

@@ -27,6 +27,8 @@ def activation(h: torch.Tensor, kind: str) -> torch.Tensor:
 
 class MLP(nn.Module):
     """w_up [d, f], w_down [f, d], and w_gate [d, f] for the gated kinds."""
+    AXES = dict(w_up=("embed", "ffn"), w_down=("ffn", "embed"),
+                w_gate=("embed", "ffn"))
 
     def __init__(self, d_model: int, d_ff: int, kind: str, *, device, gen):
         super().__init__()

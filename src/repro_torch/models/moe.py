@@ -1,16 +1,19 @@
 """Mixture-of-Experts FFN: top-k routing, capacity dispatch, shared experts.
 
-The single-device path of the JAX package's `repro.models.moe`:
-assignments are ranked within their expert by a stable sort, tokens beyond
-an expert's capacity are dropped, and the kept ones are gathered into
-expert buffers [E, C, d], run through the expert FFNs, and combined with
-their gate weights. A Switch-style load-balance aux loss is returned.
-DeepSeek-style shared experts run as a dense MLP on every token and are
-added to the routed output. The integer paths (ranks, capacities, buffer
-slots) match JAX bit for bit.
+The JAX package's `repro.models.moe`: assignments are ranked within their
+expert by a stable sort, tokens beyond an expert's capacity are dropped,
+and the kept ones are gathered into expert buffers [E, C, d], run through
+the expert FFNs, and combined with their gate weights. A Switch-style
+load-balance aux loss is returned. DeepSeek-style shared experts run as a
+dense MLP on every token and are added to the routed output. The integer
+paths (ranks, capacities, buffer slots) match JAX bit for bit.
 
-`moe_forward_sharded` (experts tensor-parallel over a mesh) comes with the
-sharding slice: one card has no mesh to shard over.
+Two paths: the gather path on all tokens, and `moe_forward_sharded`,
+taken under sharding rules whose mesh has a "model" axis: tokens stay on
+their data shard, each expert's hidden dim is split over the model axis,
+and the partial outputs are summed over it. On the port's meshes every
+shard lives on one card (`launch.mesh.make_stacked_mesh`), so the shards
+run in turn and the collectives are sums and means over them.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from torch import nn
 from repro_torch.models.common import (COMPUTE_DTYPE, dense_init, param,
                                        recomputing)
 from repro_torch.models.mlp import MLP, activation, is_gated, mlp_forward
+from repro_torch.sharding.rules import current_rules
 
 
 def _rank_within(ids: torch.Tensor) -> torch.Tensor:
@@ -41,7 +45,12 @@ def _rank_within(ids: torch.Tensor) -> torch.Tensor:
 
 class MoE(nn.Module):
     """router [d, E] float32; w_up, w_gate [E, d, f], w_down [E, f, d];
-    `shared` an MLP of width f * num_shared_experts."""
+    `shared` an MLP of width f * num_shared_experts. Each expert's hidden
+    dim is tensor-parallel over the model axis and d_model over data
+    (FSDP at rest); the router is small and replicated."""
+    AXES = dict(router=(None, "experts_router"),
+                w_up=(None, "embed", "ffn"), w_down=(None, "ffn", "embed"),
+                w_gate=(None, "embed", "ffn"))
 
     def __init__(self, cfg, *, device, gen):
         super().__init__()
@@ -80,8 +89,12 @@ def route(logits: torch.Tensor, k: int):
     return gates, weights, experts
 
 
-def _dispatch_compute_combine(xf, logits, w_gate, w_up, w_down, cfg):
-    """Dispatch, expert FFNs and combine on the tokens xf [N, d].
+def _dispatch_compute_combine(xf, logits, w_gate, w_up, w_down, cfg,
+                              f_slice_partial: bool = False):
+    """Dispatch, expert FFNs and combine on the tokens xf [N, d] (one
+    data shard's, or all). Expert weights are [E, d, f_loc] / [E, f_loc,
+    d]; with `f_slice_partial`, f_loc is a slice of the hidden dim and the
+    returned out is a partial sum awaiting the sum over the model axis.
     Returns (out [N, d] float32, load [E], importance [E], dropped)."""
     N, d = xf.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -98,10 +111,12 @@ def _dispatch_compute_combine(xf, logits, w_gate, w_up, w_down, cfg):
     token_of = torch.arange(N, dtype=torch.int32,
                             device=xf.device).repeat_interleave(k)
     # the token in each expert buffer slot, -1 where empty; JAX writes the
-    # assignments past capacity out of range, where they are dropped
-    buf_tok = torch.full((E * C,), -1, dtype=torch.int32, device=xf.device)
-    buf_tok[(flat_e.long() * C + rank)[keep]] = token_of[keep]
-    buf_tok = buf_tok.reshape(E, C)
+    # assignments past capacity out of range, where they are dropped: here
+    # into one spare slot past the end
+    buf_tok = torch.full((E * C + 1,), -1, dtype=torch.int32,
+                         device=xf.device)
+    buf_tok[torch.where(keep, flat_e.long() * C + rank, E * C)] = token_of
+    buf_tok = buf_tok[:E * C].reshape(E, C)
     x_e = torch.where((buf_tok >= 0)[..., None],
                       xf[torch.clamp(buf_tok, 0, N - 1).long()],
                       0).to(COMPUTE_DTYPE)
@@ -123,10 +138,79 @@ def _dispatch_compute_combine(xf, logits, w_gate, w_up, w_down, cfg):
     return out, load, importance, (~keep).sum()
 
 
+def _data_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def moe_forward_sharded(p: MoE, x: torch.Tensor, cfg, rules
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The data-local MoE on `rules.mesh`: the batch splits over the data
+    axes (pod, data) and each data shard routes its own tokens, its
+    capacity from its own token count; the expert weights are sliced on
+    their hidden dim (`ffn`) over `model` and gathered whole on `embed`
+    over the data axes, so the only sums are the output's over `model`
+    and the load and importance means over the data axes. Each shard runs
+    in turn on the mesh's one card. Adds the assignments dropped (each
+    data shard's once) to `p.dropped`, except in a remat's re-run."""
+    mesh = rules.mesh
+    if mesh.size > 1 and not mesh.stacked:
+        raise NotImplementedError("a mesh of several cards needs the "
+                                  "NCCL collective layer (ROADMAP Queue 1 "
+                                  "item 4)")
+    dp = rules._axis_size(_data_axes(mesh))
+    tp = mesh.shape["model"]
+    B, T, d = x.shape
+    f = p.w_up.shape[2]
+    if tp > 1 and "model" not in (
+            rules.spec((None, "embed", "ffn"), p.w_up.shape)[2] or ()):
+        # the JAX package would sum tp whole copies of the output here
+        raise ValueError(f"the expert hidden dim {f} does not split over "
+                         f"the model axis ({tp})")
+    f_loc = f // tp
+
+    def f_slice(w, dim, j):
+        return w if tp == 1 else w.narrow(dim, j * f_loc, f_loc)
+
+    outs, loads, imps, dropped = [], [], [], 0
+    for xl in x.reshape(dp, B // dp, T, d):
+        xf = xl.reshape(-1, d)
+        logits = torch.matmul(xf.float(), p.router)
+        out = None
+        for j in range(tp):
+            part, load, imp, drop = _dispatch_compute_combine(
+                xf, logits,
+                None if p.w_gate is None else f_slice(p.w_gate, 2, j),
+                f_slice(p.w_up, 2, j), f_slice(p.w_down, 1, j), cfg,
+                f_slice_partial=tp > 1)
+            out = part if out is None else out + part
+        outs.append(out.to(x.dtype).reshape(B // dp, T, d))
+        loads.append(load)
+        imps.append(imp)
+        dropped = dropped + drop
+    if not recomputing():
+        p.dropped += dropped
+    load = torch.stack(loads).mean(dim=0)
+    imp = torch.stack(imps).mean(dim=0)
+    aux = cfg.num_experts * torch.sum(load * imp)
+    out = outs[0] if dp == 1 else torch.cat(outs, dim=0)
+    if p.shared is not None:
+        out = out + mlp_forward(p.shared, x, cfg.mlp)
+    return out, aux
+
+
 def moe_forward(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
                                                        torch.Tensor]:
     """x [B,T,d] -> (out [B,T,d], aux_loss scalar); adds the assignments
-    dropped at capacity to `p.dropped`, except in a remat's re-run."""
+    dropped at capacity to `p.dropped`, except in a remat's re-run. Takes
+    `moe_forward_sharded` when sharding rules are active on a mesh with a
+    "model" axis and the batch divides the data axes; else the gather
+    path."""
+    rules = current_rules()
+    if rules is not None and "model" in rules.mesh.shape:
+        dp = rules._axis_size(_data_axes(rules.mesh))
+        if x.shape[0] % dp == 0:
+            return moe_forward_sharded(p, x, cfg, rules)
+
     B, T, d = x.shape
     xf = x.reshape(B * T, d)
     logits = torch.matmul(xf.float(), p.router)

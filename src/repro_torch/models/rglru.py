@@ -35,8 +35,10 @@ from torch import nn
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (COMPUTE_DTYPE, LM, causal_conv, ckpt,
                                        cross_entropy, dense_init, embed,
-                                       param, rms_norm, zeros_init)
+                                       param, prepend_layers_axis, rms_norm,
+                                       zeros_init)
 from repro_torch.models.mlp import MLP, activation, mlp_forward
+from repro_torch.sharding.rules import maybe_constrain
 
 C_GATE = 8.0
 
@@ -66,6 +68,11 @@ def _attn_cfg(cfg):
 class RecurrentBlock(nn.Module):
     """The recurrent branch (w_in, conv, the RG-LRU gates w_a/w_x, lam
     float32), its GeLU gate w_gate_in, w_out, then the MLP."""
+    AXES = dict(ln=("embed",), w_in=("embed", "ffn"),
+                w_gate_in=("embed", "ffn"), conv_w=(None, "ffn"),
+                conv_b=("ffn",), w_a=("ffn", "ffn_in"), b_a=("ffn",),
+                w_x=("ffn", "ffn_in"), b_x=("ffn",), lam=("ffn",),
+                w_out=("ffn", "embed"), ln_mlp=("embed",))
 
     def __init__(self, cfg, *, device, gen):
         super().__init__()
@@ -95,6 +102,7 @@ class RecurrentBlock(nn.Module):
 
 class AttnBlock(nn.Module):
     """Local MQA attention, then the MLP."""
+    AXES = dict(ln=("embed",), ln_mlp=("embed",))
 
     def __init__(self, cfg, *, device, gen):
         super().__init__()
@@ -161,6 +169,7 @@ def recurrent_block_forward(p: RecurrentBlock, x, cfg, conv_hist=None,
     gate = activation(torch.matmul(h, p.w_gate_in.to(COMPUTE_DTYPE)), "gelu")
     y, hist, h_last = _recurrent_branch(p, xw, cfg, conv_hist, h0)
     x = x + torch.matmul(y * gate, p.w_out.to(COMPUTE_DTYPE))
+    x = maybe_constrain(x, ("batch", "seq", "embed"))
     x = x + mlp_forward(p.mlp, rms_norm(x, p.ln_mlp, cfg.norm_eps), cfg.mlp)
     return x, hist, h_last
 
@@ -235,6 +244,16 @@ class RecurrentGemma(LM):
             x = ckpt(rec)(x, block)
         ce = cross_entropy(self.logits(x), batch["labels"])
         return ce, dict(ce=ce, aux=ce.new_zeros(()))
+
+    def cache_axes(self, batch: int, max_seq: int) -> dict:
+        rec = dict(conv=("batch", None, "ffn"), h=("batch", "ffn"),
+                   idx=("batch",))
+        axes = dict(groups=dict(
+            rec=prepend_layers_axis(prepend_layers_axis(rec)),
+            attn=prepend_layers_axis(attn_lib.GQA_CACHE_AXES)))
+        if len(self.trailing):
+            axes["trailing"] = prepend_layers_axis(rec)
+        return axes
 
     @torch.inference_mode()
     def init_cache(self, batch: int, max_seq: int) -> Cache:

@@ -5,8 +5,8 @@ leading dense layers (DeepSeek-V2) keep two stacks, `dense_layers` then
 `moe_layers`, in layer order, as the JAX package's
 `repro.models.transformer` stacks its layer parameters; the converter
 (`convert.lm_params_from_numpy`) splits JAX's stacked leaves into these
-modules. The JAX package's `maybe_constrain` (sharding hints, the
-identity without a mesh) has no counterpart on one card and is left out.
+modules. `maybe_constrain` names the residual stream's axes where the JAX
+package does (the identity without sharding rules).
 
 Training API (the JAX package's, outside `torch.inference_mode`):
   forward_hidden(x, positions)     -> (normed hidden, aux loss), each
@@ -31,14 +31,18 @@ from torch import nn
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (LM, ckpt, cross_entropy, embed, param,
-                                       rms_norm, zeros_init)
+                                       prepend_layers_axis, rms_norm,
+                                       zeros_init)
 from repro_torch.models.mlp import MLP, mlp_forward
 from repro_torch.models.moe import MoE, moe_forward
+from repro_torch.sharding.rules import maybe_constrain
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
 
 class Block(nn.Module):
+    AXES = dict(ln1=("embed",), ln2=("embed",))
+
     def __init__(self, cfg, *, moe: bool, device, gen):
         super().__init__()
         self.is_moe = moe
@@ -72,8 +76,9 @@ class Block(nn.Module):
             h, k, v = attn_lib.gqa_forward(self.attn, h, cfg, positions,
                                            q_chunk=q_chunk)
             kv = dict(k=k, v=v)
-        x, aux = self._ffn(x + h, cfg)
-        return x, aux, kv
+        x = maybe_constrain(x + h, ("batch", "seq", "embed"))
+        x, aux = self._ffn(x, cfg)
+        return maybe_constrain(x, ("batch", "seq", "embed")), aux, kv
 
     def decode(self, x, cfg, cache: Dict[str, torch.Tensor]):
         h = rms_norm(x, self.ln1, cfg.norm_eps)
@@ -146,6 +151,11 @@ class Transformer(LM):
                           batch["labels"], 0, aux_coef, q_chunk)
 
     # ------------------------------------------------------------ serving
+    def cache_axes(self, batch: int, max_seq: int) -> dict:
+        ax = (attn_lib.MLA_CACHE_AXES if self.cfg.attention == "mla"
+              else attn_lib.GQA_CACHE_AXES)
+        return {key: prepend_layers_axis(ax) for key, _ in self.stacks()}
+
     @torch.inference_mode()
     def init_cache(self, batch: int, max_seq: int) -> Cache:
         if self.cfg.attention == "mla":

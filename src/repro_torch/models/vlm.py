@@ -17,6 +17,8 @@ from repro_torch.models.transformer import Transformer
 
 
 class VLM(Transformer):
+    AXES = dict(Transformer.AXES, vision_proj=("embed", "embed_in"))
+
     def _build(self, cfg, device, gen) -> None:
         super()._build(cfg, device, gen)
         d = cfg.d_model

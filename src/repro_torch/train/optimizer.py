@@ -1,9 +1,8 @@
 """AdamW with float32 master weights and optional blockwise-int8 moments.
 
-The JAX package's `repro.train.optimizer`, on one card (no ZeRO sharding:
-`state_axes` comes with the sharding slice). The state is kept per JAX
+The JAX package's `repro.train.optimizer`. The state is kept per JAX
 leaf, so that its blocks, its checkpoint keys and its int8 codes are the
-JAX package's:
+JAX package's (`state_axes` names its ZeRO layout):
 
     master  float32, the leaf flattened and zero-padded to a multiple of
             QBLOCK
@@ -159,6 +158,18 @@ def global_norm(tree) -> torch.Tensor:
             s = t.float().square().sum()
             total = s if total is None else total + s
     return _sqrt_(total)
+
+
+def state_axes(param_axes, int8_moments: bool) -> AdamState:
+    """The logical axes of `init_state`'s tree for parameters whose axes
+    tree is `param_axes` (`LM.param_axes()`): every flat leaf on
+    ("zero",), an int8 moment a (codes, scales) pair of them, the step
+    a scalar."""
+    master = tree_map(lambda _: ("zero",), param_axes)
+    if int8_moments:
+        mq = tree_map(lambda _: (("zero",), ("zero",)), param_axes)
+        return AdamState(step=(), master=master, m=mq, v=mq)
+    return AdamState(step=(), master=master, m=master, v=master)
 
 
 @torch.no_grad()

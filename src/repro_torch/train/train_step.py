@@ -1,7 +1,7 @@
 """Training step: microbatched gradient accumulation, then AdamW.
 
-The JAX package's `repro.train.train_step` on one card (its sharding
-hints, `maybe_constrain`, have no counterpart there).
+The JAX package's `repro.train.train_step`: each microbatch's tensors
+are named batch-sharded by `maybe_constrain`, as JAX's are.
 
     step = make_train_step(cfg, model, adam_cfg, num_microbatches)
     state = init_state(lm_param_tree(model), adam_cfg)
@@ -22,6 +22,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.convert import Stack, lm_param_tree
+from repro_torch.sharding.rules import maybe_constrain
 from repro_torch.train.optimizer import (AdamState, AdamWConfig,
                                          apply_updates, tree_leaves,
                                          tree_map)
@@ -74,6 +75,8 @@ def accumulate_grads(model, params, batch, num_microbatches: int = 1,
            for p in flat_p]
     loss_sum = torch.zeros((), dtype=torch.float32, device=flat_p[0].device)
     for micro in split_microbatches(batch, num_microbatches):
+        micro = {k: maybe_constrain(x, ("batch",) + (None,) * (x.ndim - 1))
+                 for k, x in micro.items()}
         loss, _ = model.loss_fn(micro, **loss_kwargs)
         grads = torch.autograd.grad(loss, flat_p)
         for a, g in zip(acc, grads):

@@ -109,6 +109,22 @@ assert b["tokens"].shape == (2, 4)
 import torch
 y, _ = compressed_psum(torch.ones(3, 5), mesh, torch.zeros(3, 5))
 assert y.shape == (5,)
+from repro_torch.configs.shapes import ShapeConfig
+from repro_torch.launch.dryrun import trace_cell
+from repro_torch.launch.mesh import make_stacked_mesh
+from repro_torch.models.moe import moe_forward_sharded
+from repro_torch.sharding import ShardingRules, default_rules
+r = trace_cell(reduced_config("qwen2-7b"), ShapeConfig("t", 8, 2, "train"),
+               device="cpu")
+assert r["flops"] > 0 and r["peak_bytes"] > r["argument_bytes"] > 0
+cfg = reduced_config("dbrx-132b")
+layer = get_model(cfg)(cfg, device="cpu", seed=0).moe_layers[0].moe
+rules = ShardingRules(make_stacked_mesh({"data": 2, "model": 2}, "cpu"),
+                      default_rules(False))
+out, aux = moe_forward_sharded(layer, torch.ones(2, 4, cfg.d_model,
+                                                 dtype=torch.bfloat16),
+                               cfg, rules)
+assert out.shape == (2, 4, cfg.d_model) and float(aux) > 0
 assert not {"jax", "ml_dtypes"} & {m.split(".")[0]
                                     for m, v in sys.modules.items() if v}
 print("ok")

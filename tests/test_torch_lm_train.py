@@ -493,7 +493,7 @@ def test_cli_trains_on_cpu(capsys, tmp_path):
                        str(tmp_path)])
     assert "[train] done. loss" in capsys.readouterr().out
     assert (tmp_path / "step_000000002" / "manifest.json").exists()
-    with pytest.raises(SystemExit, match="multi-card mesh"):
+    with pytest.raises(RuntimeError, match="need 256 devices, have"):
         launch_train.main(["--reduced", "--production-mesh"])
 
 
