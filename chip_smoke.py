@@ -38,6 +38,23 @@
    the walk engine print where the device time goes and its idle share.
    The kernel phase also times segment_spmv on the count engine's
    received-lane sum (its first round's lanes at P=4).
+4a. The elastic runtime (`elastic_path`), snapshots under build/elastic/
+   (removed at the end): the count engine killed at P=8 at round 40 and
+   resumed from pristine copies at P = 1, 2, 4 and 16 (zeta bit-identical
+   to step 3's count engine, rounds equal); the launcher's walk engine
+   (`run_walks`) killed at P=2 at round 11 and resumed at P=4 (from
+   round 10's snapshot), and killed at round 5 and resumed at P=1 (from
+   round 0's: every walk alive), the re-layout keeping every vertex's
+   live walks, the sum of zeta and the counters, nothing dropped, L1 and
+   top-10 as above; Algorithm 2 on erdos_renyi(2^15, 8) at eta_safety 8
+   (an empty tail), killed at P=4 mid-Phase 2 and resumed at P = 2 and 8
+   (zeta and pi bit-identical to its unfailed run); Section 5 on
+   doc_link_graph(2^12) killed at P=4 in keyed Phase 1 and resumed at
+   P=2 (the three-phase guards); and small kills at P=8 resumed at P=3
+   on the card against the CPU (counts, improved, directed, walks). Each
+   run prints its snapshot bytes, the seconds of each save, restore +
+   re-layout + placement seconds, and the time to recover (the resume
+   call to the end of its first round).
 5. Algorithm 2 and Section 5: the three-phase engine at P=4 on
    erdos_renyi(2^20, 8), eps 0.2, K = 139 (S = 6.6e8 coupons), beside the
    sharded count engine on the same graph; a second run of it splits its
@@ -139,10 +156,10 @@
    path bit for bit (deterministic algorithms), on a stacked 2x2 mesh
    within 2e-2 of the largest |out|, 0 drops, both timed.
 
-Steps 3 to 6 are the main path: every engine is driven with the launch
-counters set to 0 just before it and read just after. The LM runs of
-steps 9 and 10 and step 11's parts are driven the same way; they launch
-none of the five kernels.
+Steps 3 to 6 (4a included) are the main path: every engine is driven
+with the launch counters set to 0 just before it and read just after.
+The LM runs of steps 9 and 10 and step 11's parts are driven the same
+way; they launch none of the five kernels.
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`. Exits non-zero,
 printing no result, when there is no CUDA card or any phase fails.
@@ -151,6 +168,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -896,6 +914,447 @@ def sharded_path(g, K, drive, pi_ref, counts_zeta):
     del res
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the elastic runtime: kill at one shard count, resume at another
+# ---------------------------------------------------------------------------
+
+ELASTIC_DIR = ROOT / "build" / "elastic"
+ELASTIC_COUNTS = dict(kill_shards=8, kill_at=40, every=10,
+                      targets=(1, 2, 4, 16))
+# the launcher snapshots every 10 rounds. Killed at round 11 it resumes
+# mid-run from round 10's snapshot (on doc_link_graph(2^20) every live walk
+# then sits in the first quarter of the ids: one shard of four); killed at
+# round 5 it resumes from round 0's, every walk alive, the largest
+# re-layout. That one resumes at P=1: at P=4 the launcher's cap of 2W/P
+# slots a shard cannot hold the walks that converge on the low ids, and
+# both packages drop some. Kill round: the shard counts it resumes at
+ELASTIC_WALKS = dict(kill_shards=2, kills={11: (4,), 5: (1,)})
+# Algorithm 2 killed mid-Phase 2. A Phase-2 snapshot holds 3 + lam int32
+# coupon slots a coupon; at eta_safety 8 erdos_renyi(2^15, 8) has S =
+# 61,594,440 coupons (1.72 GB a snapshot); 2^17 would write 7.8 GB a
+# snapshot, ~30 GB for the kill and two resumes
+N_ELASTIC_IMPROVED = 1 << 15
+ELASTIC_IMPROVED = dict(kill_shards=4, targets=(2, 8), eta_safety=8.0)
+# Section 5 killed in keyed Phase 1: uniform pools give doc_link_graph(2^12)
+# S = 37,158,912 coupons, (2 + lam) int32 slots a coupon (1.34 GB a
+# snapshot); 2^14 would write 8.1 GB a snapshot
+N_ELASTIC_DIRECTED = 1 << 12
+ELASTIC_DIRECTED = dict(kill_shards=4, kill_at=3, every=2, targets=(2,))
+
+
+class RecoveryProbe:
+    """Times the checkpoint runtime from outside the engines while they run
+    (`with probe.watch(): ...`): each snapshot save (seconds and bytes on
+    disk), the restore of a snapshot, its re-layout and its placement on
+    the card, and the end of the first round a resumed supervisor runs.
+    Patches `Checkpointer.save`/`restore` and `Supervisor.run` for the
+    duration of the block; `check_relayout(flat, out)` sees each re-layout's
+    input and output."""
+
+    def __init__(self):
+        self.check_relayout = None
+        self.reset()
+
+    def reset(self):
+        self.t_call = time.perf_counter()
+        self.saves, self.restore_s, self.relayout_s = [], 0.0, 0.0
+        self.place_s, self.first_round_end = 0.0, None
+
+    @contextmanager
+    def watch(self):
+        import torch
+        from repro_torch.checkpoint import checkpointer
+        from repro_torch.runtime import fault_tolerance
+        ck, sup = checkpointer.Checkpointer, fault_tolerance.Supervisor
+        save, restore, run = ck.save, ck.restore, sup.run
+        probe = self
+
+        def timed_save(self, step, tree, **kw):
+            t0 = time.perf_counter()
+            path = save(self, step, tree, **kw)
+            secs = time.perf_counter() - t0
+            size = sum(f.stat().st_size for f in Path(path).iterdir())
+            probe.saves.append((int(step), secs, size))
+            return path
+
+        def timed_restore(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = restore(self, *a, **kw)
+            probe.restore_s += time.perf_counter() - t0
+            return out
+
+        def probed_run(self, state, **kw):
+            step_fn, from_host, relayout = (self.step_fn, self.from_host,
+                                            self.relayout)
+
+            def timed_from_host(flat):
+                t0 = time.perf_counter()
+                out = from_host(flat)
+                torch.cuda.synchronize()
+                probe.place_s += time.perf_counter() - t0
+                return out
+
+            def timed_relayout(flat, old_shards):
+                t0 = time.perf_counter()
+                out = relayout(flat, old_shards)
+                probe.relayout_s += time.perf_counter() - t0
+                if probe.check_relayout is not None:
+                    probe.check_relayout(flat, out)
+                return out
+
+            def timed_step(s):
+                out = step_fn(s)
+                if probe.first_round_end is None:
+                    torch.cuda.synchronize()
+                    probe.first_round_end = time.perf_counter()
+                return out
+
+            self.step_fn, self.from_host = timed_step, timed_from_host
+            if relayout is not None:
+                self.relayout = timed_relayout
+            try:
+                return run(self, state, **kw)
+            finally:
+                self.step_fn, self.from_host, self.relayout = (
+                    step_fn, from_host, relayout)
+
+        ck.save, ck.restore, sup.run = timed_save, timed_restore, probed_run
+        try:
+            yield self
+        finally:
+            ck.save, ck.restore, sup.run = save, restore, run
+
+    def summary(self, resumed: bool) -> dict:
+        """Seconds and bytes of the last run; `recover_s` runs from the
+        engine call to the end of the first resumed round."""
+        out = dict(saves=len(self.saves),
+                   save_s=[round(s, 4) for _, s, _ in self.saves],
+                   snapshot_bytes=max((b for _, _, b in self.saves),
+                                      default=0))
+        if resumed:
+            out.update(restore_s=self.restore_s, relayout_s=self.relayout_s,
+                       place_s=self.place_s,
+                       restore_relayout_s=(self.restore_s + self.relayout_s
+                                           + self.place_s),
+                       recover_s=self.first_round_end - self.t_call)
+        return out
+
+
+def _snapshot_stage(ckpt_dir):
+    """(step, stage tag) of the latest snapshot under `ckpt_dir`, reading
+    only the tag from its arrays."""
+    import numpy as np
+    from repro_torch.checkpoint import Checkpointer, unpack_json
+    step = Checkpointer(str(ckpt_dir)).latest_step()
+    with np.load(Path(ckpt_dir) / f"step_{step:09d}" / "arrays.npz") as z:
+        return step, unpack_json(z["stage"])
+
+
+def _kill(fn):
+    """Run `fn`, which must die of its injected failure."""
+    from repro_torch.runtime import SimulatedFailure
+    try:
+        fn()
+    except SimulatedFailure:
+        return True
+    check(False, "the injected failure did not stop the run")
+
+
+def check_walk_relayout(flat, out):
+    """The re-layout of the walk state keeps the live-walk multiset (each
+    vertex's count of live walks), the sum of zeta and the counters."""
+    import numpy as np
+    old, new = np.asarray(flat["pos"]), out["pos"]
+    n = int(np.asarray(flat["zeta"]).size)
+    live_old, live_new = old[old >= 0], new[new >= 0]
+    check(live_old.size == live_new.size,
+          f"walk re-layout: {live_old.size} live walks became "
+          f"{live_new.size}")
+    check(np.array_equal(np.bincount(live_old, minlength=n),
+                         np.bincount(live_new, minlength=n)),
+          "walk re-layout: the live-walk multiset changed")
+    zo = np.asarray(flat["zeta"], dtype=np.int64)
+    zn = out["zeta"].astype(np.int64)
+    check(zo.sum() == zn.sum(), "walk re-layout: the sum of zeta changed")
+    check(all(int(np.asarray(flat[k])) == int(np.asarray(out[k]))
+              for k in ("round", "dropped", "waited")),
+          "walk re-layout: a replicated counter changed")
+    log(f"walk re-layout: {live_old.size} live walks, "
+        f"{old.shape} -> {new.shape} (live walks by new shard "
+        f"{[int((row >= 0).sum()) for row in new]}), sum of zeta "
+        f"{int(zo.sum())}: kept")
+
+
+def elastic_path(g, K, K_walk, drive, pi_ref, counts_zeta, counts_rounds):
+    """Kill and resume at another shard count on the card, through the
+    engines' entry points: the sharded count engine at full size (killed
+    at P=8, resumed at 1, 2, 4 and 16; zeta bit-equal to the single-device
+    count engine's), the launcher's walk engine at full size (killed at
+    P=2, resumed at 4 mid-run and at 1 from its first snapshot; the live
+    walks kept by the re-layout, the accuracy gate), Algorithm 2 killed mid-Phase 2 (bit-equal to its
+    unfailed run), Section 5 killed in keyed Phase 1 (the three-phase
+    guards), and small kills on the card against the CPU. Prints each
+    run's snapshot bytes, save seconds, restore + re-layout seconds and
+    time to recover."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import power_iteration, walks_per_node_for
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.core.distributed_counts import \
+        distributed_pagerank_counts
+    from repro_torch.core.distributed_directed import \
+        distributed_directed_pagerank
+    from repro_torch.core.distributed_improved import \
+        distributed_improved_pagerank
+    from repro_torch.graphs import doc_link_graph, erdos_renyi
+    from repro_torch.launch.pagerank import run_walks
+
+    out = {}
+    probe = RecoveryProbe()
+    three = ["histogram", "segment_spmv", "multinomial_rows"]
+
+    def record(label, resumed, **info):
+        info.update(probe.summary(resumed))
+        out[label] = info
+        log(f"elastic {label}: {info}")
+
+    def kill_and_resume(name, kill, resume, targets, kernels, gate,
+                        resume_kernels=None, kill_check=None, **kill_info):
+        """`kill(dir)` must die of its injected failure; `resume(P, dir)`
+        continues a pristine copy of its snapshots at each of `targets`,
+        and `gate(P, result)` checks it and returns what to record."""
+        kill_dir = ELASTIC_DIR / name
+        with probe.watch():
+            probe.reset()
+            drive(f"elastic {name}: kill", lambda: _kill(
+                lambda: kill(str(kill_dir))), kernels)
+            if kill_check is not None:
+                kill_check(kill_dir)
+            record(f"{name} kill", False, **kill_info)
+            for p in targets:
+                # a resume writes into its directory (the re-anchor, later
+                # snapshots), so each gets a copy of the kill's: hard links,
+                # since the Checkpointer writes every snapshot as new files
+                d = ELASTIC_DIR / f"{name}_{p}"
+                shutil.copytree(kill_dir, d, copy_function=os.link)
+                res, secs, peak = drive(
+                    f"elastic {name}: resume at P={p}",
+                    lambda: (probe.reset(), resume(p, str(d)))[1],
+                    resume_kernels or kernels)
+                record(f"{name} resume P={p}", True, seconds=secs,
+                       peak_gib=peak, **gate(p, res))
+                del res
+                shutil.rmtree(d)
+                torch.cuda.empty_cache()
+        shutil.rmtree(kill_dir)
+
+    def stage_check(step, stage):
+        def check_kill(kill_dir):
+            got = _snapshot_stage(kill_dir)
+            check(got == (step, stage), f"the kill left the snapshot "
+                  f"{got}, not a {stage} snapshot of round {step}")
+        return check_kill
+
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    ELASTIC_DIR.mkdir(parents=True)
+    try:
+        # ---- counts, doc_link_graph(2^20), unpacked lanes ----
+        c = ELASTIC_COUNTS
+
+        def counts(shards, d, **kw):
+            return distributed_pagerank_counts(
+                g, EPS, K, prng.PRNGKey(0), mesh=StackedMesh(shards, g.device),
+                packed=False, checkpoint_dir=d, checkpoint_every=c["every"],
+                **kw)
+
+        def counts_gate(p, res):
+            check(torch.equal(res.zeta, counts_zeta),
+                  f"counts resumed at P={p}: zeta differs from the "
+                  f"single-device count engine's")
+            check(res.rounds == counts_rounds and res.restarts == 0
+                  and res.shards == p and res.overflow == 0
+                  and res.residual == 0,
+                  f"counts resumed at P={p}: rounds {res.rounds} (want "
+                  f"{counts_rounds}), restarts {res.restarts}, overflow "
+                  f"{res.overflow}, residual {res.residual}")
+            return dict(rounds=res.rounds, zeta_equal_single_device=True)
+
+        kill_and_resume(
+            "counts", lambda d: counts(c["kill_shards"], d,
+                                       fail_at=[c["kill_at"]],
+                                       max_restarts=0),
+            lambda p, d: counts(p, d, resume=True), c["targets"],
+            ["multinomial_rows", "segment_spmv"], counts_gate,
+            shards=c["kill_shards"], round=c["kill_at"])
+
+        # ---- walks, the launcher's walk engine, doc_link_graph(2^20) ----
+        w = ELASTIC_WALKS
+
+        def walks_gate(p, res):
+            pi, res = res
+            check(res.state.dropped == 0 and res.restarts == 0,
+                  f"walks resumed at P={p}: dropped {res.state.dropped}, "
+                  f"restarts {res.restarts}")
+            l1, top = accuracy(f"walks resumed at P={p}", pi, pi_ref, g.n)
+            return dict(rounds=res.rounds, l1=l1, top10=top,
+                        cap=int(res.state.pos.shape[1]),
+                        zeta_sum=int(res.state.zeta.sum(dtype=torch.int64)))
+
+        probe.check_relayout = check_walk_relayout
+        for kill_at, targets in w["kills"].items():
+            kill_and_resume(
+                f"walks_round{kill_at}", lambda d: run_walks(
+                    g, EPS, K_walk, d, [kill_at], 0,
+                    mesh=StackedMesh(w["kill_shards"], g.device),
+                    max_restarts=0),
+                lambda p, d: run_walks(g, EPS, K_walk, d, [], 0,
+                                       resume=True,
+                                       mesh=StackedMesh(p, g.device)),
+                targets, ["walk_step", "histogram"], walks_gate,
+                shards=w["kill_shards"], round=kill_at, K=K_walk)
+        probe.check_relayout = None
+
+        # ---- Algorithm 2 killed mid-Phase 2, erdos_renyi(2^15, 8) ----
+        a = ELASTIC_IMPROVED
+        g2 = erdos_renyi(N_ELASTIC_IMPROVED, 8.0, seed=0)
+        K2 = walks_per_node_for(g2.n, EPS)
+
+        def improved(shards, **kw):
+            return distributed_improved_pagerank(
+                g2, EPS, K2, prng.PRNGKey(0),
+                mesh=StackedMesh(shards, g2.device),
+                eta_safety=a["eta_safety"], **kw)
+
+        ref, secs, _ = drive(f"elastic improved: unfailed P="
+                             f"{a['kill_shards']}",
+                             lambda: improved(a["kill_shards"]), three)
+        check(ref.tail_walks == 0 and ref.dropped == 0,
+              f"improved at eta_safety {a['eta_safety']}: {ref.tail_walks} "
+              f"tail walks, {ref.dropped} dropped (a resume is bit-exact "
+              f"only with an empty tail)")
+        mid_p2 = (ref.phase1_rounds + ref.report_rounds
+                  + max(ref.phase2_rounds // 2, 1))
+
+        def improved_gate(p, res):
+            check(torch.equal(res.zeta, ref.zeta)
+                  and np.array_equal(res.pi, ref.pi)
+                  and res.tail_walks == 0 and res.restarts == 0
+                  and res.rounds == ref.rounds,
+                  f"improved resumed at P={p}: not bit-equal to the "
+                  f"unfailed P={a['kill_shards']} run")
+            return dict(rounds=res.rounds, bit_equal=True)
+
+        # snapshots only at round 0 and mid-Phase 2, and at a resume only
+        # the re-anchor and the final state: each is GBs
+        kill_and_resume(
+            "improved", lambda d: improved(
+                a["kill_shards"], checkpoint_dir=d, fail_at=[mid_p2],
+                checkpoint_every=mid_p2, max_restarts=0),
+            lambda p, d: improved(p, checkpoint_dir=d, resume=True,
+                                  checkpoint_every=10 ** 6),
+            a["targets"], three, improved_gate,
+            resume_kernels=["histogram", "segment_spmv"],
+            kill_check=stage_check(mid_p2, "phase2"),
+            shards=a["kill_shards"], round=mid_p2, n=g2.n, K=K2,
+            S=ref.coupons_created, unfailed_s=secs, rounds=ref.rounds)
+        del ref, g2
+        torch.cuda.empty_cache()
+
+        # ---- Section 5 killed in keyed Phase 1, doc_link_graph(2^12) ----
+        s = ELASTIC_DIRECTED
+        g3 = doc_link_graph(N_ELASTIC_DIRECTED, seed=0)
+        K3 = walks_per_node_for(g3.n, EPS)
+        pi3 = power_iteration(g3, EPS, tol=1e-7,
+                              max_iters=1000)[0].cpu().numpy()
+
+        def directed(shards, d, **kw):
+            return distributed_directed_pagerank(
+                g3, EPS, K3, prng.PRNGKey(0),
+                mesh=StackedMesh(shards, g3.device), checkpoint_dir=d, **kw)
+
+        def directed_gate(p, res):
+            check(res.restarts == 0 and res.shards == p,
+                  f"directed resumed at P={p}: restarts {res.restarts}")
+            return three_phase_checks(f"directed resumed at P={p}", res,
+                                      g3.n, K3, pi3)
+
+        kill_and_resume(
+            "directed", lambda d: directed(
+                s["kill_shards"], d, fail_at=[s["kill_at"]],
+                checkpoint_every=s["every"], max_restarts=0),
+            lambda p, d: directed(p, d, resume=True,
+                                  checkpoint_every=10 ** 6),
+            s["targets"], three, directed_gate,
+            kill_check=stage_check(s["kill_at"] // s["every"] * s["every"],
+                                   "phase1"),
+            shards=s["kill_shards"], round=s["kill_at"], n=g3.n, K=K3)
+        del g3
+
+        elastic_card_vs_cpu()
+    finally:
+        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    return out
+
+
+def elastic_card_vs_cpu():
+    """The port's own kills at P=8 resumed at P=3 on small graphs, on the
+    card and on the CPU: counts, improved (mid-Phase 2), directed (keyed
+    Phase 1) and the launcher's walk engine, each bit-equal across the
+    two."""
+    from repro_torch import prng
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.core.distributed_counts import \
+        distributed_pagerank_counts
+    from repro_torch.core.distributed_directed import \
+        distributed_directed_pagerank
+    from repro_torch.core.distributed_improved import \
+        distributed_improved_pagerank
+    from repro_torch.graphs import directed_web, erdos_renyi
+    from repro_torch.launch.pagerank import run_walks
+
+    def engine_run(engine, K, seed, **kw):
+        def run(g, d, shards, **more):
+            r = engine(g, 0.25, K, prng.PRNGKey(seed),
+                       mesh=StackedMesh(shards, g.device), checkpoint_dir=d,
+                       checkpoint_every=2, **kw, **more)
+            return (r.zeta.cpu().tolist(), r.rounds, r.restarts, r.shards,
+                    [float(x) for x in r.pi])
+        return run
+
+    def walks_run(g, d, shards, fail_at=(), resume=False, **more):
+        pi, r = run_walks(g, 0.25, 16, d, list(fail_at), 0, resume=resume,
+                          mesh=StackedMesh(shards, g.device), **more)
+        return pi.tolist(), r.rounds, r.restarts, int(r.state.dropped)
+
+    # tests/test_torch_elastic.py's cases (eps 0.25): graph, run, kill round
+    # (improved: mid-Phase 2; directed: keyed Phase 1; walks: round 10's
+    # snapshot)
+    er64 = erdos_renyi(64, 5.0, seed=1, device="cpu")
+    er96 = erdos_renyi(96, 5.0, seed=1, device="cpu")
+    dweb = directed_web(64, 5.0, seed=3, device="cpu")
+    cases = dict(
+        counts=(er64, engine_run(distributed_pagerank_counts, 40, 2), 3),
+        improved=(er96, engine_run(distributed_improved_pagerank, 40, 0,
+                                   eta_safety=8.0), 9),
+        directed=(dweb, engine_run(distributed_directed_pagerank, 20, 3), 1),
+        walks=(dweb, walks_run, 11))
+    for name, (g_cpu, run, kill_at) in cases.items():
+        got = {}
+        for dev in ("cuda", "cpu"):
+            g = g_cpu.to(dev)
+            d = str(ELASTIC_DIR / f"small_{name}_{dev}")
+            _kill(lambda: run(g, d, 8, fail_at=[kill_at], max_restarts=0))
+            got[dev] = run(g, d, 3, resume=True)
+            shutil.rmtree(d)
+        check(got["cuda"] == got["cpu"],
+              f"small {name} killed at P=8, resumed at P=3: card and CPU "
+              f"differ")
+    log("elastic card vs CPU: counts, improved (mid-Phase 2), directed "
+        "(keyed Phase 1) and walks killed at P=8 and resumed at P=3: "
+        "card == CPU")
 
 
 class PhaseCalls:
@@ -3215,6 +3674,11 @@ def main() -> int:
         t0 = time.perf_counter()
         sharded = sharded_path(g, K, drive, pi_ref, counts_zeta)
         phases["sharded"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        elastic_path(g, K, sharded["walks"]["K"], drive, pi_ref, counts_zeta,
+                     sharded["counts"]["rounds"])
+        phases["elastic"] = time.perf_counter() - t0
+        log(f"elastic phase: {phases['elastic']:.1f} s")
         del counts_zeta
         torch.cuda.empty_cache()
         t0 = time.perf_counter()

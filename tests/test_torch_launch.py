@@ -5,6 +5,9 @@ Parity levels:
     (the in-process JAX has one CPU device) — pi bit-exact, every algo;
   * `fail_at` recovery and `--resume` after a kill — pi bit-exact with the
     uninterrupted run;
+  * `--resume` with `--shards` unlike the snapshot's (killed at 8 shards)
+    — pi bit-exact with the JAX launcher resuming the same directory at
+    one device;
   * the accuracy gate (`check=True`) at 4 shards — statistical: L1 < 0.15
     and top-10 >= 0.6 against power iteration.
 `--algo improved|directed` run the three-phase engines on the CPU and
@@ -16,6 +19,7 @@ with all five engines and exits 0 (its parity with the JAX report is
 tests/test_torch_congest_audit.py's job).
 """
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -57,6 +61,27 @@ def test_resume_after_kill(tmp_path, algo):
     b = run(*ARGS, str(tmp_path), [], algo=algo, shards=3, resume=True,
             device="cpu")
     np.testing.assert_array_equal(a.pi, b.pi)
+
+
+@pytest.mark.parametrize("algo,shards", [("walks", 1), ("counts", 1),
+                                         ("counts", 3)])
+def test_resume_at_other_shard_count_matches_jax(tmp_path, algo, shards):
+    """A run killed at 8 shards continues at `shards` from its snapshot
+    directory: pi bit-exact with the JAX launcher resuming a copy of the
+    same directory at one device (the walk state's re-layout and its
+    re-derived keys are JAX's; the count engine's trajectory does not
+    depend on the shard count)."""
+    with pytest.raises(SimulatedFailure):
+        run(*ARGS, str(tmp_path / "killed"), [12], algo=algo, shards=8,
+            max_restarts=0, device="cpu")
+    for name in ("port", "jax"):
+        shutil.copytree(tmp_path / "killed", tmp_path / name)
+    got = run(*ARGS, str(tmp_path / "port"), [], algo=algo, shards=shards,
+              resume=True, device="cpu")
+    want = jax_run(*ARGS, str(tmp_path / "jax"), [], algo=algo, shards=1,
+                   resume=True)
+    assert got.shards == shards and got.restarts == 0
+    np.testing.assert_array_equal(got.pi, np.asarray(want))
 
 
 def test_resume_needs_checkpoint_dir():
