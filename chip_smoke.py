@@ -38,6 +38,23 @@
    the walk engine print where the device time goes and its idle share.
    The kernel phase also times segment_spmv on the count engine's
    received-lane sum (its first round's lanes at P=4).
+4b. One shard per process (`process_group_path`, run right after step 4),
+   under build/process_group/ (removed at the end): (a) an NCCL group of world size 1 in this
+   process, from a FileStore: the count engine (unpacked) and the walk
+   engine at step 4's K on `ProcessGroupMesh`, each bit-equal to
+   `StackedMesh(1)` (zeta, rounds, wire counters) and launching its
+   kernels, the group destroyed at the end; the all_to_all of each
+   engine's round lanes timed against the stacked block transpose, and
+   the collectives (recorded) and host syncs (torch's sync debug mode) a
+   round counted. (b) Four child processes of this script on the one card
+   (`--process-group-child`), a gloo group whose collectives take the
+   card's tensors (the library stages them through the host): the count
+   engine at P=4 bit-equal to step 4's stacked run, killed at P=4 at
+   round 40 and resumed at P=2 bit-equal, and the walk engine at P=2 on
+   doc_link_graph(2^16) (cut: gloo stages the 36 MB a round of route
+   lanes through the host, 583 MB at 2^20) bit-equal to `StackedMesh(2)`;
+   each child reports its kernel launches, and a child that fails or
+   outlives its join timeout fails the script.
 4a. The elastic runtime (`elastic_path`), snapshots under build/elastic/
    (removed at the end): the count engine killed at P=8 at round 40 and
    resumed from pristine copies at P = 1, 2, 4 and 16 (zeta bit-identical
@@ -156,7 +173,7 @@
    path bit for bit (deterministic algorithms), on a stacked 2x2 mesh
    within 2e-2 of the largest |out|, 0 drops, both timed.
 
-Steps 3 to 6 (4a included) are the main path: every engine is driven
+Steps 3 to 6 (4a and 4b included) are the main path: every engine is driven
 with the launch counters set to 0 just before it and read just after.
 The LM runs of steps 9 and 10 and step 11's parts are driven the same
 way; they launch none of the five kernels.
@@ -913,6 +930,335 @@ def sharded_path(g, K, drive, pi_ref, counts_zeta):
     log(f"distributed_pagerank[P=2]: {out['walks']}")
     del res
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# one shard per process: ProcessGroupMesh under NCCL and under gloo
+# ---------------------------------------------------------------------------
+
+PG_DIR = ROOT / "build" / "process_group"
+PG_TIMEOUT_S = 120          # every collective of a group
+PG_JOIN_S = 300             # a whole group of child processes
+PG_RANKS = 4                # (b): processes sharing the one card
+PG_KILL = dict(kill_at=40, every=10, resume_ranks=2)
+N_PG_WALKS = 1 << 16        # (b)'s walk engine: gloo stages lanes on the host
+
+
+def zeta_digest(zeta) -> str:
+    """sha256 of a visit vector's int32 bytes: bit-equality without
+    shipping 2^20 numbers between processes."""
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(
+        zeta.cpu().numpy().astype(np.int32)).tobytes()).hexdigest()
+
+
+def count_summary(res) -> dict:
+    return dict(zeta=zeta_digest(res.zeta), rounds=res.rounds,
+                a2a_entries=res.a2a_entries_total,
+                a2a_bytes=res.a2a_bytes_total, overflow=res.overflow,
+                occupancy=list(res.occupancy), residual=res.residual)
+
+
+def walk_summary(res) -> dict:
+    return dict(zeta=zeta_digest(res.zeta), rounds=res.rounds,
+                dropped=res.dropped, waited=res.waited,
+                round_active=res.round_active,
+                a2a_entries=res.a2a_entries_total,
+                a2a_bytes=res.a2a_bytes_total)
+
+
+def save_graph(g, path) -> None:
+    import numpy as np
+    rp, ci, dg = g.numpy()
+    np.savez(path, row_ptr=rp, col_idx=ci, out_deg=dg, n=g.n, m=g.m,
+             undirected=g.undirected)
+
+
+def load_graph(path, device):
+    import numpy as np
+    from repro_torch import convert
+    with np.load(path) as z:
+        return convert.graph_from_numpy(
+            z["row_ptr"], z["col_idx"], z["out_deg"], int(z["n"]),
+            int(z["m"]), bool(z["undirected"]), device=device)
+
+
+def process_group_child(spec: dict) -> int:
+    """One process of phase (b): a gloo group whose collectives take the
+    card's tensors, every process on the one card. Runs `spec["cases"]`
+    and prints their results, each with its kernel launches, as JSON."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch import prng
+    from repro_torch.core.collectives import ProcessGroupMesh
+    from repro_torch.core.distributed import distributed_pagerank
+    from repro_torch.core.distributed_counts import \
+        distributed_pagerank_counts
+    from repro_torch.kernels import common
+    from repro_torch.runtime import SimulatedFailure
+
+    torch.set_num_threads(1)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = torch.device(spec["device"])
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(spec["store"], world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=spec["timeout"]))
+    out = dict(rank=rank, world=world)
+    try:
+        mesh = ProcessGroupMesh(device=dev)
+        for case in spec["cases"]:
+            g = load_graph(spec["walk_graph" if case == "walks"
+                                else "graph"], dev)
+            K, key = spec["K"], prng.PRNGKey(0)
+            common.reset_launches()
+            t0 = time.perf_counter()
+            if case == "walks":
+                row = walk_summary(distributed_pagerank(g, EPS, K, key,
+                                                        mesh=mesh))
+            elif case == "counts":
+                row = count_summary(distributed_pagerank_counts(
+                    g, EPS, K, key, mesh=mesh, packed=False))
+            elif case == "kill":
+                try:
+                    distributed_pagerank_counts(
+                        g, EPS, K, key, mesh=mesh, packed=False,
+                        checkpoint_dir=spec["kill_dir"],
+                        fail_at=[PG_KILL["kill_at"]],
+                        checkpoint_every=PG_KILL["every"], max_restarts=0)
+                    row = dict(died=False)
+                except SimulatedFailure:
+                    row = dict(died=True)
+            else:
+                res = distributed_pagerank_counts(
+                    g, EPS, K, key, mesh=mesh, packed=False,
+                    checkpoint_dir=spec["resume_dir"], resume=True,
+                    checkpoint_every=PG_KILL["every"])
+                row = dict(count_summary(res), restarts=res.restarts,
+                           shards=res.shards)
+            # the summaries read the results on the host: the runs are done
+            row.update(seconds=time.perf_counter() - t0,
+                       launches=dict(common.launches))
+            out[case] = row
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def run_process_group(world: int, spec: dict, label: str) -> list:
+    """Start `world` child processes of this script on the one card, each
+    a rank of a gloo group from a FileStore; kill them all past PG_JOIN_S.
+    Fails the phase unless every one exits 0. Returns their JSON."""
+    store = PG_DIR / f"store_{label}"
+    spec = dict(spec, store=str(store), timeout=PG_TIMEOUT_S)
+    procs, logs = [], []
+    for rank in range(world):
+        logf = open(PG_DIR / f"{label}_rank{rank}.log", "w+")
+        logs.append(logf)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--process-group-child", json.dumps(spec)],
+            env=dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                     OMP_NUM_THREADS="1"),
+            stdout=logf, stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + PG_JOIN_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for rank, (p, logf) in enumerate(zip(procs, logs)):
+        logf.seek(0)
+        text = logf.read()
+        logf.close()
+        check(p.returncode == 0,
+              f"{label}: rank {rank} of {world} exited {p.returncode}:\n"
+              f"{text[-2000:]}")
+        outs.append(json.loads(text.strip().splitlines()[-1]))
+    return outs
+
+
+def process_group_path(g, K, drive, sharded, counts_zeta):
+    """Both sharded engines with one shard per process
+    (`ProcessGroupMesh`). (a) An NCCL group of one process, this one: the
+    count engine (unpacked) and the walk engine at main_path's K on
+    doc_link_graph(2^20), bit-equal to `StackedMesh(1)`, with the
+    all_to_all timed against the stacked block transpose and the
+    collectives and host syncs a round counted. (b) Four processes on the
+    one card over gloo with card tensors: the count engine at P=4
+    bit-equal to main_path's `StackedMesh(4)` run, killed at P=4 and
+    resumed at P=2 bit-equal, and the walk engine at P=2 on
+    doc_link_graph(2^16) bit-equal to `StackedMesh(2)` there."""
+    import datetime
+    import warnings
+    import torch
+    import torch.distributed as dist
+    from repro_torch import prng
+    from repro_torch.analysis.congest import RecordingMesh
+    from repro_torch.core.collectives import ProcessGroupMesh, StackedMesh
+    from repro_torch.core.distributed import distributed_pagerank
+    from repro_torch.core.distributed_counts import \
+        distributed_pagerank_counts
+    from repro_torch.graphs import doc_link_graph
+
+    shutil.rmtree(PG_DIR, ignore_errors=True)
+    PG_DIR.mkdir(parents=True)
+    dev = g.device
+    key, K_walk = prng.PRNGKey(0), sharded["walks"]["K"]
+    out = {}
+
+    # (a) NCCL, world size 1, in this process
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(PG_DIR / "store_nccl"), 1),
+        rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()),
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    try:
+        mesh = ProcessGroupMesh(device=dev)
+        check(mesh.shards == 1 and dist.get_backend() == "nccl",
+              f"process group: {mesh}")
+        runs = {}
+        for name, m in (("nccl", mesh), ("stacked", StackedMesh(1, dev))):
+            res, secs, _ = drive(
+                f"distributed_pagerank_counts[{name} P=1]",
+                lambda: distributed_pagerank_counts(g, EPS, K, key, mesh=m,
+                                                    packed=False),
+                ["multinomial_rows", "segment_spmv"])
+            runs[f"counts/{name}"] = dict(count_summary(res), seconds=secs)
+            del res
+            res, secs, _ = drive(
+                f"distributed_pagerank[{name} P=1]",
+                lambda: distributed_pagerank(g, EPS, K_walk, key, mesh=m),
+                ["walk_step", "histogram"])
+            runs[f"walks/{name}"] = dict(walk_summary(res), seconds=secs)
+            del res
+            torch.cuda.empty_cache()
+        for engine in ("counts", "walks"):
+            a, b = (dict(runs[f"{engine}/{n}"]) for n in ("nccl", "stacked"))
+            secs = (a.pop("seconds"), b.pop("seconds"))
+            check(a == b, f"{engine}: NCCL world 1 differs from "
+                          f"StackedMesh(1): {a} != {b}")
+            out[f"{engine}_world1"] = dict(a, seconds_nccl=secs[0],
+                                           seconds_stacked=secs[1])
+        check(runs["counts/nccl"]["zeta"] == zeta_digest(counts_zeta)
+              and runs["counts/nccl"]["rounds"]
+              == sharded["counts"]["rounds"],
+              "counts under NCCL: zeta or rounds differ from main_path's")
+
+        # the all_to_all of a round's lanes: the count engine's unpacked
+        # (vertex, count) lanes and the walk engine's route lanes
+        a2a = {}
+        for label, shape in (("count lanes", (1, g.n, 2)),
+                             ("walk lanes", (1, g.n * K_walk))):
+            x = torch.arange(math.prod(shape), dtype=torch.int32,
+                             device=dev).reshape(shape)
+            check(torch.equal(mesh.all_to_all(x),
+                              StackedMesh(1, dev).all_to_all(x)),
+                  f"all_to_all of {label} differs from the stacked one")
+            a2a[label] = dict(
+                shape=list(shape), nbytes=x.numel() * 4,
+                nccl_ms=cuda_ms(lambda: mesh.all_to_all(x), 20),
+                stacked_ms=cuda_ms(
+                    lambda: StackedMesh(1, dev).all_to_all(x).contiguous(),
+                    20))
+            del x
+        out["all_to_all"] = a2a
+
+        # collectives a round (recorded) and host syncs a round (torch's
+        # sync debug mode warns on each)
+        rec = RecordingMesh(mesh, lints=False)
+        counted = {}
+        for engine, fn in (
+                ("counts", lambda: distributed_pagerank_counts(
+                    g, EPS, K, key, mesh=rec, packed=False)),
+                ("walks", lambda: distributed_pagerank(g, EPS, K_walk, key,
+                                                       mesh=rec))):
+            rec.calls.clear()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    res = fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            prims = {}
+            for call in rec.calls:
+                for c in call.collectives:
+                    prims[c.prim] = prims.get(c.prim, 0) + 1
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+            counted[engine] = dict(
+                rounds=res.rounds,
+                collectives_a_round={p: n / res.rounds
+                                     for p, n in sorted(prims.items())},
+                host_syncs_a_round=syncs / res.rounds)
+            del res
+        out["per_round"] = counted
+        del rec
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    check(not dist.is_initialized(), "the NCCL group was not destroyed")
+    log(f"process group (a), NCCL world 1: {out}")
+
+    # (b) four processes on the card, gloo with card tensors
+    graph_file, walk_file = PG_DIR / "graph.npz", PG_DIR / "walk_graph.npz"
+    save_graph(g, graph_file)
+    gw = doc_link_graph(N_PG_WALKS, seed=0, device=dev)
+    save_graph(gw, walk_file)
+    spec = dict(graph=str(graph_file), walk_graph=str(walk_file), K=K,
+                device=str(dev),
+                kill_dir=str(PG_DIR / "kill"),
+                resume_dir=str(PG_DIR / "resume"))
+    t0 = time.perf_counter()
+    four = run_process_group(PG_RANKS, dict(spec, cases=["counts", "kill"]),
+                             "gloo4")
+    shutil.copytree(PG_DIR / "kill", PG_DIR / "resume")
+    two = run_process_group(PG_KILL["resume_ranks"],
+                            dict(spec, cases=["resume", "walks"]), "gloo2")
+    out["gloo_wall_s"] = time.perf_counter() - t0
+    want_counts = dict(zeta=zeta_digest(counts_zeta),
+                       rounds=sharded["counts"]["rounds"],
+                       a2a_entries=sharded["counts"]["a2a_entries"],
+                       a2a_bytes=sharded["counts"]["a2a_bytes"])
+    stacked_walks = walk_summary(distributed_pagerank(
+        gw, EPS, K, key, mesh=StackedMesh(2, dev)))
+    rows = {}
+    for case, outs, want, kernels in (
+            ("counts", four, want_counts, ["multinomial_rows",
+                                           "segment_spmv"]),
+            ("kill", four, dict(died=True), ["multinomial_rows"]),
+            ("resume", two, dict(zeta=want_counts["zeta"],
+                                 rounds=want_counts["rounds"], restarts=0,
+                                 shards=2), ["multinomial_rows"]),
+            ("walks", two, stacked_walks, ["walk_step", "histogram"])):
+        for o in outs:
+            r = o[case]
+            check({k: r[k] for k in want} == want,
+                  f"gloo P={o['world']} {case}, rank {o['rank']}: "
+                  f"{ {k: r[k] for k in want} } != {want}")
+            for name in kernels:
+                check(r["launches"][name] > 0,
+                      f"gloo {case}, rank {o['rank']}: {name} never "
+                      f"launched")
+            for name, c in r["launches"].items():
+                drive.launches[name] += c
+        rows[case] = dict(ranks=len(outs),
+                          seconds=max(o[case]["seconds"] for o in outs),
+                          launches=[o[case]["launches"] for o in outs])
+        log(f"process group (b) {case}: {rows[case]}")
+    out["gloo"] = rows
+    shutil.rmtree(PG_DIR, ignore_errors=True)
+    log(f"process group: PASS, (b) {out['gloo_wall_s']:.1f} s")
     return out
 
 
@@ -3622,6 +3968,8 @@ def dryrun_path(drive, smi):
 
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--process-group-child"]:
+        return process_group_child(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3674,6 +4022,10 @@ def main() -> int:
         t0 = time.perf_counter()
         sharded = sharded_path(g, K, drive, pi_ref, counts_zeta)
         phases["sharded"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        process_group_path(g, K, drive, sharded, counts_zeta)
+        phases["process_group"] = time.perf_counter() - t0
+        log(f"process group phase: {phases['process_group']:.1f} s")
         t0 = time.perf_counter()
         elastic_path(g, K, sharded["walks"]["K"], drive, pi_ref, counts_zeta,
                      sharded["counts"]["rounds"])

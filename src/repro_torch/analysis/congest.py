@@ -11,8 +11,9 @@ The JAX package traces each stage program to a jaxpr. The port has no
 trace, so it RUNS each engine on a fixture graph under a `RecordingMesh`:
 
   1. Every engine runs the programs of its stages inside
-     `mesh.program(stage, name)`; the recording mesh keeps, for each
-     program call, every all_to_all and psum with its bytes per shard
+     `mesh.program(stage, name)`; the recording mesh, which wraps a
+     stacked mesh or a process group's, keeps, for each program call,
+     every all_to_all, psum and pmax with its bytes per shard
      (`x.numel() // S * x.element_size()`, from shapes, no device sync)
      and its call path (the source lines from the collective up).
   2. Each engine's `audit_spec(graph, mesh, ...)` declares its programs,
@@ -24,12 +25,15 @@ trace, so it RUNS each engine on a fixture graph under a `RecordingMesh`:
      (`budget/loop`: the same call path recorded twice); each moves
      exactly `lane_entries * entry_nbytes` bytes (`budget/payload`);
      its lane count fits the declared budget (`budget/exceeded`). psums
-     are control-plane and stay under `PSUM_CONTROL_BYTES`
+     and pmaxes are control-plane and stay under `PSUM_CONTROL_BYTES`
      (`budget/psum`). A collective outside every program
      (`budget/unscoped`), a program the spec does not declare
      (`budget/undeclared-program`) and a declared count-class program
-     the run never called (`budget/not-run`) are violations too. The mesh offers no
-     gather or ppermute, so all data motion is on the checked wire.
+     the run never called (`budget/not-run`) are violations too. The
+     mesh's only other data motion, `gather_rows`, serves result reads
+     and snapshots between rounds; inside a program it is a violation
+     (`budget/gather`), so all data motion of a round is on the checked
+     wire.
   4. Walk-class sites (`route`, `tail`) have runtime lane caps that scale
      with W/P. The spec pins them at P * n_loc, as JAX's does; the
      auditor runs one extra superstep at route_cap = n_loc, on a state
@@ -46,7 +50,13 @@ int->float funnels recorded within each program call, and the elastic
 schema. What this cannot see: a reduction over the stacked shard
 dimension done outside the mesh (a whole-tensor sum, a host read of all
 shards) is plain tensor code here; under a one-shard-per-rank backend it
-would have to become a collective (ROADMAP Queue 1 item 4 lists them).
+would have to become a collective (ROADMAP Queue 1 items 4b and 4c list
+the ones left; the walk and count engines have none).
+
+Over a process group, each process records its own shard's program calls
+and audits them against the same spec; `audit_all_engines` then merges
+the processes' reports, and flags any row on which they differ
+(`budget/ranks-differ`).
 
 `launch/pagerank.py --audit` drives `audit_all_engines` and renders
 `format_wire_table` and AUDIT.json.
@@ -87,7 +97,7 @@ _PATH_DEPTH = 16     # source frames kept of a collective's call path
 class CollectiveCall:
     """One collective launched through the mesh."""
 
-    prim: str                 # all_to_all | psum
+    prim: str                 # all_to_all | psum | pmax | gather
     payload_bytes: int        # bytes per shard of the operand
     path: Tuple[str, ...]     # "file:line" frames from the call up
 
@@ -125,14 +135,18 @@ def _call_path() -> Tuple[str, ...]:
     return tuple(path)
 
 
-class RecordingMesh(StackedMesh):
-    """A `StackedMesh` that records every program call and the collectives
-    it launches (`calls`), and the collectives outside every program
-    (`unscoped`). With `lints`, each call also records its PRNG key uses
-    (`prng.RNG_RECORDER`) and its int->float funnels (`funnel_mode`)."""
+class RecordingMesh:
+    """A mesh that records every program call and the collectives it
+    launches (`calls`), and the collectives outside every program
+    (`unscoped`), then runs them on the mesh it wraps: `mesh`, or a
+    `StackedMesh` of `mesh` shards on `device`. With `lints`, each call
+    also records its PRNG key uses (`prng.RNG_RECORDER`) and its
+    int->float funnels (`funnel_mode`)."""
 
-    def __init__(self, shards: int, device=None, *, lints: bool = True):
-        super().__init__(shards, device)
+    def __init__(self, mesh, device=None, *, lints: bool = True):
+        self.inner = (StackedMesh(mesh, device) if isinstance(mesh, int)
+                      else mesh)
+        self.shards, self.device = self.inner.shards, self.inner.device
         self.lints = lints
         self.calls: List[ProgramCall] = []
         self.unscoped: List[CollectiveCall] = []
@@ -170,13 +184,26 @@ class RecordingMesh(StackedMesh):
         else:
             self._open.collectives.append(rec)
 
+    def __getattr__(self, name):
+        # the mesh's other members (shard_ids, local_rows, barrier, ...)
+        return getattr(self.inner, name)
+
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         self._record("all_to_all", x)
-        return super().all_to_all(x)
+        return self.inner.all_to_all(x)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         self._record("psum", x)
-        return super().psum(x)
+        return self.inner.psum(x)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        self._record("pmax", x)
+        return self.inner.pmax(x)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        if self._open is not None:
+            self._record("gather", x)
+        return self.inner.gather_rows(x)
 
 
 # ---------------------------------------------------------------------------
@@ -234,15 +261,22 @@ def audit_program(prog: StageProgram, calls: Sequence[ProgramCall],
                      f"{expected} B")
             if i == 0:
                 recorded[j] = c.payload_bytes
-        ps = [c for c in call.collectives if c.prim == "psum"]
+        ps = [c for c in call.collectives if c.prim in ("psum", "pmax")]
         psums = max(psums, len(ps))
         for c in ps:
             psum_max = max(psum_max, c.payload_bytes)
             if c.payload_bytes > PSUM_CONTROL_BYTES:
                 flag("budget/psum",
-                     f"a psum ({c.path[0]}) moves {c.payload_bytes} B — "
-                     f"control psums must stay under {PSUM_CONTROL_BYTES} "
-                     f"B (data belongs on the counted all_to_all wire)")
+                     f"a {c.prim} ({c.path[0]}) moves {c.payload_bytes} B "
+                     f"— control psums must stay under "
+                     f"{PSUM_CONTROL_BYTES} B (data belongs on the counted "
+                     f"all_to_all wire)")
+        for c in call.collectives:
+            if c.prim == "gather":
+                flag("budget/gather",
+                     f"a gather of {c.payload_bytes} B a shard "
+                     f"({c.path[0]}) inside a program moves data off the "
+                     f"checked wire")
     return recorded, psums, psum_max, list(out.values())
 
 
@@ -537,22 +571,26 @@ def _run_engine(engine: str, graph, mesh, *, eps: float, K: int,
         key=prng.PRNGKey(1), mesh=mesh)
 
 
-def pinned_superstep(graph, shards: int, device, *, eps: float, stage: str,
+def pinned_superstep(graph, mesh, device=None, *, eps: float, stage: str,
                      lints: bool = True) -> RecordingMesh:
     """One superstep at the pinned walk-class cap, route_cap = cap =
     n_loc, on a state holding one walk per owned vertex, as the program
-    `stage/step`. Returns its recording mesh."""
+    `stage/step`, over `mesh` (or a `StackedMesh` of `mesh` shards on
+    `device`). Returns its recording mesh."""
     from repro_torch.core.distributed import (DistState, shard_graph,
                                               superstep)
-    mesh = RecordingMesh(shards, device, lints=lints)
-    sg = shard_graph(graph, shards, mesh.device)
+    mesh = RecordingMesh(mesh, device, lints=lints)
+    shards = mesh.shards
+    sg = shard_graph(graph, shards, mesh=mesh)
     n_loc = sg.n_loc
     vid = torch.arange(shards * n_loc, dtype=torch.int32,
                        device=mesh.device)
-    pos = torch.where(vid < graph.n, vid, -1).reshape(shards, n_loc)
+    pos = mesh.local_rows(torch.where(vid < graph.n, vid, -1).reshape(
+        shards, n_loc))
     state = DistState(pos=pos, zeta=torch.zeros_like(pos),
-                      key=prng.split(prng.PRNGKey(0), shards), round=0,
-                      dropped=0, waited=0)
+                      key=mesh.local_rows(prng.split(prng.PRNGKey(0),
+                                                     shards)),
+                      round=0, dropped=0, waited=0)
     superstep(sg, state, mesh=mesh, eps=eps, route_cap=n_loc, stage=stage)
     return mesh
 
@@ -564,11 +602,13 @@ def audit_all_engines(mesh: Optional[StackedMesh] = None, *, device=None,
                       ) -> Dict[str, Any]:
     """Audit every sharded engine; returns the AUDIT.json dict.
 
-    Each engine runs on its fixture graph under a `RecordingMesh` with the
-    shards of `mesh` (8 stacked shards on `device`, the card when None, if
-    no mesh is given), and every recorded program call is held to the
-    engine's spec; with `run_telemetry` the run's byte counters are also
-    checked against its entry counters times the declared widths."""
+    Each engine runs on its fixture graph under a `RecordingMesh` over
+    `mesh` (8 stacked shards on `device`, the card when None, if no mesh
+    is given), and every recorded program call is held to the engine's
+    spec; with `run_telemetry` the run's byte counters are also checked
+    against its entry counters times the declared widths. Over a process
+    group every process audits its own shard's calls, and the returned
+    report, the same on every process, merges theirs."""
     mesh = mesh or StackedMesh(8, device)
     shards, dev = mesh.shards, mesh.device
     K = walks_per_node
@@ -578,13 +618,13 @@ def audit_all_engines(mesh: Optional[StackedMesh] = None, *, device=None,
     for engine in (engines or ENGINES):
         graph, fixture = _fixture_for(engine, dev)
         spec = spec_for(engine, graph, mesh, eps=eps, K=K)
-        rec = RecordingMesh(shards, dev)
+        rec = RecordingMesh(mesh)
         res = _run_engine(engine, graph, rec, eps=eps, K=K, spec=spec)
         pinned = None
         walk_stage = {"walks": "walks", "improved": "tail",
                       "directed": "tail"}.get(engine)
         if walk_stage:
-            pinned = pinned_superstep(graph, shards, dev, eps=eps,
+            pinned = pinned_superstep(graph, mesh, eps=eps,
                                       stage=walk_stage).calls
         entry = audit_engine_spec(spec, rec.calls, unscoped=rec.unscoped,
                                   pinned=pinned,
@@ -610,11 +650,34 @@ def audit_all_engines(mesh: Optional[StackedMesh] = None, *, device=None,
                                  f"{c['entries']} entries x declared width "
                                  f"(expected {c['expected_bytes']} B)")
                     ).to_dict())
+        entry = _merge_processes(mesh.gather_objects(entry))
         total += len(entry["violations"])
         report["engines"][engine] = entry
     report["violations_total"] = total
     report["ok"] = total == 0
     return report
+
+
+def _merge_processes(entries: List[dict]) -> dict:
+    """One engine's report from every process's: the first process's rows,
+    the union of the violations, and a violation for each field on which
+    a process differs from the first."""
+    first = dict(entries[0])
+    seen = {repr(v) for v in first["violations"]}
+    first["violations"] = list(first["violations"])
+    for rank, other in enumerate(entries[1:], start=1):
+        for v in other["violations"]:
+            if repr(v) not in seen:
+                seen.add(repr(v))
+                first["violations"].append(v)
+        for field in sorted(set(first) | set(other)):
+            if field != "violations" and first.get(field) != other.get(field):
+                first["violations"].append(AuditViolation(
+                    engine=first["engine"], kind="budget/ranks-differ",
+                    where=field,
+                    message=f"process {rank}'s {field} differs from "
+                            f"process 0's").to_dict())
+    return first
 
 
 def format_wire_table(report: Dict[str, Any]) -> str:

@@ -15,6 +15,12 @@ index. Writes go to a
 temporary directory renamed into place, so a failure mid-write never
 corrupts the latest snapshot. The async writer overlaps serialisation with
 compute; the caller's tensors are copied to the host before it starts.
+
+Over a mesh of several processes (`core.collectives.ProcessGroupMesh`)
+every process calls `save` with the same tree, gathered over the mesh;
+only the mesh's writer (rank 0) writes it, and every process then waits
+at a barrier, so a snapshot is on disk for all of them once `save`
+returns. Such saves are blocking.
 """
 from __future__ import annotations
 
@@ -83,9 +89,10 @@ def _flatten(tree: Any) -> Dict[str, np.ndarray]:
 
 
 class Checkpointer:
-    def __init__(self, base_dir: str, *, keep_last: int = 3):
+    def __init__(self, base_dir: str, *, keep_last: int = 3, mesh=None):
         self.base_dir = base_dir
         self.keep_last = keep_last
+        self.mesh = mesh
         os.makedirs(base_dir, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
 
@@ -111,7 +118,14 @@ class Checkpointer:
             self._gc()
 
         self.wait()
-        if blocking:
+        if self.mesh is not None:
+            if not blocking:
+                raise ValueError("a snapshot over a mesh is written "
+                                 "blocking")
+            if self.mesh.writer:
+                _write()
+            self.mesh.barrier()
+        elif blocking:
             _write()
         else:
             self._thread = threading.Thread(target=_write, daemon=True)

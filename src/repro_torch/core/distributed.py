@@ -17,8 +17,9 @@ and must be 0 for an exact run.
 
 Visit counting: the owner shard counts a walk's arrival once —
 immediately for a move within the shard, at receive time for a routed
-walk. The per-shard tensors carry a leading shard dimension
-(`core/collectives.py`); PRNG keys stay on the host, one per shard.
+walk. The per-shard tensors carry a leading dimension of the shards the
+process holds (`core/collectives.py`: all P on a `StackedMesh`, its own
+on a `ProcessGroupMesh`); PRNG keys stay on the host, one per shard.
 """
 from __future__ import annotations
 
@@ -45,14 +46,16 @@ class ShardedGraph:
     n_pad: int
     n_loc: int
     shards: int
-    row_ptr: torch.Tensor   # [P, n_loc+1] rebased per shard
-    col_idx: torch.Tensor   # [P, m_loc_pad] global vertex ids
-    out_deg: torch.Tensor   # [P, n_loc]
+    row_ptr: torch.Tensor   # [S, n_loc+1] rebased per shard
+    col_idx: torch.Tensor   # [S, m_loc_pad] global vertex ids
+    out_deg: torch.Tensor   # [S, n_loc]
 
 
-def shard_graph(graph: CSRGraph, shards: int, device=None) -> ShardedGraph:
+def shard_graph(graph: CSRGraph, shards: int, device=None, *,
+                mesh=None) -> ShardedGraph:
     """Cut `graph` into `shards` contiguous vertex ranges, on `device`
-    (the graph's when None)."""
+    (the graph's when None). With `mesh`, only the mesh's local shards
+    are placed, on its device; `m_pad` stays the most over all shards."""
     n_loc = math.ceil(graph.n / shards)
     row_ptr, col, deg = graph.numpy()
     lo = np.minimum(np.arange(shards) * n_loc, graph.n)
@@ -69,18 +72,23 @@ def shard_graph(graph: CSRGraph, shards: int, device=None) -> ShardedGraph:
         ci[p, : m_loc[p]] = col[row_ptr[lo[p]]:row_ptr[hi[p]]]
         dg[p, : hi[p] - lo[p]] = deg[lo[p]:hi[p]]
     device = graph.device if device is None else device
+    if mesh is not None:
+        device = mesh.device
+        rp, ci, dg = (mesh.local_rows(a) for a in (rp, ci, dg))
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
     return ShardedGraph(n=graph.n, n_pad=n_loc * shards, n_loc=n_loc,
-                        shards=shards,
-                        row_ptr=torch.from_numpy(rp).to(device),
-                        col_idx=torch.from_numpy(ci).to(device),
-                        out_deg=torch.from_numpy(dg).to(device))
+                        shards=shards, row_ptr=dev(rp), col_idx=dev(ci),
+                        out_deg=dev(dg))
 
 
 @dataclasses.dataclass
 class DistState:
-    pos: torch.Tensor    # [P, cap] global vertex id, -1 = empty slot
-    zeta: torch.Tensor   # [P, n_loc] int32 visit counters
-    key: torch.Tensor    # [P, 2] per-shard PRNG keys (uint32, host)
+    pos: torch.Tensor    # [S, cap] global vertex id, -1 = empty slot
+    zeta: torch.Tensor   # [S, n_loc] int32 visit counters
+    key: torch.Tensor    # [S, 2] per-shard PRNG keys (uint32, host)
     round: int
     dropped: int         # must stay 0 for an exact run
     waited: int          # routing-lane carry-overs (stat)
@@ -148,22 +156,28 @@ def _superstep(sg: ShardedGraph, state: DistState, *, mesh: StackedMesh,
 
 
 def init_state(sg: ShardedGraph, walks_per_node: int, key: torch.Tensor,
-               cap: int, device) -> DistState:
+               cap: int, device, *, mesh=None) -> DistState:
     """Walks start at their own vertex, K per real vertex, packed at the
     front of their owner's buffer; zeta starts at K per real vertex; the
-    shard keys are `split(key, P)`."""
+    shard keys are `split(key, P)`. With `mesh`, only its local shards'
+    rows are built, on its device."""
     shards, n_loc = sg.shards, sg.n_loc
-    pos = torch.full((shards, cap), -1, dtype=torch.int32, device=device)
-    zeta = torch.zeros((shards, n_loc), dtype=torch.int32, device=device)
-    for p in range(shards):
+    ids = list(range(shards)) if mesh is None else \
+        mesh.shard_ids().tolist()
+    device = device if mesh is None else mesh.device
+    if min(sg.n, n_loc) * walks_per_node > cap:
+        raise ValueError("cap too small for the initial placement")
+    pos = torch.full((len(ids), cap), -1, dtype=torch.int32, device=device)
+    zeta = torch.zeros((len(ids), n_loc), dtype=torch.int32, device=device)
+    for row, p in enumerate(ids):
         lo, hi = min(p * n_loc, sg.n), min((p + 1) * n_loc, sg.n)
-        if (hi - lo) * walks_per_node > cap:
-            raise ValueError("cap too small for the initial placement")
         locs = torch.arange(lo, hi, dtype=torch.int32, device=device)
-        pos[p, : (hi - lo) * walks_per_node] = locs.repeat_interleave(
+        pos[row, : (hi - lo) * walks_per_node] = locs.repeat_interleave(
             walks_per_node)
-        zeta[p, : hi - lo] = walks_per_node
-    return DistState(pos=pos, zeta=zeta, key=prng.split(key, shards),
+        zeta[row, : hi - lo] = walks_per_node
+    keys = prng.split(key, shards)
+    return DistState(pos=pos, zeta=zeta,
+                     key=keys if mesh is None else mesh.local_rows(keys),
                      round=0, dropped=0, waited=0)
 
 
@@ -201,13 +215,13 @@ def distributed_pagerank(graph: CSRGraph, eps: float, walks_per_node: int,
     steps at most that many owned walks a shard in a round."""
     mesh = mesh or StackedMesh(1, device)
     shards = mesh.shards
-    sg = shard_graph(graph, shards, mesh.device)
+    sg = shard_graph(graph, shards, mesh=mesh)
     W = graph.n * walks_per_node
     if cap is None:
         cap = max(2 * W // shards + shards * 64, 256)
     if route_cap is None:
         route_cap = default_route_cap(W, shards)
-    state = init_state(sg, walks_per_node, key, cap, mesh.device)
+    state = init_state(sg, walks_per_node, key, cap, mesh.device, mesh=mesh)
     a2a_total = entries_total = 0
     round_active: List[int] = []
     while state.round < max_rounds:
@@ -219,7 +233,7 @@ def distributed_pagerank(graph: CSRGraph, eps: float, walks_per_node: int,
         round_active.append(active)
         if active == 0:
             break
-    zeta = state.zeta.reshape(-1)[: graph.n]
+    zeta = mesh.gather_rows(state.zeta).reshape(-1)[: graph.n]
     pi = pagerank_from_visits(zeta, graph.n, walks_per_node, eps)
     return DistributedResult(
         zeta=zeta, pi=pi, rounds=state.round, dropped=state.dropped,
@@ -231,19 +245,27 @@ def distributed_pagerank(graph: CSRGraph, eps: float, walks_per_node: int,
 # checkpoint/restart hooks (used by runtime.fault_tolerance)
 # --------------------------------------------------------------------------
 
-def state_to_host(state: DistState) -> dict:
-    return dict(pos=state.pos.cpu().numpy(), zeta=state.zeta.cpu().numpy(),
-                key=state.key.cpu().numpy(), round=int(state.round),
+def state_to_host(state: DistState, mesh=None) -> dict:
+    """The state in the stacked [P, ...] host layout; with `mesh`, every
+    shard's rows gathered over it (a collective: every process calls
+    it)."""
+    def rows(t):
+        return t.cpu().numpy() if mesh is None else mesh.host_rows(t)
+
+    return dict(pos=rows(state.pos), zeta=rows(state.zeta),
+                key=rows(state.key), round=int(state.round),
                 dropped=int(state.dropped), waited=int(state.waited))
 
 
 def state_from_host(d: dict, mesh: StackedMesh) -> DistState:
-    def dev(name):
-        return torch.from_numpy(np.array(d[name], np.int32)).to(mesh.device)
+    """The mesh's local rows of a stacked [P, ...] host state."""
+    def rows(name, dtype):
+        return torch.from_numpy(np.array(mesh.local_rows(d[name]), dtype))
 
     return DistState(
-        pos=dev("pos"), zeta=dev("zeta"),
-        key=torch.from_numpy(np.array(d["key"], np.uint32)),
+        pos=rows("pos", np.int32).to(mesh.device),
+        zeta=rows("zeta", np.int32).to(mesh.device),
+        key=rows("key", np.uint32),
         round=int(d["round"]), dropped=int(d["dropped"]),
         waited=int(d["waited"]))
 

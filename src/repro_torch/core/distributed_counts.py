@@ -77,13 +77,13 @@ class ShardedPaddedGraph:
     n_loc: int
     shards: int
     max_deg: int
-    deg: torch.Tensor       # [P, n_loc]
+    deg: torch.Tensor       # [S, n_loc] (S: the shards held here)
     lane_cap: int           # max distinct vertices over any shard pair
     layout: BucketLayout    # shard-uniform bucket caps and widths
-    bperm: torch.Tensor     # [P, layout.total_rows] local rows, -1 = pad
-    bnbr: torch.Tensor      # [P, layout.total_edges] flat bucketed dst
-    stacked_layout: BucketLayout  # one sampler call per bucket, all shards
-    stacked_perm: torch.Tensor    # [sum(stacked caps)] rows of [P*n_loc]
+    bperm: torch.Tensor     # [S, layout.total_rows] local rows, -1 = pad
+    bnbr: torch.Tensor      # [S, layout.total_edges] flat bucketed dst
+    stacked_layout: BucketLayout  # one sampler call for the S shards
+    stacked_perm: torch.Tensor    # [sum(stacked caps)] rows of [S*n_loc]
 
 
 def _lane_cap(src: np.ndarray, col: np.ndarray, n_loc: int,
@@ -96,10 +96,11 @@ def _lane_cap(src: np.ndarray, col: np.ndarray, n_loc: int,
 
 
 def shard_graph_padded(graph: CSRGraph, shards: int, *,
-                       bucketed: bool = True,
-                       device=None) -> ShardedPaddedGraph:
+                       bucketed: bool = True, device=None,
+                       mesh=None) -> ShardedPaddedGraph:
     """Shard `graph` for the count engine, on `device` (the graph's when
-    None)."""
+    None). With `mesh`, only the mesh's local shards are placed, on its
+    device; the layout's caps stay the most over all shards."""
     n_loc = math.ceil(graph.n / shards)
     n_pad = n_loc * shards
     md = max(graph.max_out_deg, 1)
@@ -113,9 +114,13 @@ def shard_graph_padded(graph: CSRGraph, shards: int, *,
     deg_sh = deg_pad.reshape(shards, n_loc)
     nbr_sh = nbr.reshape(shards, n_loc, md)
     layout, bperm = build_layout_sharded(deg_sh, md, bucketed=bucketed)
+    device = graph.device if device is None else device
+    if mesh is not None:
+        device = mesh.device
+        deg_sh, nbr_sh, bperm = (mesh.local_rows(a)
+                                 for a in (deg_sh, nbr_sh, bperm))
     bnbr = bucketize_adjacency(nbr_sh, bperm, layout)
     stacked_layout, stacked_perm = stack_shard_perm(bperm, layout)
-    device = graph.device if device is None else device
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -132,23 +137,27 @@ def _sample_step(sg: ShardedPaddedGraph, counts: torch.Tensor,
                  key: torch.Tensor, *, eps: float, mesh: StackedMesh):
     """First half of the superstep: the degree-bucketed aggregate draw.
 
-    Returns (flat_T [P, total_edges] per-edge counts aligned with
-    `sg.bnbr`, the advanced [P, 2] keys, per-bucket occupancy summed over
+    Returns (flat_T [S, total_edges] per-edge counts aligned with
+    `sg.bnbr`, the advanced [S, 2] keys, per-bucket occupancy summed over
     shards, the conservation residual, which must be 0)."""
-    rows = key.to(torch.int64)
-    if not bool((rows == rows[0]).all()):
+    # compared across every shard, so that all processes raise together
+    rows = key.to(torch.int64).to(counts.device)
+    if not bool((mesh.pmax(rows) == -mesh.pmax(-rows)).all()):
         raise ValueError("the count engine's round key must be the same on "
                          "every shard")
     # the key is replicated: one split serves every shard
     k_next, k_sample = prng.split(key[0])
-    n_loc = sg.n_loc
-    rid = torch.arange(mesh.shards * n_loc, dtype=_I32, device=counts.device)
+    n_loc, S = sg.n_loc, counts.shape[0]
+    # draws are keyed by the global row id
+    rid = (mesh.shard_ids().reshape(-1, 1) * n_loc
+           + torch.arange(n_loc, dtype=_I32, device=counts.device)
+           ).reshape(-1)
     lay = sg.stacked_layout
     flat_T, occ, residual = multinomial_buckets(
         counts.reshape(-1), sg.deg.reshape(-1), rid, key_words(k_sample),
-        sg.stacked_perm, lay.widths, lay.caps, eps=eps, shards=mesh.shards)
-    return (flat_T.reshape(mesh.shards, -1), k_next.repeat(mesh.shards, 1),
-            occ, residual)
+        sg.stacked_perm, lay.widths, lay.caps, eps=eps, shards=S)
+    return (flat_T.reshape(S, -1), k_next.repeat(S, 1),
+            mesh.psum(occ[None]), mesh.psum(residual[None]))
 
 
 def _segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
@@ -207,7 +216,8 @@ def _exchange_step(sg: ShardedPaddedGraph, plan: SumPlan,
                               plan.remote_hot)
     vid = torch.arange(sg.n_pad, dtype=_I32, device=flat_T.device)
     if packed and shards > 1:
-        most = int(per_vertex.max())
+        # the most over every shard, so that all processes raise together
+        most = int(mesh.pmax(per_vertex.amax(dim=1)))
         if most > 2 * CMAX:
             raise RuntimeError(
                 f"a vertex receives {most} remote counts this round, more "
@@ -303,19 +313,20 @@ def distributed_pagerank_counts(graph: CSRGraph, eps: float,
     way)."""
     mesh = mesh or StackedMesh(1, device)
     shards, dev = mesh.shards, mesh.device
-    sg = shard_graph_padded(graph, shards, bucketed=bucketed, device=dev)
+    sg = shard_graph_padded(graph, shards, bucketed=bucketed, mesh=mesh)
     if packed and shards > 1 and sg.n_loc > PACKED_VID_MAX:
         raise ValueError(
             f"n_loc = {sg.n_loc} vertices per shard exceeds the "
             f"{PACKED_VID_MAX} local ids of a packed lane entry; pass "
             f"packed=False")
 
-    counts0 = torch.zeros(shards * sg.n_loc, dtype=_I32, device=dev)
+    counts0 = np.zeros(shards * sg.n_loc, np.int32)
     counts0[: graph.n] = walks_per_node
-    counts0 = counts0.reshape(shards, sg.n_loc)
+    counts0 = torch.from_numpy(mesh.local_rows(
+        counts0.reshape(shards, sg.n_loc)).copy()).to(dev)
     # the same round key on every shard: the trajectory depends on the
     # seed and the graph only, not on the shard count
-    keys = key.reshape(1, 2).repeat(shards, 1)
+    keys = key.reshape(1, 2).repeat(counts0.shape[0], 1)
     plan = sum_plan(sg, mesh)
 
     def _step(ms: StagedState):
@@ -355,16 +366,18 @@ def distributed_pagerank_counts(graph: CSRGraph, eps: float,
         shards=shards)
 
     def _put(name, arr):
-        t = torch.from_numpy(np.array(arr))
-        return t if name in ("key", "round") else t.to(dev)
+        if name == "round":
+            return torch.from_numpy(np.array(arr))
+        t = torch.from_numpy(np.array(mesh.local_rows(arr)))
+        return t if name == "key" else t.to(dev)
 
     ms, restarts, checkpoints_written = run_staged(
         schedule, ms, _put, checkpoint_dir=checkpoint_dir, fail_at=fail_at,
         checkpoint_every=checkpoint_every, max_restarts=max_restarts,
         resume=resume, max_rounds=max_rounds + 1,
-        tmp_prefix="prcnt_ckpt_")
+        tmp_prefix="prcnt_ckpt_", mesh=mesh)
 
-    zeta = ms.arrays["zeta"].reshape(-1)[: graph.n]
+    zeta = mesh.gather_rows(ms.arrays["zeta"]).reshape(-1)[: graph.n]
     pi = pagerank_from_visits(zeta, graph.n, walks_per_node, eps)
     h = ms.host
     return CountDistResult(zeta=zeta, pi=pi, rounds=h["rounds"],

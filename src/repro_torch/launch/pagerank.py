@@ -7,6 +7,16 @@ Runs on the CUDA card unless `--device cpu` is given. `--shards N` holds N
 vertex shards on that one device as a stacked mesh (`core/collectives.py`):
 every lane, route, merge and all_to_all runs as it would across N devices.
 
+Under `torchrun` (WORLD_SIZE set) each process holds one shard, on its own
+card over NCCL, or on the CPU over gloo with `--device cpu`:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.pagerank \
+        --algo counts --n 512 --device cpu
+
+`--shards`, if given, must equal the world size, and rank 0 prints the
+report. `--algo walks|counts` run so; `improved`, `directed`, `ppr` and
+`--audit` raise there (not yet under torch.distributed).
+
 Engine selection (`--algo`):
   walks     Algorithm 1, walk-routing engine (default), under the
             checkpoint `Supervisor`.
@@ -85,6 +95,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import shutil
 import tempfile
 
@@ -94,7 +105,8 @@ from repro_torch import prng
 from repro_torch.checkpoint import Checkpointer, relayout_pagerank_state
 from repro_torch.core import (l1_error, normalized, power_iteration,
                               topk_overlap)
-from repro_torch.core.collectives import StackedMesh
+from repro_torch.core.collectives import (ProcessGroupMesh, StackedMesh,
+                                          start_group)
 from repro_torch.core.distributed import (init_state, shard_graph,
                                           state_from_host, state_to_host,
                                           superstep)
@@ -124,15 +136,25 @@ class RunResult:
     topk: float         # top-10 overlap with power iteration
 
 
+# the algorithms that need every shard in one process (ROADMAP item 4b/4c)
+STACKED_ONLY = ("improved", "directed", "ppr")
+
+
+def _say(mesh):
+    """`print` on the mesh's writer, nothing on the other processes."""
+    return print if mesh is None or mesh.writer else (lambda *a, **k: None)
+
+
 def _report_accuracy(pi, g, eps: float, check: bool = False,
-                     l1_tol: float = 0.15, topk_min: float = 0.6):
+                     l1_tol: float = 0.15, topk_min: float = 0.6,
+                     mesh=None):
     pi = np.asarray(pi, dtype=np.float64)
     pi_ref, _, _ = power_iteration(g, eps, device=g.device)
     pi_ref = pi_ref.cpu().numpy()
     l1 = l1_error(pi / pi.sum(), pi_ref)
     topk = topk_overlap(pi, pi_ref)
-    print(f"[pagerank] L1 vs power-iter: {l1:.4f}  "
-          f"top-10 overlap: {topk:.2f}")
+    _say(mesh)(f"[pagerank] L1 vs power-iter: {l1:.4f}  "
+               f"top-10 overlap: {topk:.2f}")
     if check and (l1 >= l1_tol or topk < topk_min):
         raise SystemExit(
             f"[pagerank] accuracy check FAILED: L1 {l1:.4f} "
@@ -145,12 +167,12 @@ def run_walks(g, eps: float, walks_per_node: int, checkpoint_dir, fail_at,
               max_restarts: int = 16):
     mesh = mesh or StackedMesh(1, g.device)
     shards = mesh.shards
-    sg = shard_graph(g, shards, mesh.device)
+    sg = shard_graph(g, shards, mesh=mesh)
     W = g.n * walks_per_node
     cap = 2 * W // shards + shards * 64
     route_cap = W // shards + 64
     state = init_state(sg, walks_per_node, prng.PRNGKey(seed), cap,
-                       mesh.device)
+                       mesh.device, mesh=mesh)
 
     def step_fn(s):
         s2, active, _, _ = superstep(sg, s, mesh=mesh, eps=eps,
@@ -158,11 +180,12 @@ def run_walks(g, eps: float, walks_per_node: int, checkpoint_dir, fail_at,
         return s2, active == 0
 
     # without a directory the snapshots go to a private temporary one,
-    # removed once the run is over
-    ckpt_dir = checkpoint_dir or tempfile.mkdtemp(prefix="pr_ckpt_")
-    sup = Supervisor(step_fn, state_to_host,
+    # made by the mesh's writer and removed by it once the run is over
+    ckpt_dir = checkpoint_dir or mesh.gather_objects(
+        tempfile.mkdtemp(prefix="pr_ckpt_") if mesh.writer else None)[0]
+    sup = Supervisor(step_fn, lambda s: state_to_host(s, mesh),
                      lambda f: state_from_host(f, mesh),
-                     Checkpointer(ckpt_dir), checkpoint_every=10,
+                     Checkpointer(ckpt_dir, mesh=mesh), checkpoint_every=10,
                      max_restarts=max_restarts,
                      failure_schedule=FailureSchedule(fail_at) if fail_at
                      else None,
@@ -172,13 +195,13 @@ def run_walks(g, eps: float, walks_per_node: int, checkpoint_dir, fail_at,
     try:
         res = sup.run(state, resume=resume)
     finally:
-        if checkpoint_dir is None:
+        if checkpoint_dir is None and mesh.writer:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
-    zeta = res.state.zeta.reshape(-1)[: g.n].cpu().numpy()
+    zeta = mesh.gather_rows(res.state.zeta).reshape(-1)[: g.n].cpu().numpy()
     pi = zeta.astype(np.float64) * eps / (g.n * walks_per_node)
-    print(f"[pagerank] algo=walks n={g.n} shards={shards} "
-          f"rounds={res.rounds} restarts={res.restarts} "
-          f"dropped={res.state.dropped}")
+    _say(mesh)(f"[pagerank] algo=walks n={g.n} shards={shards} "
+               f"rounds={res.rounds} restarts={res.restarts} "
+               f"dropped={res.state.dropped}")
     return pi, res
 
 
@@ -239,19 +262,50 @@ def run(n: int, eps: float, walks_per_node: int, graph_kind: str,
         max_restarts: int = 16, device=None):
     """Build the graph, run `algo` on `shards` stacked shards on `device`
     (the card when None) and report its accuracy. `--algo ppr` returns the
-    [num_queries, n] PPR estimator matrix instead of a `RunResult`."""
+    [num_queries, n] PPR estimator matrix instead of a `RunResult`.
+
+    Under `torchrun` (WORLD_SIZE set) each process holds one shard: the
+    mesh is the started default process group's, or a group started here
+    (NCCL on `cuda:<LOCAL_RANK>`, gloo when `device` is the CPU) and
+    destroyed at the end."""
     if resume and not checkpoint_dir:
         raise SystemExit("[pagerank] --resume needs --checkpoint-dir "
                          "(there is no snapshot to cold-start from)")
     if shards is not None and shards < 1:
         raise SystemExit(f"[pagerank] --shards {shards} out of range")
-    mesh = StackedMesh(shards or 1, resolve_device(device))
+    job = (n, eps, walks_per_node, graph_kind, checkpoint_dir, fail_at,
+           seed, algo, avg_deg, resume, check, num_queries, max_restarts)
+    if "WORLD_SIZE" not in os.environ:
+        return _run(StackedMesh(shards or 1, resolve_device(device)), *job)
+    if algo in STACKED_ONLY:
+        raise NotImplementedError(
+            f"--algo {algo} is not yet under torch.distributed (ROADMAP "
+            f"item 4b/4c); run it without torchrun, on --shards stacked "
+            f"shards")
+    import torch.distributed as dist
+    started = not dist.is_initialized()
+    mesh = (start_group(device) if started else
+            ProcessGroupMesh(device=None if device is None
+                             else resolve_device(device)))
+    try:
+        if shards is not None and shards != mesh.shards:
+            raise SystemExit(f"[pagerank] --shards {shards} differs from "
+                             f"the world size {mesh.shards}")
+        return _run(mesh, *job)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(mesh, n, eps, walks_per_node, graph_kind, checkpoint_dir, fail_at,
+         seed, algo, avg_deg, resume, check, num_queries, max_restarts):
     g = GENERATORS[graph_kind](n, avg_deg, seed, device=mesh.device) \
         if graph_kind != "ring" else GENERATORS[graph_kind](
             n, device=mesh.device)
     if algo == "ppr":
         return run_ppr(g, eps, walks_per_node * g.n, num_queries, seed,
                        check=check, mesh=mesh)
+    say = _say(mesh)
     if algo == "walks":
         pi, res = run_walks(g, eps, walks_per_node, checkpoint_dir, fail_at,
                             seed, resume=resume, mesh=mesh,
@@ -261,14 +315,14 @@ def run(n: int, eps: float, walks_per_node: int, graph_kind: str,
             g, eps, walks_per_node, prng.PRNGKey(seed), mesh=mesh,
             checkpoint_dir=checkpoint_dir, fail_at=fail_at, resume=resume,
             max_restarts=max_restarts)
-        print(f"[pagerank] algo=counts n={g.n} shards={res.shards} "
-              f"rounds={res.rounds} restarts={res.restarts} "
-              f"lane_cap={res.lane_cap} "
-              f"a2a_bytes={res.a2a_bytes_total} overflow={res.overflow}")
-        print(f"[pagerank] sampler: {res.sampler_us:.0f} us total "
-              f"({res.sampler_us / max(res.rounds, 1):.0f} us/round) "
-              f"bucket_occupancy={list(res.occupancy)} "
-              f"residual={res.residual}")
+        say(f"[pagerank] algo=counts n={g.n} shards={res.shards} "
+            f"rounds={res.rounds} restarts={res.restarts} "
+            f"lane_cap={res.lane_cap} "
+            f"a2a_bytes={res.a2a_bytes_total} overflow={res.overflow}")
+        say(f"[pagerank] sampler: {res.sampler_us:.0f} us total "
+            f"({res.sampler_us / max(res.rounds, 1):.0f} us/round) "
+            f"bucket_occupancy={list(res.occupancy)} "
+            f"residual={res.residual}")
         pi = res.pi
     elif algo in ("improved", "directed"):
         engine = (distributed_improved_pagerank if algo == "improved"
@@ -297,7 +351,7 @@ def run(n: int, eps: float, walks_per_node: int, graph_kind: str,
         pi = res.pi
     else:
         raise ValueError(f"unknown algo {algo!r}")
-    l1, topk = _report_accuracy(pi, g, eps, check=check)
+    l1, topk = _report_accuracy(pi, g, eps, check=check, mesh=mesh)
     return RunResult(pi=pi, rounds=res.rounds, restarts=res.restarts,
                      shards=mesh.shards, l1=l1, topk=topk)
 
@@ -369,6 +423,10 @@ def main(argv=None):
                          "the mesh (default 8)")
     args = ap.parse_args(argv)
     if args.audit:
+        if "WORLD_SIZE" in os.environ:
+            raise NotImplementedError(
+                "--audit is not yet under torch.distributed (ROADMAP item "
+                "4b/4c); run it without torchrun")
         audit(args.eps, shards=args.shards or 8, device=args.device)
         return
     run(args.n, args.eps, args.walks, args.graph, args.checkpoint_dir,

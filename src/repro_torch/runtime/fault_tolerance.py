@@ -140,10 +140,20 @@ class StageSchedule:
         return state, False
 
 
-def staged_to_host(state: StagedState) -> dict:
+def staged_to_host(state: StagedState, mesh=None) -> dict:
     """Checkpoint payload of a `StagedState`: its buffers as host arrays,
-    the stage tag and host accumulators as JSON leaves."""
-    return dict(arrays={k: to_numpy(v) for k, v in state.arrays.items()},
+    the stage tag and host accumulators as JSON leaves. With `mesh`, every
+    buffer the stage's schema does not declare replicated is gathered
+    over it into the stacked [P, ...] layout (a collective: every process
+    calls it)."""
+    specs = state.layouts.get(state.stage, {})
+
+    def host(name, v):
+        if mesh is not None and specs[name].kind != "replicated":
+            return mesh.host_rows(v)
+        return to_numpy(v)
+
+    return dict(arrays={k: host(k, v) for k, v in state.arrays.items()},
                 stage=pack_json(state.stage), host=pack_json(state.host))
 
 
@@ -284,12 +294,14 @@ def run_staged(schedule: StageSchedule, state: StagedState,
                fail_at: Optional[Sequence[int]] = None,
                checkpoint_every: int = 10, max_restarts: int = 16,
                resume: bool = False, max_rounds: int = 100_000,
-               tmp_prefix: str = "staged_ckpt_") -> Tuple[StagedState, int,
-                                                          int]:
+               tmp_prefix: str = "staged_ckpt_",
+               mesh=None) -> Tuple[StagedState, int, int]:
     """Drive a `StageSchedule` to completion: a plain loop when no fault
     tolerance is asked for, else under the `Supervisor` with stage-tagged
-    snapshots. `put(name, host_array)` places each buffer on restore.
-    Returns (final state, restarts, checkpoints_written)."""
+    snapshots. `put(name, host_array)` places each buffer on restore,
+    from the stacked [P, ...] host layout. With `mesh`, snapshots hold
+    every shard's rows gathered over it and are written once, by its
+    writer. Returns (final state, restarts, checkpoints_written)."""
     if resume and checkpoint_dir is None:
         raise ValueError("resume=True needs checkpoint_dir (there is no "
                          "snapshot to cold-start from)")
@@ -300,9 +312,13 @@ def run_staged(schedule: StageSchedule, state: StagedState,
             rounds += 1
         return state, 0, 0
     # fail_at without a directory: snapshots go to a private temporary
-    # directory, removed once the run is over
-    tmp_dir = tempfile.mkdtemp(prefix=tmp_prefix) \
-        if checkpoint_dir is None else None
+    # directory, made by the writer and removed by it once the run is over
+    writer = mesh is None or mesh.writer
+    tmp_dir = None
+    if checkpoint_dir is None:
+        tmp_dir = tempfile.mkdtemp(prefix=tmp_prefix) if writer else None
+        if mesh is not None:
+            tmp_dir = mesh.gather_objects(tmp_dir)[0]
     meta_fn = ((lambda: dict(shards=int(state.shards)))
                if state.shards is not None else None)
     relayout = None
@@ -312,14 +328,14 @@ def run_staged(schedule: StageSchedule, state: StagedState,
             flat, live_shards, layouts))
     try:
         sup = Supervisor(
-            schedule.step, staged_to_host,
+            schedule.step, lambda s: staged_to_host(s, mesh),
             lambda flat: staged_from_host(flat, put, like=state),
-            Checkpointer(checkpoint_dir or tmp_dir),
+            Checkpointer(checkpoint_dir or tmp_dir, mesh=mesh),
             checkpoint_every=checkpoint_every, max_restarts=max_restarts,
             failure_schedule=FailureSchedule(list(fail_at)) if fail_at
             else None, meta_fn=meta_fn, relayout=relayout)
         res = sup.run(state, max_rounds=max_rounds, resume=resume)
     finally:
-        if tmp_dir is not None:
+        if tmp_dir is not None and writer:
             shutil.rmtree(tmp_dir, ignore_errors=True)
     return res.state, res.restarts, res.checkpoints_written

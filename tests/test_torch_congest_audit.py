@@ -209,6 +209,21 @@ def _wide_psum():
     return audit_program(prog, [call], "toy")[3]
 
 
+def _gather_inside_program():
+    call, _ = _record(lambda m: m.gather_rows(LANES), S)
+    prog = StageProgram(stage="toy", program="p", sites=())
+    return audit_program(prog, [call], "toy")[3]
+
+
+def _processes_differ():
+    from repro_torch.analysis.congest import _merge_processes
+    mine = dict(engine="toy", sites=[dict(site="a", lane_entries=4)],
+                violations=[])
+    other = dict(mine, sites=[dict(site="a", lane_entries=5)])
+    return [types.SimpleNamespace(**v) for v in
+            _merge_processes([mine, other])["violations"]]
+
+
 def _all_to_all_outside_programs():
     mesh = RecordingMesh(S, "cpu")
     mesh.all_to_all(LANES)
@@ -224,6 +239,8 @@ def _all_to_all_outside_programs():
     (_site_fired_twice, "budget/loop"),
     (_wide_psum, "budget/psum"),
     (_all_to_all_outside_programs, "budget/unscoped"),
+    (_gather_inside_program, "budget/gather"),
+    (_processes_differ, "budget/ranks-differ"),
 ], ids=lambda x: getattr(x, "__name__", x))
 def test_auditor_catches_violations(plant, kind):
     kinds = {v.kind for v in plant()}

@@ -454,6 +454,41 @@ def test_cuda_sharded_engines_match_cpu(cuda):
                 (d.rounds, d.a2a_bytes_total, d.occupancy)
 
 
+def test_cuda_nccl_world_one_matches_stacked(cuda, tmp_path):
+    """An NCCL group of one process on the card: both engines through
+    `ProcessGroupMesh` equal `StackedMesh(1)` bit for bit, and launch the
+    kernels under the group."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core.collectives import ProcessGroupMesh
+    card = torch.device("cuda", torch.cuda.current_device())
+    g = directed_web(300, 5.0, seed=2, device=card)
+    key = prng.PRNGKey(5)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60), device_id=card)
+    try:
+        mesh = ProcessGroupMesh(device=card)
+        common.reset_launches()
+        a = distributed_pagerank(g, 0.2, 8, key, mesh=mesh)
+        c = distributed_pagerank_counts(g, 0.2, 8, key, mesh=mesh,
+                                        packed=False)
+        assert common.launches["walk_step"] == a.rounds
+        assert common.launches["multinomial_rows"] == c.rounds
+        assert common.launches["segment_spmv"] > 0
+        assert common.launches["histogram"] > 0
+    finally:
+        dist.destroy_process_group()
+    b = distributed_pagerank(g, 0.2, 8, key, mesh=StackedMesh(1, card))
+    d = distributed_pagerank_counts(g, 0.2, 8, key, packed=False,
+                                    mesh=StackedMesh(1, card))
+    assert torch.equal(a.zeta, b.zeta) and a.rounds == b.rounds
+    assert a.round_active == b.round_active
+    assert torch.equal(c.zeta, d.zeta) and c.rounds == d.rounds
+    assert (c.a2a_bytes_total, c.occupancy, c.residual) == \
+        (d.a2a_bytes_total, d.occupancy, d.residual)
+
+
 @pytest.mark.parametrize("seed", [0, 7, 2 ** 32 - 1])
 @pytest.mark.parametrize("shape", [(0,), (1,), (1000,), (3, 4099),
                                    (1 << 22,)])

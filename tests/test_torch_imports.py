@@ -52,6 +52,18 @@ r = distributed_pagerank(g, 0.2, 4, prng.PRNGKey(0), mesh=mesh)
 assert r.dropped == 0 and r.rounds > 0
 r = distributed_pagerank_counts(g, 0.2, 4, prng.PRNGKey(0), mesh=mesh)
 assert r.residual == 0 and r.rounds > 0
+import datetime, tempfile
+import torch.distributed as dist
+from repro_torch.core.collectives import ProcessGroupMesh
+dist.init_process_group("gloo", store=dist.FileStore(tempfile.mktemp(), 1),
+                        rank=0, world_size=1,
+                        timeout=datetime.timedelta(seconds=60))
+one = ProcessGroupMesh(device="cpu")
+r1 = distributed_pagerank_counts(g, 0.2, 4, prng.PRNGKey(0), mesh=one)
+r0 = distributed_pagerank_counts(g, 0.2, 4, prng.PRNGKey(0),
+                                 mesh=StackedMesh(1, "cpu"))
+assert r1.shards == 1 and r1.zeta.tolist() == r0.zeta.tolist()
+dist.destroy_process_group()
 from repro_torch.core import directed_local_pagerank, improved_pagerank
 from repro_torch.core.distributed_directed import \
     distributed_directed_pagerank
