@@ -54,7 +54,17 @@
    doc_link_graph(2^16) (cut: gloo stages the 36 MB a round of route
    lanes through the host, 583 MB at 2^20) bit-equal to `StackedMesh(2)`;
    each child reports its kernel launches, and a child that fails or
-   outlives its join timeout fails the script.
+   outlives its join timeout fails the script. The three-phase engines
+   the same way: in (a) Algorithm 2 on erdos_renyi(2^20, 8) at K = 139
+   and Section 5 on doc_link_graph(2^14), each bit-equal to
+   `StackedMesh(1)` (zeta, rounds by phase, coupons, walks, wire by
+   site, Phase-2 records, occupancy, residual) and held to step 5's
+   guards, with each phase's collectives and host syncs a round counted;
+   in (b) Algorithm 2 on erdos_renyi(2^16, 8) and Section 5 on
+   doc_link_graph(2^12) at P=4 (cut: the tail's walk lanes through the
+   host), and Algorithm 2 on erdos_renyi(2^15, 8) at eta_safety 8 (step
+   4a's) killed at P=4 mid-Phase 2 and resumed at P=2, each bit-equal
+   to `StackedMesh(4)`.
 4a. The elastic runtime (`elastic_path`), snapshots under build/elastic/
    (removed at the end): the count engine killed at P=8 at round 40 and
    resumed from pristine copies at P = 1, 2, 4 and 16 (zeta bit-identical
@@ -720,9 +730,9 @@ class Runner:
         return result, secs, peak
 
 
-def accuracy(label, pi, pi_ref, n):
+def accuracy(label, pi, pi_ref, n, gate_topk=True):
     """L1 (after normalising) and top-10 overlap against power iteration;
-    fails the phase past L1 0.15 or under top-10 0.6."""
+    fails the phase past L1 0.15 or, with `gate_topk`, under top-10 0.6."""
     import numpy as np
     from repro_torch.core import l1_error, normalized, topk_overlap
     pi = np.asarray(pi, dtype=np.float64)
@@ -731,7 +741,7 @@ def accuracy(label, pi, pi_ref, n):
     l1 = l1_error(normalized(pi), pi_ref)
     top = topk_overlap(pi, pi_ref)
     check(l1 < 0.15, f"{label}: L1 {l1} vs power iteration")
-    check(top >= 0.6, f"{label}: top-10 overlap {top}")
+    check(top >= 0.6 or not gate_topk, f"{label}: top-10 overlap {top}")
     return l1, top
 
 
@@ -943,6 +953,13 @@ PG_JOIN_S = 300             # a whole group of child processes
 PG_RANKS = 4                # (b): processes sharing the one card
 PG_KILL = dict(kill_at=40, every=10, resume_ranks=2)
 N_PG_WALKS = 1 << 16        # (b)'s walk engine: gloo stages lanes on the host
+# (b)'s Algorithm 2: at 2^20 the tail's walk lanes are 583 MB a process a
+# round, staged through the host; Section 5 at doc_link_graph(2^12)
+N_PG_IMPROVED = 1 << 16
+N_PG_DIRECTED = 1 << 12
+# what a three-phase run launches: the Phase-1 sampler and priorities, the
+# counts of every phase; walk_step only when walks reach the tail
+THREE_PHASE = ("histogram", "segment_spmv", "multinomial_rows", "uniform")
 
 
 def zeta_digest(zeta) -> str:
@@ -967,6 +984,28 @@ def walk_summary(res) -> dict:
                 round_active=res.round_active,
                 a2a_entries=res.a2a_entries_total,
                 a2a_bytes=res.a2a_bytes_total)
+
+
+def three_phase_summary(res) -> dict:
+    """The fields of a three-phase run that two meshes must agree on (all
+    but the sampler's wall time), the visit vector as its digest."""
+    return dict(
+        zeta=zeta_digest(res.zeta), rounds=res.rounds,
+        by_phase=[res.phase1_rounds, res.report_rounds, res.phase2_rounds,
+                  res.phase3_rounds, res.tail_rounds],
+        coupons=[res.coupons_created, res.coupons_used],
+        walks=[res.terminated_by_coupon, res.exhausted_walks,
+               res.tail_walks],
+        dropped=res.dropped, waited=res.waited,
+        wire=dict(res.a2a_bytes_by_phase),
+        entries=dict(res.a2a_entries_by_site),
+        phase2_records=res.phase2_records,
+        occupancy=list(res.p1_occupancy), residual=res.residual)
+
+
+def three_phase_kernels(res) -> list:
+    """The kernels a three-phase run must have launched."""
+    return list(THREE_PHASE) + (["walk_step"] if res.tail_walks else [])
 
 
 def save_graph(g, path) -> None:
@@ -997,6 +1036,10 @@ def process_group_child(spec: dict) -> int:
     from repro_torch.core.distributed import distributed_pagerank
     from repro_torch.core.distributed_counts import \
         distributed_pagerank_counts
+    from repro_torch.core.distributed_directed import \
+        distributed_directed_pagerank
+    from repro_torch.core.distributed_improved import \
+        distributed_improved_pagerank
     from repro_torch.kernels import common
     from repro_torch.runtime import SimulatedFailure
 
@@ -1011,12 +1054,35 @@ def process_group_child(spec: dict) -> int:
     try:
         mesh = ProcessGroupMesh(device=dev)
         for case in spec["cases"]:
-            g = load_graph(spec["walk_graph" if case == "walks"
-                                else "graph"], dev)
-            K, key = spec["K"], prng.PRNGKey(0)
+            g = load_graph(spec["graphs"][case], dev)
+            K, key = spec["Ks"][case], prng.PRNGKey(0)
+            kill3p = dict(eta_safety=spec["eta_safety"],
+                          checkpoint_dir=spec["kill3p_dir"])
             common.reset_launches()
             t0 = time.perf_counter()
-            if case == "walks":
+            if case == "improved":
+                row = three_phase_summary(distributed_improved_pagerank(
+                    g, EPS, K, key, mesh=mesh))
+            elif case == "directed":
+                row = three_phase_summary(distributed_directed_pagerank(
+                    g, EPS, K, key, mesh=mesh))
+            elif case == "kill3p":
+                try:
+                    distributed_improved_pagerank(
+                        g, EPS, K, key, mesh=mesh, fail_at=[spec["mid_p2"]],
+                        checkpoint_every=spec["mid_p2"], max_restarts=0,
+                        **kill3p)
+                    row = dict(died=False)
+                except SimulatedFailure:
+                    row = dict(died=True)
+            elif case == "resume3p":
+                # snapshots only at the re-anchor and the end: each is GBs
+                res = distributed_improved_pagerank(
+                    g, EPS, K, key, mesh=mesh, resume=True,
+                    checkpoint_every=10 ** 6, **kill3p)
+                row = dict(three_phase_summary(res), restarts=res.restarts,
+                           shards=res.shards)
+            elif case == "walks":
                 row = walk_summary(distributed_pagerank(g, EPS, K, key,
                                                         mesh=mesh))
             elif case == "counts":
@@ -1088,16 +1154,134 @@ def run_process_group(world: int, spec: dict, label: str) -> list:
     return outs
 
 
+# the program whose calls count a stage's rounds
+STAGE_ROUND = {"phase1": "assign", "phase2": "stitch", "phase3": "count",
+               "tail": "step"}
+
+
+def per_stage_round(rec, syncs) -> dict:
+    """Rounds, collectives a round (by kind) and host syncs a round of
+    each stage, from a `RecordingMesh`'s program calls and the syncs
+    counted while each stage's calls were the last opened."""
+    out = {}
+    for stage, prog in STAGE_ROUND.items():
+        calls = [c for c in rec.calls if c.stage == stage]
+        rounds = sum(c.program == prog for c in calls)
+        prims = {}
+        for call in calls:
+            for c in call.collectives:
+                prims[c.prim] = prims.get(c.prim, 0) + 1
+        out[stage] = dict(
+            rounds=rounds,
+            collectives_a_round={p: n / max(rounds, 1)
+                                 for p, n in sorted(prims.items())},
+            host_syncs_a_round=syncs.get(stage, 0) / max(rounds, 1))
+    out["outside_rounds_syncs"] = syncs.get("setup", 0)
+    return out
+
+
+def three_phase_world_one(mesh, drive):
+    """(a) for the three-phase engines: Algorithm 2 on erdos_renyi(2^20,
+    8) at main_path's K and Section 5 on doc_link_graph(2^14), each on the
+    NCCL group of world size 1 and on `StackedMesh(1)`, bit-equal, both
+    held to the three-phase guards; then Algorithm 2 once more over a
+    `RecordingMesh` of the group, with torch's sync debug mode on, for
+    the collectives and host syncs a round of each phase."""
+    import warnings
+    import torch
+    from repro_torch import prng
+    from repro_torch.analysis.congest import RecordingMesh
+    from repro_torch.core import power_iteration, walks_per_node_for
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.core.distributed_directed import \
+        distributed_directed_pagerank
+    from repro_torch.core.distributed_improved import \
+        distributed_improved_pagerank
+    from repro_torch.graphs import doc_link_graph, erdos_renyi
+
+    dev, key, out = mesh.device, prng.PRNGKey(0), {}
+    # erdos_renyi's PageRank is near-uniform: its top-10 lies within the
+    # estimate's noise at K = 139 (0.5 at P = 1), so only its L1 is gated
+    for engine, fn, gg, topk in (
+            ("improved", distributed_improved_pagerank,
+             erdos_renyi(N, 8.0, seed=0), False),
+            ("directed", distributed_directed_pagerank,
+             doc_link_graph(N_DIRECTED, seed=0), True)):
+        K = walks_per_node_for(gg.n, EPS)
+        pi_ref = power_iteration(gg, EPS, tol=1e-7,
+                                 max_iters=1000)[0].cpu().numpy()
+        runs = {}
+        for name, m in (("nccl", mesh), ("stacked", StackedMesh(1, dev))):
+            res, secs, peak = drive(
+                f"{engine}[{name} P=1, n={gg.n}]",
+                lambda: fn(gg, EPS, K, key, mesh=m), THREE_PHASE)
+            checked = three_phase_checks(f"{engine} {name} P=1", res, gg.n,
+                                         K, pi_ref, gate_topk=topk)
+            for kernel in three_phase_kernels(res):
+                check(drive.last[kernel] > 0,
+                      f"{engine} {name} P=1: {kernel} never launched")
+            runs[name] = dict(three_phase_summary(res), seconds=secs,
+                              peak_gib=peak, sampler_s=res.sampler_us / 1e6,
+                              l1=checked["l1"], top10=checked["top10"])
+            del res
+            torch.cuda.empty_cache()
+        a, b = ({k: v for k, v in runs[n].items()
+                 if k not in ("seconds", "peak_gib", "sampler_s", "l1",
+                              "top10")}
+                for n in ("nccl", "stacked"))
+        check(a == b, f"{engine}: NCCL world 1 differs from StackedMesh(1): "
+                      f"{a} != {b}")
+        out[engine] = dict(
+            n=gg.n, K=K, rounds=a["rounds"], by_phase=a["by_phase"],
+            coupons=a["coupons"], walks=a["walks"], wire=a["wire"],
+            l1=runs["nccl"]["l1"], top10=runs["nccl"]["top10"],
+            **{f"{k}_{n}": runs[n][k] for n in ("nccl", "stacked")
+               for k in ("seconds", "peak_gib", "sampler_s")})
+        log(f"process group (a) {engine} world 1: {out[engine]}")
+
+        if engine == "improved":
+            rec = RecordingMesh(mesh, lints=False)
+            syncs = {}
+
+            def show(message, *args, **kw):
+                if "synchroniz" in str(message):
+                    stage = rec.calls[-1].stage if rec.calls else "setup"
+                    syncs[stage] = syncs.get(stage, 0) + 1
+
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = show
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    res = fn(gg, EPS, K, key, mesh=rec)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            check(zeta_digest(res.zeta) == a["zeta"],
+                  "improved over the recording mesh differs")
+            out["per_round"] = per_stage_round(rec, syncs)
+            log(f"process group (a) improved a round by phase: "
+                f"{out['per_round']}")
+            del res, rec
+        del gg
+        torch.cuda.empty_cache()
+    return out
+
+
 def process_group_path(g, K, drive, sharded, counts_zeta):
-    """Both sharded engines with one shard per process
+    """The sharded engines with one shard per process
     (`ProcessGroupMesh`). (a) An NCCL group of one process, this one: the
     count engine (unpacked) and the walk engine at main_path's K on
     doc_link_graph(2^20), bit-equal to `StackedMesh(1)`, with the
     all_to_all timed against the stacked block transpose and the
-    collectives and host syncs a round counted. (b) Four processes on the
-    one card over gloo with card tensors: the count engine at P=4
-    bit-equal to main_path's `StackedMesh(4)` run, killed at P=4 and
-    resumed at P=2 bit-equal, and the walk engine at P=2 on
+    collectives and host syncs a round counted; then Algorithm 2 and
+    Section 5 (`three_phase_world_one`). (b) Four processes on the one
+    card over gloo with card tensors: the count engine at P=4 bit-equal to
+    main_path's `StackedMesh(4)` run, killed at P=4 and resumed at P=2
+    bit-equal; Algorithm 2 on erdos_renyi(2^16, 8) and Section 5 on
+    doc_link_graph(2^12) at P=4, and elastic_path's Algorithm 2 (2^15,
+    eta_safety 8) killed mid-Phase 2 at P=4 and resumed at P=2, each
+    bit-equal to `StackedMesh(4)` (the resume but for its wire, which
+    routes between 2 shards); and the walk engine at P=2 on
     doc_link_graph(2^16) bit-equal to `StackedMesh(2)` there."""
     import datetime
     import warnings
@@ -1107,9 +1291,14 @@ def process_group_path(g, K, drive, sharded, counts_zeta):
     from repro_torch.analysis.congest import RecordingMesh
     from repro_torch.core.collectives import ProcessGroupMesh, StackedMesh
     from repro_torch.core.distributed import distributed_pagerank
+    from repro_torch.core import power_iteration, walks_per_node_for
     from repro_torch.core.distributed_counts import \
         distributed_pagerank_counts
-    from repro_torch.graphs import doc_link_graph
+    from repro_torch.core.distributed_directed import \
+        distributed_directed_pagerank
+    from repro_torch.core.distributed_improved import \
+        distributed_improved_pagerank
+    from repro_torch.graphs import doc_link_graph, erdos_renyi
 
     shutil.rmtree(PG_DIR, ignore_errors=True)
     PG_DIR.mkdir(parents=True)
@@ -1204,6 +1393,8 @@ def process_group_path(g, K, drive, sharded, counts_zeta):
             del res
         out["per_round"] = counted
         del rec
+        torch.cuda.empty_cache()
+        out["three_phase"] = three_phase_world_one(mesh, drive)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -1211,36 +1402,91 @@ def process_group_path(g, K, drive, sharded, counts_zeta):
     log(f"process group (a), NCCL world 1: {out}")
 
     # (b) four processes on the card, gloo with card tensors
-    graph_file, walk_file = PG_DIR / "graph.npz", PG_DIR / "walk_graph.npz"
-    save_graph(g, graph_file)
-    gw = doc_link_graph(N_PG_WALKS, seed=0, device=dev)
-    save_graph(gw, walk_file)
-    spec = dict(graph=str(graph_file), walk_graph=str(walk_file), K=K,
-                device=str(dev),
+    graphs = dict(graph=g, walk_graph=doc_link_graph(N_PG_WALKS, seed=0,
+                                                     device=dev),
+                  improved=erdos_renyi(N_PG_IMPROVED, 8.0, seed=0),
+                  directed=doc_link_graph(N_PG_DIRECTED, seed=0),
+                  kill3p=erdos_renyi(N_ELASTIC_IMPROVED, 8.0, seed=0))
+    files = {}
+    for name, gg in graphs.items():
+        files[name] = str(PG_DIR / f"{name}.npz")
+        save_graph(gg, files[name])
+    Ks = {name: walks_per_node_for(gg.n, EPS) for name, gg in graphs.items()}
+    Ks["graph"] = Ks["walk_graph"] = K
+    # which graph each case runs on
+    of = dict(counts="graph", kill="graph", resume="graph",
+              walks="walk_graph", improved="improved", directed="directed",
+              kill3p="kill3p", resume3p="kill3p")
+    # the stacked runs the processes must equal; the kill of Algorithm 2
+    # is elastic_path's, mid-Phase 2 of its unfailed run
+    stacked = {}
+    for case, fn, kw in (
+            ("improved", distributed_improved_pagerank, {}),
+            ("directed", distributed_directed_pagerank, {}),
+            ("kill3p", distributed_improved_pagerank,
+             dict(eta_safety=ELASTIC_IMPROVED["eta_safety"]))):
+        gg = graphs[case]
+        res, secs, _ = drive(
+            f"{case}[stacked P=4, n={gg.n}] for (b)",
+            lambda: fn(gg, EPS, Ks[case], key, mesh=StackedMesh(4, dev),
+                       **kw), THREE_PHASE)
+        # only the L1 is gated on erdos_renyi (three_phase_world_one)
+        three_phase_checks(f"{case} stacked P=4", res, gg.n, Ks[case],
+                           power_iteration(gg, EPS, tol=1e-7, max_iters=1000)
+                           [0].cpu().numpy(), gate_topk=case == "directed")
+        stacked[case] = dict(three_phase_summary(res), seconds=secs,
+                             kernels=three_phase_kernels(res))
+        if case == "kill3p":
+            check(res.tail_walks == 0, "(b)'s kill: the tail is not empty, "
+                                       "so its resume is not bit-exact")
+            mid_p2 = (res.phase1_rounds + res.report_rounds
+                      + max(res.phase2_rounds // 2, 1))
+        del res, gg
+    torch.cuda.empty_cache()
+    spec = dict(graphs={case: files[of[case]] for case in of},
+                Ks={case: Ks[of[case]] for case in of}, device=str(dev),
                 kill_dir=str(PG_DIR / "kill"),
-                resume_dir=str(PG_DIR / "resume"))
+                resume_dir=str(PG_DIR / "resume"),
+                kill3p_dir=str(PG_DIR / "kill3p"), mid_p2=mid_p2,
+                eta_safety=ELASTIC_IMPROVED["eta_safety"])
     t0 = time.perf_counter()
-    four = run_process_group(PG_RANKS, dict(spec, cases=["counts", "kill"]),
-                             "gloo4")
+    four = run_process_group(
+        PG_RANKS, dict(spec, cases=["counts", "kill", "improved",
+                                    "directed", "kill3p"]), "gloo4")
     shutil.copytree(PG_DIR / "kill", PG_DIR / "resume")
-    two = run_process_group(PG_KILL["resume_ranks"],
-                            dict(spec, cases=["resume", "walks"]), "gloo2")
+    # Algorithm 2 resumes in its kill directory: a copy would write its
+    # 3.2 GB again, on top of elastic_path's ~37 GB of snapshots
+    two = run_process_group(
+        PG_KILL["resume_ranks"],
+        dict(spec, cases=["resume", "walks", "resume3p"]), "gloo2")
     out["gloo_wall_s"] = time.perf_counter() - t0
     want_counts = dict(zeta=zeta_digest(counts_zeta),
                        rounds=sharded["counts"]["rounds"],
                        a2a_entries=sharded["counts"]["a2a_entries"],
                        a2a_bytes=sharded["counts"]["a2a_bytes"])
     stacked_walks = walk_summary(distributed_pagerank(
-        gw, EPS, K, key, mesh=StackedMesh(2, dev)))
+        graphs["walk_graph"], EPS, K, key, mesh=StackedMesh(2, dev)))
+    # the resumed run routes between 2 shards: its wire differs
+    resumed = {k: v for k, v in stacked["kill3p"].items()
+               if k not in ("wire", "entries", "seconds", "kernels")}
     rows = {}
     for case, outs, want, kernels in (
             ("counts", four, want_counts, ["multinomial_rows",
                                            "segment_spmv"]),
             ("kill", four, dict(died=True), ["multinomial_rows"]),
+            ("improved", four, stacked["improved"],
+             stacked["improved"]["kernels"]),
+            ("directed", four, stacked["directed"],
+             stacked["directed"]["kernels"]),
+            ("kill3p", four, dict(died=True), list(THREE_PHASE)),
             ("resume", two, dict(zeta=want_counts["zeta"],
                                  rounds=want_counts["rounds"], restarts=0,
                                  shards=2), ["multinomial_rows"]),
-            ("walks", two, stacked_walks, ["walk_step", "histogram"])):
+            ("walks", two, stacked_walks, ["walk_step", "histogram"]),
+            ("resume3p", two, dict(resumed, restarts=0, shards=2),
+             ["histogram", "segment_spmv"])):
+        want = {k: v for k, v in want.items()
+                if k not in ("seconds", "kernels")}
         for o in outs:
             r = o[case]
             check({k: r[k] for k in want} == want,
@@ -1257,6 +1503,8 @@ def process_group_path(g, K, drive, sharded, counts_zeta):
                           launches=[o[case]["launches"] for o in outs])
         log(f"process group (b) {case}: {rows[case]}")
     out["gloo"] = rows
+    out["gloo_stacked_s"] = {case: r["seconds"] for case, r in stacked.items()}
+    log(f"process group (b) stacked P=4 s: {out['gloo_stacked_s']}")
     shutil.rmtree(PG_DIR, ignore_errors=True)
     log(f"process group: PASS, (b) {out['gloo_wall_s']:.1f} s")
     return out
@@ -1827,11 +2075,13 @@ def phase_kernel_rows(calls):
     return out
 
 
-def three_phase_checks(label, res, n, K, pi_ref, *, probe=False):
+def three_phase_checks(label, res, n, K, pi_ref, *, probe=False,
+                       gate_topk=True):
     """The three-phase engines' guards: nothing lost (residual, dropped),
     every walk accounted for through Phase 2, coupons used at most once,
     total visits near n*K/eps, Phase 1 within lam rounds and Phase 3 one
-    exchange, and the accuracy policy. Returns the run's summary."""
+    exchange, and the accuracy policy (`accuracy`). Returns the run's
+    summary."""
     check(res.residual == 0 and res.dropped == 0,
           f"{label}: residual {res.residual}, dropped {res.dropped}")
     active = n * K
@@ -1858,7 +2108,7 @@ def three_phase_checks(label, res, n, K, pi_ref, *, probe=False):
     check(res.phase1_rounds <= res.lam and res.phase3_rounds == 1,
           f"{label}: phase-1 rounds {res.phase1_rounds} (lam {res.lam}), "
           f"phase-3 rounds {res.phase3_rounds}")
-    l1, top = accuracy(label, res.pi, pi_ref, n)
+    l1, top = accuracy(label, res.pi, pi_ref, n, gate_topk=gate_topk)
     return dict(
         rounds=res.rounds, phase1=res.phase1_rounds, phase2=res.phase2_rounds,
         phase3=res.phase3_rounds, tail=res.tail_rounds, lam=res.lam,

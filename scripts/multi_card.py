@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Algorithm 1's sharded engines with one shard per card, over NCCL.
+"""The sharded engines with one shard per card, over NCCL: Algorithm 1's
+walk and count engines and Algorithm 2's three-phase engine.
 
     python3 scripts/multi_card.py          # on a host with two or more cards
 
@@ -7,20 +8,22 @@ Builds the kernels, then, with `torch.distributed.run` (torchrun) starting
 one process a card:
 
 1. the launcher, `repro_torch.launch.pagerank.main` with `--algo walks`
-   on erdos_renyi(2^20, 8), K = 139, and `--algo counts` on
-   erdos_renyi(65536 x cards, 8) (the launcher's packed count lanes hold
-   65,536 local ids a shard), `--check`, each timed from the command's
+   and `--algo improved` on erdos_renyi(2^20, 8), K = 139, and `--algo
+   counts` on erdos_renyi(65536 x cards, 8) (the launcher's packed count
+   lanes hold 65,536 local ids a shard), `--check`, each timed from the
+   command's
    start to its end (process start-up, graph, run). It runs through this script (`--cli ALGO`), not `-m`: torchrun's
    own parser (torch 2.11, Python 3.12.3) takes the launcher's `--n` for
    an abbreviation of its options and refuses the command;
 2. this script as the worker (`--worker`): the count engine (unpacked
-   lanes) on doc_link_graph(2^20) and the walk engine on
+   lanes) on doc_link_graph(2^20), the walk engine and Algorithm 2 on
    erdos_renyi(2^20, 8), K = 139 each, over a `ProcessGroupMesh`, each
    run twice and timed per vector between barriers (the first run also
    sets up NCCL's connections); the all_to_all of each engine's round
-   lanes timed alone; then rank 0 runs both engines on
+   lanes timed alone; then rank 0 runs the three engines on
    `StackedMesh(cards)` on its own card, and each result must be
-   bit-equal (zeta, rounds, wire counters).
+   bit-equal (zeta, rounds, wire counters; Algorithm 2's rounds, coupons
+   and walks by phase too).
 
 Prints the card's name and power limit and one JSON line per part; exits
 non-zero if a part fails or disagrees.
@@ -40,17 +43,33 @@ sys.path.insert(0, str(ROOT / "src"))
 
 EPS = 0.2
 N = 1 << 20
+ENGINES = ("counts", "walks", "improved")
 TIMEOUT_S = 300         # a torchrun command; its group's collectives: 240
 
 
-def summary(res, walks: bool) -> dict:
+def summary(res, engine: str) -> dict:
     import hashlib
     import numpy as np
     out = dict(zeta=hashlib.sha256(np.ascontiguousarray(
         res.zeta.cpu().numpy().astype(np.int32)).tobytes()).hexdigest(),
-        rounds=res.rounds, a2a_entries=res.a2a_entries_total,
-        a2a_bytes=res.a2a_bytes_total)
-    if walks:
+        rounds=res.rounds)
+    if engine == "improved":
+        out.update(
+            by_phase=[res.phase1_rounds, res.phase2_rounds,
+                      res.phase3_rounds, res.tail_rounds],
+            coupons=[res.coupons_created, res.coupons_used],
+            walks=[res.terminated_by_coupon, res.exhausted_walks,
+                   res.tail_walks],
+            a2a_bytes=dict(res.a2a_bytes_by_phase),
+            a2a_entries=dict(res.a2a_entries_by_site),
+            phase2_records=hashlib.sha256(json.dumps(
+                res.phase2_records).encode()).hexdigest(),
+            occupancy=list(res.p1_occupancy), dropped=res.dropped,
+            waited=res.waited, residual=res.residual)
+        return out
+    out.update(a2a_entries=res.a2a_entries_total,
+               a2a_bytes=res.a2a_bytes_total)
+    if engine == "walks":
         out.update(dropped=res.dropped, waited=res.waited)
     else:
         out.update(overflow=res.overflow, residual=res.residual)
@@ -84,6 +103,8 @@ def worker() -> int:
                                               distributed_pagerank)
     from repro_torch.core.distributed_counts import (
         distributed_pagerank_counts, shard_graph_padded)
+    from repro_torch.core.distributed_improved import \
+        distributed_improved_pagerank
     from repro_torch.graphs import doc_link_graph, erdos_renyi
     from repro_torch.kernels import common
 
@@ -92,6 +113,7 @@ def worker() -> int:
     key = prng.PRNGKey(0)
     graphs = dict(counts=doc_link_graph(N, seed=0, device=dev),
                   walks=erdos_renyi(N, 8.0, seed=0, device=dev))
+    graphs["improved"] = graphs["walks"]
     K = walks_per_node_for(N, EPS)
 
     def run(engine, m):
@@ -99,10 +121,12 @@ def worker() -> int:
         if engine == "counts":
             return distributed_pagerank_counts(g, EPS, K, key, mesh=m,
                                                packed=False)
+        if engine == "improved":
+            return distributed_improved_pagerank(g, EPS, K, key, mesh=m)
         return distributed_pagerank(g, EPS, K, key, mesh=m)
 
     out = dict(shards=P, K=K, backend=str(mesh))
-    for engine in ("counts", "walks"):
+    for engine in ENGINES:
         secs = []
         for _ in range(2):
             common.reset_launches()
@@ -113,8 +137,10 @@ def worker() -> int:
             torch.cuda.synchronize()
             mesh.barrier()
             secs.append(time.perf_counter() - t0)
-        out[engine] = dict(summary(res, engine == "walks"), seconds=secs,
+        out[engine] = dict(summary(res, engine), seconds=secs,
                            launches=dict(common.launches))
+        if engine == "improved":
+            out[engine]["sampler_s_rank"] = res.sampler_us / 1e6
         del res
         torch.cuda.empty_cache()
     lane_cap = shard_graph_padded(graphs["counts"], P).lane_cap
@@ -126,11 +152,11 @@ def worker() -> int:
                                N * K, P))))}
     ok = True
     if mesh.rank == 0:
-        for engine in ("counts", "walks"):
+        for engine in ENGINES:
             t0 = time.perf_counter()
             res = run(engine, StackedMesh(P, dev))
             torch.cuda.synchronize()
-            want = summary(res, engine == "walks")
+            want = summary(res, engine)
             del res
             torch.cuda.empty_cache()
             got = {k: out[engine][k] for k in want}
@@ -167,7 +193,7 @@ def cli(algo: str) -> int:
     from repro_torch.core import walks_per_node_for
     from repro_torch.core.distributed_counts import PACKED_VID_MAX
     from repro_torch.launch.pagerank import main as launch
-    n = N if algo == "walks" else min(
+    n = N if algo != "counts" else min(
         N, PACKED_VID_MAX * int(os.environ["WORLD_SIZE"]))
     launch(["--algo", algo, "--n", str(n), "--graph", "erdos_renyi",
             "--avg-deg", "8", "--walks", str(walks_per_node_for(n, EPS)),
@@ -193,7 +219,7 @@ def main() -> int:
                          text=True, timeout=60, check=True).stdout
     print(smi.strip(), flush=True)
     rc = 0
-    for algo in ("counts", "walks"):
+    for algo in ("counts", "walks", "improved"):
         code, out, err, secs = torchrun(cards, [
             str(Path(__file__).resolve()), "--cli", algo])
         print(out[-3000:], err[-3000:], flush=True)
@@ -202,7 +228,7 @@ def main() -> int:
         rc = rc or code
     code, out, err, secs = torchrun(cards, [str(Path(__file__).resolve()),
                                             "--worker"])
-    print(out[-6000:], err[-3000:], flush=True)
+    print(out[-12000:], err[-3000:], flush=True)
     print(json.dumps(dict(worker=cards, seconds=secs, rc=code)), flush=True)
     return rc or code
 

@@ -50,8 +50,8 @@ int->float funnels recorded within each program call, and the elastic
 schema. What this cannot see: a reduction over the stacked shard
 dimension done outside the mesh (a whole-tensor sum, a host read of all
 shards) is plain tensor code here; under a one-shard-per-rank backend it
-would have to become a collective (ROADMAP Queue 1 items 4b and 4c list
-the ones left; the walk and count engines have none).
+would have to become a collective (ROADMAP Queue 1 item 4c lists the
+ones left; the walk, count and three-phase engines have none).
 
 Over a process group, each process records its own shard's program calls
 and audits them against the same spec; `audit_all_engines` then merges

@@ -2,8 +2,12 @@
 graph, with every exchange count-aggregated (Lemma 1).
 
 Vertices are split into contiguous shards; every per-shard tensor carries
-a leading shard dimension (`core/collectives.py`) and every exchange is a
-fixed-capacity all_to_all built from the lane machinery of `routing.py`.
+a leading dimension of the shards the process holds (`core/collectives.py`:
+all P on a `StackedMesh`, its own on a `ProcessGroupMesh`) and every
+exchange is a fixed-capacity all_to_all built from the lane machinery of
+`routing.py`. Every count that steers the phase machine (pending coupons,
+active walks, the tail placement check) is a sum or a read over all
+shards, so every process takes the same branch.
 Walks are anonymous, so what moves between shards travels as (vertex,
 count) pairs: the wire volume is bounded by the distinct (vertex, outcome)
 pairs, not by how many walks move.
@@ -117,16 +121,18 @@ def _p1_request(pos, alive, *, mesh: StackedMesh, n_loc: int,
 
 def _phase1_rows(bperm: np.ndarray, layout: BucketLayout, shards: int,
                  n_loc: int):
-    """The Phase-1 sampler's rows: each owner's bucket permutation tiled
-    over the P homes (bucket b holds every home's bucket-b rows, offset by
-    home * n_loc, -1 padding kept: `layout.tile(P)`), then stacked over the
-    owners for one launch (`stack_shard_perm`), as row ids of the flat
-    [P owners * P homes * n_loc] rows. Returns (stacked layout, perm)."""
+    """The Phase-1 sampler's rows: each owner's bucket permutation (the
+    rows of `bperm` [S owners, ...]) tiled over the P homes (bucket b
+    holds every home's bucket-b rows, offset by home * n_loc, -1 padding
+    kept: `layout.tile(P)`), then stacked over the owners for one launch
+    (`stack_shard_perm`), as row ids of the flat [S owners * P homes *
+    n_loc] rows. Returns (stacked layout, perm)."""
     offs = (np.arange(shards, dtype=np.int64) * n_loc)[None, :, None]
     parts = []
     for start, cap in zip(layout.row_starts, layout.caps):
         pb = bperm[:, None, start:start + cap].astype(np.int64)
-        parts.append(np.where(pb < 0, -1, offs + pb).reshape(shards, -1))
+        parts.append(np.where(pb < 0, -1, offs + pb).reshape(
+            bperm.shape[0], -1))
     perm_t = np.concatenate(parts, axis=1).astype(np.int32)
     return stack_shard_perm(perm_t, layout.tile(shards))
 
@@ -136,21 +142,22 @@ def _p1_sample(rows_perm: torch.Tensor, rows_layout: BucketLayout,
                dg: torch.Tensor, c: torch.Tensor, key: torch.Tensor, *,
                eps: float, mesh: StackedMesh, md: int):
     """The owners' draws for every (home, vertex) row: one launch of the
-    fused sampler in its dense-cell mode, each owner under the sample key
-    of `split(key[p], 3)`. Returns (f_cnt [S, P*n_loc*(md+1)], the
-    advanced keys, the assignment keys, per-bucket occupancy summed over
-    shards, the conservation residual)."""
+    fused sampler in its dense-cell mode over the local owners, each under
+    the sample key of `split(key[p], 3)`. Returns (f_cnt [S,
+    P*n_loc*(md+1)], the advanced keys, the assignment keys, per-bucket
+    occupancy and the conservation residual, both summed over shards)."""
     shards = mesh.shards
     keys = torch.stack([prng.split(k, 3) for k in key])      # [S, 3, 2]
     S, n_rows = c.shape
     deg_row = dg.repeat(1, shards).reshape(-1)
-    rid = torch.arange(S * n_rows, dtype=_I32, device=c.device)
+    # draws are keyed by the global row id, owner * n_pad + home * n_loc + v
+    rid = (mesh.shard_ids().reshape(-1, 1) * n_rows
+           + torch.arange(n_rows, dtype=_I32, device=c.device)).reshape(-1)
     f_cnt, occ, residual = multinomial_buckets(
         c.reshape(-1), deg_row, rid, keys[:, 1], rows_perm,
-        rows_layout.widths, rows_layout.caps, eps=eps, shards=shards,
-        cells=md)
+        rows_layout.widths, rows_layout.caps, eps=eps, shards=S, cells=md)
     return (f_cnt.reshape(S, -1), keys[:, 0].clone(), keys[:, 2].clone(),
-            occ, residual)
+            mesh.psum(occ[None]), mesh.psum(residual[None]))
 
 
 def _assign_home(e_vid, e_dst, e_cnt, pos, alive, u, *, n_pad: int, C: int):
@@ -204,9 +211,9 @@ def _p1_assign(rp, ci, pos, alive, traj, f_cnt, k_perm, t: int, *,
                S_loc_pad: int):
     """Reply and assign: route the nonzero outcome cells back to the homes
     and deal them out to the coupons (see the module docstring). Writes
-    column t of `traj` in place. Returns (new_pos, new_alive, pending,
-    overflow, reply entries, reply bytes), the last four summed over
-    shards. The exchange runs over the leading shard dimension; each
+    column t of `traj` in place. Returns (new_pos, new_alive, [pending,
+    overflow, reply entries, reply bytes]), the last summed over shards in
+    one psum. The exchange runs over the leading shard dimension; each
     home's assignment, which involves no other shard, one home at a time,
     which bounds the sorts' memory to one shard's coupons."""
     shards = mesh.shards
@@ -265,9 +272,10 @@ def _p1_assign(rp, ci, pos, alive, traj, f_cnt, k_perm, t: int, *,
             e_vid[r], e_dst[r], e_cnt[r], pos[r], alive[r], u, n_pad=n_pad,
             C=C)
         del u
-    pending = new_alive.sum(dtype=torch.int64)
-    return (new_pos, new_alive, pending, mesh.psum(overflow),
-            mesh.psum(rep_entries), mesh.psum(rep_bytes))
+    stats = mesh.psum(torch.stack(
+        [new_alive.sum(dim=1, dtype=torch.int64), overflow.to(torch.int64),
+         rep_entries.to(torch.int64), rep_bytes.to(torch.int64)], dim=1))
+    return new_pos, new_alive, stats
 
 
 # ---------------------------------------------------------------------------
@@ -301,12 +309,11 @@ def _p2_local(walks, next_c, used, tail_cnt, dest, cterm, psize, pstart,
     dcnt = vertex_histogram(dest, go, n_pad)
     arrivals, entries, nbytes = route_counts(
         dcnt, mesh=mesh, n_loc=n_loc, count_bound=count_bound)
-    stats = torch.stack([mesh.psum(arrivals.sum(dim=1, dtype=torch.int64)),
-                         a.sum(dtype=torch.int64),
-                         term_now.sum(dtype=torch.int64),
-                         exh.sum(dtype=torch.int64),
-                         mesh.psum(entries).to(torch.int64),
-                         mesh.psum(nbytes).to(torch.int64)])
+    # one psum of the six per-shard counts
+    stats = mesh.psum(torch.stack([
+        x.sum(dim=1, dtype=torch.int64)
+        for x in (arrivals, a, term_now, exh, entries[:, None],
+                  nbytes[:, None])], dim=1))
     return arrivals, next_c, used, tail_cnt + exh, stats
 
 
@@ -330,6 +337,13 @@ def _p3_local(traj, used, zeta, *, mesh: StackedMesh, n_loc: int,
     arrivals, entries, nbytes = route_counts(
         part, mesh=mesh, n_loc=n_loc, count_bound=count_bound)
     return zeta + arrivals, mesh.psum(entries), mesh.psum(nbytes)
+
+
+def _shard_sums(x: torch.Tensor, mesh) -> torch.Tensor:
+    """[P] int64 sum of each shard's rows of a per-shard x [S, ...], read
+    between rounds (`gather_rows`), the same on every process."""
+    return mesh.gather_rows(x.reshape(x.shape[0], -1).sum(
+        dim=1, keepdim=True, dtype=torch.int64)).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +371,9 @@ def tail_route_cap(walks: int, shards: int) -> int:
 class ThreePhasePlan:
     """Every static size the three-phase engine derives from (graph,
     shards, pool, K), as the JAX package's plan holds them, plus the
-    Phase-1 sampler's stacked rows."""
+    Phase-1 sampler's stacked rows. The sizes and the host arrays
+    (`psize_sh`, `pstart_sh`, `bperm_np`: [P, ...]) cover every shard;
+    `sg` and `rows_perm` only the shards held here."""
     sg: ShardedGraph
     n_loc: int
     md: int
@@ -371,21 +387,26 @@ class ThreePhasePlan:
     pstart_sh: np.ndarray
     layout: BucketLayout
     bperm_np: np.ndarray
-    rows_layout: BucketLayout  # the Phase-1 rows of every owner, stacked
+    rows_layout: BucketLayout  # the Phase-1 rows of the local owners, stacked
     rows_perm: np.ndarray
 
 
 def plan_three_phase(graph: CSRGraph, shards: int, pool_np: np.ndarray,
                      K: int, *, route_cap2: Optional[int] = None,
                      cap2: Optional[int] = None, bucketed: bool = True,
-                     device=None) -> ThreePhasePlan:
+                     device=None, mesh=None) -> ThreePhasePlan:
     """The three-phase static sizing rules, on `device` (the graph's when
-    None). Refuses a pool whose int32 slot ids would overflow; the
-    outcome keys are int64 (see the module docstring)."""
+    None). With `mesh`, only its local shards' rows are placed, on its
+    device; every size still comes from the whole graph, so that every
+    process derives the same ones. Refuses a pool whose int32 slot ids
+    would overflow; the outcome keys are int64 (see the module
+    docstring)."""
     n = graph.n
-    sg = shard_graph(graph, shards, device)
+    sg = shard_graph(graph, shards, device, mesh=mesh)
     n_loc = sg.n_loc
-    deg_np = np.ascontiguousarray(sg.out_deg.cpu().numpy())
+    deg_np = np.zeros(sg.n_pad, dtype=np.int32)
+    deg_np[:n] = graph.numpy()[2]
+    deg_np = deg_np.reshape(shards, n_loc)
     md = max(int(deg_np.max()), 1)
 
     # coupon pool layout: contiguous per shard, padded to S_loc_pad
@@ -411,7 +432,9 @@ def plan_three_phase(graph: CSRGraph, shards: int, pool_np: np.ndarray,
         cap2 = max(2 * n * K // shards, n_loc * K) + shards * 64
 
     layout, bperm_np = build_layout_sharded(deg_np, md, bucketed=bucketed)
-    rows_layout, rows_perm = _phase1_rows(bperm_np, layout, shards, n_loc)
+    rows_layout, rows_perm = _phase1_rows(
+        bperm_np if mesh is None else mesh.local_rows(bperm_np), layout,
+        shards, n_loc)
     return ThreePhasePlan(sg=sg, n_loc=n_loc, md=md, S_loc_pad=S_loc_pad,
                           S_total=S_total, rep_cap=rep_cap,
                           route_cap2=int(route_cap2), cap2=int(cap2),
@@ -569,11 +592,17 @@ def _run_three_phase(
     global rounds, which span all phases. Recovery replays the identical
     trajectory. `resume=True` continues from the latest snapshot in
     `checkpoint_dir`, written by this package or the JAX package, at this
-    mesh's shard count or another (see the module docstring)."""
+    mesh's shard count or another (see the module docstring).
+
+    On a mesh of several processes each holds its own shard's rows; the
+    snapshots hold every shard's, gathered and written once (the stacked
+    layout), and the results are read through `mesh.gather_rows`. Only
+    `sampler_us`, a host clock, is each process's own."""
     shards, dev = mesh.shards, mesh.device
     n = graph.n
     plan = plan_three_phase(graph, shards, pool_np, K, route_cap2=route_cap2,
-                            cap2=cap2, bucketed=bucketed, device=dev)
+                            cap2=cap2, bucketed=bucketed, device=dev,
+                            mesh=mesh)
     sg, n_loc, md = plan.sg, plan.n_loc, plan.md
     S_loc_pad, S_total = plan.S_loc_pad, plan.S_total
     rep_cap, route_cap2, cap2 = plan.rep_cap, plan.route_cap2, plan.cap2
@@ -581,21 +610,25 @@ def _run_three_phase(
     def put(a, dtype=_I32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(dev)
 
+    # the global shard id of each local row
+    ids = mesh.shard_ids().tolist()
+    S = len(ids)
     # ---- Phase-1 placement: slot s of shard p is p's s-th coupon, at its
     # source vertex; slots past p's pool are padding (never allocated) ----
-    psize_j, pstart_j = put(plan.psize_sh), put(plan.pstart_sh)
-    slot_v = torch.zeros((shards, S_loc_pad), dtype=_I32, device=dev)
-    pos0 = torch.full((shards, S_loc_pad), -1, dtype=_I32, device=dev)
+    psize_j = put(mesh.local_rows(plan.psize_sh))
+    pstart_j = put(mesh.local_rows(plan.pstart_sh))
+    slot_v = torch.zeros((S, S_loc_pad), dtype=_I32, device=dev)
+    pos0 = torch.full((S, S_loc_pad), -1, dtype=_I32, device=dev)
     local = torch.arange(n_loc, dtype=_I32, device=dev)
-    for p in range(shards):
-        src = torch.repeat_interleave(local, psize_j[p].long())
-        slot_v[p, :src.numel()] = src
-        pos0[p, :src.numel()] = src + p * n_loc
-    del local
+    for row, p in enumerate(ids):
+        src = torch.repeat_interleave(local, psize_j[row].long())
+        slot_v[row, :src.numel()] = src
+        pos0[row, :src.numel()] = src + p * n_loc
     # ---- Phase-2 placement: K long walks a real vertex (counts) ----
-    real = (torch.arange(shards * n_loc, device=dev) < n).reshape(
-        shards, n_loc)
+    real = (torch.tensor(ids, dtype=torch.int64, device=dev)[:, None] * n_loc
+            + local) < n
     walks0 = torch.where(real, K, 0).to(_I32)
+    del local
 
     key, k1, k_tail = prng.split(key, 3)
     rows_perm = put(plan.rows_perm)
@@ -614,17 +647,17 @@ def _run_three_phase(
             torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
         del c
-        pos, alive, pending, overflow, rep_e, rep_b = _p1_assign(
+        pos, alive, stats = _p1_assign(
             sg.row_ptr, sg.col_idx, a["pos"], a["alive"], a["traj"], f_cnt,
             k_perm, h["phase1_rounds"], mesh=mesh, n_loc=n_loc, md=md,
             rep_cap=rep_cap, S_loc_pad=S_loc_pad)
         del f_cnt
         a.update(pos=pos, alive=alive, key=key1)
         # one read of the round's telemetry
-        (pending, overflow, req_e, req_b, rep_e, rep_b,
-         res) = torch.stack([x.to(torch.int64).reshape(()) for x in (
-             pending, overflow, req_e, req_b, rep_e, rep_b,
-             residual)]).tolist()
+        (pending, overflow, rep_e, rep_b, req_e, req_b,
+         res) = torch.cat([stats, torch.stack([
+             x.to(torch.int64).reshape(()) for x in (
+                 req_e, req_b, residual)])]).tolist()
         h["phase1_rounds"] += 1
         h["dropped"] += overflow
         h["wire"]["phase1"] += req_b + rep_b
@@ -642,10 +675,10 @@ def _run_three_phase(
         # coupons never moved buffers, so their summaries are home-local:
         # dest = the final vertex, cterm = the reset fired
         a = ms.arrays
-        zeros = torch.zeros((shards, n_loc), dtype=_I32, device=dev)
+        zeros = torch.zeros((S, n_loc), dtype=_I32, device=dev)
         ms.arrays = dict(
             walks=walks0.clone(), next_c=zeros, used=torch.zeros(
-                (shards, S_loc_pad), dtype=_I32, device=dev),
+                (S, S_loc_pad), dtype=_I32, device=dev),
             tail_cnt=zeros.clone(), dest=a["pos"], cterm=1 - a["alive"],
             traj=a["traj"], zeta=walks0.clone())
         return ms
@@ -678,7 +711,7 @@ def _run_three_phase(
 
     def _after_phase2(ms: StagedState) -> StagedState:
         a = ms.arrays
-        ms.host["coupons_used"] = int(a["used"].sum(dtype=torch.int64))
+        ms.host["coupons_used"] = int(_shard_sums(a["used"], mesh).sum())
         ms.arrays = dict(traj=a["traj"], used=a["used"], zeta=a["zeta"],
                          tail_cnt=a["tail_cnt"])
         return ms
@@ -700,18 +733,26 @@ def _run_three_phase(
         a = ms.arrays
         h = ms.host
         tail = a["tail_cnt"]
-        pos_tail = torch.full((shards, cap2), -1, dtype=_I32, device=dev)
-        for p in range(shards):
+        # every shard's tail walks, read on every process: all raise
+        # together if one shard's do not fit its buffer
+        per_shard = _shard_sums(tail, mesh)
+        if int(per_shard.max()) > cap2:
+            raise ValueError(
+                f"cap2 = {cap2} slots a shard is too small for the tail "
+                f"placement: the shards hold {per_shard.tolist()} tail "
+                f"walks")
+        pos_tail = torch.full((S, cap2), -1, dtype=_I32, device=dev)
+        for row, p in enumerate(ids):
             vids = torch.repeat_interleave(
                 torch.arange(p * n_loc, (p + 1) * n_loc, dtype=_I32,
-                             device=dev), tail[p].long())
-            assert vids.numel() <= cap2, "cap2 too small for tail placement"
-            pos_tail[p, :vids.numel()] = vids
-        h["tail_walks"] = int(tail.sum(dtype=torch.int64))
+                             device=dev), tail[row].long())
+            pos_tail[row, :vids.numel()] = vids
+        h["tail_walks"] = int(per_shard.sum())
         h["tail_active"] = h["tail_walks"]
         zero = torch.zeros((), dtype=_I32)
         ms.arrays = dict(pos=pos_tail, zeta=a["zeta"],
-                         key=prng.split(k_tail, shards), round=zero,
+                         key=mesh.local_rows(prng.split(k_tail, shards)),
+                         round=zero,
                          dropped=zero.clone(), waited=zero.clone())
         return ms
 
@@ -753,9 +794,9 @@ def _run_three_phase(
         stage=schedule.first_stage,
         arrays=dict(
             pos=pos0, alive=(pos0 >= 0).to(_I32),
-            traj=torch.full((shards, S_loc_pad, lam), -1, dtype=_I32,
+            traj=torch.full((S, S_loc_pad, lam), -1, dtype=_I32,
                             device=dev),
-            key=prng.split(k1, shards)),
+            key=mesh.local_rows(prng.split(k1, shards))),
         host=dict(phase1_rounds=0, report_rounds=0, phase2_rounds=0,
                   phase3_rounds=0, tail_rounds=0, dropped=0, waited=0,
                   stitches=0, terminated=0, exhausted=0, coupons_used=0,
@@ -769,11 +810,11 @@ def _run_three_phase(
     del pos0
 
     def _put(name: str, arr: np.ndarray):
-        t = torch.from_numpy(np.array(arr))
+        if name in ("round", "dropped", "waited"):
+            return torch.from_numpy(np.array(arr)).to(_I32)  # host scalars
+        t = torch.from_numpy(np.array(mesh.local_rows(arr)))
         if name == "key":
             return t.to(torch.uint32)            # host keys
-        if name in ("round", "dropped", "waited"):
-            return t.to(_I32)                    # host scalars
         return t.to(_I32).to(dev)
 
     # global rounds sum over the four stages, each bounded by max_rounds
@@ -782,10 +823,10 @@ def _run_three_phase(
         checkpoint_every=checkpoint_every, max_restarts=max_restarts,
         resume=resume,
         max_rounds=len(schedule.stages) * max_rounds + len(schedule.stages),
-        tmp_prefix="pr3p_ckpt_")
+        tmp_prefix="pr3p_ckpt_", mesh=mesh)
 
     # ---------------- estimator: host float64 scaling ------------------
-    zeta = ms.arrays["zeta"].reshape(-1)[:n]
+    zeta = mesh.gather_rows(ms.arrays["zeta"]).reshape(-1)[:n]
     pi = pagerank_from_visits(zeta, n, K, eps)
     total_visits = int(zeta.sum(dtype=torch.int64))
 
@@ -838,7 +879,7 @@ def three_phase_audit_spec(graph: CSRGraph, mesh: StackedMesh, *,
                                              StageProgram)
     shards = mesh.shards
     n = graph.n
-    plan = plan_three_phase(graph, shards, pool_np, K, device=mesh.device)
+    plan = plan_three_phase(graph, shards, pool_np, K, mesh=mesh)
     n_loc, md = plan.n_loc, plan.md
     S_loc_pad, S_total = plan.S_loc_pad, plan.S_total
     rep_cap = plan.rep_cap

@@ -14,7 +14,7 @@ card over NCCL, or on the CPU over gloo with `--device cpu`:
         --algo counts --n 512 --device cpu
 
 `--shards`, if given, must equal the world size, and rank 0 prints the
-report. `--algo walks|counts` run so; `improved`, `directed`, `ppr` and
+report. `--algo walks|counts|improved|directed` run so; `ppr` and
 `--audit` raise there (not yet under torch.distributed).
 
 Engine selection (`--algo`):
@@ -136,8 +136,8 @@ class RunResult:
     topk: float         # top-10 overlap with power iteration
 
 
-# the algorithms that need every shard in one process (ROADMAP item 4b/4c)
-STACKED_ONLY = ("improved", "directed", "ppr")
+# the algorithms that need every shard in one process (ROADMAP item 4c)
+STACKED_ONLY = ("ppr",)
 
 
 def _say(mesh):
@@ -280,7 +280,7 @@ def run(n: int, eps: float, walks_per_node: int, graph_kind: str,
     if algo in STACKED_ONLY:
         raise NotImplementedError(
             f"--algo {algo} is not yet under torch.distributed (ROADMAP "
-            f"item 4b/4c); run it without torchrun, on --shards stacked "
+            f"item 4c); run it without torchrun, on --shards stacked "
             f"shards")
     import torch.distributed as dist
     started = not dist.is_initialized()
@@ -330,24 +330,24 @@ def _run(mesh, n, eps, walks_per_node, graph_kind, checkpoint_dir, fail_at,
         res = engine(g, eps, walks_per_node, prng.PRNGKey(seed), mesh=mesh,
                      checkpoint_dir=checkpoint_dir, fail_at=fail_at,
                      resume=resume, max_restarts=max_restarts)
-        print(f"[pagerank] algo={algo} n={g.n} shards={res.shards} "
-              f"lam={res.lam} eta={res.eta} ell={res.ell} "
-              f"rounds={res.rounds} restarts={res.restarts} "
-              f"(p1={res.phase1_rounds} "
-              f"report={res.report_rounds} p2={res.phase2_rounds} "
-              f"p3={res.phase3_rounds} tail={res.tail_rounds})")
-        print(f"[pagerank] coupons created={res.coupons_created} "
-              f"used={res.coupons_used} exhausted_walks="
-              f"{res.exhausted_walks} tail_walks={res.tail_walks}")
-        print(f"[pagerank] wire by phase: {res.a2a_bytes_by_phase} "
-              f"dropped={res.dropped} waited={res.waited}")
-        print(f"[pagerank] p1 sampler: {res.sampler_us:.0f} us total "
-              f"({res.sampler_us / max(res.phase1_rounds, 1):.0f} us/round)"
-              f" bucket_occupancy={list(res.p1_occupancy)} "
-              f"residual={res.residual}")
+        say(f"[pagerank] algo={algo} n={g.n} shards={res.shards} "
+            f"lam={res.lam} eta={res.eta} ell={res.ell} "
+            f"rounds={res.rounds} restarts={res.restarts} "
+            f"(p1={res.phase1_rounds} "
+            f"report={res.report_rounds} p2={res.phase2_rounds} "
+            f"p3={res.phase3_rounds} tail={res.tail_rounds})")
+        say(f"[pagerank] coupons created={res.coupons_created} "
+            f"used={res.coupons_used} exhausted_walks="
+            f"{res.exhausted_walks} tail_walks={res.tail_walks}")
+        say(f"[pagerank] wire by phase: {res.a2a_bytes_by_phase} "
+            f"dropped={res.dropped} waited={res.waited}")
+        say(f"[pagerank] p1 sampler: {res.sampler_us:.0f} us total "
+            f"({res.sampler_us / max(res.phase1_rounds, 1):.0f} us/round)"
+            f" bucket_occupancy={list(res.p1_occupancy)} "
+            f"residual={res.residual}")
         if algo == "directed":
-            print(f"[pagerank] uniform budget={res.uniform_budget} "
-                  f"coupons/node dangling_nodes={res.dangling_nodes}")
+            say(f"[pagerank] uniform budget={res.uniform_budget} "
+                f"coupons/node dangling_nodes={res.dangling_nodes}")
         pi = res.pi
     else:
         raise ValueError(f"unknown algo {algo!r}")
@@ -426,7 +426,7 @@ def main(argv=None):
         if "WORLD_SIZE" in os.environ:
             raise NotImplementedError(
                 "--audit is not yet under torch.distributed (ROADMAP item "
-                "4b/4c); run it without torchrun")
+                "4c); run it without torchrun")
         audit(args.eps, shards=args.shards or 8, device=args.device)
         return
     run(args.n, args.eps, args.walks, args.graph, args.checkpoint_dir,

@@ -455,9 +455,10 @@ def test_cuda_sharded_engines_match_cpu(cuda):
 
 
 def test_cuda_nccl_world_one_matches_stacked(cuda, tmp_path):
-    """An NCCL group of one process on the card: both engines through
-    `ProcessGroupMesh` equal `StackedMesh(1)` bit for bit, and launch the
-    kernels under the group."""
+    """An NCCL group of one process on the card: Algorithm 1's engines,
+    Algorithm 2 and Section 5 through `ProcessGroupMesh` equal
+    `StackedMesh(1)` bit for bit, and launch the kernels under the
+    group."""
     import datetime
     import torch.distributed as dist
     from repro_torch.core.collectives import ProcessGroupMesh
@@ -477,6 +478,12 @@ def test_cuda_nccl_world_one_matches_stacked(cuda, tmp_path):
         assert common.launches["multinomial_rows"] == c.rounds
         assert common.launches["segment_spmv"] > 0
         assert common.launches["histogram"] > 0
+        # eta = 1: most walks finish in the tail, which launches walk_step
+        common.reset_launches()
+        e = distributed_improved_pagerank(g, 0.2, 8, key, mesh=mesh, eta=1)
+        f = distributed_directed_pagerank(g, 0.2, 8, key, mesh=mesh)
+        assert e.tail_walks > 0
+        assert all(common.launches[k] > 0 for k in common.launches)
     finally:
         dist.destroy_process_group()
     b = distributed_pagerank(g, 0.2, 8, key, mesh=StackedMesh(1, card))
@@ -487,6 +494,18 @@ def test_cuda_nccl_world_one_matches_stacked(cuda, tmp_path):
     assert torch.equal(c.zeta, d.zeta) and c.rounds == d.rounds
     assert (c.a2a_bytes_total, c.occupancy, c.residual) == \
         (d.a2a_bytes_total, d.occupancy, d.residual)
+    for got, want in (
+            (e, distributed_improved_pagerank(g, 0.2, 8, key, eta=1,
+                                              mesh=StackedMesh(1, card))),
+            (f, distributed_directed_pagerank(g, 0.2, 8, key,
+                                              mesh=StackedMesh(1, card)))):
+        assert torch.equal(got.zeta, want.zeta)
+        assert all(getattr(got, k) == getattr(want, k) for k in (
+            "rounds", "phase1_rounds", "phase2_rounds", "tail_rounds",
+            "coupons_used", "tail_walks", "exhausted_walks",
+            "terminated_by_coupon", "dropped", "waited",
+            "a2a_bytes_by_phase", "a2a_entries_by_site", "phase2_records",
+            "p1_occupancy", "residual"))
 
 
 @pytest.mark.parametrize("seed", [0, 7, 2 ** 32 - 1])

@@ -26,8 +26,9 @@ Parity level 1 (bit-exact) throughout:
     stacked run's file for file (but for the sampler's wall time), then
     resumed at 2 processes: zeta and rounds equal to the stacked runs,
     which tests/test_torch_elastic.py holds to JAX;
-  * `launch.pagerank.run()` under 2 processes for `counts` and `walks`
-    (with an injected failure) equal to `run(shards=2)`;
+  * `launch.pagerank.run()` under 2 processes for `counts`, `walks`,
+    `improved` and `directed` (with an injected failure) equal to
+    `run(shards=2)`;
   * the CONGEST auditor's walk and count rows at 4 processes equal to the
     stacked rows, with 0 violations.
 """
@@ -66,6 +67,7 @@ graphs = dict(ring=ring(96%(dev)s), er=erdos_renyi(96, 5.0, seed=1%(dev)s),
 # the elastic case of tests/test_torch_elastic.py
 KILL = dict(n=64, K=40, seed=2, fail_at=3)
 LAUNCH = (64, EPS, 8, "erdos_renyi")
+LAUNCH_ALGOS = ("counts", "walks", "improved", "directed")
 GROUP_TIMEOUT = 60      # seconds, on the group's collectives
 JOIN_TIMEOUT = 180      # seconds, for a whole group to finish
 
@@ -110,8 +112,9 @@ for name in NAMES:
 print(json.dumps(out))
 """
 
-# every process of a group runs this, with CASES set to its world's cases
-CHILD = """
+# every process of a group starts it, runs a body of cases, then the cases
+# of its world and prints their results
+GROUP_START = """
 import datetime, json, os, sys
 import numpy as np
 import torch
@@ -121,13 +124,21 @@ RANK, WORLD = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
 dist.init_process_group(
     "gloo", store=dist.FileStore(os.environ["PG_STORE"], WORLD), rank=RANK,
     world_size=WORLD, timeout=datetime.timedelta(seconds=%(timeout)d))
+"""
+GROUP_END = """
+for case in %(cases)r:
+    out[case] = globals()[case]()
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+CHILD = """
 from repro_torch import prng
 from repro_torch.core.collectives import ProcessGroupMesh, StackedMesh
 from repro_torch.core.distributed import distributed_pagerank
 from repro_torch.core.distributed_counts import distributed_pagerank_counts
 from repro_torch.graphs import directed_web, erdos_renyi, ring
 from repro_torch.runtime import SimulatedFailure
-EPS, K, NAMES, PACKED, KILL, LAUNCH, TMP = %(consts)r
+EPS, K, NAMES, PACKED, KILL, LAUNCH, LAUNCH_ALGOS, TMP = %(consts)r
 """ + GRAPHS_SRC % dict(dev=", device='cpu'") + """
 mesh = ProcessGroupMesh(device="cpu")
 out = dict(rank=mesh.rank, shards=mesh.shards)
@@ -209,7 +220,7 @@ def packed_guard():
 def launcher():
     from repro_torch.launch.pagerank import run
     res = {}
-    for algo in ("counts", "walks"):
+    for algo in LAUNCH_ALGOS:
         r = run(*LAUNCH, None, [3], algo=algo, device="cpu")
         res[algo] = dict(pi=r.pi.tolist(), rounds=r.rounds,
                          restarts=r.restarts, shards=r.shards)
@@ -223,11 +234,6 @@ def launcher():
 def audit():
     from repro_torch.analysis.congest import audit_all_engines
     return audit_all_engines(mesh, eps=EPS, engines=("walks", "counts"))
-
-for case in %(cases)r:
-    out[case] = globals()[case]()
-dist.destroy_process_group()
-print(json.dumps(out))
 """
 
 CASES = {4: ["units", "engines", "kill", "audit"],
@@ -235,12 +241,16 @@ CASES = {4: ["units", "engines", "kill", "audit"],
          2: ["units", "engines", "resume", "packed_guard", "launcher"]}
 
 
-def run_group(world, cases, tmp):
+def run_group(world, cases, tmp, body=None):
     """Run `cases` in a gloo group of `world` processes; returns each
-    process's JSON. Every process is killed after JOIN_TIMEOUT."""
-    code = CHILD % dict(timeout=GROUP_TIMEOUT, cases=cases,
-                        consts=(EPS, K, NAMES, PACKED, KILL, LAUNCH,
-                                str(tmp)))
+    process's JSON. Every process is killed after JOIN_TIMEOUT. `body`
+    defines the cases (this file's CHILD by default); it finds the
+    started group's mesh in `mesh` and the results in `out`."""
+    if body is None:
+        body = CHILD % dict(consts=(EPS, K, NAMES, PACKED, KILL, LAUNCH,
+                                    LAUNCH_ALGOS, str(tmp)))
+    code = (GROUP_START % dict(timeout=GROUP_TIMEOUT) + body
+            + GROUP_END % dict(cases=cases))
     env = dict(os.environ, PYTHONPATH=REPO_SRC, WORLD_SIZE=str(world),
                PG_STORE=str(tmp / f"store_{world}"), OMP_NUM_THREADS="1")
     procs, logs = [], []
@@ -443,7 +453,7 @@ def test_resume_at_other_process_count_bit_exact(runs):
         assert r["shards"] == 2 and r["restarts"] == 0
 
 
-@pytest.mark.parametrize("algo", ["counts", "walks"])
+@pytest.mark.parametrize("algo", LAUNCH_ALGOS)
 def test_launcher_under_processes_matches_stacked(runs, algo):
     want = launch.run(*LAUNCH, None, [3], algo=algo, shards=2, device="cpu")
     assert want.restarts == 1
@@ -462,16 +472,16 @@ def test_launcher_shards_must_equal_world_size(runs):
 
 @pytest.mark.parametrize("algo", launch.STACKED_ONLY)
 def test_launcher_refuses_stacked_only_algos(monkeypatch, algo):
-    """Algorithm 2, Section 5 and PPR are not yet under torch.distributed:
-    they raise, and never fall back to stacked shards."""
+    """PPR is not yet under torch.distributed: it raises, and never falls
+    back to stacked shards."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 4b/4c"):
+    with pytest.raises(NotImplementedError, match="item 4c"):
         launch.run(*LAUNCH, None, [], algo=algo, device="cpu")
 
 
 def test_launcher_refuses_audit_under_torchrun(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 4b/4c"):
+    with pytest.raises(NotImplementedError, match="item 4c"):
         launch.main(["--audit", "--device", "cpu"])
 
 
