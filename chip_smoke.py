@@ -64,7 +64,18 @@
    doc_link_graph(2^12) at P=4 (cut: the tail's walk lanes through the
    host), and Algorithm 2 on erdos_renyi(2^15, 8) at eta_safety 8 (step
    4a's) killed at P=4 mid-Phase 2 and resumed at P=2, each bit-equal
-   to `StackedMesh(4)`.
+   to `StackedMesh(4)`. Personalized PageRank the same way: in (a) the
+   batched engine at step 6's width (16 queries x 2^21 walks on
+   doc_link_graph(2^20)) at P = 1, bit-equal to `StackedMesh(1)` (every
+   vector, supersteps, live-walk trace, entries, bytes) and held to the
+   personalized power iteration, with the collectives and host syncs of
+   an admission, a superstep and a vector's read counted; in (b) at P=4
+   on doc_link_graph(2^16) with 2^18 walks a query (cut: gloo stages a
+   superstep's 2^20 virtual lanes through the host), the batched engine,
+   the service (32 distinct queries and 8 repeats, shrunk to 2 processes
+   at tick 10 and grown back to 4 at tick 30; rank 0's answers and every
+   process's host state after each tick equal to the stacked service's)
+   and the auditor's `ppr` row, each equal to `StackedMesh(4)`.
 4a. The elastic runtime (`elastic_path`), snapshots under build/elastic/
    (removed at the end): the count engine killed at P=8 at round 40 and
    resumed from pristine copies at P = 1, 2, 4 and 16 (zeta bit-identical
@@ -960,6 +971,17 @@ N_PG_DIRECTED = 1 << 12
 # what a three-phase run launches: the Phase-1 sampler and priorities, the
 # counts of every phase; walk_step only when walks reach the tail
 THREE_PHASE = ("histogram", "segment_spmv", "multinomial_rows", "uniform")
+# (b)'s PPR: ppr_path's 16 query slots on doc_link_graph(2^16) with 2^18
+# walks a query (gloo stages each superstep's 2^20 virtual lanes through
+# the host); the service's resizes 4 -> 2 -> 4 fall on fixed ticks, which
+# every process knows, in or out of the serving group
+PG_PPR_WALKS = 1 << 18
+PG_PPR_SERVICE = dict(distinct=32, repeats=8, repeat_tick=60, shrink_tick=10,
+                      grow_tick=30)
+# what a PPR superstep launches
+PPR_KERNELS = ("walk_step", "histogram", "segment_spmv")
+AUDIT_ROW = ("sites", "resume", "w_independent", "telemetry", "meta",
+             "fixture", "violations", "psum_sites", "psum_max_bytes")
 
 
 def zeta_digest(zeta) -> str:
@@ -1003,6 +1025,92 @@ def three_phase_summary(res) -> dict:
         occupancy=list(res.p1_occupancy), residual=res.residual)
 
 
+def ppr_summary(res) -> dict:
+    """The fields of a batched PPR run that two meshes must agree on, the
+    vectors as their digest."""
+    import hashlib
+    import numpy as np
+    return dict(
+        ppr=hashlib.sha256(np.ascontiguousarray(res.ppr).tobytes())
+        .hexdigest(), rounds=res.rounds, trace=list(res.active_trace),
+        a2a_entries=res.a2a_entries, a2a_bytes=res.a2a_bytes,
+        dropped=res.dropped, admit_dropped=res.admit_dropped)
+
+
+def ppr_service_state(svc) -> str:
+    """Digest of the service's host state: queue, slot map, statistics,
+    cache keys and times, the engine's live walks, telemetry and cap."""
+    import dataclasses
+    import hashlib
+    e = svc.engine
+    state = dict(
+        pending=[r.rid for r in svc.pending],
+        slots=[None if r is None else r.rid for r in svc._slot_req],
+        refreshing=sorted(map(repr, svc._refreshing)),
+        next_rid=svc._next_rid, stats=dataclasses.asdict(svc.stats),
+        cache=[[repr(k), t] for k, t in svc.cache.times()],
+        shards=e.shards, cap=e.cap, active=e.active.tolist(),
+        telemetry=[getattr(e, f) for f in e.TELEMETRY])
+    return hashlib.sha256(json.dumps(state).encode()).hexdigest()
+
+
+def ppr_service_trace(g, mesh, walks: int, vectors: bool = False):
+    """(b)'s service: 16 slots of `walks` walks on `mesh` (P shards),
+    answering PG_PPR_SERVICE's distinct queries, four a tick, then the
+    repeats, two a tick, on an injected clock (one tick a superstep); it
+    shrinks to P // 2 shards at one tick and grows back to P at another,
+    the same on every process. Returns the requests, each result's digest
+    (None where this process holds no vector), the final statistics, the
+    host state's digest after each tick's step and whether this process
+    served after each resize; with `vectors`, also the results
+    themselves, in request order."""
+    import dataclasses
+    import hashlib
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.serve import PPRService
+
+    c = PG_PPR_SERVICE
+    distinct = ppr_queries(g.n, c["distinct"], seed=2)
+    rng = np.random.default_rng(3)
+    repeats = [distinct[int(i)] for i in rng.choice(
+        c["distinct"] // 2, c["repeats"], replace=False)]
+    arrivals = sorted([(t // 4, q) for t, q in enumerate(distinct)] + [
+        (c["repeat_tick"] + t // 2, q) for t, q in enumerate(repeats)],
+        key=lambda a: a[0])
+    svc = PPRService(g, EPS, slots=16, walks_per_query=walks, mesh=mesh,
+                     key=prng.PRNGKey(3))
+    reqs, states, serving, tick, P = [], {}, [], 0, mesh.shards
+    while True:
+        if tick in (c["shrink_tick"], c["grow_tick"]):
+            svc.resize(shards=P // 2 if tick == c["shrink_tick"] else P)
+            serving.append(svc.serving)
+        due = []
+        while arrivals and arrivals[0][0] <= tick:
+            due.append(arrivals.pop(0)[1])
+        if svc.serving:
+            for src, w in due:
+                reqs.append(svc.submit(src, w, now=float(tick)))
+            svc.step(now=float(tick))
+            states[str(tick)] = ppr_service_state(svc)
+            if tick > c["grow_tick"] and not arrivals and not svc.busy:
+                break
+        tick += 1
+        check(tick < 2000, "service trace: open after 2000 ticks")
+
+    def digest(v):
+        return None if v is None else hashlib.sha256(
+            np.ascontiguousarray(v).tobytes()).hexdigest()
+
+    out = dict(
+        requests=[[r.rid, r.cached, r.done, r.t_done] for r in reqs],
+        queries=[[list(r.sources), list(r.weights)] for r in reqs],
+        results=[digest(r.result) for r in reqs],
+        stats=dataclasses.asdict(svc.stats), states=states,
+        serving=serving, ticks=tick)
+    return (out, [r.result for r in reqs]) if vectors else out
+
+
 def three_phase_kernels(res) -> list:
     """The kernels a three-phase run must have launched."""
     return list(THREE_PHASE) + (["walk_step"] if res.tail_walks else [])
@@ -1040,6 +1148,8 @@ def process_group_child(spec: dict) -> int:
         distributed_directed_pagerank
     from repro_torch.core.distributed_improved import \
         distributed_improved_pagerank
+    from repro_torch.core.personalized_batch import \
+        batched_personalized_pagerank
     from repro_torch.kernels import common
     from repro_torch.runtime import SimulatedFailure
 
@@ -1085,6 +1195,18 @@ def process_group_child(spec: dict) -> int:
             elif case == "walks":
                 row = walk_summary(distributed_pagerank(g, EPS, K, key,
                                                         mesh=mesh))
+            elif case == "ppr":
+                row = ppr_summary(batched_personalized_pagerank(
+                    g, EPS, ppr_queries(g.n, PPR_QUERIES), spec["ppr_walks"],
+                    key, mesh=mesh))
+            elif case == "ppr_service":
+                row = ppr_service_trace(g, mesh, spec["ppr_walks"])
+            elif case == "ppr_audit":
+                from repro_torch.analysis.congest import audit_all_engines
+                rep = audit_all_engines(mesh, eps=EPS, engines=("ppr",))
+                row = dict(ok=rep["ok"], violations=rep["violations_total"],
+                           row={k: rep["engines"]["ppr"][k]
+                                for k in AUDIT_ROW})
             elif case == "counts":
                 row = count_summary(distributed_pagerank_counts(
                     g, EPS, K, key, mesh=mesh, packed=False))
@@ -1267,6 +1389,186 @@ def three_phase_world_one(mesh, drive):
     return out
 
 
+def pg_ppr_stacked(g, four) -> dict:
+    """(b)'s PPR cases on `StackedMesh(4)` in this process, the batched
+    run and the service's computed answers held to the personalized power
+    iteration, and the service's trace checked across the processes of
+    `four`: rank 0's requests, result digests and host state after every
+    tick equal the stacked service's; every process's state after each
+    tick it served equals rank 0's; the two processes the shrink left out
+    said so and served again after the grow. Returns the summaries the
+    processes must equal."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.analysis.congest import audit_all_engines
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.core.personalized_batch import \
+        batched_personalized_pagerank
+    from repro_torch.serve import query_cache_key
+
+    dev, out = g.device, {}
+    mesh = StackedMesh(PG_RANKS, dev)
+    queries = ppr_queries(g.n, PPR_QUERIES)
+    t0 = time.perf_counter()
+    res = batched_personalized_pagerank(g, EPS, queries, PG_PPR_WALKS,
+                                        prng.PRNGKey(0), mesh=mesh)
+    torch.cuda.synchronize()
+    out["seconds"] = dict(ppr=time.perf_counter() - t0)
+    ref = ppr_oracle(g, queries)
+    for q in range(len(queries)):
+        ppr_accuracy(f"(b) batched PPR stacked P=4 query {q}", res.ppr[q],
+                     ref[q], PG_PPR_WALKS)
+    out["ppr"] = ppr_summary(res)
+    del res
+    t0 = time.perf_counter()
+    svc, vectors = ppr_service_trace(g, mesh, PG_PPR_WALKS, vectors=True)
+    out["seconds"]["ppr_service"] = time.perf_counter() - t0
+    out["service"] = svc
+    check(svc["serving"] == [True, True] and svc["stats"]["dropped_walks"]
+          == svc["stats"]["admit_dropped"] == 0
+          and svc["stats"]["cache_hits"] > 0
+          and all(r[2] for r in svc["requests"]),
+          f"(b) stacked service: {svc['stats']}, serving {svc['serving']}")
+    rank0 = four[0]["ppr_service"]
+    for field in ("requests", "queries", "results", "states", "stats"):
+        check(rank0[field] == svc[field],
+              f"(b) service: rank 0's {field} differ from the stacked "
+              f"service's")
+    for o in four:
+        r = o["ppr_service"]
+        check(all(r["states"][t] == rank0["states"][t] for t in r["states"]),
+              f"(b) service: rank {o['rank']}'s host state differs from "
+              f"rank 0's")
+        left_out = o["rank"] >= 2
+        check(r["serving"] == [not left_out, True]
+              and (len(r["states"]) < len(rank0["states"])) == left_out,
+              f"(b) service: rank {o['rank']} served {r['serving']}")
+        check(all(d is None for d in r["results"]) == (o["rank"] > 0),
+              f"(b) service: rank {o['rank']}'s vectors")
+    # the first answer to each of the first 16 distinct queries: the
+    # oracle
+    distinct = ppr_queries(g.n, PPR_QUERIES, seed=2)
+    ref = ppr_oracle(g, distinct)
+    first = {}
+    for (src, w), vec in zip(svc.pop("queries"), vectors):
+        first.setdefault((tuple(src), tuple(w)), vec)
+    for q, (src, w) in enumerate(distinct):
+        ppr_accuracy(f"(b) service stacked query {q}",
+                     first[query_cache_key(src, w, g.n)], ref[q],
+                     PG_PPR_WALKS)
+    rep = audit_all_engines(mesh, eps=EPS, engines=("ppr",))
+    out["audit"] = json.loads(json.dumps(dict(
+        ok=rep["ok"], violations=rep["violations_total"],
+        row={k: rep["engines"]["ppr"][k] for k in AUDIT_ROW})))
+    check(out["audit"]["ok"], f"(b) stacked ppr audit: {out['audit']}")
+    log(f"process group (b) PPR stacked P=4: {out['seconds']}, service "
+        f"{svc['stats']}, {svc['ticks']} ticks")
+    return out
+
+
+def ppr_world_one(mesh, g, drive):
+    """(a) for PPR: the batched engine at ppr_path's width (PPR_QUERIES
+    queries of PPR_WALKS walks) on `g` at P = 1, on the NCCL group of
+    world size 1 and on `StackedMesh(1)`, bit-equal (every vector,
+    supersteps, the live-walk trace, entries, bytes), each query held to
+    the personalized power iteration; then the engine once more over a
+    `RecordingMesh` of the group, with torch's sync debug mode on, for
+    the collectives and host syncs of each admission, each superstep and
+    each vector's read."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.analysis.congest import RecordingMesh
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.core.personalized_batch import (
+        BatchedPPREngine, batched_personalized_pagerank)
+
+    dev, key, W = mesh.device, prng.PRNGKey(0), PPR_WALKS
+    queries = ppr_queries(g.n, PPR_QUERIES)
+    ref = ppr_oracle(g, queries)
+    runs = {}
+    for name, m in (("nccl", mesh), ("stacked", StackedMesh(1, dev))):
+        res, secs, peak = drive(
+            f"batched_personalized_pagerank[{name} P=1]",
+            lambda: batched_personalized_pagerank(g, EPS, queries, W, key,
+                                                  mesh=m), PPR_KERNELS)
+        check(res.dropped == 0 and res.admit_dropped == 0
+              and res.active_trace[-1] == 0,
+              f"batched PPR {name} P=1: dropped {res.dropped}, "
+              f"admit_dropped {res.admit_dropped}, live walks left")
+        accs = [ppr_accuracy(f"batched PPR {name} P=1 query {q}", res.ppr[q],
+                             ref[q], W) for q in range(len(queries))]
+        runs[name] = dict(ppr_summary(res), seconds=secs, peak_gib=peak,
+                          worst_l1=max(a[0] for a in accs),
+                          worst_top10=min(a[1] for a in accs),
+                          launches=dict(drive.last))
+        del res
+        torch.cuda.empty_cache()
+    keep = ("seconds", "peak_gib", "worst_l1", "worst_top10", "launches")
+    a, b = ({k: v for k, v in runs[n].items() if k not in keep}
+            for n in ("nccl", "stacked"))
+    check(a == b, f"batched PPR: NCCL world 1 differs from StackedMesh(1): "
+                  f"{ {k: v for k, v in a.items() if k != 'trace'} } != "
+                  f"{ {k: v for k, v in b.items() if k != 'trace'} }")
+    out = dict(n=g.n, queries=len(queries), walks_per_query=W,
+               supersteps=a["rounds"], a2a_entries=a["a2a_entries"],
+               a2a_bytes=a["a2a_bytes"],
+               **{f"{k}_{n}": runs[n][k] for n in ("nccl", "stacked")
+                  for k in keep})
+
+    # each part of batched_personalized_pagerank over a recording mesh
+    rec = RecordingMesh(mesh, lints=False)
+    engine = BatchedPPREngine(g, EPS, num_slots=len(queries),
+                              walks_per_query=W, mesh=rec)
+    engine.reset(prng.fold_in(key, 0xBA7C))
+
+    def admit():
+        for i, (src, w) in enumerate(queries):
+            engine.admit(i, src, w, key=prng.fold_in(key, i))
+
+    def run():
+        while engine.active.sum() > 0:
+            engine.superstep()
+
+    syncs, parts = {}, (("admit", admit), ("superstep", run), (
+        "extract", lambda: np.stack([engine.extract(i)
+                                     for i in range(len(queries))])))
+    for part, fn in parts:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs[part] = sum("synchroniz" in str(w.message) for w in caught)
+    import hashlib
+    check(hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
+          == a["ppr"] and (engine.rounds, engine.a2a_entries,
+                           engine.a2a_bytes)
+          == (a["rounds"], a["a2a_entries"], a["a2a_bytes"]),
+          "batched PPR over the recording mesh differs")
+    calls = {"admit": len(queries), "superstep": engine.rounds,
+             "extract": len(queries)}
+    per = {}
+    for part, n_calls in calls.items():
+        prims = {}
+        for call in rec.calls:
+            if call.program == part:
+                for c in call.collectives:
+                    prims[c.prim] = prims.get(c.prim, 0) + 1
+        per[part] = dict(calls=n_calls,
+                         collectives_a_call={p: k / n_calls
+                                             for p, k in sorted(prims.items())},
+                         host_syncs_a_call=syncs[part] / n_calls)
+    out["per_call"] = per
+    log(f"process group (a) batched PPR world 1: {out}")
+    del engine, rec, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def process_group_path(g, K, drive, sharded, counts_zeta):
     """The sharded engines with one shard per process
     (`ProcessGroupMesh`). (a) An NCCL group of one process, this one: the
@@ -1282,7 +1584,11 @@ def process_group_path(g, K, drive, sharded, counts_zeta):
     eta_safety 8) killed mid-Phase 2 at P=4 and resumed at P=2, each
     bit-equal to `StackedMesh(4)` (the resume but for its wire, which
     routes between 2 shards); and the walk engine at P=2 on
-    doc_link_graph(2^16) bit-equal to `StackedMesh(2)` there."""
+    doc_link_graph(2^16) bit-equal to `StackedMesh(2)` there. PPR:
+    `ppr_world_one` in (a), and in (b) the batched engine, the service
+    resized 4 -> 2 -> 4 and the `ppr` audit row at P=4 on
+    doc_link_graph(2^16) (`pg_ppr_stacked` holds them to the stacked
+    runs)."""
     import datetime
     import warnings
     import torch
@@ -1395,6 +1701,7 @@ def process_group_path(g, K, drive, sharded, counts_zeta):
         del rec
         torch.cuda.empty_cache()
         out["three_phase"] = three_phase_world_one(mesh, drive)
+        out["ppr"] = ppr_world_one(mesh, g, drive)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -1416,7 +1723,8 @@ def process_group_path(g, K, drive, sharded, counts_zeta):
     # which graph each case runs on
     of = dict(counts="graph", kill="graph", resume="graph",
               walks="walk_graph", improved="improved", directed="directed",
-              kill3p="kill3p", resume3p="kill3p")
+              kill3p="kill3p", resume3p="kill3p", ppr="walk_graph",
+              ppr_service="walk_graph", ppr_audit="walk_graph")
     # the stacked runs the processes must equal; the kill of Algorithm 2
     # is elastic_path's, mid-Phase 2 of its unfailed run
     stacked = {}
@@ -1448,11 +1756,13 @@ def process_group_path(g, K, drive, sharded, counts_zeta):
                 kill_dir=str(PG_DIR / "kill"),
                 resume_dir=str(PG_DIR / "resume"),
                 kill3p_dir=str(PG_DIR / "kill3p"), mid_p2=mid_p2,
+                ppr_walks=PG_PPR_WALKS,
                 eta_safety=ELASTIC_IMPROVED["eta_safety"])
     t0 = time.perf_counter()
     four = run_process_group(
         PG_RANKS, dict(spec, cases=["counts", "kill", "improved",
-                                    "directed", "kill3p"]), "gloo4")
+                                    "directed", "kill3p", "ppr",
+                                    "ppr_service", "ppr_audit"]), "gloo4")
     shutil.copytree(PG_DIR / "kill", PG_DIR / "resume")
     # Algorithm 2 resumes in its kill directory: a copy would write its
     # 3.2 GB again, on top of elastic_path's ~37 GB of snapshots
@@ -1466,6 +1776,8 @@ def process_group_path(g, K, drive, sharded, counts_zeta):
                        a2a_bytes=sharded["counts"]["a2a_bytes"])
     stacked_walks = walk_summary(distributed_pagerank(
         graphs["walk_graph"], EPS, K, key, mesh=StackedMesh(2, dev)))
+    stacked_ppr = pg_ppr_stacked(graphs["walk_graph"], four)
+    out["gloo_ppr_stacked_s"] = stacked_ppr.pop("seconds")
     # the resumed run routes between 2 shards: its wire differs
     resumed = {k: v for k, v in stacked["kill3p"].items()
                if k not in ("wire", "entries", "seconds", "kernels")}
@@ -1483,6 +1795,11 @@ def process_group_path(g, K, drive, sharded, counts_zeta):
                                  rounds=want_counts["rounds"], restarts=0,
                                  shards=2), ["multinomial_rows"]),
             ("walks", two, stacked_walks, ["walk_step", "histogram"]),
+            ("ppr", four, stacked_ppr["ppr"], PPR_KERNELS),
+            ("ppr_service", four, dict(stats=stacked_ppr["service"]["stats"],
+                                       ticks=stacked_ppr["service"]["ticks"]),
+             PPR_KERNELS),
+            ("ppr_audit", four, stacked_ppr["audit"], PPR_KERNELS),
             ("resume3p", two, dict(resumed, restarts=0, shards=2),
              ["histogram", "segment_spmv"])):
         want = {k: v for k, v in want.items()

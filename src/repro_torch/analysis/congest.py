@@ -50,8 +50,15 @@ int->float funnels recorded within each program call, and the elastic
 schema. What this cannot see: a reduction over the stacked shard
 dimension done outside the mesh (a whole-tensor sum, a host read of all
 shards) is plain tensor code here; under a one-shard-per-rank backend it
-would have to become a collective (ROADMAP Queue 1 item 4c lists the
-ones left; the walk, count and three-phase engines have none).
+would have to become a collective. No engine has one left: each runs
+under a `ProcessGroupMesh` as well.
+
+The psum bound: `ProcessGroupMesh.psum` reduces int32 as int64, so the
+engines hand it int64 and the recorded bytes are the wire's. The PPR
+superstep's one psum is [Q + 3] int64 (the live walks of each query,
+then the round's entries, bytes and dropped walks), 8 (Q + 3) bytes: it
+holds to 256 B up to Q = 29 query slots (JAX's int32 [Q] psum to Q =
+64); its admission psums one int64.
 
 Over a process group, each process records its own shard's program calls
 and audits them against the same spec; `audit_all_engines` then merges

@@ -23,8 +23,10 @@ Two backends, one API:
 Besides `all_to_all` and `psum`, both offer `pmax` (`jax.lax.pmax`), and
 for use outside the rounds `gather_rows` (every shard's rows, [P, ...],
 for result reads and snapshots), `local_rows` (this process's rows of a
-host-built [P, ...] array), `gather_objects`, `barrier` and `writer`
-(whether this process writes the snapshots). Every value that steers
+host-built [P, ...] array), `gather_objects`, `broadcast_object` (the
+writer's object on every process: a serving loop's clock and host
+state), `barrier` and `writer` (whether this process writes the
+snapshots). Every value that steers
 control flow (a loop's end, a raise) must come out of a collective, so
 that all processes take the same branch.
 
@@ -105,6 +107,10 @@ class StackedMesh:
     def gather_objects(self, obj) -> list:
         """Every process's `obj`, in rank order: one process here."""
         return [obj]
+
+    def broadcast_object(self, obj):
+        """The writer's `obj` on every process: this one's here."""
+        return obj
 
     def barrier(self) -> None:
         """Wait for every process: there is one here."""
@@ -203,6 +209,12 @@ class ProcessGroupMesh:
         out = [None] * self.shards
         self._dist.all_gather_object(out, obj, group=self.group)
         return out
+
+    def broadcast_object(self, obj):
+        """Rank 0's `obj` (the others' is ignored) on every process."""
+        box = [obj]
+        self._dist.broadcast_object_list(box, group=self.group, group_src=0)
+        return box[0]
 
     def barrier(self) -> None:
         self._dist.barrier(group=self.group)

@@ -29,8 +29,15 @@ walks of each query, and `extract(slot)` reads one query's PPR vector.
 statistics; `batched_personalized_pagerank` below runs one batch to the
 end for the launch CLI and the tests.
 
-Shards are the leading dimension of every buffer ([P, ...], see
-`core/collectives.py`); the per-shard PRNG keys stay on the host.
+Shards are the leading dimension of every buffer ([S, ...], see
+`core/collectives.py`): all P of them on a `StackedMesh`, this process's
+one on a `ProcessGroupMesh`; the per-shard PRNG keys stay on the host.
+Every count the host reads to steer (the live walks of each query, the
+round's wire, `dropped`, `admit_dropped`) comes out of `mesh.psum`, and
+a query's vector out of `mesh.gather_rows`, so every process of a group
+takes the same branch. A superstep's psum is one [Q + 3] int64 vector:
+8 (Q + 3) bytes, within the auditor's 256-byte control bound up to
+Q = 29 query slots.
 
 Buffer sizing: walks only terminate after admission, so a per-shard `cap`
 of num_slots * walks_per_query + 64 cannot overflow even if every live
@@ -81,10 +88,11 @@ def ppr_state_specs(n: int, cap: int):
 @in_program("serve", "superstep")
 def _ppr_superstep(sg: ShardedGraph, st: BatchPPRState, *, mesh, eps: float,
                    Q: int, count_bound: Optional[int] = None):
-    """One batched PPR round on every shard. Every buffered walk is owned
-    by its shard (arrivals are dealt out owner-side), so every valid slot
-    steps. Returns (state, active_q [Q], sent_entries [S], sent_bytes [S],
-    dropped [S]) as tensors."""
+    """One batched PPR round on every local shard. Every buffered walk is
+    owned by its shard (arrivals are dealt out owner-side), so every valid
+    slot steps. Returns (state, stats): `stats` is the [Q + 3] int64 psum
+    over all shards of the live walks of each query, then the round's
+    lane entries, wire bytes and dropped walks."""
     n_loc, shards = sg.n_loc, mesh.shards
     sid = mesh.shard_ids()
     pos, qid = st.pos, st.qid
@@ -121,13 +129,16 @@ def _ppr_superstep(sg: ShardedGraph, st: BatchPPRState, *, mesh, eps: float,
     # virtual id from the running sums (exact, without a pass over cap)
     kept = (torch.clamp(cum, max=cap)
             - torch.clamp(cum - arrivals, max=cap)).to(torch.int64)
-    active_q = kept.reshape(S, n_loc, Q).sum(dim=(0, 1))
     dropped = torch.clamp(total[:, 0] - cap, min=0)
+    stats = mesh.psum(torch.cat([
+        kept.reshape(S, n_loc, Q).sum(dim=1),
+        torch.stack([sent_entries, sent_bytes, dropped], dim=1).to(
+            torch.int64)], dim=1))
     return (BatchPPRState(pos=new_pos, qid=new_qid, zeta=zeta,
-                          key=keys[:, 0].clone()),
-            active_q, sent_entries, sent_bytes, dropped)
+                          key=keys[:, 0].clone()), stats)
 
 
+@in_program("serve", "admit")
 def _ppr_admit(st: BatchPPRState, starts: torch.Tensor, slot: int, *,
                mesh, n_loc: int):
     """Install a query in slot `slot`: place its start walks in free buffer
@@ -135,7 +146,7 @@ def _ppr_admit(st: BatchPPRState, starts: torch.Tensor, slot: int, *,
     visit column to the start visits (a start counts as a visit, as in
     `engine_walks.init_state`). `starts` is [walks_per_query] global
     vertex ids. Updates `st.zeta` in place; returns (state,
-    admit_dropped)."""
+    admit_dropped), the latter the [1] psum over all shards."""
     sid = mesh.shard_ids()
     S = st.pos.shape[0]
     # a freed slot leaves no walks behind, but a re-admitted slot must
@@ -159,25 +170,40 @@ def _ppr_admit(st: BatchPPRState, starts: torch.Tensor, slot: int, *,
         free_rank, max=starts.shape[1] - 1).long())
     pos = torch.where(take, pick, pos)
     qid = torch.where(take, slot, st.qid)
-    admit_dropped = n_mine.sum() - take.sum()
+    admit_dropped = mesh.psum(
+        (n_mine - take.sum(dim=1, keepdim=True)).to(torch.int64))
     return (BatchPPRState(pos=pos, qid=qid, zeta=st.zeta, key=st.key),
             admit_dropped)
 
 
+def check_virtual_ids(n_pad: int, Q: int, local_shards: int) -> None:
+    """Raise unless the int32 ids of a superstep hold: the virtual ids
+    u = v * Q + q (n_pad * Q of them), and the histogram's segment ids,
+    which offset them once more by local row (all P shards stacked on
+    one device, one row per process of a group)."""
+    if n_pad * Q >= 2 ** 31:
+        raise ValueError(f"n_pad {n_pad} x {Q} query slots exceeds the "
+                         f"int32 virtual vertex ids")
+    if local_shards * n_pad * Q >= 2 ** 31:
+        raise ValueError(f"{local_shards} local shards x n_pad {n_pad} x "
+                         f"{Q} query slots exceeds the int32 segment ids "
+                         f"of one device")
+
+
 class BatchedPPREngine:
     """A resident sharded graph and Q walk-slot batch of PPR queries, on
-    `mesh` (one shard on `device`, the card when None, if no mesh is
-    given).
+    `mesh`: a `StackedMesh` or a `ProcessGroupMesh` (one shard on
+    `device`, the card when None, if no mesh is given). Over a process
+    group every process makes every call, in the same order.
 
-    Telemetry (host counters, cumulative): `rounds`, `a2a_entries`,
-    `a2a_bytes`, `dropped` (buffer overflow, must stay 0), `admit_dropped`
-    (admission overflow, must stay 0), and `active`, the [Q] live walks
-    of each query after the last superstep.
+    Telemetry (host counters, cumulative, the same on every process):
+    `rounds`, `a2a_entries`, `a2a_bytes`, `dropped` (buffer overflow, must
+    stay 0), `admit_dropped` (admission overflow, must stay 0), and
+    `active`, the [Q] live walks of each query after the last superstep.
     """
 
     def __init__(self, graph: CSRGraph, eps: float, *, num_slots: int,
-                 walks_per_query: int,
-                 mesh: Optional[StackedMesh] = None,
+                 walks_per_query: int, mesh=None,
                  cap: Optional[int] = None, device=None):
         self.mesh = mesh or StackedMesh(1, device)
         self.graph = graph
@@ -186,17 +212,10 @@ class BatchedPPREngine:
         self.walks_per_query = int(walks_per_query)
         self.shards = self.mesh.shards
         self.sg: ShardedGraph = shard_graph(graph, self.shards,
-                                            self.mesh.device)
-        # the virtual ids u = v * Q + q are int32, and the stacked shards'
-        # histogram offsets them once more by shard: never let either wrap
-        if self.sg.n_pad * self.Q >= 2 ** 31:
-            raise ValueError(
-                f"n_pad {self.sg.n_pad} x {self.Q} query slots exceeds the "
-                f"int32 virtual vertex ids")
-        if self.shards * self.sg.n_pad * self.Q >= 2 ** 31:
-            raise ValueError(
-                f"{self.shards} shards x n_pad {self.sg.n_pad} x {self.Q} "
-                f"query slots exceeds the int32 segment ids of one device")
+                                            mesh=self.mesh)
+        # the rows this process holds: all P stacked, one per process
+        self.local_shards = int(self.sg.row_ptr.shape[0])
+        check_virtual_ids(self.sg.n_pad, self.Q, self.local_shards)
         if cap is None:
             # worst case: every live walk of every slot on one shard
             cap = self.Q * self.walks_per_query + 64
@@ -210,13 +229,13 @@ class BatchedPPREngine:
     # ------------------------------------------------------------ lifecycle
     def reset(self, key: torch.Tensor) -> None:
         """Clear every slot and re-seed the per-shard PRNG streams."""
-        shape, dev = (self.shards, self.cap), self.device
+        shape, dev = (self.local_shards, self.cap), self.device
         self.state = BatchPPRState(
             pos=torch.full(shape, -1, dtype=_I32, device=dev),
             qid=torch.zeros(shape, dtype=_I32, device=dev),
-            zeta=torch.zeros((self.shards, self.sg.n_loc, self.Q),
+            zeta=torch.zeros((self.local_shards, self.sg.n_loc, self.Q),
                              dtype=_I32, device=dev),
-            key=prng.split(key, self.shards))
+            key=self.mesh.local_rows(prng.split(key, self.shards)))
         self.active = np.zeros(self.Q, dtype=np.int64)
         self.rounds = 0
         self.a2a_entries = 0
@@ -249,12 +268,10 @@ class BatchedPPREngine:
     def superstep(self) -> np.ndarray:
         """Advance every live walk of every query one round; returns the
         [Q] live walks of each query (0 = the query is complete)."""
-        self.state, active_q, entries, sent, dropped = _ppr_superstep(
+        self.state, stats = _ppr_superstep(
             self.sg, self.state, mesh=self.mesh, eps=self.eps, Q=self.Q,
             count_bound=self.walks_per_query)
         # one read of the card for the round's telemetry
-        stats = torch.cat([active_q, torch.stack(
-            [entries.sum(), sent.sum(), dropped.sum()]).to(torch.int64)])
         stats = stats.tolist()
         self.active = np.asarray(stats[:self.Q], dtype=np.int64)
         entries, sent, dropped = stats[self.Q:]
@@ -265,6 +282,48 @@ class BatchedPPREngine:
         return self.active
 
     # ------------------------------------------------------------- elastic
+    TELEMETRY = ("rounds", "a2a_entries", "a2a_bytes", "dropped",
+                 "admit_dropped")
+
+    def host_state(self) -> dict:
+        """Every shard's serving state as host arrays ([P, ...]) with the
+        telemetry: what `adopt` re-lays out onto another mesh. Over a
+        process group every process of this engine's mesh calls it, and
+        each gets the whole."""
+        arrays = {name: self.mesh.host_rows(getattr(self.state, name))
+                  for name in ("pos", "qid", "zeta", "key")}
+        return dict(arrays=arrays, n=self.graph.n, Q=self.Q,
+                    walks_per_query=self.walks_per_query,
+                    active=self.active.copy(),
+                    **{name: getattr(self, name) for name in self.TELEMETRY})
+
+    def adopt(self, host: dict) -> None:
+        """Take over a `host_state` of an engine on any mesh: its arrays
+        re-laid out onto this engine's shards by
+        `checkpoint.relayout_arrays`, this process's rows placed. Local:
+        every process of this engine's mesh calls it with the same
+        `host`, so `cap`, grown under walk skew, is the same on each."""
+        got = (host["n"], host["Q"], host["walks_per_query"])
+        if got != (self.graph.n, self.Q, self.walks_per_query):
+            raise ValueError(
+                f"engine mismatch: (n, Q, walks_per_query) {got} vs "
+                f"{(self.graph.n, self.Q, self.walks_per_query)}")
+        specs = ppr_state_specs(self.graph.n, self.cap)
+        out = relayout_arrays(host["arrays"], specs, self.shards)
+        self.cap = int(out["pos"].shape[1])    # grown under walk skew
+
+        def mine(name):
+            return torch.from_numpy(np.ascontiguousarray(
+                self.mesh.local_rows(out[name])))
+
+        dev = self.device
+        self.state = BatchPPRState(
+            pos=mine("pos").to(dev), qid=mine("qid").to(dev),
+            zeta=mine("zeta").to(dev), key=mine("key"))
+        self.active = np.array(host["active"], dtype=np.int64)
+        for name in self.TELEMETRY:
+            setattr(self, name, host[name])
+
     def relayout_from(self, other: "BatchedPPREngine") -> None:
         """Adopt `other`'s live serving state onto this engine's mesh.
 
@@ -273,37 +332,17 @@ class BatchedPPREngine:
         `checkpoint.relayout_arrays`: queries in flight keep their walks
         and visit counts bit for bit. The per-shard keys are re-derived,
         so the remaining steps of live walks are statistically, not
-        bitwise, the ones the old mesh would have taken."""
-        if (other.graph.n != self.graph.n or other.Q != self.Q
-                or other.walks_per_query != self.walks_per_query):
-            raise ValueError(
-                f"engine mismatch: (n, Q, walks_per_query) "
-                f"{(other.graph.n, other.Q, other.walks_per_query)} vs "
-                f"{(self.graph.n, self.Q, self.walks_per_query)}")
-        specs = ppr_state_specs(self.graph.n, self.cap)
-        arrays = {name: getattr(other.state, name).cpu().numpy()
-                  for name in ("pos", "qid", "zeta", "key")}
-        out = relayout_arrays(arrays, specs, self.shards)
-        self.cap = int(out["pos"].shape[1])    # grown under walk skew
-        dev = self.device
-        self.state = BatchPPRState(
-            pos=torch.from_numpy(out["pos"]).to(dev),
-            qid=torch.from_numpy(out["qid"]).to(dev),
-            zeta=torch.from_numpy(out["zeta"]).to(dev),
-            key=torch.from_numpy(out["key"]))
-        self.active = other.active.copy()
-        self.rounds = other.rounds
-        self.a2a_entries = other.a2a_entries
-        self.a2a_bytes = other.a2a_bytes
-        self.dropped = other.dropped
-        self.admit_dropped = other.admit_dropped
+        bitwise, the ones the old mesh would have taken. Every process of
+        both meshes calls it (`other.host_state` is collective)."""
+        self.adopt(other.host_state())
 
     # -------------------------------------------------------------- results
     def extract(self, slot: int) -> np.ndarray:
         """The PPR estimator vector of slot `slot`:
-        zeta * eps / walks_per_query, scaled in float64 on the host."""
-        zeta = self.state.zeta[:, :, slot].cpu().numpy().astype(np.int64)
-        zeta = zeta.reshape(-1)[: self.graph.n]
+        zeta * eps / walks_per_query, scaled in float64 on the host. Every
+        process of the mesh calls it and gets the whole vector."""
+        zeta = self.mesh.gather_rows(self.state.zeta[:, :, slot])
+        zeta = zeta.cpu().numpy().astype(np.int64).reshape(-1)[: self.graph.n]
         return zeta.astype(np.float64) * (self.eps / self.walks_per_query)
 
 
@@ -323,11 +362,13 @@ def batched_personalized_pagerank(
         graph: CSRGraph, eps: float,
         queries: Sequence[Tuple[Sequence[int], Optional[Sequence[float]]]],
         walks_per_query: int, key: torch.Tensor, *,
-        mesh: Optional[StackedMesh] = None, cap: Optional[int] = None,
+        mesh=None, cap: Optional[int] = None,
         max_rounds: int = DEFAULT_MAX_ROUNDS,
         device=None) -> BatchPPRResult:
     """One batch to the end: admit every query up front, run every walk to
-    termination in shared supersteps, extract every result.
+    termination in shared supersteps, extract every result. `mesh` is a
+    `StackedMesh` or a `ProcessGroupMesh` (every process calls it, and
+    each gets the whole result).
 
     `queries` is a sequence of (sources, weights or None). Query i's walk
     starts come from fold_in(key, i), so a batch is reproducible for a key
@@ -351,13 +392,14 @@ def batched_personalized_pagerank(
                           shards=engine.shards, active_trace=trace)
 
 
-def audit_spec(graph: CSRGraph, mesh: StackedMesh, *, eps: float = 0.2,
+def audit_spec(graph: CSRGraph, mesh, *, eps: float = 0.2,
                num_slots: int = 2, walks_per_query: int = 8):
     """CONGEST-auditor spec for the batched PPR engine: the resident
     engine's superstep program, its declared (vertex, query)-lane budget,
-    and the elastic schema of an engine with an auditor-pinned walk cap
-    of 64 (the virtual-lane wire bound does not depend on the buffer
-    size). `eps` shapes no lane."""
+    the admission program (no all_to_all: its one psum is the admission
+    overflow, as JAX's admit psums it), and the elastic schema of an
+    engine with an auditor-pinned walk cap of 64 (the virtual-lane wire
+    bound does not depend on the buffer size). `eps` shapes no lane."""
     from repro_torch.core.accounting import (EngineAuditSpec, ExchangeSite,
                                              StageProgram)
     shards, Q, cap = mesh.shards, int(num_slots), 64
@@ -371,8 +413,10 @@ def audit_spec(graph: CSRGraph, mesh: StackedMesh, *, eps: float = 0.2,
         note="bounded by distinct (vertex, query) pairs, never walk count")
     prog = StageProgram(stage="serve", program="superstep", sites=(site,),
                         count_bound=walks_per_query)
+    admit = StageProgram(stage="serve", program="admit", sites=(),
+                         count_bound=walks_per_query)
     return EngineAuditSpec(
-        engine="ppr", programs=[prog],
+        engine="ppr", programs=[prog, admit],
         stage_arrays={"serve": ("pos", "qid", "zeta", "key")},
         layouts={"serve": ppr_state_specs(graph.n, cap)},
         meta=dict(shards=shards, n=graph.n, Q=Q,

@@ -14,8 +14,9 @@ card over NCCL, or on the CPU over gloo with `--device cpu`:
         --algo counts --n 512 --device cpu
 
 `--shards`, if given, must equal the world size, and rank 0 prints the
-report. `--algo walks|counts|improved|directed` run so; `ppr` and
-`--audit` raise there (not yet under torch.distributed).
+report. Every `--algo` runs so, and `--audit` audits the engines on the
+group's mesh: rank 0 writes AUDIT.json, and every process exits
+non-zero on a violation or a failed `--check`.
 
 Engine selection (`--algo`):
   walks     Algorithm 1, walk-routing engine (default), under the
@@ -40,7 +41,8 @@ Engine selection (`--algo`):
 
 `--audit` runs the CONGEST auditor instead of an engine
 (`analysis/congest.py`): every sharded engine runs on a fixture graph
-under a recording mesh of `--shards` shards (8 by default), each call of
+under a recording mesh of `--shards` shards (8 by default; under
+`torchrun`, the world size), each call of
 each program its `audit_spec` declares is checked against the declared
 per-round lane budget of its all_to_all sites, the RNG / dtype /
 elastic-schema lints run over the same run, the runtime telemetry is
@@ -93,6 +95,7 @@ miss).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -134,10 +137,6 @@ class RunResult:
     shards: int
     l1: float           # against power iteration
     topk: float         # top-10 overlap with power iteration
-
-
-# the algorithms that need every shard in one process (ROADMAP item 4c)
-STACKED_ONLY = ("ppr",)
 
 
 def _say(mesh):
@@ -211,8 +210,11 @@ def run_ppr(g, eps: float, walks_per_query: int, num_queries: int,
     """Batched PPR: seed-drawn multi-source queries, one shared engine.
 
     Each query is checked against its own `exact_ppr` (PPR has no single
-    power-iteration reference). Returns the [num_queries, n] estimator
-    matrix."""
+    power-iteration reference), on the mesh's writer; the verdict reaches
+    every process, so `--check` fails on all of them or on none. Returns
+    the [num_queries, n] estimator matrix, the same on every process."""
+    mesh = mesh or StackedMesh(1, g.device)
+    say = _say(mesh)
     if check and g.n > PPR_CHECK_MAX_N:
         raise SystemExit(
             f"[pagerank] --check with --algo ppr solves a dense n x n "
@@ -227,32 +229,65 @@ def run_ppr(g, eps: float, walks_per_query: int, num_queries: int,
     res = batched_personalized_pagerank(
         g, eps, queries, walks_per_query, prng.PRNGKey(seed), mesh=mesh)
     peak = max(res.active_trace) if res.active_trace else 0
-    print(f"[pagerank] algo=ppr n={g.n} shards={res.shards} "
-          f"queries={num_queries} walks/query={walks_per_query} "
-          f"rounds={res.rounds} a2a_bytes={res.a2a_bytes} "
-          f"dropped={res.dropped} admit_dropped={res.admit_dropped} "
-          f"peak_active={peak}")
+    say(f"[pagerank] algo=ppr n={g.n} shards={res.shards} "
+        f"queries={num_queries} walks/query={walks_per_query} "
+        f"rounds={res.rounds} a2a_bytes={res.a2a_bytes} "
+        f"dropped={res.dropped} admit_dropped={res.admit_dropped} "
+        f"peak_active={peak}")
     if g.n > PPR_CHECK_MAX_N:
-        print(f"[pagerank] no exact_ppr report above n = {PPR_CHECK_MAX_N} "
-              f"(a dense n x n solve per query)")
+        say(f"[pagerank] no exact_ppr report above n = {PPR_CHECK_MAX_N} "
+            f"(a dense n x n solve per query)")
         return res.ppr
-    worst_l1, worst_topk = 0.0, 1.0
-    for i, (sources, weights) in enumerate(queries):
-        ref = exact_ppr(g, eps, sources, weights=weights)
-        est = res.ppr[i]
-        l1 = l1_error(normalized(est), normalized(ref))
-        topk = topk_overlap(est, ref)
-        print(f"[pagerank]   query {i} sources={list(map(int, sources))} "
-              f"L1 vs exact_ppr: {l1:.4f}  top-10 overlap: {topk:.2f}")
-        worst_l1, worst_topk = max(worst_l1, l1), min(worst_topk, topk)
-    if check and (worst_l1 >= l1_tol or worst_topk < topk_min
-                  or res.dropped or res.admit_dropped):
-        raise SystemExit(
-            f"[pagerank] ppr check FAILED: worst L1 {worst_l1:.4f} "
-            f"(tol {l1_tol}) worst top-10 {worst_topk:.2f} "
-            f"(min {topk_min}) dropped={res.dropped} "
-            f"admit_dropped={res.admit_dropped}")
+    failed = None
+    if mesh.writer:
+        worst_l1, worst_topk = 0.0, 1.0
+        for i, (sources, weights) in enumerate(queries):
+            ref = exact_ppr(g, eps, sources, weights=weights)
+            est = res.ppr[i]
+            l1 = l1_error(normalized(est), normalized(ref))
+            topk = topk_overlap(est, ref)
+            say(f"[pagerank]   query {i} sources="
+                f"{list(map(int, sources))} L1 vs exact_ppr: {l1:.4f}  "
+                f"top-10 overlap: {topk:.2f}")
+            worst_l1, worst_topk = max(worst_l1, l1), min(worst_topk, topk)
+        if check and (worst_l1 >= l1_tol or worst_topk < topk_min
+                      or res.dropped or res.admit_dropped):
+            failed = (f"[pagerank] ppr check FAILED: worst L1 "
+                      f"{worst_l1:.4f} (tol {l1_tol}) worst top-10 "
+                      f"{worst_topk:.2f} (min {topk_min}) dropped="
+                      f"{res.dropped} admit_dropped={res.admit_dropped}")
+    failed = mesh.broadcast_object(failed)
+    if failed:
+        raise SystemExit(failed)
     return res.ppr
+
+
+@contextlib.contextmanager
+def _mesh(shards: int | None, device, default_shards: int = 1):
+    """The mesh a command runs on: `shards` (or `default_shards`) stacked
+    shards on `device` (the card when None), or under `torchrun`
+    (WORLD_SIZE set) one shard per process: the started default process
+    group's mesh, or a group started here (NCCL on `cuda:<LOCAL_RANK>`,
+    gloo when `device` is the CPU) and destroyed at the end. `shards`, if
+    given, must then equal the world size."""
+    if shards is not None and shards < 1:
+        raise SystemExit(f"[pagerank] --shards {shards} out of range")
+    if "WORLD_SIZE" not in os.environ:
+        yield StackedMesh(shards or default_shards, resolve_device(device))
+        return
+    import torch.distributed as dist
+    started = not dist.is_initialized()
+    mesh = (start_group(device) if started else
+            ProcessGroupMesh(device=None if device is None
+                             else resolve_device(device)))
+    try:
+        if shards is not None and shards != mesh.shards:
+            raise SystemExit(f"[pagerank] --shards {shards} differs from "
+                             f"the world size {mesh.shards}")
+        yield mesh
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 def run(n: int, eps: float, walks_per_node: int, graph_kind: str,
@@ -271,30 +306,10 @@ def run(n: int, eps: float, walks_per_node: int, graph_kind: str,
     if resume and not checkpoint_dir:
         raise SystemExit("[pagerank] --resume needs --checkpoint-dir "
                          "(there is no snapshot to cold-start from)")
-    if shards is not None and shards < 1:
-        raise SystemExit(f"[pagerank] --shards {shards} out of range")
-    job = (n, eps, walks_per_node, graph_kind, checkpoint_dir, fail_at,
-           seed, algo, avg_deg, resume, check, num_queries, max_restarts)
-    if "WORLD_SIZE" not in os.environ:
-        return _run(StackedMesh(shards or 1, resolve_device(device)), *job)
-    if algo in STACKED_ONLY:
-        raise NotImplementedError(
-            f"--algo {algo} is not yet under torch.distributed (ROADMAP "
-            f"item 4c); run it without torchrun, on --shards stacked "
-            f"shards")
-    import torch.distributed as dist
-    started = not dist.is_initialized()
-    mesh = (start_group(device) if started else
-            ProcessGroupMesh(device=None if device is None
-                             else resolve_device(device)))
-    try:
-        if shards is not None and shards != mesh.shards:
-            raise SystemExit(f"[pagerank] --shards {shards} differs from "
-                             f"the world size {mesh.shards}")
-        return _run(mesh, *job)
-    finally:
-        if started:
-            dist.destroy_process_group()
+    with _mesh(shards, device) as mesh:
+        return _run(mesh, n, eps, walks_per_node, graph_kind,
+                    checkpoint_dir, fail_at, seed, algo, avg_deg, resume,
+                    check, num_queries, max_restarts)
 
 
 def _run(mesh, n, eps, walks_per_node, graph_kind, checkpoint_dir, fail_at,
@@ -356,21 +371,23 @@ def _run(mesh, n, eps, walks_per_node, graph_kind, checkpoint_dir, fail_at,
                      shards=mesh.shards, l1=l1, topk=topk)
 
 
-def audit(eps: float, shards: int = 8, device=None) -> dict:
-    """The CONGEST audit of every engine on `shards` stacked shards on
-    `device` (the card when None): prints the wire table, writes
-    AUDIT.json in the working directory, and exits non-zero on any
-    violation. Returns the report."""
+def audit(eps: float, shards: int | None = None, device=None,
+          engines=None) -> dict:
+    """The CONGEST audit of every engine (or of `engines`) on `shards`
+    stacked shards (8 when None) on `device` (the card when None), or
+    under `torchrun` on the group's mesh: prints the wire table and
+    writes AUDIT.json in the working directory (rank 0), and exits
+    non-zero on any violation (every process: the merged report is the
+    same on each). Returns the report."""
     from repro_torch.analysis.congest import (audit_all_engines,
                                               format_wire_table)
-    if shards < 1:
-        raise SystemExit(f"[pagerank] --shards {shards} out of range")
-    report = audit_all_engines(StackedMesh(shards, resolve_device(device)),
-                               eps=eps)
-    print(format_wire_table(report))
-    with open("AUDIT.json", "w") as f:
-        json.dump(report, f, indent=2, sort_keys=True)
-    print("[pagerank] wrote AUDIT.json")
+    with _mesh(shards, device, default_shards=8) as mesh:
+        report = audit_all_engines(mesh, eps=eps, engines=engines)
+        if mesh.writer:
+            print(format_wire_table(report))
+            with open("AUDIT.json", "w") as f:
+                json.dump(report, f, indent=2, sort_keys=True)
+            print("[pagerank] wrote AUDIT.json")
     if not report["ok"]:
         raise SystemExit("[pagerank] CONGEST audit FAILED")
     return report
@@ -420,14 +437,11 @@ def main(argv=None):
                          "the per-engine wire table, writes AUDIT.json, "
                          "exits non-zero on any violation (see the module "
                          "docstring for the budget table); --shards sets "
-                         "the mesh (default 8)")
+                         "the mesh (default 8; under torchrun the world "
+                         "size)")
     args = ap.parse_args(argv)
     if args.audit:
-        if "WORLD_SIZE" in os.environ:
-            raise NotImplementedError(
-                "--audit is not yet under torch.distributed (ROADMAP item "
-                "4c); run it without torchrun")
-        audit(args.eps, shards=args.shards or 8, device=args.device)
+        audit(args.eps, shards=args.shards, device=args.device)
         return
     run(args.n, args.eps, args.walks, args.graph, args.checkpoint_dir,
         args.fail_at, seed=args.seed, algo=args.algo, avg_deg=args.avg_deg,

@@ -22,6 +22,8 @@ the CPU's on the same weights, their cache idx and batcher stats equal;
 one train step of each reduced config card against CPU (loss within
 1e-2, masters within 2.2 lr and 0.05 lr on average).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -506,6 +508,57 @@ def test_cuda_nccl_world_one_matches_stacked(cuda, tmp_path):
             "terminated_by_coupon", "dropped", "waited",
             "a2a_bytes_by_phase", "a2a_entries_by_site", "phase2_records",
             "p1_occupancy", "residual"))
+
+
+def test_cuda_nccl_world_one_ppr_matches_stacked(cuda, tmp_path):
+    """Batched PPR and the service through `ProcessGroupMesh` on an NCCL
+    group of one process equal `StackedMesh(1)` bit for bit on the card
+    (every vector, supersteps, entries, bytes; the service's result and
+    counters after one step and at the end), and the superstep launches
+    its three kernels under the group."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core.collectives import ProcessGroupMesh
+    from repro_torch.serve import PPRService
+    card = torch.device("cuda", torch.cuda.current_device())
+    g = directed_web(300, 5.0, seed=2, device=card)
+    queries = [([0, 5], None), ([17], None), ([3, 40], [0.8, 0.2])]
+    key = prng.PRNGKey(2)
+    fields = ("rounds", "active_trace", "a2a_entries", "a2a_bytes",
+              "dropped", "admit_dropped")
+
+    def serve(mesh):
+        svc = PPRService(g, 0.25, slots=2, walks_per_query=2048, mesh=mesh)
+        a = svc.submit([3], now=0.0)
+        b = svc.submit([10, 17], now=0.0)
+        svc.step(now=0.0)
+        first = (svc.stats.supersteps, svc.engine.active.tolist())
+        svc.drain(now=0.0)
+        return first, a.result, b.result, dataclasses.asdict(svc.stats)
+
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60), device_id=card)
+    try:
+        mesh = ProcessGroupMesh(device=card)
+        common.reset_launches()
+        got = batched_personalized_pagerank(g, 0.25, queries, 1500, key,
+                                            mesh=mesh)
+        assert all(common.launches[k] > 0 for k in (
+            "walk_step", "histogram", "segment_spmv"))
+        got_svc = serve(mesh)
+    finally:
+        dist.destroy_process_group()
+    want = batched_personalized_pagerank(g, 0.25, queries, 1500, key,
+                                         mesh=StackedMesh(1, card))
+    assert np.array_equal(got.ppr, want.ppr)
+    assert all(getattr(got, f) == getattr(want, f) for f in fields)
+    assert got.dropped == 0 and got.active_trace[-1] == 0
+    want_svc = serve(StackedMesh(1, card))
+    assert got_svc[0] == want_svc[0]
+    assert np.array_equal(got_svc[1], want_svc[1])
+    assert np.array_equal(got_svc[2], want_svc[2])
+    assert got_svc[3] == want_svc[3]
 
 
 @pytest.mark.parametrize("seed", [0, 7, 2 ** 32 - 1])

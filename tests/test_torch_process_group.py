@@ -470,21 +470,6 @@ def test_launcher_shards_must_equal_world_size(runs):
             "wrong_shards"]
 
 
-@pytest.mark.parametrize("algo", launch.STACKED_ONLY)
-def test_launcher_refuses_stacked_only_algos(monkeypatch, algo):
-    """PPR is not yet under torch.distributed: it raises, and never falls
-    back to stacked shards."""
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        launch.run(*LAUNCH, None, [], algo=algo, device="cpu")
-
-
-def test_launcher_refuses_audit_under_torchrun(monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        launch.main(["--audit", "--device", "cpu"])
-
-
 @pytest.mark.parametrize("engine", ["walks", "counts"])
 def test_audit_rows_match_stacked(runs, engine):
     """The wire rows, resume classes, W-independence, telemetry and meta
