@@ -178,7 +178,21 @@
    train step of each reduced config on the card against the CPU (loss
    within 1e-2, masters within 2.2 lr, 0.05 lr on average); (c) the
    reduced DeepSeek-V2's loss and gradients under the three remat
-   policies against "none" (within 1e-2 of each leaf's largest).
+   policies against "none" (within 1e-2 of each leaf's largest); (d) the
+   step over one process a shard (`launch.mesh.make_process_mesh`,
+   ZeRO-1 AdamW state, under build/lm_process/, removed at the end):
+   (a)'s Qwen2-7B x8, 2 steps of `run_training` on 4 x 1,024 tokens,
+   under an NCCL group of world size 1 in this process, its parameters
+   and state bit-equal (digests of their bits) to the same steps under
+   the local mesh; then four child processes of this script on the one
+   card (`--lm-group-child`), a gloo group with card tensors at (data 2,
+   model 2): reduced DBRX and reduced Qwen2-7B, 2 steps each, every
+   process's losses equal, its state 1/4 of the whole (plus at most a
+   block a leaf), rank 0's parameters within 4e-3 of the single-process
+   step on the card, losses within 2e-3, and each leaf's update (its
+   gathered masters less their init) within 0.25 of the single
+   process's in norm (Qwen2's key bias excepted: its gradient is mostly
+   rounding noise).
 11. The dry run and the sharded MoE (`dryrun_path`): (a) the cells of
    `launch.dryrun` in DRYRUN_SMOKE_CELLS (24 of the 40; the CLI traces
    all) traced at full width on fake card tensors, each `ok` or skipped
@@ -1237,19 +1251,22 @@ def process_group_child(spec: dict) -> int:
     return 0
 
 
-def run_process_group(world: int, spec: dict, label: str) -> list:
-    """Start `world` child processes of this script on the one card, each
-    a rank of a gloo group from a FileStore; kill them all past PG_JOIN_S.
-    Fails the phase unless every one exits 0. Returns their JSON."""
-    store = PG_DIR / f"store_{label}"
+def run_process_group(world: int, spec: dict, label: str, *,
+                      flag: str = "--process-group-child",
+                      where: Path = PG_DIR) -> list:
+    """Start `world` child processes of this script (`flag`: which child)
+    on the one card, each a rank of a gloo group from a FileStore under
+    `where`; kill them all past PG_JOIN_S. Fails the phase unless every
+    one exits 0. Returns their JSON."""
+    store = where / f"store_{label}"
     spec = dict(spec, store=str(store), timeout=PG_TIMEOUT_S)
     procs, logs = [], []
     for rank in range(world):
-        logf = open(PG_DIR / f"{label}_rank{rank}.log", "w+")
+        logf = open(where / f"{label}_rank{rank}.log", "w+")
         logs.append(logf)
         procs.append(subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"),
-             "--process-group-child", json.dumps(spec)],
+            [sys.executable, str(ROOT / "chip_smoke.py"), flag,
+             json.dumps(spec)],
             env=dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
                      OMP_NUM_THREADS="1"),
             stdout=logf, stderr=subprocess.STDOUT, text=True))
@@ -4249,16 +4266,286 @@ def lm_remat_agree(smi):
     return out
 
 
+LM_PG_DIR = ROOT / "build" / "lm_process"
+LM_PG_ARCHS = ("dbrx-132b", "qwen2-7b")
+LM_PG_MESH = {"data": 2, "model": 2}
+LM_PG_STEPS, LM_PG_BATCH, LM_PG_SEQ = 2, 4, 16
+# tests/test_torch_process_group_lm.py's TOL_PARAM, TOL_LOSS, TOL_UPDATE
+# and NOISE_LEAVES: the model ranks' partial outputs and the data ranks'
+# gradients add in other orders than one process's; the update of each
+# leaf's masters is held in norm to the reference's (`lm_update_errs`),
+# but for Qwen2's key bias, whose gradient is mostly rounding noise
+LM_PG_PARAM_TOL, LM_PG_LOSS_TOL, LM_PG_UPDATE_TOL = 4e-3, 2e-3, 0.25
+LM_NOISE_LEAVES = ("attn/bk",)
+
+
+def bit_digest(t) -> tuple:
+    """Two int64 sums of a tensor's bits read as integers of its width,
+    plain and weighted by position (wrapping): equal bits give equal
+    digests, and one changed element changes both."""
+    import torch
+    v = t.detach().contiguous().view(-1)
+    ints = v.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[v.element_size()])
+    plain = torch.zeros((), dtype=torch.int64, device=v.device)
+    weighted = torch.zeros_like(plain)
+    step = 1 << 26
+    for lo in range(0, ints.numel(), step):
+        c = ints[lo:lo + step].to(torch.int64)
+        w = torch.arange(lo, lo + c.numel(), dtype=torch.int64,
+                         device=v.device) * 0x9E3779B1 + 1
+        plain += c.sum()
+        weighted += (c * w).sum()
+    return int(plain), int(weighted)
+
+
+def lm_state_tensors(model, state) -> list:
+    """The parameters, then every tensor of an AdamW state, in order."""
+    from repro_torch.train.optimizer import tree_leaves
+    out = list(model.parameters()) + [state.step]
+    for field in (state.master, state.m, state.v):
+        for leaf in tree_leaves(field):
+            out.extend(leaf if isinstance(leaf, tuple) else [leaf])
+    return out
+
+
+def lm_flat_params(model) -> dict:
+    """`model`'s parameters as float32 numpy arrays by '/'-joined JAX
+    path."""
+    from repro_torch.convert import lm_params_to_numpy
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, v
+    return dict(walk(lm_params_to_numpy(model), ""))
+
+
+def lm_masters(state) -> dict:
+    """An AdamW state's masters (whole: one process's, or gathered by
+    `state_to_host`) as float32 numpy arrays by '/'-joined JAX path."""
+    import numpy as np
+    from repro_torch.train.optimizer import leaf_paths, tree_leaves
+    return {k: np.asarray(t.cpu() if hasattr(t, "cpu") else t)
+            for k, t in zip(leaf_paths(state.master),
+                            tree_leaves(state.master))}
+
+
+def lm_update_errs(got: dict, want: dict, init: dict) -> dict:
+    """Each leaf's update error: ||got - want|| / ||want - init|| over
+    its masters, in float64: 0 for the reference's update, 1 for none, 2
+    for one of the other sign, about 1.4 for another leaf's."""
+    import numpy as np
+    out = {}
+    for k, w in want.items():
+        w = w.astype(np.float64)
+        ref = np.linalg.norm(w - init[k])
+        diff = np.linalg.norm(got[k].astype(np.float64) - w)
+        out[k] = float(diff / ref) if ref else (0.0 if diff == 0
+                                                else float("inf"))
+    return out
+
+
+def lm_updates_close(errs: dict) -> bool:
+    """Every leaf's update error within LM_PG_UPDATE_TOL, but those of
+    LM_NOISE_LEAVES; at least one leaf held."""
+    held = [e for k, e in errs.items() if not k.endswith(LM_NOISE_LEAVES)]
+    return bool(held) and max(held) <= LM_PG_UPDATE_TOL
+
+
+def lm_state_bytes(state) -> int:
+    from repro_torch.train.optimizer import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for field in (state.master, state.m, state.v)
+               for leaf in tree_leaves(field)
+               for t in (leaf if isinstance(leaf, tuple) else (leaf,)))
+
+
+def lm_process_world_one(drive, smi) -> dict:
+    """(d) Qwen2-7B x8 through `run_training`, 2 steps, under the local
+    mesh and then under an NCCL group of world size 1 (the 1x1 process
+    mesh): the parameters and the state bit-equal."""
+    import dataclasses
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh, make_process_mesh
+    from repro_torch.launch.train import run_training
+
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
+                              num_layers=LM_TRAIN_LAYERS)
+    kw = dict(steps=LM_PG_STEPS, global_batch=LM_TRAIN_BATCH,
+              seq_len=LM_TRAIN_SEQ, q_chunk=512, log_every=10 ** 6)
+    runs = {}
+    for label in ("local", "nccl"):
+        if label == "nccl":
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(str(LM_PG_DIR / "store_nccl"),
+                                             1),
+                rank=0, world_size=1,
+                device_id=torch.device("cuda", torch.cuda.current_device()),
+                timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+        try:
+            mesh = (make_local_mesh() if label == "local"
+                    else make_process_mesh({"data": 1, "model": 1}))
+            (model, state, losses), secs, peak = drive(
+                f"{cfg.name} x{cfg.num_layers} run_training, {label} mesh",
+                lambda: run_training(cfg, mesh=mesh, **kw), [])
+            runs[label] = dict(
+                losses=losses, seconds=secs, peak_gib=peak,
+                state_bytes=lm_state_bytes(state),
+                digests=[bit_digest(t) for t in lm_state_tensors(model,
+                                                                 state)])
+            del model, state
+        finally:
+            if label == "nccl":
+                dist.destroy_process_group()
+        lm_release()
+    check(not dist.is_initialized(), "the NCCL group was not destroyed")
+    a, b = runs["local"], runs["nccl"]
+    check(a["losses"] == b["losses"] and a["digests"] == b["digests"]
+          and a["state_bytes"] == b["state_bytes"],
+          f"{cfg.name} x{cfg.num_layers}: the NCCL world-1 process mesh "
+          f"differs from the local mesh: losses {a['losses']} vs "
+          f"{b['losses']}, {sum(x != y for x, y in zip(a['digests'], b['digests']))}"
+          f" of {len(a['digests'])} tensors")
+    out = {k: dict(v, digests=len(v["digests"])) for k, v in runs.items()}
+    log(f"lm process (d) world 1, {cfg.name} x{cfg.num_layers}, "
+        f"{LM_PG_STEPS} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens on "
+        f"{smi}: NCCL process mesh bit-equal to the local mesh "
+        f"({len(a['digests'])} tensors): {out}")
+    return out
+
+
+def lm_group_child(spec: dict) -> int:
+    """One process of (d)'s group: gloo with card tensors, every process
+    on the one card, the (data 2, model 2) process mesh; `run_training`
+    of each reduced config. Prints its losses and state bytes as JSON;
+    rank 0 saves the parameters."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import reduced_config
+    from repro_torch.convert import lm_param_tree
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.train import run_training
+    from repro_torch.train.optimizer import state_to_host
+
+    torch.set_num_threads(1)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(spec["store"], world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=spec["timeout"]))
+    out = dict(rank=rank, world=world)
+    try:
+        mesh = make_process_mesh(LM_PG_MESH, "cuda",
+                                 timeout=spec["timeout"])
+        for arch in LM_PG_ARCHS:
+            t0 = time.perf_counter()
+            model, state, losses = run_training(
+                reduced_config(arch), steps=LM_PG_STEPS,
+                global_batch=LM_PG_BATCH, seq_len=LM_PG_SEQ, q_chunk=16,
+                log_every=10 ** 6, mesh=mesh)
+            host = state_to_host(state, lm_param_tree(model), mesh)
+            if rank == 0:
+                np.savez(Path(spec["dir"]) / f"{arch}_params.npz",
+                         **lm_flat_params(model))
+                np.savez(Path(spec["dir"]) / f"{arch}_masters.npz",
+                         **lm_masters(host))
+            out[arch] = dict(losses=losses, state_bytes=lm_state_bytes(state),
+                             device=str(state.step.device),
+                             seconds=time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def lm_process_group(smi) -> dict:
+    """(d) Four child processes on the one card over gloo with card
+    tensors, at (data 2, model 2): each reduced config's 2 steps against
+    the same steps in this process under the local mesh."""
+    import numpy as np
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.train import run_training
+    from repro_torch.train.optimizer import QBLOCK, tree_leaves
+
+    world = LM_PG_MESH["data"] * LM_PG_MESH["model"]
+    t0 = time.perf_counter()
+    outs = run_process_group(world, dict(dir=str(LM_PG_DIR)), "lm",
+                             flag="--lm-group-child", where=LM_PG_DIR)
+    group_s = time.perf_counter() - t0
+    res = {}
+    for arch in LM_PG_ARCHS:
+        kw = dict(global_batch=LM_PG_BATCH, seq_len=LM_PG_SEQ, q_chunk=16,
+                  log_every=10 ** 6)
+        init = lm_masters(run_training(reduced_config(arch), steps=0,
+                                       **kw)[1])
+        model, state, losses = run_training(
+            reduced_config(arch), steps=LM_PG_STEPS, **kw)
+        whole = lm_state_bytes(state)
+        leaves = sum(1 for _ in tree_leaves(state.master))
+        rows = [o[arch] for o in outs]
+        check(all(r["losses"] == rows[0]["losses"] for r in rows)
+              and all(r["device"].startswith("cuda") for r in rows),
+              f"{arch} at 2x2: the processes' losses differ: {rows}")
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(rows[0]["losses"], losses))
+        per = [r["state_bytes"] for r in rows]
+        slack = leaves * QBLOCK * 12          # a block of master, m, v
+        check(all(whole / world <= b <= whole / world + slack for b in per),
+              f"{arch} at 2x2: state bytes {per} a process, whole {whole}")
+        got = np.load(LM_PG_DIR / f"{arch}_params.npz")
+        want = lm_flat_params(model)
+        check(sorted(got.files) == sorted(want),
+              f"{arch}: parameter names differ")
+        err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+        upd = lm_update_errs(dict(np.load(LM_PG_DIR / f"{arch}_masters.npz")),
+                             lm_masters(state), init)
+        check(loss_rel <= LM_PG_LOSS_TOL and err <= LM_PG_PARAM_TOL
+              and lm_updates_close(upd),
+              f"{arch} at 2x2 vs one process on the card: losses "
+              f"{rows[0]['losses']} vs {losses} ({loss_rel}), parameters "
+              f"{err} apart, update errors {upd}")
+        res[arch] = dict(losses=rows[0]["losses"], single_losses=losses,
+                         loss_rel=loss_rel, param_max_abs=err,
+                         update_err=upd,
+                         state_bytes_a_process=per, state_bytes_whole=whole,
+                         child_seconds=[r["seconds"] for r in rows])
+        del model, state
+    log(f"lm process (d) gloo, {world} processes on the card at "
+        f"{LM_PG_MESH}, {group_s:.1f} s on {smi}: {res}")
+    return dict(res, group_s=group_s)
+
+
+def lm_train_process(drive, smi) -> dict:
+    """(d) The train step over one process a shard."""
+    shutil.rmtree(LM_PG_DIR, ignore_errors=True)
+    LM_PG_DIR.mkdir(parents=True)
+    try:
+        return dict(world_one=lm_process_world_one(drive, smi),
+                    gloo_2x2=lm_process_group(smi))
+    finally:
+        shutil.rmtree(LM_PG_DIR, ignore_errors=True)
+
+
 def lm_train_path(drive, smi, scores):
     """The LM training path: (a) Qwen2-7B at full width on PageRank-
     weighted batches, (b) the reduced configs' train step card vs CPU,
-    (c) the remat policies. Launches none of the five kernels."""
+    (c) the remat policies, (d) the step over one process a shard.
+    Launches none of the five kernels."""
     log(f"lm train path on {smi}")
     out = {}
     for key, phase in (
             ("full_width", lambda: lm_train_full_width(drive, smi, scores)),
             ("reduced", lambda: lm_train_reduced_card_vs_cpu(smi)),
-            ("remat", lambda: lm_remat_agree(smi))):
+            ("remat", lambda: lm_remat_agree(smi)),
+            ("process", lambda: lm_train_process(drive, smi))):
         t0 = time.perf_counter()
         out[key] = phase()
         out[key + "_phase_s"] = time.perf_counter() - t0
@@ -4537,6 +4824,8 @@ def main() -> int:
     import torch
     if sys.argv[1:2] == ["--process-group-child"]:
         return process_group_child(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--lm-group-child"]:
+        return lm_group_child(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2

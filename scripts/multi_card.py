@@ -35,16 +35,50 @@ one process a card:
    trace; the service's answers, statistics, and every card's host state
    after each tick equal to the stacked service's).
 
+3. this script as the LM worker (`--lm-worker`): the LM training step
+   with one process a card over NCCL (`launch.mesh.make_process_mesh`,
+   ZeRO-1 AdamW state): (a) Qwen2-7B at its full 28 layers on (data =
+   cards, model = 1), fp32 moments, a global batch of 4 x 1,024 tokens
+   (SyntheticTokens, seed 0; one microbatch), a warm-up step and 3 timed
+   steps on that batch (step ms between barriers, tokens/s, the peak
+   memory and the state bytes of every card; the loss must fall and the
+   peak stay under 80 GiB); (b) Qwen2-7B cut to 8 layers on the same
+   mesh against the same 8 layers and steps on one card (rank 0's):
+   the loss of each step within 2e-3 relative, the parameters within
+   4e-3 and each leaf's update of the masters (less their init) within
+   0.25 of one card's in norm after 2 steps, Qwen2's key bias excepted
+   (tests/test_torch_process_group_lm.py's bounds); (c) DBRX-132B at full
+   width cut to 2 layers on (data = cards / 2, model = 2), a warm-up and
+   2 timed steps: step ms, peak, the assignments dropped by each data
+   shard; (d) Qwen2-7B after one step, saved by
+   `launch.train.training_snapshot` (once, by rank 0, ~124 GB under
+   build/lm_snapshot/, removed after; cut to the most layers whose
+   snapshot the disk holds with a tenth to spare, that writes at most
+   LM_SNAPSHOT_MAX_BYTES, within LM_SNAPSHOT_MAX_S at the disk's
+   measured rate) and resumed into a fresh model and state on every
+   card by `restore_training`: save and restore seconds, each rank's
+   host resident set before and its peak (sampled) while saving and
+   while restoring; the restored parameters and state bit-equal to the
+   saved ones and the next step's loss equal to the one taken without
+   the snapshot.
+
+    python3 scripts/multi_card.py --lm     # the LM worker alone
+    torchrun --nproc-per-node=4 scripts/multi_card.py --lm-worker d
+                                           # some of its parts (a-d)
+
 Prints the card's name and power limit and one JSON line per part; exits
 non-zero if a part fails or disagrees.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -57,6 +91,13 @@ N = 1 << 20
 ENGINES = ("counts", "walks", "improved", "ppr")
 PPR_QUERIES, PPR_WALKS = 16, 1 << 21
 TIMEOUT_S = 420         # a torchrun command; its group's collectives: 360
+# the LM worker's torchrun command; its group's collectives wait for rank
+# 0 to write a snapshot of ~124 GB
+LM_TIMEOUT_S = 660
+LM_SNAPSHOT_MAX_S = 120  # the most seconds (d)'s write may take
+# the most bytes (d) writes: a host may bound what one command writes to
+# its disk, freed blocks included (90 GiB on a four-card H100 host)
+LM_SNAPSHOT_MAX_BYTES = 36e9
 
 
 def summary(res, engine: str) -> dict:
@@ -217,9 +258,423 @@ def worker() -> int:
     return 0 if ok else 1
 
 
-def torchrun(cards: int, args: list) -> tuple:
+LM_BATCH, LM_SEQ, LM_LR = 4, 1024, 3e-4
+LM_PEAK_GIB = 80.0
+LM_SMALL_LAYERS = 8
+# tests/test_torch_process_group_lm.py's bounds (chip_smoke's LM_PG_*):
+# losses, parameters, and each leaf's update of the masters in norm, but
+# Qwen2's key bias (its gradient is mostly rounding noise)
+LM_LOSS_TOL, LM_PARAM_TOL, LM_UPDATE_TOL = 2e-3, 4e-3, 0.25
+LM_SNAPSHOT_DIR = ROOT / "build" / "lm_snapshot"     # (d)'s, removed after
+
+
+def host_rss_gib() -> float:
+    """This process's resident set (VmRSS), GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2 ** 20
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+@contextlib.contextmanager
+def host_peak(box: list):
+    """Sets box[0] to the largest resident set (GiB) this process reaches
+    while the `with` block runs, sampled every 5 ms by a thread (a kernel
+    may keep no peak of its own)."""
+    box[:] = [host_rss_gib()]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(0.005):
+            box[0] = max(box[0], host_rss_gib())
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield box
+    finally:
+        stop.set()
+        t.join()
+        box[0] = max(box[0], host_rss_gib())
+
+
+def bit_digests(tensors) -> list:
+    """Two int64 sums of each tensor's bits (plain and weighted by
+    position, wrapping): equal bits give equal digests."""
+    import torch
+    out = []
+    for t in tensors:
+        v = t.detach().contiguous().view(-1)
+        ints = v.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[v.element_size()])
+        plain = weighted = 0
+        step = 1 << 26
+        for lo in range(0, ints.numel(), step):
+            c = ints[lo:lo + step].to(torch.int64)
+            w = torch.arange(lo, lo + c.numel(), dtype=torch.int64,
+                             device=v.device) * 0x9E3779B1 + 1
+            plain += int(c.sum())
+            weighted += int((c * w).sum())
+        out.append((plain, weighted))
+    return out
+
+
+def lm_state_tensors(model, state) -> list:
+    """The parameters, then every tensor of an AdamW state, in order."""
+    from repro_torch.train.optimizer import tree_leaves
+    out = list(model.parameters()) + [state.step]
+    for field in (state.master, state.m, state.v):
+        for leaf in tree_leaves(field):
+            out.extend(leaf if isinstance(leaf, tuple) else [leaf])
+    return out
+
+
+def lm_timed_steps(step, state, batch, n_steps: int) -> tuple:
+    """A warm-up step, then `n_steps` timed ones, each between barriers
+    and synchronized: (state, losses, step seconds after the warm-up)."""
+    import torch
+    import torch.distributed as dist
+    losses, times = [], []
+    for i in range(n_steps + 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        dist.barrier()
+        if i:
+            times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    return state, losses, times
+
+
+def lm_disk() -> tuple:
+    """(free bytes, write bytes/s) of the disk under LM_SNAPSHOT_DIR, as
+    rank 0 measures them (1 GiB written and synced), on every rank."""
+    import shutil
+    import torch.distributed as dist
+    box = [None]
+    if dist.get_rank() == 0:
+        LM_SNAPSHOT_DIR.mkdir(parents=True, exist_ok=True)
+        free = shutil.disk_usage(LM_SNAPSHOT_DIR).free
+        probe = LM_SNAPSHOT_DIR / "probe"
+        chunk = os.urandom(1 << 26)
+        t0 = time.perf_counter()
+        with open(probe, "wb") as f:
+            for _ in range(16):
+                f.write(chunk)
+            f.flush()
+            os.fsync(f.fileno())
+        box[0] = (free, (1 << 30) / (time.perf_counter() - t0))
+        probe.unlink()
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def lm_snapshot_bytes(leaves, layers: int) -> int:
+    """The bytes of a training snapshot at `layers` layers: float32
+    parameters and a float32 master, m and v a padded leaf. `leaves` is
+    [(stacked over layers, elements a layer or in all)] a leaf."""
+    from repro_torch.train.optimizer import _pad_len
+    total = 0
+    for stacked, n in leaves:
+        n = n * layers if stacked else n
+        total += 4 * n + 12 * _pad_len(n)
+    return total
+
+
+def lm_snapshot(mesh, live: list, batch, build) -> tuple:
+    """A model's state through a snapshot under LM_SNAPSHOT_DIR: written
+    once by rank 0 in the single-device layout
+    (`launch.train.training_snapshot`), then resumed into a fresh model
+    and state on every card (`restore_training`, leaf by leaf, each rank
+    keeping its slice): seconds, bytes, each rank's host resident set
+    before and its peak while saving and while restoring; the restored
+    parameters and state bit-equal to the saved ones, and the step after
+    the resume taking the loss the same step took without it. `live` is
+    [model, AdamW state, train step], emptied here so that their card
+    memory goes before `build()` makes the fresh ones. Returns (model,
+    state, step, the report)."""
+    import gc
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.convert import lm_param_tree
+    from repro_torch.launch.train import restore_training, \
+        training_snapshot
+    from repro_torch.sharding import ShardingRules, active_rules, \
+        default_rules
+
+    model, state, step = live
+    live.clear()
+    params = lm_param_tree(model)
+    where = str(LM_SNAPSHOT_DIR)
+    rep = {}
+    cards = dist.get_world_size()
+
+    def gather(x):
+        out = [None] * cards
+        dist.all_gather_object(out, x)
+        return out
+
+    saved = bit_digests(lm_state_tensors(model, state))
+    k = int(state.step)
+    ckpt = Checkpointer(where, mesh=mesh, keep_last=1)
+    rss0 = host_rss_gib()
+    peak_save, peak_restore = [], []
+    t0 = time.perf_counter()
+    with host_peak(peak_save):
+        ckpt.save(k, training_snapshot(model, params, state, mesh))
+    save_s = time.perf_counter() - t0
+    if mesh.writer:
+        rep["snapshot_bytes"] = sum(
+            f.stat().st_size for f in Path(where).rglob("*") if f.is_file())
+    with active_rules(ShardingRules(mesh, default_rules(False))):
+        state, m = step(state, batch)
+    loss_next = float(m["loss"])
+    del model, state, step, params, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, state, step = build()
+    rss1 = host_rss_gib()
+    t0 = time.perf_counter()
+    with host_peak(peak_restore):
+        state, k2 = restore_training(ckpt, model, lm_param_tree(model),
+                                     state, mesh)
+        torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = bit_digests(lm_state_tensors(model, state)) == saved and k2 == k
+    with active_rules(ShardingRules(mesh, default_rules(False))):
+        state, m = step(state, batch)
+    loss_resumed = float(m["loss"])
+    dist.barrier()
+    if mesh.writer:
+        shutil.rmtree(where, ignore_errors=True)
+    rep.update(step=k, save_s=gather(save_s), restore_s=gather(restore_s),
+               host_rss_before_save_gib=gather(rss0),
+               host_peak_save_gib=gather(peak_save[0]),
+               host_rss_before_restore_gib=gather(rss1),
+               host_peak_restore_gib=gather(peak_restore[0]),
+               bit_equal=all(gather(same)), loss_next=loss_next,
+               loss_resumed=loss_resumed)
+    rep["ok"] = bool(rep["bit_equal"] and abs(loss_resumed - loss_next)
+                     <= 1e-6 * abs(loss_next))
+    return model, state, step, rep
+
+
+def lm_worker(parts: str = "abcd") -> int:
+    """The LM training step over NCCL, one process a card (see the module
+    doc, part 3): the parts named in `parts`."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_param_tree
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import make_local_mesh, make_process_mesh
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.common import recomputing
+    from repro_torch.sharding import ShardingRules, active_rules, \
+        default_rules
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.optimizer import (_pad_len, leaf_paths, leaf_size,
+                                             state_to_host, tree_leaves)
+
+    cards = int(os.environ["WORLD_SIZE"])
+    ok = True
+    out = dict(cards=cards)
+
+    def gather(x):
+        box = [None] * cards
+        dist.all_gather_object(box, x)
+        return box
+
+    def build(cfg, mesh, adam):
+        with active_rules(ShardingRules(mesh, default_rules(False))):
+            model = get_model(cfg)(cfg, device=mesh.devices[0], seed=0)
+            state = init_state(lm_param_tree(model), adam, mesh=mesh)
+            step = make_train_step(cfg, model, adam, mesh=mesh,
+                                   loss_kwargs=dict(q_chunk=512))
+        return model, state, step
+
+    def run(cfg, mesh, adam, batch, n_steps):
+        rules = ShardingRules(mesh, default_rules(False))
+        torch.cuda.reset_peak_memory_stats()
+        model, state, step = build(cfg, mesh, adam)
+        with active_rules(rules):
+            state, losses, times = lm_timed_steps(step, state, batch,
+                                                  n_steps)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        nbytes = sum(t.numel() * t.element_size()
+                     for f in (state.master, state.m, state.v)
+                     for leaf in tree_leaves(f)
+                     for t in (leaf if isinstance(leaf, tuple) else (leaf,)))
+        return model, state, step, dict(losses=losses, step_s=times,
+                                        peak_gib=gather(peak),
+                                        state_bytes=gather(nbytes))
+
+    def batch_for(cfg, dev):
+        return make_batch(cfg, SyntheticTokens(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+            global_batch=LM_BATCH, seed=0)).batch_at(0), dev)
+
+    mesh = make_process_mesh({"data": cards, "model": 1},
+                             timeout=LM_TIMEOUT_S - 60)
+    rank, dev = dist.get_rank(), mesh.devices[0]
+    cfg = get_config("qwen2-7b")
+    adam = AdamWConfig(lr=LM_LR)
+
+    # (a) Qwen2-7B at its full 28 layers on (data = cards, model = 1)
+    if "a" in parts:
+        batch = batch_for(cfg, dev)
+        model, state, step, res = run(cfg, mesh, adam, batch, 3)
+        n_params = sum(p.numel() for p in model.parameters())
+        step_s = sum(res["step_s"]) / len(res["step_s"])
+        res.update(layers=cfg.num_layers, params=n_params,
+                   step_ms=step_s * 1e3,
+                   tokens_per_s=LM_BATCH * LM_SEQ / step_s,
+                   state_bytes_whole=12 * sum(
+                       _pad_len(leaf_size(leaf))
+                       for leaf in tree_leaves(lm_param_tree(model))))
+        fell = res["losses"][-1] < res["losses"][0]
+        fits = max(res["peak_gib"]) < LM_PEAK_GIB
+        ok &= fell and fits
+        out["qwen2_28"] = dict(res, loss_fell=fell, peak_under_80=fits)
+        if rank == 0:
+            print(json.dumps(dict(lm="qwen2-7b x28", **out["qwen2_28"])),
+                  flush=True)
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+
+    # (b) Qwen2-7B x8: these cards against one card
+    if "b" in parts:
+        small = dataclasses.replace(cfg, num_layers=LM_SMALL_LAYERS)
+        batch = batch_for(small, dev)
+        model, state, step, res = run(small, mesh, adam, batch, 1)
+        params = [p.detach().clone() for p in model.parameters()]
+        host = state_to_host(state, lm_param_tree(model), mesh)
+        del model, state, step
+        torch.cuda.empty_cache()
+        if rank == 0:
+            one = make_local_mesh(dev)
+            model1, state1, step1 = build(small, one, adam)
+            paths = list(leaf_paths(state1.master))
+            init = [t.cpu().numpy().copy() for t in tree_leaves(state1.master)]
+            with active_rules(ShardingRules(one, default_rules(False))):
+                losses1 = []
+                for _ in range(2):
+                    state1, m = step1(state1, batch)
+                    losses1.append(float(m["loss"]))
+            loss_rel = max(abs(a - b) / abs(b)
+                           for a, b in zip(res["losses"], losses1))
+            param_err = max(float((a.float() - b.detach().float()).abs().max())
+                            for a, b in zip(params, model1.parameters()))
+            # each leaf's update error: ||got - want|| / ||want - init||
+            upd = {}
+            for k, a, b, i0 in zip(paths, tree_leaves(host.master),
+                                   tree_leaves(state1.master), init):
+                want = b.cpu().numpy().astype(np.float64)
+                ref = np.linalg.norm(want - i0)
+                diff = np.linalg.norm(np.asarray(a, np.float64) - want)
+                upd[k] = float(diff / ref) if ref else (
+                    0.0 if diff == 0 else float("inf"))
+            held = [e for k, e in upd.items() if not k.endswith("attn/bk")]
+            agree = (loss_rel <= LM_LOSS_TOL and param_err <= LM_PARAM_TOL
+                     and bool(held) and max(held) <= LM_UPDATE_TOL)
+            out["qwen2_8"] = dict(losses=res["losses"], one_card=losses1,
+                                  loss_rel=loss_rel, param_max_abs=param_err,
+                                  update_err=upd, agree=agree,
+                                  step_s=res["step_s"],
+                                  peak_gib=res["peak_gib"])
+            print(json.dumps(dict(lm="qwen2-7b x8, cards vs one card",
+                                  **out["qwen2_8"])), flush=True)
+            del model1, state1, step1, init
+            ok &= agree
+        del params, host
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+    # (c) DBRX at full width, 2 layers, on (data = cards / 2, model = 2)
+    if "c" in parts:
+        mesh2 = make_process_mesh({"data": cards // 2, "model": 2},
+                                  timeout=LM_TIMEOUT_S - 60)
+        dbrx = dataclasses.replace(get_config("dbrx-132b"), num_layers=2)
+        drops = []
+        real = tmoe._dispatch_compute_combine
+
+        def counted(*a, **k):
+            res = real(*a, **k)
+            if not recomputing():
+                drops.append(res[3])
+            return res
+        tmoe._dispatch_compute_combine = counted
+        try:
+            model, state, step, res = run(dbrx, mesh2, adam,
+                                          batch_for(dbrx, dev), 2)
+        finally:
+            tmoe._dispatch_compute_combine = real
+        shard_drops = gather([int(d) for d in drops])
+        step_s = sum(res["step_s"]) / len(res["step_s"])
+        res.update(layers=dbrx.num_layers,
+                   params=sum(p.numel() for p in model.parameters()),
+                   step_ms=step_s * 1e3,
+                   tokens_per_s=LM_BATCH * LM_SEQ / step_s,
+                   mesh=dict(mesh2.shape),
+                   drops_by_rank=shard_drops,
+                   dropped_total=[int(b.moe.dropped)
+                                  for b in model.moe_layers])
+        ok &= all(math.isfinite(x) for x in res["losses"])
+        out["dbrx_2"] = res
+        if rank == 0:
+            print(json.dumps(dict(lm="dbrx-132b x2", **res)), flush=True)
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    # (d) Qwen2-7B after a step, saved and resumed: at the most layers
+    if "d" in parts:
+        # whose snapshot the disk has the room for (a tenth to spare), the
+        # bytes and the rate
+        one = dataclasses.replace(cfg, num_layers=1)
+        leaves = [(isinstance(leaf, list), leaf_size(leaf)) for leaf in
+                  tree_leaves(lm_param_tree(get_model(one)(one, device=dev,
+                                                           seed=0)))]
+        free, rate = lm_disk()
+        fits = [n for n in range(1, cfg.num_layers + 1)
+                if 1.1 * lm_snapshot_bytes(leaves, n) <= free
+                and lm_snapshot_bytes(leaves, n) <= LM_SNAPSHOT_MAX_BYTES
+                and lm_snapshot_bytes(leaves, n) / rate <= LM_SNAPSHOT_MAX_S]
+        snap = dict(free_bytes=free, disk_write_bytes_per_s=rate,
+                    bytes_all_layers=lm_snapshot_bytes(leaves, cfg.num_layers),
+                    layers=max(fits, default=0))
+        if fits:
+            cut = dataclasses.replace(cfg, num_layers=max(fits))
+            batch = batch_for(cut, dev)
+            live = list(build(cut, mesh, adam))
+            with active_rules(ShardingRules(mesh, default_rules(False))):
+                live[1], _ = live[2](live[1], batch)
+            snap.update(lm_snapshot(mesh, live, batch,
+                                    lambda: build(cut, mesh, adam))[3],
+                        snapshot_bytes_expected=lm_snapshot_bytes(
+                            leaves, max(fits)))
+            ok &= snap["ok"]
+        out["qwen2_snapshot"] = snap
+        if rank == 0:
+            print(json.dumps(dict(lm="qwen2-7b snapshot", **snap)),
+                  flush=True)
+    if rank == 0:
+        print(json.dumps(dict(lm_ok=bool(ok))), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def torchrun(cards: int, args: list, timeout: float = TIMEOUT_S) -> tuple:
     """(exit code, stdout, stderr, seconds) of one torchrun command, its
-    whole process group killed past TIMEOUT_S."""
+    whole process group killed past `timeout` seconds."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={cards}", *args]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -229,7 +684,7 @@ def torchrun(cards: int, args: list) -> tuple:
                             stderr=subprocess.PIPE, text=True, cwd=ROOT,
                             start_new_session=True)
     try:
-        out, err = proc.communicate(timeout=TIMEOUT_S)
+        out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
@@ -259,8 +714,11 @@ def main() -> int:
     import torch
     if sys.argv[1:] == ["--worker"]:
         return worker()
+    if sys.argv[1:2] == ["--lm-worker"]:
+        return lm_worker(*sys.argv[2:3])
     if sys.argv[1:2] == ["--cli"]:
         return cli(sys.argv[2])
+    lm_only = sys.argv[1:] == ["--lm"]
     cards = torch.cuda.device_count()
     if cards < 2:
         print(f"multi_card: {cards} CUDA cards; this needs two or more",
@@ -273,17 +731,25 @@ def main() -> int:
                          text=True, timeout=60, check=True).stdout
     print(smi.strip(), flush=True)
     rc = 0
-    for algo in ("counts", "walks", "improved", "ppr"):
+    for algo in () if lm_only else ("counts", "walks", "improved", "ppr"):
         code, out, err, secs = torchrun(cards, [
             str(Path(__file__).resolve()), "--cli", algo])
         print(out[-3000:], err[-3000:], flush=True)
         print(json.dumps(dict(cli=algo, cards=cards, seconds=secs,
                               rc=code)), flush=True)
         rc = rc or code
+    if not lm_only:
+        code, out, err, secs = torchrun(cards, [
+            str(Path(__file__).resolve()), "--worker"])
+        print(out[-12000:], err[-3000:], flush=True)
+        print(json.dumps(dict(worker=cards, seconds=secs, rc=code)),
+              flush=True)
+        rc = rc or code
     code, out, err, secs = torchrun(cards, [str(Path(__file__).resolve()),
-                                            "--worker"])
+                                            "--lm-worker"], LM_TIMEOUT_S)
     print(out[-12000:], err[-3000:], flush=True)
-    print(json.dumps(dict(worker=cards, seconds=secs, rc=code)), flush=True)
+    print(json.dumps(dict(lm_worker=cards, seconds=secs, rc=code)),
+          flush=True)
     return rc or code
 
 

@@ -53,12 +53,12 @@ shards) is plain tensor code here; under a one-shard-per-rank backend it
 would have to become a collective. No engine has one left: each runs
 under a `ProcessGroupMesh` as well.
 
-The psum bound: `ProcessGroupMesh.psum` reduces int32 as int64, so the
-engines hand it int64 and the recorded bytes are the wire's. The PPR
-superstep's one psum is [Q + 3] int64 (the live walks of each query,
-then the round's entries, bytes and dropped walks), 8 (Q + 3) bytes: it
-holds to 256 B up to Q = 29 query slots (JAX's int32 [Q] psum to Q =
-64); its admission psums one int64.
+The psum bound: `ProcessGroupMesh.psum` reduces int32 as int64 unless
+the caller names the wire's dtype, so the engines hand it int64 or name
+int32, and the recorded bytes are the wire's. The PPR superstep psums
+the live walks of each query as int32 [Q], 4Q bytes, as JAX's does (256 B
+at Q = 64), and the round's entries, bytes and dropped walks in a second
+psum, int64 [3]; its admission psums one int64.
 
 Over a process group, each process records its own shard's program calls
 and audits them against the same spec; `audit_all_engines` then merges
@@ -181,10 +181,11 @@ class RecordingMesh:
             self._open = None
             prng.RNG_RECORDER = saved
 
-    def _record(self, prim: str, x: torch.Tensor) -> None:
+    def _record(self, prim: str, x: torch.Tensor, dtype=None) -> None:
+        width = (x.element_size() if dtype is None
+                 else torch.empty((), dtype=dtype).element_size())
         rec = CollectiveCall(prim=prim,
-                             payload_bytes=x.numel() // x.shape[0]
-                             * x.element_size(),
+                             payload_bytes=x.numel() // x.shape[0] * width,
                              path=_call_path())
         if self._open is None:
             self.unscoped.append(rec)
@@ -199,9 +200,9 @@ class RecordingMesh:
         self._record("all_to_all", x)
         return self.inner.all_to_all(x)
 
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
-        self._record("psum", x)
-        return self.inner.psum(x)
+    def psum(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        self._record("psum", x, dtype)
+        return self.inner.psum(x, dtype)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         self._record("pmax", x)

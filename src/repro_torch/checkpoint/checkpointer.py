@@ -16,14 +16,16 @@ temporary directory renamed into place, so a failure mid-write never
 corrupts the latest snapshot. The async writer overlaps serialisation with
 compute; the caller's tensors are copied to the host before it starts.
 
-Over a mesh of several processes (`core.collectives.ProcessGroupMesh`)
-every process calls `save` with the same tree, gathered over the mesh;
-only the mesh's writer (rank 0) writes it, and every process then waits
+Over a mesh of several processes (`core.collectives.ProcessGroupMesh`,
+or a process mesh of `launch.mesh.make_process_mesh`) every process
+calls `save`; only the mesh's writer (rank 0) writes its tree, gathered
+over the mesh (the others may pass None), and every process then waits
 at a barrier, so a snapshot is on disk for all of them once `save`
 returns. Such saves are blocking.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -99,6 +101,9 @@ class Checkpointer:
     # -------------------------------------------------- save
     def save(self, step: int, tree: Any, *, metadata: Optional[dict] = None,
              blocking: bool = True) -> str:
+        if self.mesh is not None and not self.mesh.writer:
+            # only the writer's tree is written (the others may pass None)
+            tree = None
         flat = _flatten(tree)
         meta = dict(step=int(step), time=time.time(),
                     metadata=metadata or {},
@@ -164,6 +169,15 @@ class Checkpointer:
 
     def restore(self, step: Optional[int] = None) -> tuple[dict, dict]:
         """Returns (flat {path: np.ndarray}, manifest)."""
+        with self.reading(step) as (z, manifest):
+            return {k: z[k] for k in z.files}, manifest
+
+    @contextlib.contextmanager
+    def reading(self, step: Optional[int] = None):
+        """As `restore`, but the arrays are read one at a time, each when
+        the caller indexes it: yields (a mapping {path: np.ndarray}, valid
+        inside the `with`, and the manifest), so a caller that takes one
+        leaf at a time never holds the whole snapshot."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -172,8 +186,7 @@ class Checkpointer:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         with np.load(os.path.join(d, "arrays.npz")) as z:
-            flat = {k: z[k] for k in z.files}
-        return flat, manifest
+            yield z, manifest
 
 
 def restore_into(tree: Any, flat: Dict[str, np.ndarray]) -> Any:

@@ -74,38 +74,6 @@ _LM_STACKS = {"dense_layers": (), "moe_layers": (), "layers": (),
               "dec_layers": ()}
 
 
-def _flatten_lm_tree(tree, prefix="", stacks=_LM_STACKS):
-    """{'a': {'b': x}} -> {'a.b': x}; the leaves of a layer stack (leading
-    dim L) split into one entry a layer, `layers.{i}.…`, as the port's
-    modules name them; a stack nested in a layer (`groups.{g}.rec`)
-    splits again."""
-    flat = {}
-    for name, sub in tree.items():
-        path = f"{prefix}{name}"
-        if not isinstance(sub, dict):
-            flat[path] = np.asarray(sub)
-        elif name in stacks:
-            inner = dict.fromkeys(stacks[name], ())
-            for i in range(_stack_len(sub)):
-                flat.update(_flatten_lm_tree(_index_tree(sub, i),
-                                             f"{path}.{i}.", inner))
-        else:
-            flat.update(_flatten_lm_tree(sub, path + ".", {}))
-    return flat
-
-
-def _stack_len(tree) -> int:
-    """The leading dim of a stack's leaves (its first leaf's)."""
-    sub = next(iter(tree.values()))
-    return _stack_len(sub) if isinstance(sub, dict) else len(sub)
-
-
-def _index_tree(tree, i):
-    """Entry i of every leaf's leading dim."""
-    return {name: _index_tree(sub, i) if isinstance(sub, dict)
-            else np.asarray(sub)[i] for name, sub in tree.items()}
-
-
 def lm_params_from_numpy(cfg, tree: dict, device=None):
     """The port's model of `cfg` on `device` (the card when None) with the
     weights of a JAX model's parameter tree (`init_params(cfg, key)[0]`),
@@ -124,24 +92,39 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
 def load_lm_params(model, tree: dict) -> None:
     """Copy a JAX parameter tree (nested dicts of float32 numpy arrays)
     into `model`'s parameters; raises as `lm_params_from_numpy`."""
-    params = dict(model.named_parameters())
-    flat = _flatten_lm_tree(tree)
-    missing = sorted(set(params) - set(flat))
-    extra = sorted(set(flat) - set(params))
+    from repro_torch.train.optimizer import leaf_paths, tree_leaves
+    flat = dict(zip(leaf_paths(tree), tree_leaves(tree)))
+    want = set(leaf_paths(lm_param_tree(model)))
+    missing, extra = sorted(want - set(flat)), sorted(set(flat) - want)
     if missing or extra:
         raise ValueError(f"{model.cfg.name}: parameter tree does not match "
                          f"the model: missing {missing}, extra {extra}")
-    for name, arr in flat.items():
-        p = params[name]
-        if arr.dtype != np.float32:
-            raise TypeError(f"{name}: dtype {arr.dtype}, expected float32 "
-                            "(widen bf16 leaves first)")
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: shape {tuple(arr.shape)}, the model "
-                             f"has {tuple(p.shape)}")
+    load_lm_params_flat(model, flat, prefix="")
+
+
+def load_lm_params_flat(model, flat, prefix: str = "params/") -> None:
+    """Copy the parameter leaves of a flat snapshot (`prefix` + JAX's
+    '/'-joined path: float32 arrays, layer stacks stacked as JAX stacks
+    them) into `model`, one leaf at a time: `flat` may read lazily
+    (`Checkpointer.reading`), and the host then holds one leaf at once.
+    Raises on a leaf that is missing, misshapen or not float32."""
+    from repro_torch.train.optimizer import leaf_paths, tree_leaves
+    tree = lm_param_tree(model)
     with torch.no_grad():
-        for name, arr in flat.items():
-            params[name].copy_(torch.from_numpy(np.array(arr)))
+        for path, leaf in zip(leaf_paths(tree), tree_leaves(tree)):
+            arr = np.asarray(flat[prefix + path])
+            parts = list(leaf) if isinstance(leaf, Stack) else [leaf]
+            shape = tuple(parts[0].shape)
+            want = (leaf.lead if isinstance(leaf, Stack) else ()) + shape
+            if arr.dtype != np.float32:
+                raise TypeError(f"{path}: dtype {arr.dtype}, expected "
+                                "float32 (widen bf16 leaves first)")
+            if tuple(arr.shape) != want:
+                raise ValueError(f"{path}: shape {tuple(arr.shape)}, the "
+                                 f"model has {want}")
+            for t, a in zip(parts, arr.reshape((len(parts),) + shape)):
+                t.copy_(torch.tensor(a))
+            del arr
 
 
 class Stack(list):

@@ -82,9 +82,10 @@ class StackedMesh:
         blocks = x.reshape((P, P, N // P) + rest)
         return blocks.transpose(0, 1).reshape((P, N) + rest)
 
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of a per-shard x [S, ...] over all shards, the same on each."""
-        return x.sum(dim=0)
+    def psum(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        """Sum of a per-shard x [S, ...] over all shards, the same on each;
+        `dtype` is the sum's (torch's rule for `x.sum` when None)."""
+        return x.sum(dim=0, dtype=dtype)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """Largest of a per-shard x [S, ...] over all shards."""
@@ -171,11 +172,12 @@ class ProcessGroupMesh:
         self._dist.all_to_all_single(recv[0], send[0], group=self.group)
         return recv
 
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
+    def psum(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
         """As `StackedMesh.psum`; the local sum of a bool or an int32 x is
-        int64, which every backend reduces (NCCL has no bool)."""
+        int64, which every backend reduces (NCCL has no bool), unless
+        `dtype` names the wire's type (int32 travels at 4 B)."""
         self._check("psum", x)
-        out = x.sum(dim=0).contiguous()
+        out = x.sum(dim=0, dtype=dtype).contiguous()
         self._dist.all_reduce(out, group=self.group)
         return out
 

@@ -90,9 +90,10 @@ def _ppr_superstep(sg: ShardedGraph, st: BatchPPRState, *, mesh, eps: float,
                    Q: int, count_bound: Optional[int] = None):
     """One batched PPR round on every local shard. Every buffered walk is
     owned by its shard (arrivals are dealt out owner-side), so every valid
-    slot steps. Returns (state, stats): `stats` is the [Q + 3] int64 psum
-    over all shards of the live walks of each query, then the round's
-    lane entries, wire bytes and dropped walks."""
+    slot steps. Returns (state, stats): `stats` is [Q + 3] int64, the sums
+    over all shards of the live walks of each query (an int32 psum), then
+    of the round's lane entries, wire bytes and dropped walks (an int64
+    psum)."""
     n_loc, shards = sg.n_loc, mesh.shards
     sid = mesh.shard_ids()
     pos, qid = st.pos, st.qid
@@ -130,10 +131,13 @@ def _ppr_superstep(sg: ShardedGraph, st: BatchPPRState, *, mesh, eps: float,
     kept = (torch.clamp(cum, max=cap)
             - torch.clamp(cum - arrivals, max=cap)).to(torch.int64)
     dropped = torch.clamp(total[:, 0] - cap, min=0)
-    stats = mesh.psum(torch.cat([
-        kept.reshape(S, n_loc, Q).sum(dim=1),
-        torch.stack([sent_entries, sent_bytes, dropped], dim=1).to(
-            torch.int64)], dim=1))
+    # the live walks of each query at JAX's width (4Q bytes on the wire,
+    # at most the walks of a query), the counters in a psum of their own
+    live = mesh.psum(kept.reshape(S, n_loc, Q).sum(dim=1).to(_I32),
+                     dtype=_I32)
+    counters = mesh.psum(torch.stack(
+        [sent_entries, sent_bytes, dropped], dim=1).to(torch.int64))
+    stats = torch.cat([live.to(torch.int64), counters])
     return (BatchPPRState(pos=new_pos, qid=new_qid, zeta=zeta,
                           key=keys[:, 0].clone()), stats)
 

@@ -15,25 +15,41 @@ Without `--device` it runs on the card. The step runs under the
 sharding rules of `mesh` (the 1x1 local mesh by default, on which they
 are the identity); `--production-mesh` takes the 16x16 mesh of 256 CUDA
 cards, and raises with fewer.
+
+Under `torchrun` each process is one shard of a process mesh
+(`launch.mesh.make_process_mesh`: NCCL on `cuda:<LOCAL_RANK>`, gloo with
+`--device cpu`): (data = WORLD_SIZE, model = 1), or the 16x16 mesh with
+`--production-mesh`, which raises under 256 processes. Each rank builds
+the whole model and its ZeRO slice of the AdamW state on its device and
+trains on its data coordinate's rows of each batch; snapshots are
+written blocking, once, by rank 0, in the single-device layout, so one
+from any mesh resumes on any other, on one device, or in the JAX
+package.
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen2-7b --reduced --steps 6 --global-batch 4 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
 
-from repro_torch.checkpoint import Checkpointer, restore_into
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.convert import (lm_param_tree, lm_params_to_numpy,
-                                 load_lm_params)
+                                 load_lm_params_flat)
 from repro_torch.data import DataConfig, SyntheticTokens
-from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.launch.mesh import (make_local_mesh, make_process_mesh,
+                                     make_production_mesh)
 from repro_torch.models import get_model
 from repro_torch.models.common import COMPUTE_DTYPE
 from repro_torch.sharding.rules import (ShardingRules, active_rules,
                                         default_rules)
 from repro_torch.train import AdamWConfig, init_state, make_train_step
+from repro_torch.train.optimizer import state_from_host, state_to_host
 
 
 def make_batch(cfg, numpy_batch, device) -> dict:
@@ -53,6 +69,26 @@ def make_batch(cfg, numpy_batch, device) -> dict:
     return out
 
 
+def training_snapshot(model, params, opt_state, mesh):
+    """The tree a training snapshot holds, in the single-device layout:
+    the parameters and the AdamW state, gathered on the mesh's writer
+    (None on every other rank; every rank must call it)."""
+    opt = state_to_host(opt_state, params, mesh)
+    return None if opt is None else dict(params=lm_params_to_numpy(model),
+                                         opt=opt)
+
+
+def restore_training(ckpt, model, params, opt_state, mesh, step=None):
+    """Load `ckpt`'s snapshot at `step` (the latest when None) into
+    `model`; returns (`opt_state` with the snapshot's values, on a process
+    mesh this rank's slice of them; the snapshot's step). Leaf by leaf:
+    the host holds one array of the snapshot at a time."""
+    with ckpt.reading(step) as (flat, manifest):
+        load_lm_params_flat(model, flat)
+        opt_state = state_from_host(flat, opt_state, params, mesh)
+    return opt_state, manifest["step"]
+
+
 def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
                  lr: float = 3e-4, num_microbatches: int = 1,
                  checkpoint_dir: str | None = None,
@@ -61,34 +97,39 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
                  mesh=None):
     """Train `cfg`'s model for `steps` steps (counted from 0, a resumed run
     going on from its checkpoint's step) under the sharding rules of
-    `mesh` (`make_local_mesh(device)` when None). Returns (model, AdamW
-    state, the losses of the steps this call ran)."""
+    `mesh` (`make_local_mesh(device)` when None). On a process mesh each
+    rank trains on its own device and keeps its ZeRO slice of the state.
+    Returns (model, AdamW state, the losses of the steps this call
+    ran)."""
     mesh = mesh or make_local_mesh(device)
+    process = mesh.process
+    if process:
+        device = mesh.devices[0]
     rules = ShardingRules(mesh, default_rules("pod" in mesh.shape))
     with active_rules(rules):
         model = get_model(cfg)(cfg, device=device, seed=seed)
         adam = AdamWConfig(lr=lr)
-        opt_state = init_state(lm_param_tree(model), adam)
+        params = lm_param_tree(model)
+        opt_state = init_state(params, adam, mesh=mesh)
         step_fn = make_train_step(cfg, model, adam,
                                   num_microbatches=num_microbatches,
-                                  loss_kwargs=dict(q_chunk=q_chunk))
+                                  loss_kwargs=dict(q_chunk=q_chunk),
+                                  mesh=mesh)
         data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
                                           seq_len=seq_len,
                                           global_batch=global_batch,
                                           seed=seed))
-        ckpt = Checkpointer(checkpoint_dir) if checkpoint_dir else None
+        ckpt = (Checkpointer(checkpoint_dir, mesh=mesh if process else None)
+                if checkpoint_dir else None)
+        say = print if mesh.writer else (lambda *a, **k: None)
         start_step = 0
         if ckpt and ckpt.latest_step() is not None:
-            flat, manifest = ckpt.restore()
-            state = restore_into(dict(params=lm_params_to_numpy(model),
-                                      opt=opt_state), flat)
-            load_lm_params(model, state["params"])
-            opt_state = state["opt"]
-            start_step = manifest["step"]
-            print(f"[train] restored step {start_step}")
+            opt_state, start_step = restore_training(ckpt, model, params,
+                                                     opt_state, mesh)
+            say(f"[train] restored step {start_step}")
 
         def snapshot():
-            return dict(params=lm_params_to_numpy(model), opt=opt_state)
+            return training_snapshot(model, params, opt_state, mesh)
 
         losses = []
         t0 = time.time()
@@ -98,11 +139,11 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
             losses.append(float(metrics["loss"]))
             if (i + 1) % log_every == 0:
                 dt = (time.time() - t0) / max(len(losses), 1)
-                print(f"[train] step {i+1:5d} loss {losses[-1]:.4f} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} "
-                      f"{dt*1e3:.0f} ms/step", flush=True)
+                say(f"[train] step {i+1:5d} loss {losses[-1]:.4f} "
+                    f"gnorm {float(metrics['grad_norm']):.3f} "
+                    f"{dt*1e3:.0f} ms/step", flush=True)
             if ckpt and (i + 1) % checkpoint_every == 0:
-                ckpt.save(i + 1, snapshot(), blocking=False)
+                ckpt.save(i + 1, snapshot(), blocking=process)
         if ckpt:
             ckpt.save(steps, snapshot(), blocking=True)
         return model, opt_state, losses
@@ -122,7 +163,12 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    mesh = make_production_mesh() if args.production_mesh else None
+    if "WORLD_SIZE" in os.environ:          # under torchrun
+        shape = ({"data": 16, "model": 16} if args.production_mesh else
+                 {"data": int(os.environ["WORLD_SIZE"]), "model": 1})
+        mesh = make_process_mesh(shape, args.device)
+    else:
+        mesh = make_production_mesh() if args.production_mesh else None
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     _, _, losses = run_training(
@@ -131,7 +177,11 @@ def main(argv=None):
         num_microbatches=args.microbatches,
         checkpoint_dir=args.checkpoint_dir, q_chunk=64, device=args.device,
         mesh=mesh)
-    print(f"[train] done. loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if mesh is None or mesh.writer:
+        print(f"[train] done. loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if mesh is not None and mesh.process:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -30,6 +30,7 @@ from torch import nn
 from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.rules import active_rules, current_rules
 
 PARAM_DTYPE = torch.bfloat16
 COMPUTE_DTYPE = torch.bfloat16
@@ -197,12 +198,14 @@ def recomputing() -> bool:
 
 
 @contextlib.contextmanager
-def _recompute(inner):
-    """`inner`, with `recomputing()` true inside."""
+def _recompute(inner, rules):
+    """`inner`, with `recomputing()` true inside and the forward's sharding
+    `rules` active: autograd may re-run a layer on a thread of its own
+    (one a card), where the forward's thread-local rules are not."""
     prev = recomputing()
     _local.recomputing = True
     try:
-        with inner:
+        with active_rules(rules), inner:
             yield
     finally:
         _local.recomputing = prev
@@ -213,14 +216,15 @@ def _save_dots(ctx, op, *args, **kwargs):
             else _checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _contexts(policy: str):
-    """(forward, recompute) contexts of `torch.utils.checkpoint`."""
+def _contexts(policy: str, rules):
+    """(forward, recompute) contexts of `torch.utils.checkpoint`; the
+    recompute runs under `rules`, the forward's."""
     if policy == "dots":
         fwd, rec = _checkpoint.create_selective_checkpoint_contexts(
             _save_dots)
     else:
         fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
-    return fwd, _recompute(rec)
+    return fwd, _recompute(rec, rules)
 
 
 def ckpt(f):
@@ -230,9 +234,10 @@ def ckpt(f):
         policy = getattr(_local, "policy", "full")
         if policy == "none" or not torch.is_grad_enabled():
             return f(*args)
+        rules = current_rules()
         return _checkpoint.checkpoint(
             f, *args, use_reentrant=False,
-            context_fn=lambda: _contexts(policy))
+            context_fn=lambda: _contexts(policy, rules))
     return run
 
 

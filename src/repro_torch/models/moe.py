@@ -11,9 +11,11 @@ paths (ranks, capacities, buffer slots) match JAX bit for bit.
 Two paths: the gather path on all tokens, and `moe_forward_sharded`,
 taken under sharding rules whose mesh has a "model" axis: tokens stay on
 their data shard, each expert's hidden dim is split over the model axis,
-and the partial outputs are summed over it. On the port's meshes every
-shard lives on one card (`launch.mesh.make_stacked_mesh`), so the shards
-run in turn and the collectives are sums and means over them.
+and the partial outputs are summed over it. On a stacked mesh
+(`launch.mesh.make_stacked_mesh`) every shard lives on one card, so the
+shards run in turn and the collectives are sums and means over them; on
+a process mesh (`launch.mesh.make_process_mesh`) each rank runs its own
+shard and the collectives are `sharding.collectives`' over its groups.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from torch import nn
 from repro_torch.models.common import (COMPUTE_DTYPE, dense_init, param,
                                        recomputing)
 from repro_torch.models.mlp import MLP, activation, is_gated, mlp_forward
+from repro_torch.sharding import collectives as coll
 from repro_torch.sharding.rules import current_rules
 
 
@@ -90,11 +93,14 @@ def route(logits: torch.Tensor, k: int):
 
 
 def _dispatch_compute_combine(xf, logits, w_gate, w_up, w_down, cfg,
-                              f_slice_partial: bool = False):
+                              f_slice_partial: bool = False,
+                              vary=lambda t: t):
     """Dispatch, expert FFNs and combine on the tokens xf [N, d] (one
     data shard's, or all). Expert weights are [E, d, f_loc] / [E, f_loc,
     d]; with `f_slice_partial`, f_loc is a slice of the hidden dim and the
     returned out is a partial sum awaiting the sum over the model axis.
+    `vary` marks the tokens and the gate weights where each model rank
+    takes its own part of them (`coll.pvary` on a process mesh).
     Returns (out [N, d] float32, load [E], importance [E], dropped)."""
     N, d = xf.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -118,7 +124,7 @@ def _dispatch_compute_combine(xf, logits, w_gate, w_up, w_down, cfg,
     buf_tok[torch.where(keep, flat_e.long() * C + rank, E * C)] = token_of
     buf_tok = buf_tok[:E * C].reshape(E, C)
     x_e = torch.where((buf_tok >= 0)[..., None],
-                      xf[torch.clamp(buf_tok, 0, N - 1).long()],
+                      vary(xf)[torch.clamp(buf_tok, 0, N - 1).long()],
                       0).to(COMPUTE_DTYPE)
 
     up = torch.bmm(x_e, w_up.to(COMPUTE_DTYPE))
@@ -132,7 +138,7 @@ def _dispatch_compute_combine(xf, logits, w_gate, w_up, w_down, cfg,
     gathered = y_e.reshape(E * C, d)[torch.clamp(
         flat_e.long() * C + rank, 0, E * C - 1)]
     gathered = torch.where(keep[:, None], gathered, 0)
-    contrib = gathered.float() * weights.reshape(-1)[:, None]
+    contrib = gathered.float() * vary(weights).reshape(-1)[:, None]
     out = torch.zeros((N, d), dtype=torch.float32,
                       device=xf.device).index_add_(0, token_of, contrib)
     return out, load, importance, (~keep).sum()
@@ -149,14 +155,16 @@ def moe_forward_sharded(p: MoE, x: torch.Tensor, cfg, rules
     capacity from its own token count; the expert weights are sliced on
     their hidden dim (`ffn`) over `model` and gathered whole on `embed`
     over the data axes, so the only sums are the output's over `model`
-    and the load and importance means over the data axes. Each shard runs
-    in turn on the mesh's one card. Adds the assignments dropped (each
-    data shard's once) to `p.dropped`, except in a remat's re-run."""
+    and the load and importance means over the data axes. On a stacked
+    mesh each shard runs in turn on the mesh's one card; on a process mesh
+    x [B_loc, T, d] is this rank's data shard (`_moe_process`). Adds the
+    assignments dropped (each data shard's once) to `p.dropped`, except in
+    a remat's re-run."""
     mesh = rules.mesh
-    if mesh.size > 1 and not mesh.stacked:
-        raise NotImplementedError("a mesh of several cards needs the "
-                                  "NCCL collective layer (ROADMAP Queue 1 "
-                                  "item 4)")
+    if mesh.size > 1 and not (mesh.stacked or mesh.process):
+        raise NotImplementedError("a mesh of several cards runs one "
+                                  "process a card over NCCL "
+                                  "(launch.mesh.make_process_mesh)")
     dp = rules._axis_size(_data_axes(mesh))
     tp = mesh.shape["model"]
     B, T, d = x.shape
@@ -170,6 +178,9 @@ def moe_forward_sharded(p: MoE, x: torch.Tensor, cfg, rules
 
     def f_slice(w, dim, j):
         return w if tp == 1 else w.narrow(dim, j * f_loc, f_loc)
+
+    if mesh.process:
+        return _moe_process(p, x, cfg, mesh, f_slice)
 
     outs, loads, imps, dropped = [], [], [], 0
     for xl in x.reshape(dp, B // dp, T, d):
@@ -198,17 +209,55 @@ def moe_forward_sharded(p: MoE, x: torch.Tensor, cfg, rules
     return out, aux
 
 
+def _moe_process(p: MoE, x: torch.Tensor, cfg, mesh, f_slice
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`moe_forward_sharded` on this rank of a process mesh: x is its data
+    shard, whole on every model rank; the expert weights' f-slice of its
+    model coordinate is a `narrow` of the whole parameter, so its gradient
+    lands in that slice alone. The partial outputs are summed over
+    `model` and load and importance averaged over the data axes; the
+    tokens and gate weights enter the slices through `pvary` over
+    `model`, so their gradient, and that of everything before them, is
+    whole on every model rank. Each data rank adds the aux loss to its own
+    loss (the train step sums those over the data ranks), so aux leaves
+    through `pvary` over the data axes. `p.dropped` grows on every rank
+    by the drops of all data shards."""
+    B, T, d = x.shape
+    data, model = mesh.group(_data_axes(mesh)), mesh.group(("model",))
+    tp, j = model.shards, model.rank
+    xf = x.reshape(-1, d)
+    logits = torch.matmul(xf.float(), p.router)
+    out, load, imp, drop = _dispatch_compute_combine(
+        xf, logits,
+        None if p.w_gate is None else f_slice(p.w_gate, 2, j),
+        f_slice(p.w_up, 2, j), f_slice(p.w_down, 1, j), cfg,
+        f_slice_partial=tp > 1,
+        vary=(lambda t: coll.pvary(t, model)) if tp > 1 else (lambda t: t))
+    if tp > 1:
+        out = coll.psum(out, model)
+    if not recomputing():
+        with torch.no_grad():
+            p.dropped += coll.psum(drop.reshape(1).to(torch.int64),
+                                   data)[0]
+    load, imp = coll.pmean(load, data), coll.pmean(imp, data)
+    aux = coll.pvary(cfg.num_experts * torch.sum(load * imp), data)
+    out = out.to(x.dtype).reshape(B, T, d)
+    if p.shared is not None:
+        out = out + mlp_forward(p.shared, x, cfg.mlp)
+    return out, aux
+
+
 def moe_forward(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
                                                        torch.Tensor]:
     """x [B,T,d] -> (out [B,T,d], aux_loss scalar); adds the assignments
     dropped at capacity to `p.dropped`, except in a remat's re-run. Takes
     `moe_forward_sharded` when sharding rules are active on a mesh with a
-    "model" axis and the batch divides the data axes; else the gather
-    path."""
+    "model" axis and the batch divides the data axes (on a process mesh x
+    is this rank's data shard: always); else the gather path."""
     rules = current_rules()
     if rules is not None and "model" in rules.mesh.shape:
         dp = rules._axis_size(_data_axes(rules.mesh))
-        if x.shape[0] % dp == 0:
+        if rules.mesh.process or x.shape[0] % dp == 0:
             return moe_forward_sharded(p, x, cfg, rules)
 
     B, T, d = x.shape

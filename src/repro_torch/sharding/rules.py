@@ -104,11 +104,14 @@ class ShardingRules:
 
     def constrain(self, x, logical_axes):
         """`x`, after checking that `logical_axes` name each of its dims
-        and give a spec on this mesh."""
+        and give a spec on this mesh. On a process mesh x is this rank's
+        own block (its data shard of the batch), whose shape is not the
+        global one: only the count of its dims is checked."""
         if len(logical_axes) != x.ndim:
             raise ValueError(f"axes {logical_axes} for a tensor of shape "
                              f"{tuple(x.shape)}")
-        self.spec(logical_axes, tuple(x.shape))
+        if not getattr(self.mesh, "process", False):
+            self.spec(logical_axes, tuple(x.shape))
         return x
 
     def tree_specs(self, shapes_tree, axes_tree):

@@ -6,7 +6,10 @@ blocks of QBLOCK) and carries what the quantization lost to its next
 call (error feedback: unbiased over time). On a `StackedMesh` the shards
 are the rows of x [S, n], each with its own residual row; the sum is the
 mesh's `psum` of the dequantized rows (the wire would carry the int8
-codes and the block scales).
+codes and the block scales). Across processes each process passes its
+own row x [1, n] with its residual, and the sum is that of a
+`ProcessGroupMesh`: the world's, or a process mesh's group over some of
+its axes (`launch.mesh.Mesh.group`, e.g. its data axes).
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ def _dequant(q: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
 def compressed_psum(x: torch.Tensor, mesh, residual: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Error-feedback int8 psum of per-shard flat float32 vectors x [S, n]
-    with their residuals [S, n] -> (the sum [n], new residuals [S, n])."""
+    with their residuals [S, n] -> (the sum [n], new residuals [S, n]).
+    `mesh` is a mesh of the engines (`core.collectives`): a
+    `ProcessGroupMesh` takes one row a process."""
     n = x.shape[1]
     corrected = x + residual
     local = torch.stack([_dequant(*_quant(row), n) for row in corrected])

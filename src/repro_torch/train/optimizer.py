@@ -25,15 +25,34 @@ make m / (sqrt(v) + eps) explode.
 `apply_updates` writes the new bf16 weights into the parameters and
 updates the state's tensors in place (fp32 moments); each step is a chain
 of elementwise torch ops a leaf (XLA fuses the JAX package's).
+
+ZeRO-1 on a process mesh (`launch.mesh.make_process_mesh`): with
+`mesh=`, `init_state` keeps of each leaf's flat padded vector only this
+rank's slice over the ZeRO axes (`state_axes`' "zero": every axis), cut
+at whole QBLOCK blocks (`zero_share`: the int8 scales are the
+single-device ones), and `apply_updates` reduce-scatters each rank's
+part of the gradient into the slices leaf by leaf, in buckets of at most
+`BUCKET` floats, takes the global norm as the sqrt of a psum of the
+slices' sums of squares, updates the slices with the same arithmetic,
+and all-gathers the new weights into the parameters. With one rank the
+slice is the whole vector and no arithmetic changes. `state_to_host` and
+`state_from_host` move a state, a ZeRO slice or a whole one, to and from
+the single-device layout of a snapshot.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Tuple
+import itertools
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.sharding import collectives as coll
 
 QBLOCK = 128
+BUCKET = 1 << 25         # floats a reduce-scatter or all-gather moves at most
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +150,75 @@ def _sqrt_(x: torch.Tensor) -> torch.Tensor:
     return x.sqrt_()
 
 
-def init_state(params, cfg: AdamWConfig) -> AdamState:
+def zero_share(n_pad: int, ranks: int) -> int:
+    """The length of one rank's slice of a flat leaf of padded length
+    `n_pad` over `ranks` ranks: ceil(blocks / ranks) whole QBLOCK blocks
+    (the last ranks' run past `n_pad` into zeros)."""
+    return -(-(n_pad // QBLOCK) // ranks) * QBLOCK
+
+
+def _zero_group(mesh):
+    """The ZeRO group of a process mesh; None on any other mesh."""
+    if mesh is None or not getattr(mesh, "process", False):
+        return None
+    from repro_torch.launch.mesh import ZERO_AXES
+    return mesh.group(ZERO_AXES)
+
+
+def _read_range(parts, lo: int, out: torch.Tensor) -> torch.Tensor:
+    """out := elements [lo, lo + len(out)) of the leaf's flat vector
+    (zeros past its end), converted to out's dtype."""
+    out.zero_()
+    hi, at = lo + out.numel(), 0
+    for t in parts:
+        n = t.numel()
+        a, b = max(lo, at), min(hi, at + n)
+        if a < b:
+            out[a - lo:b - lo] = t.detach().reshape(-1)[a - at:b - at]
+        at += n
+    return out
+
+
+def _write_range(parts, lo: int, src: torch.Tensor) -> None:
+    """Elements [lo, lo + len(src)) of the leaf's flat vector := src,
+    where they exist."""
+    hi, at = lo + src.numel(), 0
+    for t in parts:
+        n = t.numel()
+        a, b = max(lo, at), min(hi, at + n)
+        if a < b:
+            t.view(-1)[a - at:b - at].copy_(src[a - lo:b - lo])
+        at += n
+
+
+def _chunks(per: int, ranks: int):
+    """(start, length) of the buckets one rank's slice of `per` moves in:
+    each at most BUCKET floats over all ranks, whole blocks."""
+    step = max(QBLOCK, min(per, BUCKET // ranks // QBLOCK * QBLOCK))
+    return [(lo, min(step, per - lo)) for lo in range(0, per, step)]
+
+
+def _add_sumsq(total, parts, lo: int, vec: torch.Tensor):
+    """`total` (None for none yet) plus the float32 sums of squares of
+    vec, the elements [lo, lo + len(vec)) of a leaf's flat vector, added
+    part by part, as `global_norm` adds a whole leaf's."""
+    at, hi = 0, lo + vec.numel()
+    for t in parts:
+        n = t.numel()
+        a, b = max(lo, at), min(hi, at + n)
+        if a < b:
+            s = vec[a - lo:b - lo].square().sum()
+            total = s if total is None else total + s
+        at += n
+    return total
+
+
+def init_state(params, cfg: AdamWConfig, *, mesh=None) -> AdamState:
+    """The state of `params` before the first step; on a process mesh,
+    this rank's ZeRO slice of it (see the module doc)."""
+    zero = _zero_group(mesh)
+    if zero is not None:
+        return _init_zero(params, cfg, zero)
     master = tree_map(_flatten_pad, params)
 
     def zeros(p):
@@ -147,6 +234,29 @@ def init_state(params, cfg: AdamWConfig) -> AdamState:
     return AdamState(step=torch.zeros((), dtype=torch.int32, device=dev),
                      master=master, m=tree_map(zeros, params),
                      v=tree_map(zeros, params))
+
+
+def _init_zero(params, cfg: AdamWConfig, zero) -> AdamState:
+    def slices(p):
+        parts = _parts(p)
+        per = zero_share(_pad_len(leaf_size(p)), zero.shards)
+        dev = parts[0].device
+        master = _read_range(parts, zero.rank * per,
+                             torch.empty(per, dtype=torch.float32,
+                                         device=dev))
+        if cfg.int8_moments:
+            mom = lambda: (torch.zeros(per, dtype=torch.int8, device=dev),
+                           torch.zeros(per // QBLOCK, dtype=torch.float32,
+                                       device=dev))
+        else:
+            mom = lambda: torch.zeros(per, dtype=torch.float32, device=dev)
+        return master, mom(), mom()
+
+    out = tree_map(slices, params)
+    master, m, v = (tree_map(lambda o, i=i: o[i], out) for i in range(3))
+    dev = _parts(next(iter(tree_leaves(params))))[0].device
+    return AdamState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                     master=master, m=m, v=v)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -172,14 +282,101 @@ def state_axes(param_axes, int8_moments: bool) -> AdamState:
     return AdamState(step=(), master=master, m=master, v=master)
 
 
+def leaf_slots(tree):
+    """(container, key) of every leaf of nested dicts, in JAX's order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from leaf_slots(tree[k])
+        else:
+            yield tree, k
+
+
+def leaf_paths(tree, prefix: str = ""):
+    """The '/'-joined path of every leaf of nested dicts, in JAX's order
+    (a snapshot's keys below its tree's name)."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from leaf_paths(tree[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k
+
+
 @torch.no_grad()
-def apply_updates(params, grads, state: AdamState, cfg: AdamWConfig
+def reduce_scatter_grads(params, grads, zero, data_ranks: int) -> list:
+    """This rank's slice of each leaf's gradient, float32, in leaf order:
+    the sum over the ZeRO group of the ranks' parts (`grads`' leaves; a
+    leaf None adds nothing), divided by `data_ranks`. Each leaf of
+    `grads` is dropped once reduced, so that its memory goes."""
+    out = []
+    for (gtree, k), p in zip(leaf_slots(grads), tree_leaves(params)):
+        g = gtree[k]
+        gtree[k] = None
+        parts = None if g is None else _parts(g)
+        per = zero_share(_pad_len(leaf_size(p)), zero.shards)
+        dev = _parts(p)[0].device
+        mine = torch.empty(per, dtype=torch.float32, device=dev)
+        for lo, m in _chunks(per, zero.shards):
+            buf = torch.zeros((zero.shards, m), dtype=torch.float32,
+                              device=dev)
+            if parts is not None:
+                for r in range(zero.shards):
+                    _read_range(parts, r * per + lo, buf[r])
+            coll.reduce_scatter_(mine[lo:lo + m], buf.view(-1), zero)
+            del buf
+        del g, parts
+        if data_ranks > 1:
+            mine.div_(data_ranks)
+        out.append(mine)
+    return out
+
+
+@torch.no_grad()
+def _gather_params(params, master_slices: list, zero) -> None:
+    """Every parameter := the all-gather of its leaf's master slices, cast
+    to the parameter's dtype."""
+    for p, mstr in zip(tree_leaves(params), master_slices):
+        parts = _parts(p)
+        per = mstr.numel()
+        for lo, m in _chunks(per, zero.shards):
+            recv = torch.empty(zero.shards * m, dtype=parts[0].dtype,
+                               device=mstr.device)
+            coll.all_gather_(recv, mstr[lo:lo + m].to(parts[0].dtype), zero)
+            for r in range(zero.shards):
+                _write_range(parts, r * per + lo, recv[r * m:(r + 1) * m])
+
+
+@torch.no_grad()
+def apply_updates(params, grads, state: AdamState, cfg: AdamWConfig, *,
+                  mesh=None
                   ) -> Tuple[Any, AdamState, Dict[str, torch.Tensor]]:
     """One AdamW step. Writes the new weights into `params` (cast to each
     parameter's dtype) and returns (params, the new state, metrics): the
-    fp32 moments and the masters are updated in place."""
+    fp32 moments and the masters are updated in place.
+
+    On a process mesh `state` is this rank's ZeRO slice (`init_state(...,
+    mesh=)`) and `grads` this rank's part of the gradient: the gradient
+    is their sum over the ZeRO group divided by the data-parallel degree
+    (a leaf may be None: it adds nothing). `grads`' leaves are dropped as
+    they are reduced."""
+    zero = _zero_group(mesh)
+    if zero is not None:
+        from repro_torch.launch.mesh import DATA_AXES
+        g_slices = reduce_scatter_grads(
+            params, grads, zero, mesh.group(DATA_AXES).shards)
+        total = None
+        for p, g in zip(tree_leaves(params), g_slices):
+            total = _add_sumsq(total, _parts(p), zero.rank * g.numel(), g)
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32,
+                                device=g_slices[0].device)
+        total = total.reshape(1).contiguous()
+        dist.all_reduce(total, group=zero.group)
+        gnorm = _sqrt_(total[0])
+        it = iter(g_slices)
+        grads = tree_map(lambda _: next(it), state.master)
+    else:
+        gnorm = global_norm(grads)
     step = state.step + 1
-    gnorm = global_norm(grads)
     if cfg.grad_clip:
         gscale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                              max=1.0)
@@ -190,7 +387,8 @@ def apply_updates(params, grads, state: AdamState, cfg: AdamWConfig
     bc2 = 1.0 - cfg.b2 ** stepf
 
     def update(p, g, mstr, m, v):
-        gf = _flatten_pad(g).mul_(gscale)
+        gf = (g.mul_(gscale) if zero is not None
+              else _flatten_pad(g).mul_(gscale))
         if cfg.int8_moments:
             m_f = dequantize_blockwise(*m)
             u = dequantize_floor(*v)        # u = sqrt(v), half-LSB floored
@@ -205,11 +403,12 @@ def apply_updates(params, grads, state: AdamState, cfg: AdamWConfig
         upd.add_(cfg.weight_decay * mstr)
         mstr.sub_(upd.mul_(cfg.lr))
         del upd
-        at = 0
-        for t in _parts(p):
-            n = t.numel()
-            t.copy_(mstr[at:at + n].reshape(t.shape))
-            at += n
+        if zero is None:            # a ZeRO slice is all-gathered below
+            at = 0
+            for t in _parts(p):
+                n = t.numel()
+                t.copy_(mstr[at:at + n].reshape(t.shape))
+                at += n
         if cfg.int8_moments:
             return (mstr, quantize_blockwise(m_f),
                     quantize_blockwise(_sqrt_(v_f)))
@@ -217,5 +416,102 @@ def apply_updates(params, grads, state: AdamState, cfg: AdamWConfig
 
     out = tree_map(update, params, grads, state.master, state.m, state.v)
     master, m, v = (tree_map(lambda o, i=i: o[i], out) for i in range(3))
+    if zero is not None:
+        del grads, out
+        _gather_params(params, list(tree_leaves(master)), zero)
     return params, AdamState(step=step, master=master, m=m, v=v), \
         dict(grad_norm=gnorm)
+
+
+# ---------------------------------------------------------------------------
+# a ZeRO state and the single-device layout of a snapshot
+# ---------------------------------------------------------------------------
+
+def _state_leaves(state: AdamState):
+    """(field, leaf index, part) of every tensor of a state but the step,
+    with the tensor: part None for a float32 vector, 0/1 for an int8
+    moment's codes/scales."""
+    for field in ("master", "m", "v"):
+        for i, leaf in enumerate(tree_leaves(getattr(state, field))):
+            if isinstance(leaf, tuple):
+                yield (field, i, 0), leaf[0]
+                yield (field, i, 1), leaf[1]
+            else:
+                yield (field, i, None), leaf
+
+
+def _rebuild(state: AdamState, step, new: dict) -> AdamState:
+    """`state`'s structure with each tensor replaced by `new[(field, i,
+    part)]`."""
+    def field(name):
+        it = itertools.count()
+
+        def leaf(x):
+            i = next(it)
+            if isinstance(x, tuple):
+                return (new[(name, i, 0)], new[(name, i, 1)])
+            return new[(name, i, None)]
+        return tree_map(leaf, getattr(state, name))
+    return AdamState(step=step, master=field("master"), m=field("m"),
+                     v=field("v"))
+
+
+def _full_len(params, where) -> int:
+    """The single-device length of a state tensor: the padded leaf, or
+    its block count for int8 scales."""
+    _, i, part = where
+    n = _pad_len(leaf_size(list(tree_leaves(params))[i]))
+    return n // QBLOCK if part == 1 else n
+
+
+@torch.no_grad()
+def state_to_host(state: AdamState, params, mesh) -> Optional[AdamState]:
+    """A ZeRO state gathered into the single-device layout, as numpy, on
+    the mesh's writer (None on every other rank); every rank must call
+    it. Any other state comes back as numpy as it is."""
+    zero = _zero_group(mesh)
+    host = {}
+    for where, t in _state_leaves(state):
+        if zero is not None:
+            full = torch.empty(zero.shards * t.numel(), dtype=t.dtype,
+                               device=t.device)
+            coll.all_gather_(full, t.contiguous(), zero)
+            t = full[:_full_len(params, where)]
+        if mesh is None or mesh.writer:
+            host[where] = t.cpu().numpy().copy()
+    if mesh is not None and not mesh.writer:
+        return None
+    return _rebuild(state, state.step.cpu().numpy().copy(), host)
+
+
+@torch.no_grad()
+def state_from_host(flat, like: AdamState, params, mesh, *,
+                    prefix: str = "opt") -> AdamState:
+    """The state `like` (this rank's ZeRO slice, or a whole state) with the
+    values of a flat snapshot in the single-device layout: `flat` maps
+    `<prefix>/step`, `<prefix>/master/<JAX path>`, ... (an int8 moment's
+    codes and scales under `.../0` and `.../1`) to numpy arrays, and may
+    read them lazily (`Checkpointer.reading`). Each array is read, cut to
+    this rank's slice on a process mesh and put on its device before the
+    next is read, so the host holds one leaf at a time."""
+    zero = _zero_group(mesh)
+    paths = list(leaf_paths(like.master))
+    out = {}
+    for where, t in _state_leaves(like):
+        field, i, part = where
+        key = f"{prefix}/{field}/{paths[i]}" + (
+            "" if part is None else f"/{part}")
+        arr = flat[key]
+        if arr.shape != (_full_len(params, where),):
+            raise ValueError(f"{key}: shape {arr.shape}, expected "
+                             f"({_full_len(params, where)},)")
+        lo = 0 if zero is None else zero.rank * t.numel()
+        seg = arr[lo:lo + t.numel()]
+        dst = torch.zeros(t.numel(), dtype=t.dtype, device=t.device)
+        dst[:seg.shape[0]] = torch.from_numpy(np.ascontiguousarray(seg)).to(
+            device=t.device, dtype=t.dtype)
+        out[where] = dst
+        del arr, seg
+    step = torch.as_tensor(np.asarray(flat[f"{prefix}/step"])).to(
+        dtype=like.step.dtype, device=like.step.device)
+    return _rebuild(like, step, out)

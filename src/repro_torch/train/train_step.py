@@ -14,6 +14,21 @@ divided by the count: `.grad` is never accumulated across `backward()`
 calls, which would sum in bf16. One optimizer application follows; the
 model's parameters are written in place. Per-layer remat is the models'
 (`models.common.ckpt`, policy from `remat_policy`).
+
+On a process mesh (`make_train_step(..., mesh=)`, the mesh of
+`launch.mesh.make_process_mesh`) `train_step` takes the global batch on
+every rank and keeps its data coordinate's rows of each microbatch
+(`local_rows`: JAX lays each microbatch out over the data axes), so the
+model ranks of one data row take the same rows. The loss it reports is
+the global-batch mean (the data ranks' mean). The gradient invariant:
+once reduced, every leaf's gradient is the single-device gradient of the
+global-batch loss. Each rank's gradient of its own loss is summed over
+the data ranks and divided by dp; the expert weights' f-slices
+(`models.moe`), whose gradient lands in the slice of the rank's model
+coordinate, are summed over `model` as well, while every other leaf is
+computed whole by each model rank, so only model rank 0 hands it on.
+The ZeRO optimizer (`optimizer.apply_updates(..., mesh=)`) does that
+sum in its reduce-scatter.
 """
 from __future__ import annotations
 
@@ -22,10 +37,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.convert import Stack, lm_param_tree
+from repro_torch.sharding import collectives as coll
 from repro_torch.sharding.rules import maybe_constrain
 from repro_torch.train.optimizer import (AdamState, AdamWConfig,
-                                         apply_updates, tree_leaves,
-                                         tree_map)
+                                         leaf_slots, apply_updates,
+                                         tree_leaves, tree_map)
 
 
 def split_microbatches(batch: Dict[str, torch.Tensor], n: int
@@ -88,20 +104,81 @@ def accumulate_grads(model, params, batch, num_microbatches: int = 1,
     return _unflat(params, acc), loss_sum / num_microbatches
 
 
+def local_rows(batch: Dict[str, torch.Tensor], mesh,
+               num_microbatches: int = 1) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch on a process mesh: of each of
+    the `num_microbatches` microbatches, the block of its data coordinate
+    (row-major over the data axes), microbatches in order."""
+    from repro_torch.launch.mesh import DATA_AXES
+    data = mesh.group(DATA_AXES)
+    n, dp = num_microbatches, data.shards
+    out = {}
+    for name, x in batch.items():
+        if x.shape[0] % (n * dp):
+            raise ValueError(f"{name}: batch {x.shape[0]} does not split "
+                             f"into {n} microbatches over {dp} data ranks")
+        rows = x.reshape((n, dp, x.shape[0] // (n * dp)) + x.shape[1:])
+        out[name] = rows[:, data.rank].reshape((-1,) + x.shape[1:])
+    return out
+
+
+def _expert_leaves(model, params) -> List[bool]:
+    """Whether each leaf of `params` (in leaf order) is an expert weight
+    of a `models.moe.MoE`, sliced over `model` on a process mesh."""
+    from repro_torch.models.moe import MoE
+    sliced = {id(t) for m in model.modules() if isinstance(m, MoE)
+              for t in (m.w_up, m.w_gate, m.w_down) if t is not None}
+    return [id(leaf[0] if isinstance(leaf, list) else leaf) in sliced
+            for leaf in tree_leaves(params)]
+
+
+def rank_grads(model, params, batch, mesh, num_microbatches: int = 1,
+               loss_kwargs: Optional[dict] = None
+               ) -> Tuple[object, torch.Tensor]:
+    """One rank's part of the gradient on a process mesh, and the global
+    batch's mean loss: its rows of the global `batch`, their gradients,
+    and of each leaf computed whole on every model rank, model rank 0's
+    alone (None elsewhere). Their sum over the ZeRO group divided by the
+    data-parallel degree is the gradient (`optimizer.apply_updates`)."""
+    from repro_torch.launch.mesh import DATA_AXES
+    grads, loss = accumulate_grads(
+        model, params, local_rows(batch, mesh, num_microbatches),
+        num_microbatches, loss_kwargs)
+    with torch.no_grad():
+        loss = coll.pmean(loss, mesh.group(DATA_AXES))
+    if mesh.coords.get("model", 0) != 0:
+        # a leaf computed whole on every model rank: rank 0's copy is the
+        # one the reduce-scatter adds up
+        for (t, k), sliced in zip(list(leaf_slots(grads)),
+                                  _expert_leaves(model, params)):
+            if not sliced:
+                t[k] = None
+    return grads, loss
+
+
 def make_train_step(cfg, model, adam_cfg: AdamWConfig,
                     num_microbatches: int = 1,
-                    loss_kwargs: Optional[dict] = None) -> Callable:
+                    loss_kwargs: Optional[dict] = None,
+                    mesh=None) -> Callable:
     """`train_step(state, batch) -> (state, metrics)` for `model` (whose
-    parameters it makes require gradients), with `cfg` its config."""
+    parameters it makes require gradients), with `cfg` its config; on a
+    process mesh `mesh`, one rank's step (see the module doc), with
+    `state` its ZeRO slice (`init_state(..., mesh=mesh)`)."""
     if cfg != model.cfg:
         raise ValueError("cfg is not the model's config")
     model.requires_grad_(True)
     params = lm_param_tree(model)
+    process = mesh is not None and mesh.process
 
     def train_step(state: AdamState, batch) -> Tuple[AdamState, dict]:
-        grads, loss = accumulate_grads(model, params, batch,
-                                       num_microbatches, loss_kwargs)
-        _, state, metrics = apply_updates(params, grads, state, adam_cfg)
+        if process:
+            grads, loss = rank_grads(model, params, batch, mesh,
+                                     num_microbatches, loss_kwargs)
+        else:
+            grads, loss = accumulate_grads(model, params, batch,
+                                           num_microbatches, loss_kwargs)
+        _, state, metrics = apply_updates(params, grads, state, adam_cfg,
+                                          mesh=mesh if process else None)
         return state, dict(loss=loss, **metrics)
 
     return train_step

@@ -17,7 +17,9 @@ Parity levels:
     and 0 violations on both sides;
   * bounded only: the psums. The port sums some control counters in
     int64 (`core/distributed_improved.py`, `_p2_local`'s stats), so its
-    psums move 8 B where JAX's move 4 B; both stay at most 256 B.
+    psums move 8 B where JAX's move 4 B; both stay at most 256 B. The
+    PPR superstep's per-query psum is int32, as JAX's: at 30 and 64 query
+    slots no psum of the port's is wider than JAX's widest.
 """
 import dataclasses
 import types
@@ -256,18 +258,34 @@ def test_psum_control_limit_is_the_jax_one():
 # parity: the full audit of both packages at 8 shards
 # ---------------------------------------------------------------------------
 
-JAX_AUDIT = """
+PPR_SLOTS = (30, 64)
+
+JAX_AUDIT = f"""
 import json
-from repro.analysis.congest import audit_all_engines
-print(json.dumps(audit_all_engines()))
+import jax
+import numpy as np
+from jax.sharding import Mesh
+from repro.analysis.congest import audit_all_engines, audit_engine_spec
+from repro.core.personalized_batch import audit_spec
+from repro.graphs import erdos_renyi
+g = erdos_renyi(96, 5.0, seed=1)
+two = Mesh(np.array(jax.devices()[:2]), ("shards",))
+ppr = {{str(q): audit_engine_spec(audit_spec(g, two, num_slots=q,
+                                              walks_per_query=8))
+       for q in {PPR_SLOTS}}}
+print(json.dumps(dict(all=audit_all_engines(), ppr_slots=ppr)))
 """
 
 
 @pytest.fixture(scope="module")
-def reports():
-    jax_report = run_forced_devices(JAX_AUDIT, devices=8)
+def jax_reports():
+    return run_forced_devices(JAX_AUDIT, devices=8)
+
+
+@pytest.fixture(scope="module")
+def reports(jax_reports):
     port_report = audit_all_engines(StackedMesh(8, "cpu"))
-    return jax_report, port_report
+    return jax_reports["all"], port_report
 
 
 def test_full_audit_clean_on_both(reports):
@@ -311,3 +329,30 @@ def test_resume_classes_are_the_jax_gate(reports):
     assert eng["walks"]["resume"]["walks"].startswith("statistical")
     assert eng["ppr"]["resume"]["serve"].startswith("statistical")
     assert np.all([eng[k]["w_independent"] for k in ENGINES])
+
+
+@pytest.mark.parametrize("slots", PPR_SLOTS)
+def test_ppr_psum_audit_matches_jax_at_30_and_64_slots(jax_reports, slots):
+    """The batched PPR engine with 30 and 64 query slots, 8 walks a query,
+    at 2 shards: the port's recorded run and JAX's traced superstep give
+    the same (empty) violation list, and no psum of the port's moves more
+    than JAX's largest (4 B a slot: 120 B at 30, 256 B at 64)."""
+    from repro_torch.core.personalized_batch import (BatchedPPREngine,
+                                                     audit_spec)
+    want = jax_reports["ppr_slots"][str(slots)]
+    g = erdos_renyi(96, 5.0, seed=1, device="cpu")
+    rec = RecordingMesh(StackedMesh(2, "cpu"))
+    spec = audit_spec(g, rec, num_slots=slots, walks_per_query=8)
+    engine = BatchedPPREngine(g, 0.2, num_slots=slots, walks_per_query=8,
+                              mesh=rec)
+    engine.reset(prng.fold_in(prng.PRNGKey(1), 0xBA7C))
+    for q in range(slots):
+        engine.admit(q, [q % g.n], None,
+                     key=prng.fold_in(prng.PRNGKey(1), q))
+    while engine.active.sum() > 0:
+        engine.superstep()
+    got = audit_engine_spec(spec, rec.calls, unscoped=rec.unscoped,
+                            lints=False)
+    assert got["violations"] == want["violations"] == []
+    assert got["psum_max_bytes"] <= want["psum_max_bytes"] == 4 * slots
+    assert got["psum_sites"] == 3       # two a superstep, one an admission
