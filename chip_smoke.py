@@ -1281,16 +1281,18 @@ def run_process_group(world: int, spec: dict, label: str, *,
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    outs = []
-    for rank, (p, logf) in enumerate(zip(procs, logs)):
+    texts = []
+    for logf in logs:
         logf.seek(0)
-        text = logf.read()
+        texts.append(logf.read())
         logf.close()
-        check(p.returncode == 0,
-              f"{label}: rank {rank} of {world} exited {p.returncode}:\n"
-              f"{text[-2000:]}")
-        outs.append(json.loads(text.strip().splitlines()[-1]))
-    return outs
+    # every rank that failed: the first to fail ends the others' groups
+    failed = [(rank, p.returncode, text) for rank, (p, text) in
+              enumerate(zip(procs, texts)) if p.returncode != 0]
+    check(not failed, "\n".join(
+        f"{label}: rank {rank} of {world} exited {code}:\n{text[-2000:]}"
+        for rank, code, text in failed))
+    return [json.loads(text.strip().splitlines()[-1]) for text in texts]
 
 
 # the program whose calls count a stage's rounds
@@ -4277,6 +4279,22 @@ LM_PG_STEPS, LM_PG_BATCH, LM_PG_SEQ = 2, 4, 16
 # but for Qwen2's key bias, whose gradient is mostly rounding noise
 LM_PG_PARAM_TOL, LM_PG_LOSS_TOL, LM_PG_UPDATE_TOL = 4e-3, 2e-3, 0.25
 LM_NOISE_LEAVES = ("attn/bk",)
+# the dry run's gate at 2x2: a Qwen2-7B-shaped model of d_model 1,024,
+# 2 layers and a 32,768-token vocabulary (~100 M parameters), 8 x 1,024
+# tokens: its logits (268 MB a process) and attention scores dwarf what
+# the allocator adds to each block (up to 1 MB a block of a few MB: a
+# reduced model's step, ~90 MB, read 26% above its trace); each child's
+# allocator peak against `launch.dryrun.trace_rank` of its rank
+LM_PG_GATE_ARCH, LM_PG_GATE_BATCH, LM_PG_GATE_SEQ = "qwen2-7b", 8, 1024
+LM_PG_GATE = {}          # the children's peaks, for dryrun_path
+
+
+def lm_gate_config():
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    return dataclasses.replace(reduced_config(LM_PG_GATE_ARCH), d_model=1024,
+                               num_heads=8, num_kv_heads=4, head_dim=128,
+                               d_ff=4096, vocab_size=32768)
 
 
 def bit_digest(t) -> tuple:
@@ -4309,9 +4327,10 @@ def lm_state_tensors(model, state) -> list:
     return out
 
 
-def lm_flat_params(model) -> dict:
+def lm_flat_params(model):
     """`model`'s parameters as float32 numpy arrays by '/'-joined JAX
-    path."""
+    path; on a model that keeps blocks every rank must call it, and only
+    the mesh's writer gets them (None elsewhere)."""
     from repro_torch.convert import lm_params_to_numpy
 
     def walk(tree, prefix):
@@ -4320,7 +4339,8 @@ def lm_flat_params(model) -> dict:
                 yield from walk(v, f"{prefix}{k}/")
             else:
                 yield prefix + k, v
-    return dict(walk(lm_params_to_numpy(model), ""))
+    tree = lm_params_to_numpy(model)
+    return None if tree is None else dict(walk(tree, ""))
 
 
 def lm_masters(state) -> dict:
@@ -4423,8 +4443,10 @@ def lm_process_world_one(drive, smi) -> dict:
 def lm_group_child(spec: dict) -> int:
     """One process of (d)'s group: gloo with card tensors, every process
     on the one card, the (data 2, model 2) process mesh; `run_training`
-    of each reduced config. Prints its losses and state bytes as JSON;
-    rank 0 saves the parameters."""
+    of each reduced config (each rank keeping its blocks of the weights).
+    Prints its losses, weight and state bytes as JSON; rank 0 saves the
+    parameters (gathered leaf by leaf: every rank takes part). Then the
+    dry run's gate step (`lm_gate_peak`)."""
     import datetime
     import numpy as np
     import torch
@@ -4452,18 +4474,61 @@ def lm_group_child(spec: dict) -> int:
                 global_batch=LM_PG_BATCH, seq_len=LM_PG_SEQ, q_chunk=16,
                 log_every=10 ** 6, mesh=mesh)
             host = state_to_host(state, lm_param_tree(model), mesh)
+            weights = lm_flat_params(model)
             if rank == 0:
                 np.savez(Path(spec["dir"]) / f"{arch}_params.npz",
-                         **lm_flat_params(model))
+                         **weights)
                 np.savez(Path(spec["dir"]) / f"{arch}_masters.npz",
                          **lm_masters(host))
             out[arch] = dict(losses=losses, state_bytes=lm_state_bytes(state),
+                             weight_bytes=sum(
+                                 t.numel() * t.element_size()
+                                 for t in model.parameters()),
                              device=str(state.step.device),
                              seconds=time.perf_counter() - t0)
+            del model, state, host
+        out["gate"] = lm_gate_peak(mesh)
     finally:
         dist.destroy_process_group()
     print(json.dumps(out))
     return 0
+
+
+def lm_gate_peak(mesh) -> dict:
+    """The dry run's gate step on this rank of a process mesh: the rise
+    of the allocator's peak over what was allocated before the model was
+    built, across the second of two steps (the first warms up), as
+    `dryrun_vs_card` measures one card's."""
+    import torch
+    from repro_torch.convert import lm_param_tree
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import get_model
+    from repro_torch.sharding import ShardingRules, active_rules, \
+        default_rules
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    cfg = lm_gate_config()
+    lm_release()        # the runs before it leave nothing in the base
+    base = torch.cuda.memory_allocated()
+    adam = AdamWConfig()
+    dev = mesh.devices[0]
+    with active_rules(ShardingRules(mesh, default_rules(False))):
+        model = get_model(cfg)(cfg, device=dev, seed=0, mesh=mesh)
+        state = init_state(lm_param_tree(model), adam, mesh=mesh)
+        step = make_train_step(cfg, model, adam, mesh=mesh,
+                               loss_kwargs=dict(q_chunk=512))
+        batch = make_batch(cfg, SyntheticTokens(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=LM_PG_GATE_SEQ,
+            global_batch=LM_PG_GATE_BATCH, seed=0)).batch_at(0), dev)
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del model, state, step, batch
+    return dict(peak_bytes=peak, rank=mesh.coords)
 
 
 def lm_process_group(smi) -> dict:
@@ -4500,6 +4565,12 @@ def lm_process_group(smi) -> dict:
         slack = leaves * QBLOCK * 12          # a block of master, m, v
         check(all(whole / world <= b <= whole / world + slack for b in per),
               f"{arch} at 2x2: state bytes {per} a process, whole {whole}")
+        weights = [r["weight_bytes"] for r in rows]
+        whole_w = sum(t.numel() * t.element_size()
+                      for t in model.parameters())
+        check(all(w <= whole_w / 2 for w in weights),
+              f"{arch} at 2x2: weight bytes {weights} a process, whole "
+              f"{whole_w}: not blocks")
         got = np.load(LM_PG_DIR / f"{arch}_params.npz")
         want = lm_flat_params(model)
         check(sorted(got.files) == sorted(want),
@@ -4516,11 +4587,16 @@ def lm_process_group(smi) -> dict:
                          loss_rel=loss_rel, param_max_abs=err,
                          update_err=upd,
                          state_bytes_a_process=per, state_bytes_whole=whole,
+                         weight_bytes_a_process=weights,
+                         weight_bytes_whole=whole_w,
                          child_seconds=[r["seconds"] for r in rows])
         del model, state
+    LM_PG_GATE.clear()
+    LM_PG_GATE.update({r: o["gate"] for r, o in enumerate(outs)})
     log(f"lm process (d) gloo, {world} processes on the card at "
-        f"{LM_PG_MESH}, {group_s:.1f} s on {smi}: {res}")
-    return dict(res, group_s=group_s)
+        f"{LM_PG_MESH}, {group_s:.1f} s on {smi}: {res}; the dry run's "
+        f"gate step's peaks: {LM_PG_GATE}")
+    return dict(res, group_s=group_s, gate=dict(LM_PG_GATE))
 
 
 def lm_train_process(drive, smi) -> dict:
@@ -4613,6 +4689,8 @@ def dryrun_sweep(smi) -> dict:
                     traced.update(dryrun.trace_cell(cfg, shape))
                 return traced
 
+            # (the rank traces of the production meshes, a few minutes of
+            # host time a cell, are the CLI's: PERF.md)
             rec = {m: dryrun.cell_record(arch, shape_name, m, trace)
                    for m in dryrun.MESHES}
             r = rec["pod16x16"]
@@ -4723,6 +4801,39 @@ def dryrun_vs_card(smi) -> dict:
     return out
 
 
+def dryrun_rank_vs_gloo(smi) -> dict:
+    """(d) The dry run's rank trace (`launch.dryrun.trace_rank`) of each
+    rank of (d)'s gloo 2x2 group at its gate step (`lm_gate_peak`):
+    its peak against the rise of that process's allocator peak, within
+    DRYRUN_PEAK_TOL."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    check(len(LM_PG_GATE) == LM_PG_MESH["data"] * LM_PG_MESH["model"],
+          f"dryrun (d): (d)'s gloo gate peaks missing: {LM_PG_GATE}")
+    cfg = lm_gate_config()
+    shape = ShapeConfig("lm_pg_gate", LM_PG_GATE_SEQ, LM_PG_GATE_BATCH,
+                        "train")
+    out = {}
+    for rank, real in sorted(LM_PG_GATE.items()):
+        fake = dryrun.trace_rank(cfg, shape, LM_PG_MESH, rank, q_chunk=512,
+                                 int8_moments=False)
+        gap = fake["peak_bytes"] / real["peak_bytes"] - 1
+        out[rank] = dict(peak_bytes=fake["peak_bytes"],
+                         temp_bytes=fake["temp_bytes"],
+                         coll_bytes=fake["coll_bytes"],
+                         max_allocated=real["peak_bytes"], peak_gap=gap)
+    log(f"dryrun (d) {cfg.name}-shaped, d_model {cfg.d_model}, "
+        f"{cfg.num_layers} layers, vocab {cfg.vocab_size}, "
+        f"{LM_PG_GATE_BATCH} x {LM_PG_GATE_SEQ} tokens at {LM_PG_MESH}, "
+        f"each rank's trace against its gloo process on {smi}: {out}")
+    for rank, row in out.items():
+        check(abs(row["peak_gap"]) <= DRYRUN_PEAK_TOL,
+              f"dryrun (d): rank {rank}'s peak {row['peak_gap']:+.2%} off "
+              "gloo's")
+    return out
+
+
 def moe_sharded_check(smi) -> dict:
     """(c) One DBRX-132B MoE layer at full width (capacity E/k: nothing
     can drop): the sharded path on the 1x1 mesh against the gather path,
@@ -4802,14 +4913,17 @@ def moe_sharded_check(smi) -> dict:
 
 def dryrun_path(drive, smi):
     """The dry run and the sharded MoE: (a) the sweep, (b) the dry run
-    against the card, (c) the sharded MoE on the card. Launches none of
-    the five kernels: each part is driven with the counters at 0 and
+    against the card, (c) the sharded MoE on the card, (d) the rank
+    traces (`launch.dryrun.trace_rank`) against lm_train_path (d)'s gloo
+    2x2 processes. Launches none
+    of the five kernels: each part is driven with the counters at 0 and
     must leave them there."""
     log(f"dryrun path on {smi}")
     out = {}
     for key, phase in (("sweep", lambda: dryrun_sweep(smi)),
                        ("vs_card", lambda: dryrun_vs_card(smi)),
-                       ("moe_sharded", lambda: moe_sharded_check(smi))):
+                       ("moe_sharded", lambda: moe_sharded_check(smi)),
+                       ("rank_vs_gloo", lambda: dryrun_rank_vs_gloo(smi))):
         out[key], secs, _ = drive(f"dryrun {key}", phase, [])
         check(not any(drive.last.values()),
               f"dryrun {key} launched kernels: {drive.last}")

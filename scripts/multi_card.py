@@ -37,12 +37,20 @@ one process a card:
 
 3. this script as the LM worker (`--lm-worker`): the LM training step
    with one process a card over NCCL (`launch.mesh.make_process_mesh`,
-   ZeRO-1 AdamW state): (a) Qwen2-7B at its full 28 layers on (data =
-   cards, model = 1), fp32 moments, a global batch of 4 x 1,024 tokens
+   ZeRO-1 AdamW state), each card keeping its blocks of the weights
+   (`sharding.layout`; "whole" runs keep every weight whole on every
+   card, the layout before it, for comparison in the same call): (a)
+   Qwen2-7B at its full 28 layers on (data = cards, model = 1), blocks
+   then whole, fp32 moments, a global batch of 4 x 1,024 tokens
    (SyntheticTokens, seed 0; one microbatch), a warm-up step and 3 timed
    steps on that batch (step ms between barriers, tokens/s, the peak
-   memory and the state bytes of every card; the loss must fall and the
-   peak stay under 80 GiB); (b) Qwen2-7B cut to 8 layers on the same
+   memory and the weight, gradient and state bytes of every card; the
+   loss must fall and the peak stay under 80 GiB); (e) the same on
+   (data = cards / 2, model = 2); (f) Qwen3-32B on (data = cards, model
+   = 1), each layout at 8 layers and at QWEN3_LAYERS, then at the most
+   layers whose peak the two runs' per-layer rise puts under
+   QWEN3_PEAK_GIB (near the deepest the cards hold); (b) Qwen2-7B cut to 8
+   layers on the same
    mesh against the same 8 layers and steps on one card (rank 0's):
    the loss of each step within 2e-3 relative, the parameters within
    4e-3 and each leaf's update of the masters (less their init) within
@@ -64,7 +72,7 @@ one process a card:
 
     python3 scripts/multi_card.py --lm     # the LM worker alone
     torchrun --nproc-per-node=4 scripts/multi_card.py --lm-worker d
-                                           # some of its parts (a-d)
+                                           # some of its parts (a-f)
 
 Prints the card's name and power limit and one JSON line per part; exits
 non-zero if a part fails or disagrees.
@@ -266,6 +274,16 @@ LM_SMALL_LAYERS = 8
 # Qwen2's key bias (its gradient is mostly rounding noise)
 LM_LOSS_TOL, LM_PARAM_TOL, LM_UPDATE_TOL = 2e-3, 4e-3, 0.25
 LM_SNAPSHOT_DIR = ROOT / "build" / "lm_snapshot"     # (d)'s, removed after
+# (f): Qwen3-32B's layers for each layout's second run (whole, blocks),
+# about 57 and 45 GiB by the bytes of the 8-layer runs (PERF.md), and
+# the allocated peak the deepest run's depth is chosen under. A card has
+# 79.18 GiB, of which ~3 go to the context and up to 6.88 were cached
+# but unallocated when runs on blocks ran out at 28 layers; and the two
+# runs' rise understates a layer's: the optimizer's temporaries of a
+# stacked leaf's ZeRO slice grow with the layers and set the peak only
+# past them.
+QWEN3_LAYERS = {"whole": 12, "blocks": 16}
+QWEN3_PEAK_GIB = 64.0
 
 
 def host_rss_gib() -> float:
@@ -463,7 +481,7 @@ def lm_snapshot(mesh, live: list, batch, build) -> tuple:
     return model, state, step, rep
 
 
-def lm_worker(parts: str = "abcd") -> int:
+def lm_worker(parts: str = "abcdef") -> int:
     """The LM training step over NCCL, one process a card (see the module
     doc, part 3): the parts named in `parts`."""
     import dataclasses
@@ -480,8 +498,9 @@ def lm_worker(parts: str = "abcd") -> int:
     from repro_torch.models.common import recomputing
     from repro_torch.sharding import ShardingRules, active_rules, \
         default_rules
+    from repro_torch.sharding.layout import whole
     from repro_torch.train import AdamWConfig, init_state, make_train_step
-    from repro_torch.train.optimizer import (_pad_len, leaf_paths, leaf_size,
+    from repro_torch.train.optimizer import (leaf_paths, leaf_size,
                                              state_to_host, tree_leaves)
 
     cards = int(os.environ["WORLD_SIZE"])
@@ -493,18 +512,19 @@ def lm_worker(parts: str = "abcd") -> int:
         dist.all_gather_object(box, x)
         return box
 
-    def build(cfg, mesh, adam):
+    def build(cfg, mesh, adam, blocks=True):
         with active_rules(ShardingRules(mesh, default_rules(False))):
-            model = get_model(cfg)(cfg, device=mesh.devices[0], seed=0)
+            model = get_model(cfg)(cfg, device=mesh.devices[0], seed=0,
+                                   mesh=mesh if blocks else None)
             state = init_state(lm_param_tree(model), adam, mesh=mesh)
             step = make_train_step(cfg, model, adam, mesh=mesh,
                                    loss_kwargs=dict(q_chunk=512))
         return model, state, step
 
-    def run(cfg, mesh, adam, batch, n_steps):
+    def run(cfg, mesh, adam, batch, n_steps, blocks=True):
         rules = ShardingRules(mesh, default_rules(False))
         torch.cuda.reset_peak_memory_stats()
-        model, state, step = build(cfg, mesh, adam)
+        model, state, step = build(cfg, mesh, adam, blocks)
         with active_rules(rules):
             state, losses, times = lm_timed_steps(step, state, batch,
                                                   n_steps)
@@ -513,9 +533,35 @@ def lm_worker(parts: str = "abcd") -> int:
                      for f in (state.master, state.m, state.v)
                      for leaf in tree_leaves(f)
                      for t in (leaf if isinstance(leaf, tuple) else (leaf,)))
+        # a microbatch's gradient has each parameter's shape and dtype
+        wbytes = sum(t.numel() * t.element_size() for t in model.parameters())
         return model, state, step, dict(losses=losses, step_s=times,
                                         peak_gib=gather(peak),
-                                        state_bytes=gather(nbytes))
+                                        state_bytes=gather(nbytes),
+                                        weight_bytes=gather(wbytes),
+                                        grad_bytes=gather(wbytes),
+                                        layout="blocks" if blocks
+                                        else "whole")
+
+    def measured(cfg, mesh, blocks, label):
+        """A warm-up and 3 timed steps of `cfg` on `mesh` in one layout:
+        the report (printed by rank 0), the loss falling and the peak
+        under LM_PEAK_GIB."""
+        batch = batch_for(cfg, dev)
+        model, state, step, res = run(cfg, mesh, adam, batch, 3, blocks)
+        step_s = sum(res["step_s"]) / len(res["step_s"])
+        res.update(layers=cfg.num_layers, mesh=dict(mesh.shape),
+                   params=sum(p.numel() for p in get_model(cfg)(
+                       cfg, device="meta", seed=None).parameters()),
+                   step_ms=step_s * 1e3,
+                   tokens_per_s=LM_BATCH * LM_SEQ / step_s,
+                   loss_fell=res["losses"][-1] < res["losses"][0],
+                   peak_under_80=max(res["peak_gib"]) < LM_PEAK_GIB)
+        if rank == 0:
+            print(json.dumps(dict(lm=label, **res)), flush=True)
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+        return res
 
     def batch_for(cfg, dev):
         return make_batch(cfg, SyntheticTokens(DataConfig(
@@ -528,34 +574,58 @@ def lm_worker(parts: str = "abcd") -> int:
     cfg = get_config("qwen2-7b")
     adam = AdamWConfig(lr=LM_LR)
 
-    # (a) Qwen2-7B at its full 28 layers on (data = cards, model = 1)
-    if "a" in parts:
-        batch = batch_for(cfg, dev)
-        model, state, step, res = run(cfg, mesh, adam, batch, 3)
-        n_params = sum(p.numel() for p in model.parameters())
-        step_s = sum(res["step_s"]) / len(res["step_s"])
-        res.update(layers=cfg.num_layers, params=n_params,
-                   step_ms=step_s * 1e3,
-                   tokens_per_s=LM_BATCH * LM_SEQ / step_s,
-                   state_bytes_whole=12 * sum(
-                       _pad_len(leaf_size(leaf))
-                       for leaf in tree_leaves(lm_param_tree(model))))
-        fell = res["losses"][-1] < res["losses"][0]
-        fits = max(res["peak_gib"]) < LM_PEAK_GIB
-        ok &= fell and fits
-        out["qwen2_28"] = dict(res, loss_fell=fell, peak_under_80=fits)
-        if rank == 0:
-            print(json.dumps(dict(lm="qwen2-7b x28", **out["qwen2_28"])),
-                  flush=True)
-        del model, state, step, batch
-        torch.cuda.empty_cache()
+    # (a) Qwen2-7B at its full 28 layers on (data = cards, model = 1), and
+    # (e) on (data = cards / 2, model = 2): blocks, then whole
+    for part, shape in (("a", {"data": cards, "model": 1}),
+                        ("e", {"data": cards // 2, "model": 2})):
+        if part not in parts:
+            continue
+        grid = mesh if shape["model"] == 1 else make_process_mesh(
+            shape, timeout=LM_TIMEOUT_S - 60)
+        for blocks in (True, False):
+            layout = "blocks" if blocks else "whole"
+            res = measured(cfg, grid, blocks,
+                           f"qwen2-7b x28 {shape} {layout}")
+            ok &= res["loss_fell"] and res["peak_under_80"]
+            out[f"qwen2_28_{part}_{layout}"] = res
+
+    # (f) Qwen3-32B on (data = cards, model = 1): each layout at 8 layers
+    # and at QWEN3_LAYERS, then at the deepest its per-layer rise fits
+    if "f" in parts:
+        q3 = get_config("qwen3-32b")
+        for layout, blocks in (("whole", False), ("blocks", True)):
+            peaks = {}
+            for n in (8, QWEN3_LAYERS[layout]):
+                res = measured(dataclasses.replace(q3, num_layers=n), mesh,
+                               blocks, f"qwen3-32b x{n} {layout}")
+                ok &= res["loss_fell"] and res["peak_under_80"]
+                out[f"qwen3_{n}_{layout}"] = res
+                peaks[n] = max(res["peak_gib"])
+            lo, hi = sorted(peaks)
+            per_layer = (peaks[hi] - peaks[lo]) / (hi - lo)
+            deepest = hi if per_layer <= 0 else min(q3.num_layers, hi + int(
+                (QWEN3_PEAK_GIB - peaks[hi]) // per_layer))
+            out[f"qwen3_deepest_{layout}"] = dict(
+                per_layer_gib=per_layer, layers=deepest,
+                peak_limit_gib=QWEN3_PEAK_GIB)
+            if deepest > hi:
+                res = measured(dataclasses.replace(q3, num_layers=deepest),
+                               mesh, blocks,
+                               f"qwen3-32b x{deepest} {layout} (deepest)")
+                ok &= res["loss_fell"] and res["peak_under_80"]
+                out[f"qwen3_deepest_{layout}"].update(res)
+            if rank == 0:
+                print(json.dumps(dict(lm=f"qwen3-32b deepest {layout}",
+                                      **out[f"qwen3_deepest_{layout}"])),
+                      flush=True)
 
     # (b) Qwen2-7B x8: these cards against one card
     if "b" in parts:
         small = dataclasses.replace(cfg, num_layers=LM_SMALL_LAYERS)
         batch = batch_for(small, dev)
         model, state, step, res = run(small, mesh, adam, batch, 1)
-        params = [p.detach().clone() for p in model.parameters()]
+        # each card's blocks gathered whole (every card takes part)
+        params = [whole(p).clone() for p in model.parameters()]
         host = state_to_host(state, lm_param_tree(model), mesh)
         del model, state, step
         torch.cuda.empty_cache()

@@ -17,6 +17,8 @@ from repro_torch.core.distributed import state_from_host
 from repro_torch.core.graph import CSRGraph
 from repro_torch.device import resolve_device
 from repro_torch.runtime import staged_from_host
+from repro_torch.sharding.layout import (global_shape, is_block, placement,
+                                         whole)
 
 
 def graph_from_numpy(row_ptr, col_idx, out_deg, n: int, m: int,
@@ -74,17 +76,18 @@ _LM_STACKS = {"dense_layers": (), "moe_layers": (), "layers": (),
               "dec_layers": ()}
 
 
-def lm_params_from_numpy(cfg, tree: dict, device=None):
+def lm_params_from_numpy(cfg, tree: dict, device=None, mesh=None):
     """The port's model of `cfg` on `device` (the card when None) with the
     weights of a JAX model's parameter tree (`init_params(cfg, key)[0]`),
-    given as nested dicts of float32 numpy arrays.
+    given as nested dicts of float32 numpy arrays; on a process mesh
+    `mesh`, with this rank's block of each (`models.common.LM`).
 
     bf16 leaves are widened to float32 by the caller (exact); each is cast
     to its parameter's dtype here (exact for values that came from bf16).
     Raises on a leaf that is missing, extra, misshapen or not float32."""
     from repro_torch.models import get_model
 
-    model = get_model(cfg)(cfg, device=device, seed=None)
+    model = get_model(cfg)(cfg, device=device, seed=None, mesh=mesh)
     load_lm_params(model, tree)
     return model
 
@@ -107,14 +110,16 @@ def load_lm_params_flat(model, flat, prefix: str = "params/") -> None:
     '/'-joined path: float32 arrays, layer stacks stacked as JAX stacks
     them) into `model`, one leaf at a time: `flat` may read lazily
     (`Checkpointer.reading`), and the host then holds one leaf at once.
-    Raises on a leaf that is missing, misshapen or not float32."""
+    A parameter that is a block (`sharding.layout`) keeps its block of
+    the leaf. Raises on a leaf that is missing, misshapen or not
+    float32."""
     from repro_torch.train.optimizer import leaf_paths, tree_leaves
     tree = lm_param_tree(model)
     with torch.no_grad():
         for path, leaf in zip(leaf_paths(tree), tree_leaves(tree)):
             arr = np.asarray(flat[prefix + path])
             parts = list(leaf) if isinstance(leaf, Stack) else [leaf]
-            shape = tuple(parts[0].shape)
+            shape = global_shape(parts[0])
             want = (leaf.lead if isinstance(leaf, Stack) else ()) + shape
             if arr.dtype != np.float32:
                 raise TypeError(f"{path}: dtype {arr.dtype}, expected "
@@ -123,6 +128,8 @@ def load_lm_params_flat(model, flat, prefix: str = "params/") -> None:
                 raise ValueError(f"{path}: shape {tuple(arr.shape)}, the "
                                  f"model has {want}")
             for t, a in zip(parts, arr.reshape((len(parts),) + shape)):
+                if is_block(t):
+                    a = a[placement(t).index]
                 t.copy_(torch.tensor(a))
             del arr
 
@@ -168,11 +175,17 @@ def lm_param_tree(model) -> dict:
     return tree
 
 
-def _leaf_to_numpy(leaf) -> np.ndarray:
+def _leaf_to_numpy(leaf, keep: bool = True) -> np.ndarray:
+    """A leaf as one float32 array: a block gathered whole first (every
+    rank takes part); None where not `keep`."""
     if isinstance(leaf, Stack):
-        arr = np.stack([_leaf_to_numpy(t) for t in leaf])
+        parts = [_leaf_to_numpy(t, keep) for t in leaf]
+        if not keep:
+            return None
+        arr = np.stack(parts)
         return arr.reshape(leaf.lead + arr.shape[1:])
-    return leaf.detach().float().cpu().numpy()
+    t = whole(leaf)
+    return t.float().cpu().numpy() if keep else None
 
 
 def lm_tree_to_numpy(tree) -> dict:
@@ -183,11 +196,20 @@ def lm_tree_to_numpy(tree) -> dict:
     return tree_map(_leaf_to_numpy, tree)
 
 
-def lm_params_to_numpy(model) -> dict:
+def lm_params_to_numpy(model):
     """The inverse of `lm_params_from_numpy`: `model`'s weights as the JAX
     package's parameter tree, nested dicts of float32 numpy arrays (bf16
-    widened exactly), layer stacks re-stacked."""
-    return lm_tree_to_numpy(lm_param_tree(model))
+    widened exactly), layer stacks re-stacked. On a model that keeps
+    blocks, every rank must call it: each leaf is gathered whole in turn
+    and kept by the mesh's writer, the others get None."""
+    layout = getattr(model, "layout", None)
+    if layout is None:
+        return lm_tree_to_numpy(lm_param_tree(model))
+    from repro_torch.train.optimizer import tree_map
+    keep = layout.writer
+    tree = tree_map(lambda leaf: _leaf_to_numpy(leaf, keep),
+                    lm_param_tree(model))
+    return tree if keep else None
 
 
 def adam_state_from_numpy(model, state_tree):

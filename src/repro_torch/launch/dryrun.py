@@ -30,9 +30,15 @@ and records:
 
 Production-mesh rows give each device's share of the argument bytes,
 from `ShardingRules.spec` and `local_shape` on an abstract 16x16 or
-2x16x16 mesh. Their temporaries and collective bytes are null: the port
-has no LM collective layer yet (NCCL; ROADMAP Queue 1 item 4), so a
-sharded step cannot be run, fake or real.
+2x16x16 mesh. For the train cells of the families that keep blocks on a
+process mesh (`sharding.layout.supports_blocks`: the GQA transformers)
+they also give one rank's temporaries and collective bytes: `trace_rank`
+runs rank 0's step of the process-mesh program (its blocks of the
+weights, its rows, its ZeRO slice) on fake tensors under
+`launch.mesh.make_rank_mesh`, whose collectives move nothing and are
+noted by a `sharding.collectives.CollectiveLog`. The other cells leave
+them null (`NO_RANK_TRACE`: the serving layouts and the other families
+keep whole weights, ROADMAP items 4f and 4g).
 
 Results land in results/dryrun_torch/<cell>.json; existing cells are
 skipped, so the sweep is restartable cell by cell:
@@ -68,9 +74,12 @@ from repro_torch.configs import (ARCHS, SHAPES, get_config, input_specs,
                                  shape_applicable)
 from repro_torch.convert import Stack, lm_param_tree
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
+                                     make_rank_mesh)
 from repro_torch.models import get_model
 from repro_torch.models.common import remat_policy
+from repro_torch.sharding.collectives import CollectiveLog
+from repro_torch.sharding.layout import supports_blocks
 from repro_torch.sharding.rules import (ShardingRules, active_rules,
                                         default_rules)
 from repro_torch.train import (AdamWConfig, init_state, make_train_step,
@@ -79,9 +88,10 @@ from repro_torch.train import (AdamWConfig, init_state, make_train_step,
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 MESHES = {"pod16x16": False, "pod2x16x16": True}
-NO_COLLECTIVES = ("no LM collective layer under torch until the NCCL "
-                  "backend (ROADMAP Queue 1 item 4): a sharded step "
-                  "cannot run")
+NO_RANK_TRACE = ("no rank trace: only the train step of the families that "
+                 "keep blocks on a process mesh (GQA transformers) runs "
+                 "sharded (ROADMAP 4f: the other families; 4g: the "
+                 "serving layouts)")
 
 
 def microbatches_for(cfg, multi_pod: bool) -> int:
@@ -283,6 +293,67 @@ def trace_cell(cfg, shape, *, device=None, q_chunk: int = 512,
                 int8_moments=cell["int8_moments"])
 
 
+def rank_microbatches(cfg, shape, dp: int,
+                      microbatches: Optional[int] = None) -> int:
+    """The microbatches of a rank's step: `microbatches_for` (or the
+    given count), cut to the most that leave each data rank whole rows of
+    each (a 16-microbatch step has 16 rows a microbatch, fewer than the
+    32 data ranks of 2x16x16)."""
+    nm = microbatches if microbatches is not None else microbatches_for(
+        cfg, False)
+    while nm > 1 and shape.global_batch % (nm * dp):
+        nm -= 1
+    return nm
+
+
+def trace_rank(cfg, shape, mesh_shape: Dict[str, int], rank: int = 0, *,
+               device=None, q_chunk: int = 512,
+               microbatches: Optional[int] = None,
+               int8_moments: Optional[bool] = None,
+               remat: str = "full") -> dict:
+    """One rank's train step of the cell over a process mesh of
+    `mesh_shape`, on fake tensors at that rank's shapes (its blocks of
+    the weights, its ZeRO slice of the state; the step takes the global
+    batch and keeps its rows, as `run_training` does) on `device` (the
+    card when None), under `make_rank_mesh`. Returns its FLOPs, bytes
+    accessed, argument bytes, peak bytes, and the bytes and calls of its
+    collectives by kind (`CollectiveLog`: the init's exchange of the
+    state is not counted, the step's is)."""
+    if shape.kind != "train" or not supports_blocks(cfg):
+        raise ValueError(f"{cfg.name} {shape.name}: {NO_RANK_TRACE}")
+    device = resolve_device(device)
+    mesh = make_rank_mesh(mesh_shape, rank, device)
+    rules = ShardingRules(mesh, default_rules("pod" in mesh_shape))
+    dp = rules._axis_size(tuple(a for a in ("pod", "data")
+                                if a in mesh_shape))
+    nm = rank_microbatches(cfg, shape, dp, microbatches)
+    int8 = int8_for(cfg) if int8_moments is None else int8_moments
+    with FakeTensorMode():
+        model = get_model(cfg)(cfg, device=device, seed=None, mesh=mesh)
+        adam = AdamWConfig(int8_moments=int8)
+        params = lm_param_tree(model)
+        state = init_state(params, adam, mesh=mesh)
+        step = make_train_step(cfg, model, adam, num_microbatches=nm,
+                               loss_kwargs=dict(q_chunk=q_chunk), mesh=mesh)
+        inputs = _fake_inputs(cfg, shape, device)
+        args = sum(t.numel() * t.element_size()
+                   for t in list(model.parameters()) + list(
+                       tree_leaves(state)) + list(inputs.values()))
+        live = LiveBytes(baseline=args)
+        flops = FlopCounterMode(display=False)
+        t0 = time.perf_counter()
+        with active_rules(rules), remat_policy(remat), live, flops, \
+                CollectiveLog() as log:
+            step(state, inputs)
+        secs = time.perf_counter() - t0
+    return dict(flops=float(flops.get_total_flops()),
+                bytes_accessed=float(live.accessed), argument_bytes=args,
+                peak_bytes=live.peak, temp_bytes=live.peak - args,
+                coll_bytes=log.total, coll_by_kind=dict(log.bytes),
+                coll_calls=dict(log.calls), trace_s=secs, microbatches=nm,
+                int8_moments=int8, mesh=dict(mesh_shape), rank=rank)
+
+
 def mesh_argument_bytes(cfg, shape, multi_pod: bool) -> int:
     """One device's argument bytes of the cell on a production mesh, from
     the shapes alone (the model built on the meta device)."""
@@ -298,11 +369,14 @@ def mesh_rules(multi_pod: bool) -> ShardingRules:
 
 
 def cell_record(arch: str, shape_name: str, mesh_name: str,
-                trace: Callable[[], dict]) -> dict:
+                trace: Callable[[], dict],
+                rank_trace: Optional[Callable[[], dict]] = None) -> dict:
     """The JSON record of one cell at `mesh_name` ("pod16x16" or
     "pod2x16x16"): the step traced on one device (`trace()`, which
-    returns `trace_cell`'s dict) and the mesh's per-device argument
-    bytes."""
+    returns `trace_cell`'s dict), the mesh's per-device argument bytes,
+    and where the cell runs sharded, rank 0's temporaries and collective
+    bytes on the mesh (`rank_trace()`, which returns `trace_rank`'s dict
+    for that mesh; null with `NO_RANK_TRACE` otherwise)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     record = dict(cell=f"{arch}__{shape_name}__{mesh_name}", arch=arch,
@@ -323,6 +397,20 @@ def cell_record(arch: str, shape_name: str, mesh_name: str,
                                "bytes accessed": traced["bytes_accessed"]},
                               mem, "", model_flops_for(cfg, shape))
         rules = mesh_rules(MESHES[mesh_name])
+        per_device = dict(
+            chips=rules.mesh.size,
+            argument_bytes=per_device_bytes(traced["leaves"], rules),
+            temp_bytes=None, coll_bytes=None, reason=NO_RANK_TRACE)
+        if rank_trace is not None and shape.kind == "train" \
+                and supports_blocks(cfg):
+            ranked = rank_trace()
+            per_device |= dict(
+                temp_bytes=ranked["temp_bytes"],
+                coll_bytes=ranked["coll_bytes"], reason=None,
+                rank=dict((k, ranked[k]) for k in (
+                    "rank", "argument_bytes", "peak_bytes", "flops",
+                    "coll_by_kind", "coll_calls", "microbatches",
+                    "trace_s")))
         record |= dict(
             status="ok", method="direct_count",
             t_trace_s=traced["trace_s"], memory=mem,
@@ -331,10 +419,7 @@ def cell_record(arch: str, shape_name: str, mesh_name: str,
             roofline=roof.to_dict(), fits_80gb=peak <= HBM_BYTES,
             microbatches=traced["microbatches"],
             int8_moments=traced["int8_moments"],
-            per_device=dict(
-                chips=rules.mesh.size,
-                argument_bytes=per_device_bytes(traced["leaves"], rules),
-                temp_bytes=None, coll_bytes=None, reason=NO_COLLECTIVES),
+            per_device=per_device,
             params_total=cfg.param_count(),
             params_active=cfg.active_param_count())
     except Exception as e:  # noqa: BLE001 — the sweep survives a cell
@@ -349,7 +434,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
              trace: Optional[Callable[[], dict]] = None) -> dict:
     """One cell's record, written to `results_dir` (read back from there
     unless `force`); `trace` as `cell_record`'s, by default a trace of
-    the cell at full width on `device`."""
+    the cell at full width on `device`; the rank trace (where the cell
+    has one) at full width on the mesh, on `device`."""
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     out_path = os.path.join(results_dir,
                             f"{arch}__{shape_name}__{mesh_name}.json")
@@ -360,7 +446,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         trace = lambda: trace_cell(get_config(arch),  # noqa: E731
                                    SHAPES[shape_name], device=device,
                                    q_chunk=q_chunk)
-    record = cell_record(arch, shape_name, mesh_name, trace)
+    rank_trace = lambda: trace_rank(  # noqa: E731
+        get_config(arch), SHAPES[shape_name], dict(make_production_mesh(
+            multi_pod=multi_pod, abstract=True).shape),
+        device=device, q_chunk=q_chunk)
+    record = cell_record(arch, shape_name, mesh_name, trace, rank_trace)
     os.makedirs(results_dir, exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(record, f, indent=2)
@@ -408,6 +498,11 @@ def main(argv=None):
                              f"GiB per-device-args="
                              f"{r['per_device']['argument_bytes'] / 2**30:.3f}"
                              f"GiB bottleneck={r['roofline']['bottleneck']}")
+                    pd = r["per_device"]
+                    if pd["temp_bytes"] is not None:
+                        extra += (f" rank-temp={pd['temp_bytes'] / 2**30:.2f}"
+                                  f"GiB rank-coll="
+                                  f"{pd['coll_bytes'] / 2**30:.2f}GiB")
                 elif status == "error":
                     extra = f" {r['reason'][:120]}"
                 print(f"[{status:7s}] {r['cell']}{extra}", flush=True)

@@ -21,6 +21,8 @@ shape. Three kinds:
   a collective spans, a `core.collectives.ProcessGroupMesh` over a
   subgroup: the data axes (pod, data) together, `model`, and the ZeRO
   axes (all of them); `sharding.collectives` runs over them.
+- `make_rank_mesh`: one rank of such a mesh without processes, its
+  groups `sharding.collectives.FakeGroup`s (the dry run's rank traces).
 """
 from __future__ import annotations
 
@@ -167,6 +169,34 @@ def make_process_mesh(shape: Dict[str, int], device=None, *,
             if rank in members:
                 groups[span] = ProcessGroupMesh(g, dev)
     return Mesh(shape, (dev,), coords=coords, groups=groups)
+
+
+def make_rank_mesh(shape: Dict[str, int], rank: int, device=None) -> Mesh:
+    """The process mesh of `shape` as its rank `rank` sees it, without
+    processes: `make_process_mesh`'s coordinates, and for each set of
+    axes a collective spans a `sharding.collectives.FakeGroup` (its size,
+    this rank's place in it), whose collectives are noted and move
+    nothing. For tracing one rank's step on fake tensors (the dry run on
+    the production meshes)."""
+    from repro_torch.sharding.collectives import FakeGroup
+    shape = dict(shape)
+    axes, sizes = tuple(shape), tuple(shape.values())
+    if not 0 <= rank < math.prod(sizes):
+        raise ValueError(f"rank {rank} of a mesh of {shape}")
+    coords, rest = {}, rank
+    for a, n in reversed(list(zip(axes, sizes))):
+        coords[a], rest = rest % n, rest // n
+    coords = {a: coords[a] for a in axes}
+    groups = {}
+    for want in (DATA_AXES, MODEL_AXES, ZERO_AXES):
+        span = tuple(a for a in want if a in shape)
+        if span and span not in groups:
+            idx = 0
+            for a in span:
+                idx = idx * shape[a] + coords[a]
+            groups[span] = FakeGroup(math.prod(shape[a] for a in span), idx)
+    return Mesh(shape, (resolve_device(device),), coords=coords,
+                groups=groups)
 
 
 def _row_major(sizes):

@@ -19,12 +19,16 @@ cards, and raises with fewer.
 Under `torchrun` each process is one shard of a process mesh
 (`launch.mesh.make_process_mesh`: NCCL on `cuda:<LOCAL_RANK>`, gloo with
 `--device cpu`): (data = WORLD_SIZE, model = 1), or the 16x16 mesh with
-`--production-mesh`, which raises under 256 processes. Each rank builds
-the whole model and its ZeRO slice of the AdamW state on its device and
-trains on its data coordinate's rows of each batch; snapshots are
-written blocking, once, by rank 0, in the single-device layout, so one
-from any mesh resumes on any other, on one device, or in the JAX
-package.
+`--production-mesh`, which raises under 256 processes. Each rank keeps
+its block of every weight (`sharding.layout`: the JAX package's dry-run
+layout, `embed` over the data axes, heads, `ffn` and `vocab` over
+`model`; the families that `supports_blocks` does not name keep whole
+weights, and the writer says so) and its ZeRO slice of the AdamW state
+on its device, and trains on its data coordinate's rows of each batch;
+snapshots are written blocking, once, by rank 0, in the single-device
+layout (gathered leaf by leaf), so one from any mesh resumes on any
+other, on one device, or in the JAX package; a resume reads key by key,
+each rank keeping its block.
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch qwen2-7b --reduced --steps 6 --global-batch 4 --device cpu
@@ -46,6 +50,7 @@ from repro_torch.launch.mesh import (make_local_mesh, make_process_mesh,
                                      make_production_mesh)
 from repro_torch.models import get_model
 from repro_torch.models.common import COMPUTE_DTYPE
+from repro_torch.sharding.layout import supports_blocks
 from repro_torch.sharding.rules import (ShardingRules, active_rules,
                                         default_rules)
 from repro_torch.train import AdamWConfig, init_state, make_train_step
@@ -73,16 +78,17 @@ def training_snapshot(model, params, opt_state, mesh):
     """The tree a training snapshot holds, in the single-device layout:
     the parameters and the AdamW state, gathered on the mesh's writer
     (None on every other rank; every rank must call it)."""
+    weights = lm_params_to_numpy(model)
     opt = state_to_host(opt_state, params, mesh)
-    return None if opt is None else dict(params=lm_params_to_numpy(model),
-                                         opt=opt)
+    return None if opt is None else dict(params=weights, opt=opt)
 
 
 def restore_training(ckpt, model, params, opt_state, mesh, step=None):
     """Load `ckpt`'s snapshot at `step` (the latest when None) into
-    `model`; returns (`opt_state` with the snapshot's values, on a process
-    mesh this rank's slice of them; the snapshot's step). Leaf by leaf:
-    the host holds one array of the snapshot at a time."""
+    `model` (of each leaf, its block where it keeps blocks); returns
+    (`opt_state` with the snapshot's values, on a process mesh this
+    rank's slice of them; the snapshot's step). Leaf by leaf: the host
+    holds one array of the snapshot at a time."""
     with ckpt.reading(step) as (flat, manifest):
         load_lm_params_flat(model, flat)
         opt_state = state_from_host(flat, opt_state, params, mesh)
@@ -98,16 +104,22 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
     """Train `cfg`'s model for `steps` steps (counted from 0, a resumed run
     going on from its checkpoint's step) under the sharding rules of
     `mesh` (`make_local_mesh(device)` when None). On a process mesh each
-    rank trains on its own device and keeps its ZeRO slice of the state.
-    Returns (model, AdamW state, the losses of the steps this call
-    ran)."""
+    rank trains on its own device and keeps its block of each weight
+    (for the families of `sharding.layout.supports_blocks`; the others
+    whole) and its ZeRO slice of the state. Returns (model, AdamW state,
+    the losses of the steps this call ran)."""
     mesh = mesh or make_local_mesh(device)
     process = mesh.process
     if process:
         device = mesh.devices[0]
     rules = ShardingRules(mesh, default_rules("pod" in mesh.shape))
+    say = print if mesh.writer else (lambda *a, **k: None)
+    if process and not supports_blocks(cfg):
+        say(f"[train] {cfg.name}: whole weights on every rank (its "
+            f"{cfg.family}/{cfg.attention} layers keep no blocks)")
     with active_rules(rules):
-        model = get_model(cfg)(cfg, device=device, seed=seed)
+        model = get_model(cfg)(cfg, device=device, seed=seed,
+                               mesh=mesh if process else None)
         adam = AdamWConfig(lr=lr)
         params = lm_param_tree(model)
         opt_state = init_state(params, adam, mesh=mesh)
@@ -121,7 +133,6 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
                                           seed=seed))
         ckpt = (Checkpointer(checkpoint_dir, mesh=mesh if process else None)
                 if checkpoint_dir else None)
-        say = print if mesh.writer else (lambda *a, **k: None)
         start_step = 0
         if ckpt and ckpt.latest_step() is not None:
             opt_state, start_step = restore_training(ckpt, model, params,

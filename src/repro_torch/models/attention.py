@@ -27,6 +27,8 @@ from torch import nn
 from repro_torch.models.common import (COMPUTE_DTYPE, apply_rope,
                                        dense_init, param, rms_norm,
                                        rope_tables, zeros_init)
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.layout import block_start, gathered, model_group
 
 NEG_INF = -1e30
 
@@ -50,13 +52,16 @@ def _padded_heads(cfg) -> int:
     return max(cfg.pad_q_heads_to or 0, cfg.num_heads)
 
 
-def _head_mask(cfg, device) -> Optional[torch.Tensor]:
+def _head_mask(cfg, device, heads=None) -> Optional[torch.Tensor]:
     """[Hp] 1/0 mask; padded heads are zeroed before the out projection so
-    they contribute no output."""
+    they contribute no output. `heads` (first, count): the mask of those
+    query heads alone."""
     Hp, H = _padded_heads(cfg), cfg.num_heads
     if Hp == H:
         return None
-    return (torch.arange(Hp, device=device) < H).to(COMPUTE_DTYPE)
+    first, n = heads if heads is not None else (0, Hp)
+    return (torch.arange(first, first + n, device=device) < H).to(
+        COMPUTE_DTYPE)
 
 
 class GQA(nn.Module):
@@ -100,19 +105,40 @@ class GQA(nn.Module):
 
 
 def _qkv(p: GQA, x, cfg, positions):
+    """q, k, v of the heads this rank computes: all of them, or on blocks
+    whose query heads are split over `model` its query heads (x enters
+    through `pvary`) and the key/value heads they read: its own when
+    `kv_heads` are split too, else those of the replicated ones that its
+    query heads' groups use (taken through `pvary`), one a query head."""
     hd = cfg.resolved_head_dim
-    q = _proj(x, p.wq.to(COMPUTE_DTYPE))
-    k = _proj(x, p.wk.to(COMPUTE_DTYPE))
-    v = _proj(x, p.wv.to(COMPUTE_DTYPE))
+    group = model_group(p.wq, 1)
+    kv_split = model_group(p.wk, 1) is not None
+    xq = x if group is None else coll.pvary(x, group)
+    xk = xq if kv_split else x
+    q = _proj(xq, gathered(p.wq).to(COMPUTE_DTYPE))
+    k = _proj(xk, gathered(p.wk).to(COMPUTE_DTYPE))
+    v = _proj(xk, gathered(p.wv).to(COMPUTE_DTYPE))
     if cfg.qkv_bias:
         q = q + p.bq.to(COMPUTE_DTYPE)
         k = k + p.bk.to(COMPUTE_DTYPE)
         v = v + p.bv.to(COMPUTE_DTYPE)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        qn = p.q_norm if group is None else coll.pvary(p.q_norm, group)
+        kn = p.k_norm if not kv_split else coll.pvary(p.k_norm, group)
+        q = rms_norm(q, qn, cfg.norm_eps)
+        k = rms_norm(k, kn, cfg.norm_eps)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if group is not None and not kv_split:
+        # the replicated key/value heads that this rank's query heads
+        # read, each query head's own (GQA's groups are contiguous runs
+        # of Hp / KV query heads)
+        Hp, Hl = _padded_heads(cfg), q.shape[2]
+        heads = (torch.arange(Hl, device=x.device) + block_start(p.wq, 1)
+                 ) // (Hp // cfg.num_kv_heads)
+        k = coll.pvary(k, group).index_select(2, heads)
+        v = coll.pvary(v, group).index_select(2, heads)
+    return q, k, v
 
 
 def _grouped_scores(q, k):
@@ -146,7 +172,10 @@ def gqa_forward(p: GQA, x, cfg, positions, *, q_chunk: int = 512):
     """Full-sequence causal attention, blockwise over query chunks.
 
     positions: [T] int32 (shared across the batch; no packing). Returns
-    (out, k, v): prefill caches the keys and values (JAX recomputes them)."""
+    (out, k, v): prefill caches the keys and values (JAX recomputes them).
+    On blocks whose query heads are split over `model`, each rank attends
+    with its heads and wo runs row-parallel: the partial outputs are
+    summed over `model`."""
     B, T, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions[None, :])
     n_chunks = _n_chunks(T, q_chunk)
@@ -158,10 +187,12 @@ def gqa_forward(p: GQA, x, cfg, positions, *, q_chunk: int = 512):
         s = torch.where(mask, s, NEG_INF)
         outs.append(_grouped_out(torch.softmax(s, dim=-1), v))
     out = torch.cat(outs, dim=1) if n_chunks > 1 else outs[0]
-    mask_h = _head_mask(cfg, x.device)
+    mask_h = _head_mask(cfg, x.device, (block_start(p.wq, 1), q.shape[2]))
     if mask_h is not None:
         out = out * mask_h[:, None]
-    return _out_proj(out, p.wo.to(COMPUTE_DTYPE)), k, v
+    out = _out_proj(out, gathered(p.wo).to(COMPUTE_DTYPE))
+    group = model_group(p.wo, 0)
+    return (out if group is None else coll.psum(out, group)), k, v
 
 
 def pad_stacked_cache(cache: Dict[str, torch.Tensor], max_seq: int, cfg,

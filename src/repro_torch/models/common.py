@@ -16,7 +16,12 @@ the port loops over its layers, and its dry run counts every op it runs.
 Sharding: each module class names the logical axes of its own parameters
 in `AXES`; `module_axes` assembles a model's tree of them, the second
 element of the JAX package's `init_params`, with a leading "layers" on
-every layer stack (`prepend_layers_axis`).
+every layer stack (`prepend_layers_axis`). Built with `mesh=` a process
+mesh, a model of `sharding.layout.supports_blocks` keeps each rank's
+block of every weight (drawn whole, a module at a time, so the values
+are the single-device init's); the embedding then looks up its vocab
+block and sums over `model`, the head gives this rank's vocab columns of
+the logits, and `cross_entropy` combines them over `model` (`vocab=`).
 """
 from __future__ import annotations
 
@@ -30,6 +35,9 @@ from torch import nn
 from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.layout import (block_start, gathered, keep_blocks_,
+                                         model_group, supports_blocks)
 from repro_torch.sharding.rules import active_rules, current_rules
 
 PARAM_DTYPE = torch.bfloat16
@@ -144,21 +152,87 @@ class Embedding(nn.Module):
 
 
 def embed(emb: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return emb.table[tokens].to(COMPUTE_DTYPE)
+    """The rows of `tokens`. With the table's vocab split over `model`
+    (a block), each rank looks up the ids of its vocab block (zeros for
+    the others) and the rows are summed over `model`."""
+    table = gathered(emb.table)
+    group = model_group(emb.table, 0)
+    if group is None:
+        return table[tokens].to(COMPUTE_DTYPE)
+    n = table.shape[0]
+    ids = tokens - block_start(emb.table, 0)
+    mine = (ids >= 0) & (ids < n)
+    rows = table[ids.clamp(0, n - 1)]
+    return coll.psum(torch.where(mine[..., None], rows, 0).to(
+        COMPUTE_DTYPE), group)
 
 
 def unembed(emb: Embedding, x: torch.Tensor) -> torch.Tensor:
-    """Logits in float32."""
-    return torch.matmul(x.to(COMPUTE_DTYPE), emb.table.t()).float()
+    """Logits in float32; with the table's vocab split over `model`, this
+    rank's vocab columns of them (`vocab_split`)."""
+    group = model_group(emb.table, 0)
+    if group is not None:
+        x = coll.pvary(x, group)
+    return torch.matmul(x.to(COMPUTE_DTYPE),
+                        gathered(emb.table).t()).float()
+
+
+def vocab_split(emb: Embedding):
+    """(the `model` group, the first vocab id) of a head whose vocab is
+    split over `model`, for `cross_entropy`'s `vocab=`; None when whole."""
+    group = model_group(emb.table, 0)
+    return None if group is None else (group, block_start(emb.table, 0))
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Each token's -log p(label) from this rank's vocab columns of the
+    logits [..., V_loc] (vocab ids from `start`): the max, the sum of
+    exponentials and the label's logit summed over the `model` group.
+    The backward is the local softmax less the label's one-hot, times the
+    cotangent: one gradient of the logits, no collective (the head's
+    input enters through `pvary`, which sums its gradient)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group, start):
+        top = logits.amax(dim=-1).contiguous()
+        coll.pmax_(top, group)
+        probs = torch.exp(logits - top[..., None])
+        sumexp = probs.sum(dim=-1)
+        coll.all_reduce_(sumexp, group)
+        n = logits.shape[-1]
+        ids = labels.long() - start
+        mine = (ids >= 0) & (ids < n)
+        ids = ids.clamp(0, n - 1)
+        ll = torch.where(mine, torch.gather(logits, -1, ids[..., None])[
+            ..., 0], 0.0).contiguous()
+        coll.all_reduce_(ll, group)
+        probs.div_(sumexp[..., None])
+        ctx.save_for_backward(probs, ids, mine)
+        return torch.log(sumexp) + top - ll
+
+    @staticmethod
+    def backward(ctx, ct):
+        probs, ids, mine = ctx.saved_tensors
+        grad = probs * ct[..., None]
+        grad.scatter_add_(-1, ids[..., None], torch.where(
+            mine, -ct, 0.0)[..., None])
+        return grad, None, None, None
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None, *,
+                  vocab=None) -> torch.Tensor:
     """Mean next-token CE. logits [B,T,V] float32, labels [B,T] int; with
-    `mask` [B,T], the masked mean (over at least one token)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    `mask` [B,T], the masked mean (over at least one token). With
+    `vocab` = (group, first id) the logits are this rank's vocab columns
+    (`unembed` of a split head) and every rank gets the whole-vocab loss
+    (`_VocabParallelNLL`)."""
+    if vocab is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = lse - ll
+    else:
+        nll = _VocabParallelNLL.apply(logits, labels, *vocab)
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1)
@@ -250,26 +324,45 @@ class LM(nn.Module):
 
     `param_axes()` and `cache_axes(batch, max_seq)` give the logical axes
     of the parameters and of `init_cache`'s tensors: the JAX package's
-    axes trees."""
+    axes trees.
+
+    With `mesh` a process mesh (`launch.mesh.make_process_mesh`) and
+    `cfg` of a family that `sharding.layout.supports_blocks`, each rank
+    keeps its block of every weight (`layout` is then the mesh): each
+    module is drawn whole and cut to its block before the next is drawn.
+    Other families, and other meshes, keep whole weights (`layout`
+    None)."""
     AXES = dict(final_norm=("embed",))
 
-    def __init__(self, cfg, *, device=None, seed: Optional[int] = 0):
+    def __init__(self, cfg, *, device=None, seed: Optional[int] = 0,
+                 mesh=None):
         super().__init__()
         device = resolve_device(device)
         gen = (torch.Generator(device=device).manual_seed(seed)
                if seed is not None else None)
         self.cfg = cfg
         self.device = device
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model, device=device,
-                               gen=gen)
+        self.layout = (mesh if mesh is not None and getattr(
+            mesh, "process", False) and supports_blocks(cfg) else None)
+        self.embed = self._kept(Embedding(cfg.vocab_size, cfg.d_model,
+                                          device=device, gen=gen))
         self._build(cfg, device, gen)
         self.final_norm = param(zeros_init((cfg.d_model,), device=device))
         self.lm_head = (None if cfg.tie_embeddings else
                         Embedding(cfg.vocab_size, cfg.d_model, device=device,
                                   gen=gen))
+        self._kept(self)
+
+    def _kept(self, module: nn.Module) -> nn.Module:
+        """`module` cut to this rank's blocks when the model keeps
+        blocks; as it is otherwise."""
+        if self.layout is not None:
+            keep_blocks_(module, self.layout)
+        return module
 
     def _build(self, cfg, device, gen) -> None:
-        """The layers, between the embedding and the head."""
+        """The layers, between the embedding and the head (each passed
+        through `_kept` as it is built)."""
         raise NotImplementedError
 
     def param_axes(self) -> dict:
@@ -280,13 +373,16 @@ class LM(nn.Module):
 
     def logits(self, x) -> torch.Tensor:
         """The final norm and the head over the stream x [B, T, d]."""
-        return self.logits_fn(rms_norm(x, self.final_norm,
+        return self.logits_fn(rms_norm(x, gathered(self.final_norm),
                                        self.cfg.norm_eps))
 
+    def head(self) -> Embedding:
+        return self.embed if self.cfg.tie_embeddings else self.lm_head
+
     def logits_fn(self, hidden) -> torch.Tensor:
-        """The head over the normed stream."""
-        table = self.embed if self.cfg.tie_embeddings else self.lm_head
-        return unembed(table, hidden)
+        """The head over the normed stream (this rank's vocab columns
+        when the head is split: `vocab_split(self.head())`)."""
+        return unembed(self.head(), hidden)
 
     def loss_fn(self, batch, **kw):
         """(loss, dict(ce, aux)) of a batch {tokens, labels [B, T], and the

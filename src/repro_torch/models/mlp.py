@@ -6,6 +6,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.common import COMPUTE_DTYPE, dense_init, param
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.layout import gathered, model_group
 
 
 def is_gated(kind: str) -> bool:
@@ -46,10 +48,18 @@ class MLP(nn.Module):
 
 
 def mlp_forward(p: MLP, x: torch.Tensor, kind: str) -> torch.Tensor:
-    up = torch.matmul(x, p.w_up.to(COMPUTE_DTYPE))
+    """On blocks (`sharding.layout`): each weight gathered over the data
+    axes; with `ffn` split over `model`, w_up and w_gate column-parallel
+    (x enters through `pvary`) and w_down row-parallel (the partial
+    outputs summed over `model`)."""
+    group = model_group(p.w_up, 1)
+    if group is not None:
+        x = coll.pvary(x, group)
+    up = torch.matmul(x, gathered(p.w_up).to(COMPUTE_DTYPE))
     if is_gated(kind):
-        g = torch.matmul(x, p.w_gate.to(COMPUTE_DTYPE))
+        g = torch.matmul(x, gathered(p.w_gate).to(COMPUTE_DTYPE))
         h = activation(g, kind) * up
     else:
         h = activation(up, kind)
-    return torch.matmul(h, p.w_down.to(COMPUTE_DTYPE))
+    out = torch.matmul(h, gathered(p.w_down).to(COMPUTE_DTYPE))
+    return out if group is None else coll.psum(out, group)

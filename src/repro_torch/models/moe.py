@@ -29,6 +29,8 @@ from repro_torch.models.common import (COMPUTE_DTYPE, dense_init, param,
                                        recomputing)
 from repro_torch.models.mlp import MLP, activation, is_gated, mlp_forward
 from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.layout import (gathered, global_shape, mesh_rules,
+                                         placement)
 from repro_torch.sharding.rules import current_rules
 
 
@@ -168,15 +170,21 @@ def moe_forward_sharded(p: MoE, x: torch.Tensor, cfg, rules
     dp = rules._axis_size(_data_axes(mesh))
     tp = mesh.shape["model"]
     B, T, d = x.shape
-    f = p.w_up.shape[2]
+    f = global_shape(p.w_up)[2]
     if tp > 1 and "model" not in (
-            rules.spec((None, "embed", "ffn"), p.w_up.shape)[2] or ()):
+            rules.spec((None, "embed", "ffn"), global_shape(p.w_up))[2]
+            or ()):
         # the JAX package would sum tp whole copies of the output here
         raise ValueError(f"the expert hidden dim {f} does not split over "
                          f"the model axis ({tp})")
     f_loc = f // tp
 
     def f_slice(w, dim, j):
+        if placement(w) is not None:
+            # a block: its model coordinate's f-slice, gathered over the
+            # data axes (process meshes: `_moe_process` passes j = that
+            # coordinate)
+            return gathered(w)
         return w if tp == 1 else w.narrow(dim, j * f_loc, f_loc)
 
     if mesh.process:
@@ -214,7 +222,8 @@ def _moe_process(p: MoE, x: torch.Tensor, cfg, mesh, f_slice
     """`moe_forward_sharded` on this rank of a process mesh: x is its data
     shard, whole on every model rank; the expert weights' f-slice of its
     model coordinate is a `narrow` of the whole parameter, so its gradient
-    lands in that slice alone. The partial outputs are summed over
+    lands in that slice alone, or, on a model that keeps blocks, the
+    block itself gathered over the data axes. The partial outputs are summed over
     `model` and load and importance averaged over the data axes; the
     tokens and gate weights enter the slices through `pvary` over
     `model`, so their gradient, and that of everything before them, is
@@ -255,6 +264,9 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
     "model" axis and the batch divides the data axes (on a process mesh x
     is this rank's data shard: always); else the gather path."""
     rules = current_rules()
+    if placement(p.w_up) is not None:
+        # a model that keeps blocks runs on its own process mesh
+        rules = mesh_rules(placement(p.w_up).mesh)
     if rules is not None and "model" in rules.mesh.shape:
         dp = rules._axis_size(_data_axes(rules.mesh))
         if rules.mesh.process or x.shape[0] % dp == 0:

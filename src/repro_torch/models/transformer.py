@@ -32,9 +32,10 @@ from torch import nn
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (LM, ckpt, cross_entropy, embed, param,
                                        prepend_layers_axis, rms_norm,
-                                       zeros_init)
+                                       vocab_split, zeros_init)
 from repro_torch.models.mlp import MLP, mlp_forward
 from repro_torch.models.moe import MoE, moe_forward
+from repro_torch.sharding.layout import gathered
 from repro_torch.sharding.rules import maybe_constrain
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
@@ -57,7 +58,7 @@ class Block(nn.Module):
                            gen=gen)
 
     def _ffn(self, x, cfg):
-        h = rms_norm(x, self.ln2, cfg.norm_eps)
+        h = rms_norm(x, gathered(self.ln2), cfg.norm_eps)
         if self.is_moe:
             h, aux = moe_forward(self.moe, h, cfg)
         else:
@@ -66,8 +67,11 @@ class Block(nn.Module):
         return x + h, aux
 
     def forward(self, x, cfg, positions, *, q_chunk: int = 512):
-        """-> (x, aux, cache entries of this layer at every position)."""
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        """-> (x, aux, cache entries of this layer at every position). On
+        a model that keeps blocks, each weight is gathered over the data
+        axes here, inside the layer's remat, so that the backward
+        gathers it again rather than keeping it."""
+        h = rms_norm(x, gathered(self.ln1), cfg.norm_eps)
         if cfg.attention == "mla":
             h, c_kv, k_rope = attn_lib.mla_forward(
                 self.attn, h, cfg, positions, q_chunk=q_chunk)
@@ -104,10 +108,10 @@ class Transformer(LM):
     def _build(self, cfg, device, gen) -> None:
         n_dense, n_moe = layer_split(cfg)
         self.dense_layers = nn.ModuleList(
-            Block(cfg, moe=False, device=device, gen=gen)
+            self._kept(Block(cfg, moe=False, device=device, gen=gen))
             for _ in range(n_dense))
         self.moe_layers = nn.ModuleList(
-            Block(cfg, moe=True, device=device, gen=gen)
+            self._kept(Block(cfg, moe=True, device=device, gen=gen))
             for _ in range(n_moe))
 
     def stacks(self) -> Iterator[Tuple[str, nn.ModuleList]]:
@@ -136,14 +140,16 @@ class Transformer(LM):
                     h, cfg, positions, q_chunk=q_chunk)[:2])(x)
                 aux = aux + a
             aux_total = aux_total + aux
-        return rms_norm(x, self.final_norm, cfg.norm_eps), aux_total
+        return rms_norm(x, gathered(self.final_norm), cfg.norm_eps), \
+            aux_total
 
     def _loss(self, x, labels, n_prefix: int, aux_coef: float,
               q_chunk: int):
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         hidden, aux = self.forward_hidden(x, positions, q_chunk=q_chunk)
-        ce = cross_entropy(self.logits_fn(hidden[:, n_prefix:]), labels)
+        ce = cross_entropy(self.logits_fn(hidden[:, n_prefix:]), labels,
+                           vocab=vocab_split(self.head()))
         return ce + aux_coef * aux, dict(ce=ce, aux=aux)
 
     def loss_fn(self, batch, *, aux_coef: float = 0.01, q_chunk: int = 512):

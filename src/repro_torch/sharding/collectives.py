@@ -21,18 +21,87 @@ ranks' cotangents are parts of one gradient and are summed. A rank's
 code must call these in the same order as every other rank of the group,
 forward and backward, remat re-runs included, or the group hangs.
 
-`reduce_scatter_` and `all_gather_` are the plain (no-gradient) forms
-over flat buffers that the ZeRO optimizer moves its slices with.
+`reduce_scatter_`, `all_gather_` and `all_reduce_` are the plain
+(no-gradient) forms over flat buffers that the ZeRO optimizer moves its
+slices with. `gather_weight` is the FSDP gather of a weight held split
+over the data axes (`sharding.layout`): the tiled all_gather, whose
+backward reduce-scatters the gradient back into the block.
+
+Every collective here is noted, by kind and bytes (an all-reduce's
+buffer, an all-gather's gathered output, a reduce-scatter's scattered
+input), by each `CollectiveLog` open at the time. A `FakeGroup` stands
+for a group of a mesh that has no processes (the dry run's production
+meshes, on fake tensors): its collectives are noted and give tensors of
+the right shape without communicating.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
 
 import torch
 import torch.distributed as dist
 
+_logs: List["CollectiveLog"] = []
+
+
+class CollectiveLog:
+    """While open (`with`), the bytes of every collective of this module,
+    by kind ("all_reduce", "all_gather", "reduce_scatter"), on any
+    thread: `bytes[kind]`, `calls[kind]` and `total`."""
+
+    def __init__(self):
+        self.bytes: Dict[str, int] = {}
+        self.calls: Dict[str, int] = {}
+
+    @property
+    def total(self) -> int:
+        return sum(self.bytes.values())
+
+    def __enter__(self):
+        _logs.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _logs.remove(self)
+
+
+def _note(kind: str, t: torch.Tensor) -> None:
+    for log in _logs:
+        log.bytes[kind] = (log.bytes.get(kind, 0)
+                           + t.numel() * t.element_size())
+        log.calls[kind] = log.calls.get(kind, 0) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class FakeGroup:
+    """A group of `shards` ranks of which this process plays `rank`,
+    without processes: an all-reduce returns its input, an all-gather
+    repeats it, a reduce-scatter takes this rank's block. For tracing one
+    rank's step on fake tensors; the values mean nothing."""
+    shards: int
+    rank: int
+    group: None = None
+
+
+def all_reduce_(x: torch.Tensor, group) -> None:
+    """x := the sum of x over `group`, in place."""
+    _note("all_reduce", x)
+    if not isinstance(group, FakeGroup):
+        dist.all_reduce(x, group=group.group)
+
+
+def pmax_(x: torch.Tensor, group) -> None:
+    """x := the elementwise max of x over `group`, in place (no
+    gradient)."""
+    _note("all_reduce", x)
+    if not isinstance(group, FakeGroup):
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group.group)
+
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     out = x.contiguous().clone()
-    dist.all_reduce(out, group=group.group)
+    all_reduce_(out, group)
     return out
 
 
@@ -46,7 +115,10 @@ def _gloo_on_card(t: torch.Tensor, group) -> bool:
 def reduce_scatter_(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     """`out` [m] := the sum over the group of every rank's block `rank`
     of `inp` [shards * m] (`inp` may be overwritten)."""
-    if _gloo_on_card(inp, group):
+    _note("reduce_scatter", inp)
+    if isinstance(group, FakeGroup):
+        out.copy_(inp.view(group.shards, -1)[group.rank])
+    elif _gloo_on_card(inp, group):
         dist.all_reduce(inp, group=group.group)
         out.copy_(inp.view(group.shards, -1)[group.rank])
     else:
@@ -55,7 +127,10 @@ def reduce_scatter_(out: torch.Tensor, inp: torch.Tensor, group) -> None:
 
 def all_gather_(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     """`out` [shards * m] := every rank's `inp` [m], in rank order."""
-    if _gloo_on_card(inp, group):
+    _note("all_gather", out)
+    if isinstance(group, FakeGroup):
+        out.view(group.shards, -1).copy_(inp.view(1, -1))
+    elif _gloo_on_card(inp, group):
         dist.all_gather(list(out.view(group.shards, -1).unbind(0)), inp,
                         group=group.group)
     else:
@@ -133,3 +208,11 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every rank's x concatenated along `dim`, in rank order
     (`jax.lax.all_gather(..., tiled=True)`)."""
     return _AllGather.apply(x, group, dim)
+
+
+def gather_weight(w: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The FSDP gather: every rank's block of a weight split over `group`
+    along `dim`, whole along it, in rank order; its gradient is the
+    reduce-scatter (the sum over the group of each rank's cotangent, cut
+    to the rank's block). `w` itself on a group of one."""
+    return w if group.shards == 1 else all_gather(w, group, dim)

@@ -102,6 +102,26 @@ class ShardingRules:
             part if isinstance(part, tuple) else (part,))
             for n, part in zip(shape, spec))
 
+    def block(self, shape: Tuple[int, ...], spec: PartitionSpec,
+              coords: Dict[str, int]) -> Tuple[slice, ...]:
+        """The slice of each dim of a tensor of `shape` laid out by `spec`
+        that the device at `coords` (mesh axis -> coordinate) holds: a dim
+        split over several axes is cut row-major over them, in the spec's
+        order, as `jax.sharding.NamedSharding` cuts it and as
+        `launch.mesh.make_process_mesh` numbers its ranks."""
+        out = []
+        for n, part in zip(shape, spec):
+            if part is None:
+                out.append(slice(0, n))
+                continue
+            axes = part if isinstance(part, tuple) else (part,)
+            idx = 0
+            for a in axes:
+                idx = idx * self.mesh.shape[a] + coords[a]
+            k = n // self._axis_size(axes)
+            out.append(slice(idx * k, (idx + 1) * k))
+        return tuple(out)
+
     def constrain(self, x, logical_axes):
         """`x`, after checking that `logical_axes` name each of its dims
         and give a spec on this mesh. On a process mesh x is this rank's

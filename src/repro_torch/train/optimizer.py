@@ -38,6 +38,19 @@ and all-gathers the new weights into the parameters. With one rank the
 slice is the whole vector and no arithmetic changes. `state_to_host` and
 `state_from_host` move a state, a ZeRO slice or a whole one, to and from
 the single-device layout of a snapshot.
+
+A model that keeps blocks (`sharding.layout`: FSDP over the data axes,
+tensor parallelism over `model`) keeps the same flat ZeRO state: a leaf's
+flat vector is that of its whole tensors, and a rank's blocks move to and
+from the ZeRO ranges through `_Whole`, which widens a block to its whole
+tensor (zeros elsewhere) while a bucket reads or writes it. The ranks
+holding the same block hand it on once (`sharding.layout.owner` for the
+init; `train_step.rank_grads` for gradients), so the bucketed
+reduce-scatter sums each element once; the all-gather of the new
+weights writes every whole tensor, of which each rank keeps its block.
+Transient: the whole tensors that a bucket's ranges are inside at once,
+at most about `shards` layers' tensors of one leaf (an embedding
+whole).
 """
 from __future__ import annotations
 
@@ -47,9 +60,9 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.layout import global_numel, is_block, owner
 
 QBLOCK = 128
 BUCKET = 1 << 25         # floats a reduce-scatter or all-gather moves at most
@@ -97,7 +110,8 @@ def _parts(leaf):
 
 
 def leaf_size(leaf) -> int:
-    return sum(t.numel() for t in _parts(leaf))
+    """The elements of a leaf's whole tensors (of a block's whole)."""
+    return sum(global_numel(t) for t in _parts(leaf))
 
 
 def _pad_len(n: int) -> int:
@@ -179,16 +193,128 @@ def _read_range(parts, lo: int, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _write_range(parts, lo: int, src: torch.Tensor) -> None:
-    """Elements [lo, lo + len(src)) of the leaf's flat vector := src,
-    where they exist."""
-    hi, at = lo + src.numel(), 0
-    for t in parts:
-        n = t.numel()
-        a, b = max(lo, at), min(hi, at + n)
-        if a < b:
-            t.view(-1)[a - at:b - at].copy_(src[a - lo:b - lo])
-        at += n
+class _Whole:
+    """A leaf's flat vector (its whole tensors, one after another) over
+    this rank's `values` of its `parts` (the parameters; `values` their
+    blocks' values, the parameters themselves by default), read
+    (`read_rows`) or written (`write_rows`, then the block is copied into
+    `values`) by rows: row r of a bucket is the range [r * per + lo,
+    r * per + lo + m) of the ZeRO rank r's slice. A part that is whole is
+    read and written in place; a block is widened to its whole tensor
+    (`dtype`) when a row first reaches it, and dropped once each of its
+    elements was read or written: every element is reached once by the
+    rows of one exchange. The rows that lie whole inside one part move as
+    one strided view (they are `per` apart), so a bucket costs a few ops
+    a part, not one a rank."""
+
+    def __init__(self, parts, values=None, dtype=torch.float32):
+        self.parts = parts
+        self.values = parts if values is None else values
+        self.dtype = dtype
+        self.open = {}          # part -> [whole tensor, elements left]
+
+    def _spans(self, lo: int, per: int, rows: int, m: int):
+        """Per part i that the rows reach: (i, (r0, r1, first): the rows
+        r0..r1 whole inside it from its element `first` on, `per` apart,
+        or None; [(r, a, b, first)]: each other row's elements [a, b)
+        from the part's element `first`)."""
+        at = 0
+        for i, t in enumerate(self.parts):
+            n = global_numel(t)
+            r_min = max(0, (at - lo - m) // per + 1)
+            r_max = min(rows - 1, (at + n - 1 - lo) // per)
+            if r_min <= r_max:
+                f0 = max(r_min, -((lo - at) // per))
+                f1 = min(r_max, (at + n - m - lo) // per)
+                full = (f0, f1, f0 * per + lo - at) if f0 <= f1 else None
+                edges = []
+                for r in range(r_min, r_max + 1):
+                    if full is None or not f0 <= r <= f1:
+                        start = r * per + lo
+                        a, b = max(start, at), min(start + m, at + n)
+                        edges.append((r, a - start, b - start, a - at))
+                yield i, full, edges
+            at += n
+
+    def _flat(self, i: int, fill: bool) -> torch.Tensor:
+        """Part i's whole tensor, flat: the value itself where it is
+        whole (to read: a copy if it is not contiguous), else its block
+        widened (zeros elsewhere; `fill`: to read)."""
+        t = self.parts[i]
+        if not is_block(t):
+            v = self.values[i].detach()
+            return v.reshape(-1) if fill else v.view(-1)
+        if i not in self.open:
+            w = torch.zeros(t.placement.shape, dtype=self.dtype,
+                            device=t.device)
+            if fill:
+                w[t.placement.index] = self.values[i].detach()
+            self.open[i] = [w, w.numel()]
+        return self.open[i][0].view(-1)
+
+    def _done(self, i: int, k: int, write: bool) -> None:
+        if not is_block(self.parts[i]):
+            return
+        entry = self.open[i]
+        entry[1] -= k
+        if entry[1] == 0:
+            if write:
+                t = self.parts[i]
+                self.values[i].copy_(entry[0][t.placement.index])
+            del self.open[i]
+
+    @staticmethod
+    def _strided(flat: torch.Tensor, full, per: int, m: int):
+        r0, r1, first = full
+        return flat.as_strided((r1 - r0 + 1, m), (per, 1),
+                               flat.storage_offset() + first)
+
+    def read_rows(self, lo: int, per: int, out: torch.Tensor) -> None:
+        """out [rows, m] := each row's elements (zeros past the end)."""
+        out.zero_()
+        rows, m = out.shape
+        for i, full, edges in self._spans(lo, per, rows, m):
+            src = self._flat(i, True)
+            k = 0
+            if full is not None:
+                out[full[0]:full[1] + 1] = self._strided(src, full, per, m)
+                k += (full[1] - full[0] + 1) * m
+            for r, a, b, first in edges:
+                out[r, a:b] = src[first:first + b - a]
+                k += b - a
+            self._done(i, k, False)
+
+    def write_rows(self, lo: int, per: int, src: torch.Tensor) -> None:
+        """Each row's elements := src [rows, m], where they exist."""
+        rows, m = src.shape
+        for i, full, edges in self._spans(lo, per, rows, m):
+            dst = self._flat(i, False)
+            k = 0
+            if full is not None:
+                self._strided(dst, full, per, m).copy_(
+                    src[full[0]:full[1] + 1])
+                k += (full[1] - full[0] + 1) * m
+            for r, a, b, first in edges:
+                dst[first:first + b - a].copy_(src[r, a:b])
+                k += b - a
+            self._done(i, k, True)
+
+
+def _to_ranges(parts, values, zero, per: int, hand_on: bool
+               ) -> torch.Tensor:
+    """This rank's ZeRO range (`per` floats) of the sum over the ZeRO
+    group of the ranks' `values` of a leaf's `parts` (their blocks, or
+    None: nothing), each rank's counted where `hand_on`."""
+    dev = parts[0].device
+    whole = _Whole(parts, values) if values is not None else None
+    mine = torch.empty(per, dtype=torch.float32, device=dev)
+    for lo, m in _chunks(per, zero.shards):
+        buf = torch.zeros((zero.shards, m), dtype=torch.float32, device=dev)
+        if whole is not None and hand_on:
+            whole.read_rows(lo, per, buf)
+        coll.reduce_scatter_(mine[lo:lo + m], buf.view(-1), zero)
+        del buf
+    return mine
 
 
 def _chunks(per: int, ranks: int):
@@ -204,7 +330,7 @@ def _add_sumsq(total, parts, lo: int, vec: torch.Tensor):
     part by part, as `global_norm` adds a whole leaf's."""
     at, hi = 0, lo + vec.numel()
     for t in parts:
-        n = t.numel()
+        n = global_numel(t)
         a, b = max(lo, at), min(hi, at + n)
         if a < b:
             s = vec[a - lo:b - lo].square().sum()
@@ -241,9 +367,15 @@ def _init_zero(params, cfg: AdamWConfig, zero) -> AdamState:
         parts = _parts(p)
         per = zero_share(_pad_len(leaf_size(p)), zero.shards)
         dev = parts[0].device
-        master = _read_range(parts, zero.rank * per,
-                             torch.empty(per, dtype=torch.float32,
-                                         device=dev))
+        if any(is_block(t) for t in parts):
+            # the ranges of whole tensors this rank holds blocks of: each
+            # block handed on by one of the ranks that hold it
+            master = _to_ranges(parts, parts, zero, per,
+                                all(owner(t) for t in parts))
+        else:
+            master = _read_range(parts, zero.rank * per,
+                                 torch.empty(per, dtype=torch.float32,
+                                             device=dev))
         if cfg.int8_moments:
             mom = lambda: (torch.zeros(per, dtype=torch.int8, device=dev),
                            torch.zeros(per // QBLOCK, dtype=torch.float32,
@@ -304,26 +436,18 @@ def leaf_paths(tree, prefix: str = ""):
 @torch.no_grad()
 def reduce_scatter_grads(params, grads, zero, data_ranks: int) -> list:
     """This rank's slice of each leaf's gradient, float32, in leaf order:
-    the sum over the ZeRO group of the ranks' parts (`grads`' leaves; a
-    leaf None adds nothing), divided by `data_ranks`. Each leaf of
-    `grads` is dropped once reduced, so that its memory goes."""
+    the sum over the ZeRO group of the ranks' parts (`grads`' leaves, of
+    the shapes of `params`' blocks; a leaf None adds nothing), divided by
+    `data_ranks`. Each leaf of `grads` is dropped once reduced, so that
+    its memory goes."""
     out = []
     for (gtree, k), p in zip(leaf_slots(grads), tree_leaves(params)):
         g = gtree[k]
         gtree[k] = None
-        parts = None if g is None else _parts(g)
         per = zero_share(_pad_len(leaf_size(p)), zero.shards)
-        dev = _parts(p)[0].device
-        mine = torch.empty(per, dtype=torch.float32, device=dev)
-        for lo, m in _chunks(per, zero.shards):
-            buf = torch.zeros((zero.shards, m), dtype=torch.float32,
-                              device=dev)
-            if parts is not None:
-                for r in range(zero.shards):
-                    _read_range(parts, r * per + lo, buf[r])
-            coll.reduce_scatter_(mine[lo:lo + m], buf.view(-1), zero)
-            del buf
-        del g, parts
+        mine = _to_ranges(_parts(p), None if g is None else _parts(g), zero,
+                          per, True)
+        del g
         if data_ranks > 1:
             mine.div_(data_ranks)
         out.append(mine)
@@ -333,16 +457,16 @@ def reduce_scatter_grads(params, grads, zero, data_ranks: int) -> list:
 @torch.no_grad()
 def _gather_params(params, master_slices: list, zero) -> None:
     """Every parameter := the all-gather of its leaf's master slices, cast
-    to the parameter's dtype."""
+    to the parameter's dtype (of a block: its part of them)."""
     for p, mstr in zip(tree_leaves(params), master_slices):
         parts = _parts(p)
+        whole = _Whole(parts, dtype=parts[0].dtype)
         per = mstr.numel()
         for lo, m in _chunks(per, zero.shards):
             recv = torch.empty(zero.shards * m, dtype=parts[0].dtype,
                                device=mstr.device)
             coll.all_gather_(recv, mstr[lo:lo + m].to(parts[0].dtype), zero)
-            for r in range(zero.shards):
-                _write_range(parts, r * per + lo, recv[r * m:(r + 1) * m])
+            whole.write_rows(lo, per, recv.view(zero.shards, m))
 
 
 @torch.no_grad()
@@ -370,7 +494,7 @@ def apply_updates(params, grads, state: AdamState, cfg: AdamWConfig, *,
             total = torch.zeros((), dtype=torch.float32,
                                 device=g_slices[0].device)
         total = total.reshape(1).contiguous()
-        dist.all_reduce(total, group=zero.group)
+        coll.all_reduce_(total, zero)
         gnorm = _sqrt_(total[0])
         it = iter(g_slices)
         grads = tree_map(lambda _: next(it), state.master)

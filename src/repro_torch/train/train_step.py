@@ -23,12 +23,16 @@ model ranks of one data row take the same rows. The loss it reports is
 the global-batch mean (the data ranks' mean). The gradient invariant:
 once reduced, every leaf's gradient is the single-device gradient of the
 global-batch loss. Each rank's gradient of its own loss is summed over
-the data ranks and divided by dp; the expert weights' f-slices
-(`models.moe`), whose gradient lands in the slice of the rank's model
-coordinate, are summed over `model` as well, while every other leaf is
-computed whole by each model rank, so only model rank 0 hands it on.
-The ZeRO optimizer (`optimizer.apply_updates(..., mesh=)`) does that
-sum in its reduce-scatter.
+the data ranks and divided by dp. A leaf whose ranks along `model` hold
+different parts of it (a block split over `model`; on whole weights the
+expert weights' f-slices of `models.moe`, whose gradient lands in the
+slice of the rank's model coordinate) is summed over `model` as well,
+while a leaf the model ranks hold alike is computed whole by each of
+them, so only model rank 0 hands it on. A block split over the data axes
+comes out of its FSDP gather's backward already summed over the data
+ranks, each data rank holding its own block: it is handed on once. The
+ZeRO optimizer (`optimizer.apply_updates(..., mesh=)`) does the sum in
+its reduce-scatter.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import torch
 
 from repro_torch.convert import Stack, lm_param_tree
 from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.layout import placement, varies_over_model
 from repro_torch.sharding.rules import maybe_constrain
 from repro_torch.train.optimizer import (AdamState, AdamWConfig,
                                          leaf_slots, apply_updates,
@@ -122,24 +127,31 @@ def local_rows(batch: Dict[str, torch.Tensor], mesh,
     return out
 
 
-def _expert_leaves(model, params) -> List[bool]:
-    """Whether each leaf of `params` (in leaf order) is an expert weight
-    of a `models.moe.MoE`, sliced over `model` on a process mesh."""
+def _varying_leaves(model, params) -> List[bool]:
+    """Whether the model ranks hold different parts of each leaf of
+    `params` (in leaf order): a block split over `model`, or, on whole
+    weights, an expert weight of a `models.moe.MoE` (sliced over `model`
+    on a process mesh)."""
     from repro_torch.models.moe import MoE
     sliced = {id(t) for m in model.modules() if isinstance(m, MoE)
               for t in (m.w_up, m.w_gate, m.w_down) if t is not None}
-    return [id(leaf[0] if isinstance(leaf, list) else leaf) in sliced
-            for leaf in tree_leaves(params)]
+    out = []
+    for leaf in tree_leaves(params):
+        first = leaf[0] if isinstance(leaf, list) else leaf
+        out.append(varies_over_model(first) if placement(first) is not None
+                   else id(first) in sliced)
+    return out
 
 
 def rank_grads(model, params, batch, mesh, num_microbatches: int = 1,
                loss_kwargs: Optional[dict] = None
                ) -> Tuple[object, torch.Tensor]:
     """One rank's part of the gradient on a process mesh, and the global
-    batch's mean loss: its rows of the global `batch`, their gradients,
-    and of each leaf computed whole on every model rank, model rank 0's
-    alone (None elsewhere). Their sum over the ZeRO group divided by the
-    data-parallel degree is the gradient (`optimizer.apply_updates`)."""
+    batch's mean loss: its rows of the global `batch`, their gradients
+    (of this rank's block of each leaf on a model that keeps blocks), and
+    of each leaf the model ranks hold alike, model rank 0's alone (None
+    elsewhere). Their sum over the ZeRO group divided by the data-
+    parallel degree is the gradient (`optimizer.apply_updates`)."""
     from repro_torch.launch.mesh import DATA_AXES
     grads, loss = accumulate_grads(
         model, params, local_rows(batch, mesh, num_microbatches),
@@ -147,11 +159,11 @@ def rank_grads(model, params, batch, mesh, num_microbatches: int = 1,
     with torch.no_grad():
         loss = coll.pmean(loss, mesh.group(DATA_AXES))
     if mesh.coords.get("model", 0) != 0:
-        # a leaf computed whole on every model rank: rank 0's copy is the
+        # a leaf computed alike on every model rank: rank 0's copy is the
         # one the reduce-scatter adds up
-        for (t, k), sliced in zip(list(leaf_slots(grads)),
-                                  _expert_leaves(model, params)):
-            if not sliced:
+        for (t, k), varies in zip(list(leaf_slots(grads)),
+                                  _varying_leaves(model, params)):
+            if not varies:
                 t[k] = None
     return grads, loss
 

@@ -278,3 +278,49 @@ def test_fake_run_counts_equal_real_step(arch, kind):
     assert fake["flops"] == fc.get_total_flops() > 0
     assert fake["peak_bytes"] == live.peak > args
     assert fake["bytes_accessed"] == live.accessed
+
+
+# ------------------------------------------ the rank trace of a process mesh
+
+def test_cell_record_carries_a_rank_trace_where_the_cell_runs_sharded():
+    """A production-mesh record takes rank 0's temporaries and collective
+    bytes from the rank trace for the train cell of a family that keeps
+    blocks, and leaves them null with `NO_RANK_TRACE` for a serving cell
+    and for a family that keeps whole weights (no rank trace is run);
+    `trace_rank` refuses those cells; a rank's microbatches are cut to
+    whole rows a data rank (16 of 256 rows over 32 data ranks: 8)."""
+    fake = dict(argument_bytes=10, peak_bytes=30, flops=1.0,
+                bytes_accessed=2.0, leaves=[], trace_s=0.0, microbatches=1,
+                int8_moments=False)
+    ranked = dict(rank=0, argument_bytes=3, peak_bytes=7, temp_bytes=4,
+                  coll_bytes=5, flops=1.0, coll_by_kind={"all_gather": 5},
+                  coll_calls={"all_gather": 1}, microbatches=1, trace_s=0.0)
+    calls = []
+
+    def rank_trace():
+        calls.append(1)
+        return ranked
+
+    for arch, shape, runs in (("qwen2-7b", "train_4k", True),
+                              ("qwen2-7b", "prefill_32k", False),
+                              ("mamba2-1.3b", "train_4k", False)):
+        rec = dryrun.cell_record(arch, shape, "pod16x16", lambda: fake,
+                                 rank_trace)
+        pd = rec["per_device"]
+        assert rec["status"] == "ok", rec
+        if runs:
+            assert (pd["temp_bytes"], pd["coll_bytes"], pd["reason"]) == (
+                4, 5, None)
+            assert pd["rank"]["coll_by_kind"] == {"all_gather": 5}
+        else:
+            assert pd["temp_bytes"] is None and pd["coll_bytes"] is None
+            assert pd["reason"] == dryrun.NO_RANK_TRACE
+    assert len(calls) == 1
+    for arch, shape in (("qwen2-7b", "prefill_32k"),
+                        ("mamba2-1.3b", "train_4k")):
+        with pytest.raises(ValueError, match="no rank trace"):
+            dryrun.trace_rank(reduced_config(arch), SHAPES[shape],
+                              {"data": 2, "model": 2}, device="cpu")
+    nemotron = get_config("nemotron-4-340b")
+    assert dryrun.rank_microbatches(nemotron, SHAPES["train_4k"], 16) == 16
+    assert dryrun.rank_microbatches(nemotron, SHAPES["train_4k"], 32) == 8

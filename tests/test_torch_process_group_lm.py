@@ -93,6 +93,10 @@ TOL_UPDATE = 0.25
 # 1.03 here, every other leaf at most 0.15)
 NOISE_LEAVES = ("attn/bk",)
 COLL_N = 6               # columns of the collectives' inputs
+# configs whose blocks take the paths the two archs do not: reduced
+# Qwen3-32B's qk-norm with one key/value head, which the model ranks of a
+# 2x2 mesh replicate (each reads it for its own query heads)
+BLOCK_VARIANTS = (("qwen3-32b-kv1", ("qwen3-32b", dict(num_kv_heads=1))),)
 
 JAX_HEAD = """
 import dataclasses, json, sys
@@ -209,6 +213,60 @@ for name in TRAIN_ARCHS:
         for pre, tree in (("", p), ("master/", st.master))
         for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]})
     out["train_" + name] = [float(l) for l in losses]
+
+# the dry run's program: make_train_step jitted with the parameters and
+# the state laid out by the sharding rules (in_ and out_shardings), on
+# 2x2 and 4x1, from the same init and batches: each device's shard of the
+# init, its bytes, and two steps
+from repro.data import DataConfig, SyntheticTokens
+from repro.models import get_model
+from repro.sharding.rules import active_rules
+from repro.train import AdamWConfig, init_state, make_train_step, state_axes
+for tag, grid in (("2x2", (2, 2)), ("4x1", (4, 1))):
+    m2 = Mesh(np.array(devs).reshape(grid), ("data", "model"))
+    rules2 = ShardingRules(m2, default_rules(False))
+    for name in TRAIN_ARCHS:
+        cfg = reduced_config(name)
+        model = get_model(cfg)
+        params, axes = model.init_params(cfg, jax.random.PRNGKey(0))
+        adam = AdamWConfig()
+        opt = init_state(params, adam)
+        psh = rules2.tree_shardings(params, axes)
+        osh = rules2.tree_shardings(opt, state_axes(axes, False))
+        bsh = {k: rules2.sharding(("batch", None), (BATCH, SEQ))
+               for k in ("tokens", "labels")}
+        p = jax.device_put(params, psh)
+        o = jax.device_put(opt, osh)
+        arrays, nbytes = {}, [0] * len(devs)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(p)[0]:
+            key = "/".join(str(getattr(k, "key", k)) for k in path)
+            for sh in leaf.addressable_shards:
+                d = devs.index(sh.device)
+                arrays["init%%d/%%s" %% (d, key)] = np.asarray(sh.data,
+                                                            np.float32)
+                nbytes[d] += sh.data.nbytes
+        with active_rules(rules2):
+            step = jax.jit(make_train_step(cfg, model, adam,
+                                           loss_kwargs=dict(q_chunk=Q_CHUNK)),
+                           in_shardings=(psh, osh, bsh),
+                           out_shardings=(psh, osh, None))
+            data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                              seq_len=SEQ, global_batch=BATCH,
+                                              seed=0))
+            losses = []
+            for i in range(STEPS):
+                b = data.batch_at(i)
+                p, o, met = step(p, o, dict(tokens=jnp.asarray(b["tokens"]),
+                                            labels=jnp.asarray(b["labels"])))
+                losses.append(float(met["loss"]))
+        for pre, tree in (("", p), ("master/", o.master)):
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
+                arrays[pre + "/".join(str(getattr(k, "key", k))
+                                      for k in path)] = np.asarray(
+                                          v, np.float32)
+        np.savez(TMP + "/sharded_%%s_%%s_jax.npz" %% (tag, name), **arrays)
+        out["sharded_%%s_%%s" %% (tag, name)] = dict(losses=losses,
+                                                   bytes=nbytes)
 print(json.dumps(out))
 """
 
@@ -248,7 +306,7 @@ from repro_torch.train.optimizer import (leaf_paths, reduce_scatter_grads,
 from repro_torch.train.train_step import accumulate_grads, rank_grads
 TMP, TAG, SHAPE, CONSTS = %(consts)r
 (MOE_ARCHS, TRAIN_ARCHS, STEPS, BATCH, SEQ, Q_CHUNK, FAIL_TIMEOUT,
- COLL_N) = CONSTS
+ COLL_N, BLOCK_VARIANTS) = CONSTS
 mesh = make_process_mesh(SHAPE, "cpu")
 data, model, zero = (mesh.group(a) for a in (("data",), ("model",),
                                              ("data", "model")))
@@ -353,12 +411,112 @@ def train_jax():
             seq_len=SEQ, device="cpu", mesh=mesh, checkpoint_dir=d,
             q_chunk=Q_CHUNK, log_every=10 ** 6)
         params = lm_param_tree(m)
+        weights = lm_params_to_numpy(m)       # every rank takes part
         host = state_to_host(st, params, mesh)
         if mesh.writer:
-            save("train_" + name, **npflat(lm_params_to_numpy(m)), **{
+            save("train_" + name, **npflat(weights), **{
                 "master/" + k: np.asarray(a) for k, a in
                 zip(leaf_paths(params), tree_leaves(host.master))})
         res[name] = losses
+    return res
+
+def blocks():
+    # JAX's init (the step-0 snapshot) loaded onto the blocks: each rank's
+    # block of every leaf and its weight bytes; and the seeded init on the
+    # blocks against the single-device one
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.convert import load_lm_params_flat
+    from repro_torch.sharding.layout import placement
+    res = {}
+    for name in TRAIN_ARCHS:
+        cfg = reduced_config(name)
+        m = get_model(cfg)(cfg, device="cpu", seed=None, mesh=mesh)
+        with Checkpointer(f"{TMP}/start_{name}").reading(0) as (flat, _):
+            load_lm_params_flat(m, flat)
+        tree = lm_param_tree(m)
+        save("blocks_" + name, **{
+            path: (np.stack([t.detach().float().numpy() for t in leaf])
+                   if isinstance(leaf, list)
+                   else leaf.detach().float().numpy())
+            for path, leaf in zip(leaf_paths(tree), tree_leaves(tree))})
+        seeded = get_model(cfg)(cfg, device="cpu", seed=0, mesh=mesh)
+        one = dict(get_model(cfg)(cfg, device="cpu",
+                                  seed=0).named_parameters())
+        res[name] = dict(
+            bytes=sum(t.numel() * t.element_size() for t in m.parameters()),
+            split=sum(tuple(t.shape) != placement(t).shape
+                      for t in m.parameters()),
+            seeded_equal=all(torch.equal(t, one[k][placement(t).index])
+                             for k, t in seeded.named_parameters()))
+    return res
+
+def vocab():
+    # the vocab-parallel lookup and loss against the whole table's, at a
+    # vocab `model` divides and at one it does not (replicated); every
+    # rank the same inputs
+    from repro_torch.models.common import (Embedding, cross_entropy, embed,
+                                           unembed, vocab_split)
+    from repro_torch.sharding.layout import keep_blocks_, placement
+    res = {}
+    for V in (64, 63):
+        tables = [Embedding(V, 32, device="cpu",
+                            gen=torch.Generator().manual_seed(3))
+                  for _ in range(2)]
+        keep_blocks_(tables[1], mesh)
+        rng = np.random.default_rng(V)
+        tokens = torch.tensor(rng.integers(0, V, (2, 8)))
+        labels = torch.tensor(rng.integers(0, V, (2, 8)))
+        x0 = torch.tensor(rng.standard_normal((2, 8, 32)),
+                          dtype=torch.float32).to(torch.bfloat16)
+        w = torch.tensor(rng.standard_normal((2, 8, 32)), dtype=torch.float32)
+        got = []
+        for e in tables:
+            e.requires_grad_(True)
+            x = x0.clone().requires_grad_(True)
+            rows = embed(e, tokens)
+            loss = cross_entropy(unembed(e, x), labels, vocab=vocab_split(e))
+            (loss + (rows.float() * w).sum()).backward()
+            got.append((rows.detach(), loss.detach(), x.grad.float(),
+                        e.table.grad.float()))
+        (r0, l0, gx0, gt0), (r1, l1, gx1, gt1) = got
+        pl = placement(tables[1].table)
+        # each data rank's gradient of the same inputs, summed over data
+        # by the gather's backward
+        want_gt = data.shards * gt0[pl.index]
+        res[str(V)] = dict(
+            split=vocab_split(tables[1]) is not None,
+            rows_equal=bool(torch.equal(r0, r1)),
+            loss_err=float(abs(l1 - l0) / abs(l0)),
+            gx_err=float((gx1 - gx0).abs().max() / gx0.abs().max()),
+            gt_err=float((gt1 - want_gt).abs().max() / want_gt.abs().max()))
+    return res
+
+def coll_bytes():
+    # the collectives of one real step against the dry run's trace of
+    # this rank's step on fake tensors
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.dryrun import trace_rank
+    from repro_torch.sharding.collectives import CollectiveLog
+    res = {}
+    for name in TRAIN_ARCHS:
+        cfg = reduced_config(name)
+        adam = AdamWConfig()
+        with active_rules(rules):
+            m = get_model(cfg)(cfg, device="cpu", seed=0, mesh=mesh)
+            st = init_state(lm_param_tree(m), adam, mesh=mesh)
+            step = make_train_step(cfg, m, adam, mesh=mesh,
+                                   loss_kwargs=dict(q_chunk=Q_CHUNK))
+            src = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                             seq_len=SEQ, global_batch=BATCH,
+                                             seed=0))
+            with CollectiveLog() as log:
+                step(st, launch_train.make_batch(cfg, src.batch_at(0), "cpu"))
+        traced = trace_rank(cfg, ShapeConfig("t", SEQ, BATCH, "train"), SHAPE,
+                            RANK, device="cpu", q_chunk=Q_CHUNK)
+        res[name] = dict(real=log.bytes, real_calls=log.calls,
+                         traced=traced["coll_by_kind"],
+                         traced_calls=traced["coll_calls"],
+                         temp=traced["temp_bytes"])
     return res
 
 def zero_steps():
@@ -399,17 +557,28 @@ def zero_steps():
             res[tag] = dict(losses=losses, lens=lens)
     return res
 
-def grads():
+def config_of(name):
+    # a reduced config, or BLOCK_VARIANTS' one
+    if name in dict(BLOCK_VARIANTS):
+        base, kw = dict(BLOCK_VARIANTS)[name]
+        return dataclasses.replace(reduced_config(base), **kw)
+    return reduced_config(name)
+
+def grads(blocks=False):
+    # the whole model's parts of the gradient (each model rank computing
+    # every dense leaf whole), or with `blocks` each rank's blocks
     res = {}
-    for name in TRAIN_ARCHS:
-        cfg = reduced_config(name)
+    for name in TRAIN_ARCHS + ((tuple(n for n, _ in BLOCK_VARIANTS))
+                               if blocks else ()):
+        cfg = config_of(name)
         src = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
                                          seq_len=SEQ, global_batch=8,
                                          seed=0))
         b = launch_train.make_batch(cfg, src.batch_at(0), "cpu")
         kw = dict(q_chunk=Q_CHUNK, aux_coef=1.0)
         for nm in (1, 2):
-            m = get_model(cfg)(cfg, device="cpu", seed=0)
+            m = get_model(cfg)(cfg, device="cpu", seed=0,
+                               mesh=mesh if blocks else None)
             m.requires_grad_(True)
             params = lm_param_tree(m)
             with active_rules(rules):
@@ -420,9 +589,13 @@ def grads():
                 f = torch.empty(zero.shards * s.numel())
                 dist.all_gather_into_tensor(f, s, group=zero.group)
                 full.append(f)
+            one = m if not blocks else get_model(cfg)(cfg, device="cpu",
+                                                       seed=0)
+            one.requires_grad_(True)
             with active_rules(ShardingRules(make_local_mesh("cpu"),
                                             default_rules(False))):
-                g1, loss1 = accumulate_grads(m, params, b, nm, kw)
+                g1, loss1 = accumulate_grads(one, lm_param_tree(one), b, nm,
+                                             kw)
             errs = []
             for f, leaf in zip(full, tree_leaves(g1)):
                 ref = _flatten_pad(leaf)
@@ -431,6 +604,9 @@ def grads():
             res[f"{name}_{nm}"] = dict(errs=errs, loss=float(loss),
                                        loss1=float(loss1))
     return res
+
+def block_grads():
+    return grads(blocks=True)
 
 def kill():
     cfg = reduced_config("dbrx-132b")
@@ -444,13 +620,40 @@ def kill():
         shutil.copytree(d, d + "_2x2")
     mesh.barrier()
     m, _, whole = launch_train.run_training(cfg, steps=4, mesh=mesh, **kw)
+    weights = lm_params_to_numpy(m)          # every rank takes part
     if mesh.writer:
-        save("kill_whole", **npflat(lm_params_to_numpy(m)))
+        save("kill_whole", **npflat(weights))
     other = make_process_mesh({"data": 2, "model": 2}, "cpu")
     m, _, resumed = launch_train.run_training(
         cfg, steps=4, mesh=other, checkpoint_dir=d + "_2x2", **kw)
+    weights = lm_params_to_numpy(m)
     if other.writer:
-        save("kill_2x2", **npflat(lm_params_to_numpy(m)))
+        save("kill_2x2", **npflat(weights))
+    return dict(whole=whole, resumed=resumed)
+
+def kill_reverse():
+    # reduced Qwen2-7B saved at 2x2 (the same four processes), resumed at
+    # 4x1 here, and on one device and in JAX by the test
+    cfg = reduced_config("qwen2-7b")
+    kw = dict(global_batch=BATCH, seq_len=SEQ, device="cpu",
+              q_chunk=Q_CHUNK, log_every=10 ** 6)
+    other = make_process_mesh({"data": 2, "model": 2}, "cpu")
+    d = f"{TMP}/{TAG}_rev"
+    launch_train.run_training(cfg, steps=2, mesh=other, checkpoint_dir=d,
+                              **kw)
+    if mesh.writer:
+        for copy in ("_1", "_jax", "_4x1"):
+            shutil.copytree(d, d + copy)
+    mesh.barrier()
+    m, _, whole = launch_train.run_training(cfg, steps=4, mesh=other, **kw)
+    weights = lm_params_to_numpy(m)
+    if other.writer:
+        save("rev_whole", **npflat(weights))
+    m, _, resumed = launch_train.run_training(
+        cfg, steps=4, mesh=mesh, checkpoint_dir=d + "_4x1", **kw)
+    weights = lm_params_to_numpy(m)
+    if mesh.writer:
+        save("rev_4x1", **npflat(weights))
     return dict(whole=whole, resumed=resumed)
 
 def world_one():
@@ -505,8 +708,10 @@ def failure():
     return dict(raised=raised, seconds=time.monotonic() - t0)
 """
 CASES = {"2x2": ["collectives", "compressed", "moe", "train_jax",
-                 "zero_steps", "grads"],
-         "4x1": ["collectives", "zero_steps", "grads", "kill", "failure"],
+                 "zero_steps", "grads", "blocks", "block_grads", "vocab",
+                 "coll_bytes"],
+         "4x1": ["collectives", "zero_steps", "grads", "train_jax", "blocks",
+                 "block_grads", "kill", "kill_reverse", "failure"],
          "1x1": ["world_one", "cli"]}
 
 
@@ -517,7 +722,7 @@ def start_group(tag, tmp):
     world = int(np.prod(list(shape.values())))
     consts = (str(tmp), tag, shape,
               (MOE_ARCHS, TRAIN_ARCHS, STEPS, BATCH, SEQ, Q_CHUNK,
-               FAIL_TIMEOUT, COLL_N))
+               FAIL_TIMEOUT, COLL_N, BLOCK_VARIANTS))
     code = (GROUP_START % dict(timeout=GROUP_TIMEOUT)
             + CHILD % dict(consts=consts) + GROUP_END % dict(
                 cases=CASES[tag]))
@@ -957,6 +1162,104 @@ def test_remat_recomputes_under_the_forwards_rules():
 
 
 # ---------------------------------------------------------------------------
+# the weights at rest in blocks (the dry run's layout)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+@pytest.mark.parametrize("tag", ["2x2", "4x1"])
+def test_blocks_equal_jax_addressable_shards(runs, tag, name):
+    """JAX's init (its step-0 snapshot) loaded onto a process mesh that
+    keeps blocks: each rank's block of every leaf equals the shard that
+    JAX's dry-run layout (`tree_shardings` of the parameters) puts on the
+    device of the same mesh coordinates, bit for bit, and the rank's
+    weight bytes JAX's bytes on that device; some leaves are split. The
+    seeded init on the blocks equals the single-device one's blocks."""
+    want = np.load(runs["tmp"] / f"sharded_{tag}_{name}_jax.npz")
+    nbytes = runs["jax"][f"sharded_{tag}_{name}"]["bytes"]
+    for o in runs[tag]:
+        r = o["rank"]
+        got = rank_npz(runs, tag, "blocks_" + name, r)
+        keys = sorted(k[len(f"init{r}/"):] for k in want.files
+                      if k.startswith(f"init{r}/"))
+        assert keys == sorted(got.files)
+        for k in keys:
+            ref = want[f"init{r}/{k}"]
+            assert got[k].shape == ref.shape and np.array_equal(got[k], ref), k
+        res = o["blocks"][name]
+        assert res["bytes"] == nbytes[r]
+        assert res["split"] > 0 and res["seeded_equal"]
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+@pytest.mark.parametrize("tag", ["2x2", "4x1"])
+def test_train_matches_jax_sharded_program(runs, tag, name):
+    """The group resumes JAX's step-0 snapshot onto its blocks and takes 2
+    steps (`run_training`): the losses, each leaf's update of the
+    gathered masters and the gathered parameters against JAX's
+    `make_train_step` jitted with the dry run's `in_shardings` and
+    `out_shardings` on the same mesh from the same init."""
+    ref = dict(np.load(runs["tmp"] / f"sharded_{tag}_{name}_jax.npz"))
+    ref = {k: v for k, v in ref.items() if not k.startswith("init")}
+    want = runs["jax"][f"sharded_{tag}_{name}"]["losses"]
+    losses = [o["train_jax"][name] for o in runs[tag]]
+    assert all(l == losses[0] for l in losses)
+    np.testing.assert_allclose(losses[0], want, rtol=TOL_LOSS)
+    got = dict(rank_npz(runs, tag, "train_" + name, 0))
+    init, _ = JCheckpointer(str(runs["tmp"] / f"start_{name}")).restore(0)
+    masters = sorted(k for k in ref if k.startswith("master/"))
+    assert masters and masters == sorted(k for k in got
+                                         if k.startswith("master/"))
+    errs = {k: update_err(got.pop(k), ref.pop(k), init["opt/" + k])
+            for k in masters}
+    assert_updates_close(errs)
+    assert_close_trees(got, ref, TOL_PARAM, name)
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS + tuple(
+    n for n, _ in BLOCK_VARIANTS))
+@pytest.mark.parametrize("tag", ["2x2", "4x1"])
+def test_block_gradient_is_the_single_device_one(runs, tag, name):
+    """The gradient invariant on blocks, at 1 and 2 microbatches, the aux
+    loss weighted 1.0: each rank's block gradients (already summed over
+    the data ranks by the FSDP gathers' backward where the data axes
+    split them) handed on once, reduce-scattered into the flat ZeRO
+    ranges, gathered, against the single-device gradient of the global
+    batch, each leaf."""
+    for nm in (1, 2):
+        got = runs[tag][0]["block_grads"][f"{name}_{nm}"]
+        assert max(got["errs"]) <= TOL_GRAD, got["errs"]
+        assert got["loss"] == pytest.approx(got["loss1"], rel=TOL_LOSS)
+
+
+@pytest.mark.parametrize("vocab", ["64", "63"])
+def test_vocab_parallel_lookup_and_loss(runs, vocab):
+    """At 2x2 the table's vocab splits over `model` where 2 divides it
+    (64) and is replicated where it does not (63): the lookup equals the
+    whole table's bit for bit (one rank's rows, zeros summed), the loss
+    and the input's gradient within `TOL_F32` relative, the table's
+    block gradient the whole one's block summed over the 2 data ranks."""
+    for o in runs["2x2"]:
+        got = o["vocab"][vocab]
+        assert got["split"] == (vocab == "64")
+        assert got["rows_equal"]
+        assert got["loss_err"] <= TOL_F32
+        assert got["gx_err"] <= TOL_LAYER and got["gt_err"] <= TOL_LAYER
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+def test_dryrun_rank_trace_records_the_gloo_steps_collectives(runs, name):
+    """The dry run's trace of one rank's step on fake tensors
+    (`launch.dryrun.trace_rank`, under `make_rank_mesh`) notes the same
+    collectives, by kind, count and bytes, as the real step of that rank
+    moved over gloo at 2x2."""
+    for o in runs["2x2"]:
+        got = o["coll_bytes"][name]
+        assert got["traced"] == got["real"] and \
+            got["traced_calls"] == got["real_calls"], got
+        assert got["temp"] > 0
+
+
+# ---------------------------------------------------------------------------
 # snapshots and failures
 # ---------------------------------------------------------------------------
 
@@ -991,6 +1294,67 @@ def test_snapshot_crosses_meshes_and_one_device(runs):
                                           else [l]))) for l in leaves]
     masters = sorted(k for k in flat if k.startswith("opt/master/"))
     assert sorted(flat[k].shape[0] for k in masters) == sorted(n)
+
+
+def test_snapshot_from_2x2_resumes_at_4x1_one_device_and_jax(runs):
+    """Reduced Qwen2-7B on blocks at 2x2 stopped after its step-2
+    snapshot (single-device layout, gathered leaf by leaf by rank 0):
+    resumed to step 4 at 4x1 (blocks cut from it key by key), on one CPU
+    process here and by JAX's `run_training` on one device, each within
+    level 2 of the 2x2 run that was never stopped."""
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from repro.launch.train import run_training as jax_run_training
+    whole = dict(rank_npz(runs, "4x1", "rev_whole", 0))
+    out = runs["4x1"][0]["kill_reverse"]
+    tmp = runs["tmp"]
+    kw = dict(steps=4, global_batch=BATCH, seq_len=SEQ, q_chunk=Q_CHUNK,
+              log_every=10 ** 6)
+    np.testing.assert_allclose(out["resumed"], out["whole"][2:],
+                               rtol=TOL_LOSS)
+    assert_close_trees(dict(rank_npz(runs, "4x1", "rev_4x1", 0)), whole,
+                       TOL_PARAM, "4x1")
+    m, state, losses = launch_train.run_training(
+        reduced_config("qwen2-7b"), device="cpu",
+        checkpoint_dir=str(tmp / "4x1_rev_1"), **kw)
+    assert int(state.step) == 4
+    np.testing.assert_allclose(losses, out["whole"][2:], rtol=TOL_LOSS)
+    assert_close_trees(npflat(lm_params_to_numpy(m)), whole, TOL_PARAM,
+                       "one process")
+    one = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    p, _, losses = jax_run_training(
+        jax_reduced_config("qwen2-7b"), mesh=one,
+        checkpoint_dir=str(tmp / "4x1_rev_jax"), **kw)
+    np.testing.assert_allclose(losses, out["whole"][2:], rtol=TOL_LOSS)
+    got = {"/".join(str(getattr(k, "key", k)) for k in path):
+           np.asarray(jnp.asarray(v, jnp.float32))
+           for path, v in jax.tree_util.tree_flatten_with_path(p)[0]}
+    assert_close_trees(got, whole, TOL_PARAM, "JAX")
+
+
+def test_snapshot_from_4x1_resumes_in_jax(runs):
+    """The reverse: reduced DBRX on blocks at 4x1 stopped after its step-2
+    snapshot (resumed at 2x2 and on one device by
+    `test_snapshot_crosses_meshes_and_one_device`) resumed to step 4 by
+    JAX's `run_training` on one device, within level 2 of the 4x1 run
+    that was never stopped."""
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from repro.launch.train import run_training as jax_run_training
+    tmp = runs["tmp"]
+    shutil.copytree(tmp / "4x1_kill", tmp / "4x1_kill_jax")
+    whole = dict(rank_npz(runs, "4x1", "kill_whole", 0))
+    out = runs["4x1"][0]["kill"]
+    one = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    p, _, losses = jax_run_training(
+        jax_reduced_config("dbrx-132b"), mesh=one, steps=4,
+        global_batch=BATCH, seq_len=SEQ, q_chunk=Q_CHUNK, log_every=10 ** 6,
+        checkpoint_dir=str(tmp / "4x1_kill_jax"))
+    np.testing.assert_allclose(losses, out["whole"][2:], rtol=TOL_LOSS)
+    got = {"/".join(str(getattr(k, "key", k)) for k in path):
+           np.asarray(jnp.asarray(v, jnp.float32))
+           for path, v in jax.tree_util.tree_flatten_with_path(p)[0]}
+    assert_close_trees(got, whole, TOL_PARAM, "JAX")
 
 
 def test_a_failing_rank_makes_every_rank_raise(runs):

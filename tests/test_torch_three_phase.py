@@ -8,7 +8,9 @@ stacked on one device. Cases: both engines on the six shared fixtures at
 P=8 and on two fixtures at P in {1, 3}; eta=1 (most walks exhaust the
 pools and finish in the naive tail); a run recovering from injected
 failures; a run stopped mid-Phase-2 whose snapshot the port resumes.
-eps = 0.2, K = 8, key PRNGKey(0).
+eps = 0.2, K = 8, key PRNGKey(0). The port's runs of the engine cases
+are computed once, in a module fixture, while the JAX subprocess runs
+(one torch thread); each test compares its case's results.
 
 Parity levels:
   * bit-exact — zeta, rounds by phase, wire bytes by phase, lane entries
@@ -21,17 +23,22 @@ The static plan, the Phase-1 dense-cell sampler and the int64 keys are
 tested in `test_torch_three_phase_plan.py`, which needs no subprocess.
 """
 import importlib
+import json
+import os
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
+import torch
 
 from repro.checkpoint import relayout_staged_flat as j_relayout_flat
 from repro.core.distributed_improved import \
     _three_phase_layouts as j_layouts
 from repro.core.distributed_improved import plan_three_phase as j_plan
 
-from conftest import SMALL_GRAPHS_SRC, run_forced_devices
+from conftest import REPO_SRC, SMALL_GRAPHS_SRC
 from repro_torch import convert, prng
 from repro_torch.checkpoint import (Checkpointer, relayout_staged_flat,
                                     unpack_json)
@@ -112,16 +119,68 @@ print(json.dumps(out))
 """
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.fixture(scope="module")
 def jax_base(tmp_path_factory):
     return str(tmp_path_factory.mktemp("three_phase_jax"))
 
 
 @pytest.fixture(scope="module")
-def jax_runs(jax_base):
+def runs(jax_base, graphs):
+    """{"jax": the JAX subprocess's JSON (8 forced host devices), "port":
+    the port's summary of every engine case, or the exception it raised,
+    by the same labels}: the port's cases run here while the subprocess
+    runs."""
     code = JAX_RUNS % (FIELDS, CASES, ETA1, EPS, K, FAIL_AT, STOP_AT,
                        jax_base)
-    return run_forced_devices(code, devices=8, timeout=900)
+    env = dict(os.environ, PYTHONPATH=REPO_SRC,
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        port = {}
+        jobs = {f"{engine}/{name}/{P}": (ENGINE_FNS[engine], name, P, {})
+                for engine in ENGINES for name, P in CASES}
+        jobs.update({f"eta1/{engine}/{name}/{P}": (ENGINE_FNS[engine], name,
+                                                   P, dict(eta=1))
+                     for engine, name, P in ETA1})
+        jobs["fail_at"] = (distributed_improved_pagerank, "er", 8,
+                           dict(fail_at=FAIL_AT))
+        for label, (fn, name, P, kw) in jobs.items():
+            try:
+                port[label] = _summary(fn(graphs[name], EPS, K,
+                                          prng.PRNGKey(0),
+                                          mesh=StackedMesh(P, "cpu"), **kw))
+            except Exception as e:      # raised again by its test
+                port[label] = e
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-3000:]
+    return dict(jax=json.loads(out.strip().splitlines()[-1]), port=port)
+
+
+@pytest.fixture(scope="module")
+def jax_runs(runs):
+    return runs["jax"]
+
+
+def port_run(runs, label) -> dict:
+    """The port's summary of the case `label`, or what it raised."""
+    got = runs["port"][label]
+    if isinstance(got, Exception):
+        raise got
+    return got
 
 
 @pytest.fixture(scope="module")
@@ -146,32 +205,31 @@ def _summary(r):
 
 @pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("name,shards", CASES)
-def test_engine_bit_exact(jax_runs, graphs, engine, name, shards):
-    r = ENGINE_FNS[engine](graphs[name], EPS, K, prng.PRNGKey(0),
-                           mesh=StackedMesh(shards, "cpu"))
-    assert _summary(r) == jax_runs[f"{engine}/{name}/{shards}"]
-    assert r.dropped == 0 and r.residual == 0 and r.phase3_rounds == 1
-    assert r.phase1_rounds <= r.lam and r.report_rounds == 0
+def test_engine_bit_exact(runs, engine, name, shards):
+    label = f"{engine}/{name}/{shards}"
+    r = port_run(runs, label)
+    assert r == runs["jax"][label]
+    assert r["dropped"] == 0 and r["residual"] == 0
+    assert r["phase3_rounds"] == 1
+    assert r["phase1_rounds"] <= r["lam"] and r["report_rounds"] == 0
 
 
 @pytest.mark.parametrize("engine,name,shards", ETA1)
-def test_exhaustion_bit_exact(jax_runs, graphs, engine, name, shards):
-    r = ENGINE_FNS[engine](graphs[name], EPS, K, prng.PRNGKey(0),
-                           mesh=StackedMesh(shards, "cpu"), eta=1)
-    assert r.tail_walks > 0 and r.tail_rounds > 0
-    assert r.tail_walks == r.exhausted_walks
-    assert _summary(r) == jax_runs[f"eta1/{engine}/{name}/{shards}"]
+def test_exhaustion_bit_exact(runs, engine, name, shards):
+    label = f"eta1/{engine}/{name}/{shards}"
+    r = port_run(runs, label)
+    assert r["tail_walks"] > 0 and r["tail_rounds"] > 0
+    assert r["tail_walks"] == r["exhausted_walks"]
+    assert r == runs["jax"][label]
 
 
-def test_fail_at_recovery_bit_exact(jax_runs, graphs):
-    r = distributed_improved_pagerank(graphs["er"], EPS, K, prng.PRNGKey(0),
-                                      mesh=StackedMesh(8, "cpu"),
-                                      fail_at=FAIL_AT)
-    want = jax_runs["fail_at"]
-    assert r.restarts == len(FAIL_AT) == want["restarts"]
-    assert _summary(r) == want
-    clean = dict(jax_runs["improved/er/8"], restarts=len(FAIL_AT))
-    assert _summary(r) == clean
+def test_fail_at_recovery_bit_exact(runs):
+    r = port_run(runs, "fail_at")
+    want = runs["jax"]["fail_at"]
+    assert r["restarts"] == len(FAIL_AT) == want["restarts"]
+    assert r == want
+    clean = dict(runs["jax"]["improved/er/8"], restarts=len(FAIL_AT))
+    assert r == clean
 
 
 @pytest.mark.parametrize("shards", [8, 3])

@@ -277,3 +277,65 @@ def test_adam_state_checkpoint_has_jax_keys(tmp_path):
         assert type(back) is type(tst)
         assert back.m["w"][0].dtype == (torch.int8 if int8
                                         else torch.float32)
+
+
+@pytest.mark.parametrize("rows,per,bucket", [(4, 384, 128), (3, 640, 256),
+                                             (8, 136, 128)])
+def test_whole_rows_of_blocks_equal_the_flat_leaf(rows, per, bucket):
+    """The ZeRO exchange's reader and writer of a leaf whose parts are
+    blocks (`sharding.layout`), a whole tensor, or non-contiguous values:
+    every bucket's rows read as the leaf's flat vector of whole tensors
+    (zeros outside this rank's blocks, and past the end) reads them, and
+    writing the flat vector back by rows leaves each part its own block
+    of it (level 1). Rows lying whole inside a part take the strided
+    path, the others the per-row one."""
+    from repro_torch.sharding.layout import Placement
+    from repro_torch.sharding.rules import PartitionSpec
+    gen = torch.Generator().manual_seed(rows)
+    shapes = [(6, 40), (6, 40), (5, 7), (300,), (6, 40)]
+    parts, wholes = [], []
+    for k, shape in enumerate(shapes):
+        full = torch.randn(shape, generator=gen)
+        if k == 2:                       # whole, read through a transpose
+            t = full.t().contiguous().t()
+            wholes.append(full)
+        else:
+            index = ((slice(2, 4), slice(8, 16)) if len(shape) == 2
+                     else (slice(100, 200),))
+            t = full[index].clone()
+            t.placement = Placement(None, PartitionSpec(), shape, index)
+            w = torch.zeros(shape)
+            w[index] = t
+            wholes.append(w)
+        parts.append(t)
+    flat = torch.cat([w.reshape(-1) for w in wholes])
+    assert rows * per >= flat.numel()
+    ref = torch.zeros(rows * per)
+    ref[:flat.numel()] = flat
+    whole = topt._Whole(parts)
+    for lo in range(0, per, bucket):
+        m = min(bucket, per - lo)
+        out = torch.empty(rows, m)
+        whole.read_rows(lo, per, out)
+        want = ref.view(rows, per)[:, lo:lo + m]
+        assert torch.equal(out, want)
+    assert not whole.open
+    targets = [torch.zeros_like(t) if k != 2 else torch.zeros(shapes[2])
+               for k, t in enumerate(parts)]
+    for t, p in zip(targets, parts):
+        if hasattr(p, "placement"):
+            t.placement = p.placement
+    new = torch.randn(rows * per, generator=gen)
+    writer = topt._Whole(targets)
+    for lo in range(0, per, bucket):
+        m = min(bucket, per - lo)
+        writer.write_rows(lo, per, new.view(rows, per)[:, lo:lo + m]
+                          .contiguous())
+    assert not writer.open
+    at = 0
+    for k, (t, shape) in enumerate(zip(targets, shapes)):
+        n = int(np.prod(shape))
+        piece = new[at:at + n].reshape(shape)
+        want = piece if k == 2 else piece[t.placement.index]
+        assert torch.equal(t, want), k
+        at += n
