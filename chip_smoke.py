@@ -186,13 +186,15 @@
    and state bit-equal (digests of their bits) to the same steps under
    the local mesh; then four child processes of this script on the one
    card (`--lm-group-child`), a gloo group with card tensors at (data 2,
-   model 2): reduced DBRX and reduced Qwen2-7B, 2 steps each, every
-   process's losses equal, its state 1/4 of the whole (plus at most a
+   model 2): reduced DBRX, Qwen2-7B, DeepSeek-V2 (MLA), InternVL2 (the
+   VLM), Mamba2-1.3B, RecurrentGemma-9B and Whisper-tiny, each rank
+   keeping its blocks (at most half the whole's bytes), 2 steps each,
+   every process's losses equal, its state 1/4 of the whole (plus at most a
    block a leaf), rank 0's parameters within 4e-3 of the single-process
    step on the card, losses within 2e-3, and each leaf's update (its
    gathered masters less their init) within 0.25 of the single
-   process's in norm (Qwen2's key bias excepted: its gradient is mostly
-   rounding noise).
+   process's in norm (the key biases of Qwen2 and InternVL2 excepted:
+   their gradient is mostly rounding noise).
 11. The dry run and the sharded MoE (`dryrun_path`): (a) the cells of
    `launch.dryrun` in DRYRUN_SMOKE_CELLS (24 of the 40; the CLI traces
    all) traced at full width on fake card tensors, each `ok` or skipped
@@ -4269,14 +4271,15 @@ def lm_remat_agree(smi):
 
 
 LM_PG_DIR = ROOT / "build" / "lm_process"
-LM_PG_ARCHS = ("dbrx-132b", "qwen2-7b")
+LM_PG_ARCHS = ("dbrx-132b", "qwen2-7b", "deepseek-v2-236b", "internvl2-1b",
+               "mamba2-1.3b", "recurrentgemma-9b", "whisper-tiny")
 LM_PG_MESH = {"data": 2, "model": 2}
 LM_PG_STEPS, LM_PG_BATCH, LM_PG_SEQ = 2, 4, 16
 # tests/test_torch_process_group_lm.py's TOL_PARAM, TOL_LOSS, TOL_UPDATE
 # and NOISE_LEAVES: the model ranks' partial outputs and the data ranks'
 # gradients add in other orders than one process's; the update of each
 # leaf's masters is held in norm to the reference's (`lm_update_errs`),
-# but for Qwen2's key bias, whose gradient is mostly rounding noise
+# but for the key biases (Qwen2's, InternVL2's), whose gradient is noise
 LM_PG_PARAM_TOL, LM_PG_LOSS_TOL, LM_PG_UPDATE_TOL = 4e-3, 2e-3, 0.25
 LM_NOISE_LEAVES = ("attn/bk",)
 # the dry run's gate at 2x2: a Qwen2-7B-shaped model of d_model 1,024,

@@ -68,11 +68,21 @@ one process a card:
    host resident set before and its peak (sampled) while saving and
    while restoring; the restored parameters and state bit-equal to the
    saved ones and the next step's loss equal to the one taken without
-   the snapshot.
+   the snapshot; the other families, each card keeping its blocks: (g)
+   RecurrentGemma-9B on (data = cards, model = 1) at its full 38 layers
+   on blocks, and whole at 12 and 24 layers, then at the most layers
+   whose peak the two whole runs' per-layer rise puts under
+   LM_DEEPEST_GIB; (h) DeepSeek-V2 at full width on (data = cards / 2,
+   model = 2) at 2 layers in both layouts, then on blocks at 3 layers and
+   at the most whose peak the two blocks runs' rise puts under
+   LM_DEEPEST_GIB; (i) Mamba2-1.3B at its full 48 layers on (data =
+   cards / 2, model = 2) in both layouts, then on blocks one more step
+   under `torch.profiler`: the device time of the all-gathers of
+   in_proj's output (`zxbcdt`, the forward's) against the step's.
 
     python3 scripts/multi_card.py --lm     # the LM worker alone
     torchrun --nproc-per-node=4 scripts/multi_card.py --lm-worker d
-                                           # some of its parts (a-f)
+                                           # some of its parts (a-i)
 
 Prints the card's name and power limit and one JSON line per part; exits
 non-zero if a part fails or disagrees.
@@ -101,7 +111,7 @@ PPR_QUERIES, PPR_WALKS = 16, 1 << 21
 TIMEOUT_S = 420         # a torchrun command; its group's collectives: 360
 # the LM worker's torchrun command; its group's collectives wait for rank
 # 0 to write a snapshot of ~124 GB
-LM_TIMEOUT_S = 660
+LM_TIMEOUT_S = 1260
 LM_SNAPSHOT_MAX_S = 120  # the most seconds (d)'s write may take
 # the most bytes (d) writes: a host may bound what one command writes to
 # its disk, freed blocks included (90 GiB on a four-card H100 host)
@@ -284,6 +294,8 @@ LM_SNAPSHOT_DIR = ROOT / "build" / "lm_snapshot"     # (d)'s, removed after
 # past them.
 QWEN3_LAYERS = {"whole": 12, "blocks": 16}
 QWEN3_PEAK_GIB = 64.0
+# (g), (h): the allocated peak the deepest run's depth is chosen under
+LM_DEEPEST_GIB = 64.0
 
 
 def host_rss_gib() -> float:
@@ -481,7 +493,7 @@ def lm_snapshot(mesh, live: list, batch, build) -> tuple:
     return model, state, step, rep
 
 
-def lm_worker(parts: str = "abcdef") -> int:
+def lm_worker(parts: str = "abcdefghi") -> int:
     """The LM training step over NCCL, one process a card (see the module
     doc, part 3): the parts named in `parts`."""
     import dataclasses
@@ -704,6 +716,79 @@ def lm_worker(parts: str = "abcdef") -> int:
         del model, state, step
         torch.cuda.empty_cache()
 
+    def deepest(base, mesh, blocks, depths, label, cap=LM_DEEPEST_GIB):
+        """`base` in one layout at each of the two `depths`, then at the
+        most layers (up to its own) whose peak the two runs' per-layer
+        rise puts under `cap` GiB, if deeper: the reports by label."""
+        res, peaks = {}, {}
+        for n in depths:
+            r = measured(dataclasses.replace(base, num_layers=n), mesh,
+                         blocks, f"{label} x{n}")
+            res[f"x{n}"], peaks[n] = r, max(r["peak_gib"])
+        lo, hi = depths
+        rise = (peaks[hi] - peaks[lo]) / (hi - lo)
+        n = hi if rise <= 0 else min(
+            base.num_layers, hi + int((cap - peaks[hi]) // rise))
+        res["deepest"] = dict(per_layer_gib=rise, layers=n,
+                              peak_limit_gib=cap)
+        if n > hi:
+            res["deepest"].update(measured(
+                dataclasses.replace(base, num_layers=n), mesh, blocks,
+                f"{label} x{n} (deepest)"))
+        if rank == 0:
+            print(json.dumps(dict(lm=f"{label} deepest",
+                                  **res["deepest"])), flush=True)
+        return res
+
+    def checked(res):
+        return res["loss_fell"] and res["peak_under_80"]
+
+    # (g) RecurrentGemma-9B on (data = cards, model = 1): 38 layers on
+    # blocks; whole at 12 and 24 layers, then at the deepest under the cap
+    if "g" in parts:
+        rg = get_config("recurrentgemma-9b")
+        res = measured(rg, mesh, True, "recurrentgemma-9b x38 blocks")
+        ok &= checked(res)
+        out["rgemma_38_blocks"] = res
+        out["rgemma_whole"] = deepest(rg, mesh, False, (12, 24),
+                                      "recurrentgemma-9b whole")
+        ok &= all(checked(r) for r in out["rgemma_whole"].values()
+                  if "loss_fell" in r)
+
+    # (h) DeepSeek-V2 at full width on (data = cards / 2, model = 2): 2
+    # layers in both layouts; blocks at 3, then at the deepest under the
+    # cap
+    if "h" in parts:
+        mesh2 = make_process_mesh({"data": cards // 2, "model": 2},
+                                  timeout=LM_TIMEOUT_S - 60)
+        ds = get_config("deepseek-v2-236b")
+        res = measured(dataclasses.replace(ds, num_layers=2), mesh2, False,
+                       "deepseek-v2-236b x2 whole")
+        ok &= checked(res)
+        out["deepseek_2_whole"] = res
+        out["deepseek_blocks"] = deepest(ds, mesh2, True, (2, 3),
+                                         "deepseek-v2-236b blocks")
+        ok &= all(checked(r) for r in out["deepseek_blocks"].values()
+                  if "loss_fell" in r)
+
+    # (i) Mamba2-1.3B at 48 layers on (data = cards / 2, model = 2), both
+    # layouts; then one profiled step on blocks: the forward's
+    # all-gathers of zxbcdt against the step, by device time
+    if "i" in parts:
+        mesh2 = make_process_mesh({"data": cards // 2, "model": 2},
+                                  timeout=LM_TIMEOUT_S - 60)
+        mb = get_config("mamba2-1.3b")
+        for blocks in (True, False):
+            layout = "blocks" if blocks else "whole"
+            res = measured(mb, mesh2, blocks, f"mamba2-1.3b x48 {layout}")
+            ok &= checked(res)
+            out[f"mamba2_48_{layout}"] = res
+        out["mamba2_48_profile"] = mamba2_profile(mb, mesh2, adam,
+                                                  batch_for(mb, dev), build)
+        if rank == 0:
+            print(json.dumps(dict(lm="mamba2-1.3b x48 blocks profile",
+                                  **out["mamba2_48_profile"])), flush=True)
+
     # (d) Qwen2-7B after a step, saved and resumed: at the most layers
     if "d" in parts:
         # whose snapshot the disk has the room for (a tenth to spare), the
@@ -740,6 +825,50 @@ def lm_worker(parts: str = "abcdef") -> int:
     dist.barrier()
     dist.destroy_process_group()
     return 0 if ok else 1
+
+
+def mamba2_profile(cfg, mesh, adam, batch, build) -> dict:
+    """A warm-up step of `cfg` on blocks, then one under `torch.profiler`
+    on every card: this card's device time of the step and of the kernels
+    launched inside the forward's all-gathers of in_proj's output over
+    `model` (`models.mamba2._split_heads`, marked here by a
+    `record_function`); the backward's reduce-scatters are not marked."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import mamba2
+    from repro_torch.sharding import ShardingRules, active_rules, \
+        default_rules
+
+    real = mamba2.coll.all_gather
+
+    def marked(*a, **k):
+        with record_function("zxbcdt_all_gather"):
+            return real(*a, **k)
+    model, state, step = build(cfg, mesh, adam)
+    mamba2.coll.all_gather = marked
+    try:
+        with active_rules(ShardingRules(mesh, default_rules(False))):
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+    finally:
+        mamba2.coll.all_gather = real
+    events = prof.key_averages()
+
+    def us(e, name):
+        return getattr(e, f"{name}device_time_total", None) or getattr(
+            e, f"{name}cuda_time_total", 0)
+    # each kernel once (self time); the marked range with its kernels
+    total = sum(us(e, "self_") for e in events)
+    gather = max((us(e, "") for e in events
+                  if e.key == "zxbcdt_all_gather"), default=0)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return dict(step_device_ms=total / 1e3, zxbcdt_gather_ms=gather / 1e3,
+                zxbcdt_gather_share=gather / total if total else None)
 
 
 def torchrun(cards: int, args: list, timeout: float = TIMEOUT_S) -> tuple:

@@ -30,15 +30,15 @@ and records:
 
 Production-mesh rows give each device's share of the argument bytes,
 from `ShardingRules.spec` and `local_shape` on an abstract 16x16 or
-2x16x16 mesh. For the train cells of the families that keep blocks on a
-process mesh (`sharding.layout.supports_blocks`: the GQA transformers)
-they also give one rank's temporaries and collective bytes: `trace_rank`
+2x16x16 mesh. For the train cells (every family keeps blocks on a
+process mesh) they also give one rank's temporaries and collective
+bytes: `trace_rank`
 runs rank 0's step of the process-mesh program (its blocks of the
 weights, its rows, its ZeRO slice) on fake tensors under
 `launch.mesh.make_rank_mesh`, whose collectives move nothing and are
 noted by a `sharding.collectives.CollectiveLog`. The other cells leave
-them null (`NO_RANK_TRACE`: the serving layouts and the other families
-keep whole weights, ROADMAP items 4f and 4g).
+them null (`NO_RANK_TRACE`: the serving cells, whose layouts are
+ROADMAP item 4g).
 
 Results land in results/dryrun_torch/<cell>.json; existing cells are
 skipped, so the sweep is restartable cell by cell:
@@ -79,7 +79,6 @@ from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
 from repro_torch.models import get_model
 from repro_torch.models.common import remat_policy
 from repro_torch.sharding.collectives import CollectiveLog
-from repro_torch.sharding.layout import supports_blocks
 from repro_torch.sharding.rules import (ShardingRules, active_rules,
                                         default_rules)
 from repro_torch.train import (AdamWConfig, init_state, make_train_step,
@@ -88,10 +87,8 @@ from repro_torch.train import (AdamWConfig, init_state, make_train_step,
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 MESHES = {"pod16x16": False, "pod2x16x16": True}
-NO_RANK_TRACE = ("no rank trace: only the train step of the families that "
-                 "keep blocks on a process mesh (GQA transformers) runs "
-                 "sharded (ROADMAP 4f: the other families; 4g: the "
-                 "serving layouts)")
+NO_RANK_TRACE = ("no rank trace: only the train step runs sharded on a "
+                 "process mesh (ROADMAP 4g: the serving layouts)")
 
 
 def microbatches_for(cfg, multi_pod: bool) -> int:
@@ -319,7 +316,7 @@ def trace_rank(cfg, shape, mesh_shape: Dict[str, int], rank: int = 0, *,
     accessed, argument bytes, peak bytes, and the bytes and calls of its
     collectives by kind (`CollectiveLog`: the init's exchange of the
     state is not counted, the step's is)."""
-    if shape.kind != "train" or not supports_blocks(cfg):
+    if shape.kind != "train":
         raise ValueError(f"{cfg.name} {shape.name}: {NO_RANK_TRACE}")
     device = resolve_device(device)
     mesh = make_rank_mesh(mesh_shape, rank, device)
@@ -401,8 +398,7 @@ def cell_record(arch: str, shape_name: str, mesh_name: str,
             chips=rules.mesh.size,
             argument_bytes=per_device_bytes(traced["leaves"], rules),
             temp_bytes=None, coll_bytes=None, reason=NO_RANK_TRACE)
-        if rank_trace is not None and shape.kind == "train" \
-                and supports_blocks(cfg):
+        if rank_trace is not None and shape.kind == "train":
             ranked = rank_trace()
             per_device |= dict(
                 temp_bytes=ranked["temp_bytes"],

@@ -22,8 +22,7 @@ Under `torchrun` each process is one shard of a process mesh
 `--production-mesh`, which raises under 256 processes. Each rank keeps
 its block of every weight (`sharding.layout`: the JAX package's dry-run
 layout, `embed` over the data axes, heads, `ffn` and `vocab` over
-`model`; the families that `supports_blocks` does not name keep whole
-weights, and the writer says so) and its ZeRO slice of the AdamW state
+`model`, every family) and its ZeRO slice of the AdamW state
 on its device, and trains on its data coordinate's rows of each batch;
 snapshots are written blocking, once, by rank 0, in the single-device
 layout (gathered leaf by leaf), so one from any mesh resumes on any
@@ -50,7 +49,6 @@ from repro_torch.launch.mesh import (make_local_mesh, make_process_mesh,
                                      make_production_mesh)
 from repro_torch.models import get_model
 from repro_torch.models.common import COMPUTE_DTYPE
-from repro_torch.sharding.layout import supports_blocks
 from repro_torch.sharding.rules import (ShardingRules, active_rules,
                                         default_rules)
 from repro_torch.train import AdamWConfig, init_state, make_train_step
@@ -104,9 +102,8 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
     """Train `cfg`'s model for `steps` steps (counted from 0, a resumed run
     going on from its checkpoint's step) under the sharding rules of
     `mesh` (`make_local_mesh(device)` when None). On a process mesh each
-    rank trains on its own device and keeps its block of each weight
-    (for the families of `sharding.layout.supports_blocks`; the others
-    whole) and its ZeRO slice of the state. Returns (model, AdamW state,
+    rank trains on its own device and keeps its block of each weight and
+    its ZeRO slice of the state. Returns (model, AdamW state,
     the losses of the steps this call ran)."""
     mesh = mesh or make_local_mesh(device)
     process = mesh.process
@@ -114,9 +111,6 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
         device = mesh.devices[0]
     rules = ShardingRules(mesh, default_rules("pod" in mesh.shape))
     say = print if mesh.writer else (lambda *a, **k: None)
-    if process and not supports_blocks(cfg):
-        say(f"[train] {cfg.name}: whole weights on every rank (its "
-            f"{cfg.family}/{cfg.attention} layers keep no blocks)")
     with active_rules(rules):
         model = get_model(cfg)(cfg, device=device, seed=seed,
                                mesh=mesh if process else None)

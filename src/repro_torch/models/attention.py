@@ -129,16 +129,40 @@ def _qkv(p: GQA, x, cfg, positions):
         k = rms_norm(k, kn, cfg.norm_eps)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    if group is not None and not kv_split:
-        # the replicated key/value heads that this rank's query heads
-        # read, each query head's own (GQA's groups are contiguous runs
-        # of Hp / KV query heads)
-        Hp, Hl = _padded_heads(cfg), q.shape[2]
-        heads = (torch.arange(Hl, device=x.device) + block_start(p.wq, 1)
-                 ) // (Hp // cfg.num_kv_heads)
-        k = coll.pvary(k, group).index_select(2, heads)
-        v = coll.pvary(v, group).index_select(2, heads)
+    k, v = _kv_for_heads(p, k, v, cfg, q.shape[2])
     return q, k, v
+
+
+def _kv_for_heads(p: GQA, k, v, cfg, n_heads: int):
+    """k, v as this rank's query heads read them: as they are, unless the
+    query heads are split over `model` and the key/value heads are not;
+    then the replicated key/value heads that its `n_heads` query heads
+    read, each query head's own (GQA's groups are contiguous runs of
+    Hp / KV query heads), taken through `pvary`."""
+    group = model_group(p.wq, 1)
+    if group is None or model_group(p.wk, 1) is not None:
+        return k, v
+    heads = (torch.arange(n_heads, device=k.device) + block_start(p.wq, 1)
+             ) // (_padded_heads(cfg) // cfg.num_kv_heads)
+    return (coll.pvary(k, group).index_select(2, heads),
+            coll.pvary(v, group).index_select(2, heads))
+
+
+def attn_out(p, out, cfg):
+    """The out projection of the heads' outputs out [B, T, H, hd] (padded
+    heads zeroed; none when `cfg` is None) by wo [H, hd, d] (GQA's or
+    MLA's); on blocks whose heads are split over `model`, row-parallel
+    (`collectives.row_parallel`)."""
+    mask_h = cfg and _head_mask(cfg, out.device, (block_start(p.wo, 0),
+                                                  out.shape[2]))
+    if mask_h is not None:
+        out = out * mask_h[:, None]
+    wo = gathered(p.wo).to(COMPUTE_DTYPE)
+    group = model_group(p.wo, 0)
+    if group is None:
+        return _out_proj(out, wo)
+    return coll.row_parallel(out.flatten(-2), wo.reshape(-1, wo.shape[-1]),
+                             group)
 
 
 def _grouped_scores(q, k):
@@ -187,12 +211,7 @@ def gqa_forward(p: GQA, x, cfg, positions, *, q_chunk: int = 512):
         s = torch.where(mask, s, NEG_INF)
         outs.append(_grouped_out(torch.softmax(s, dim=-1), v))
     out = torch.cat(outs, dim=1) if n_chunks > 1 else outs[0]
-    mask_h = _head_mask(cfg, x.device, (block_start(p.wq, 1), q.shape[2]))
-    if mask_h is not None:
-        out = out * mask_h[:, None]
-    out = _out_proj(out, gathered(p.wo).to(COMPUTE_DTYPE))
-    group = model_group(p.wo, 0)
-    return (out if group is None else coll.psum(out, group)), k, v
+    return attn_out(p, out, cfg), k, v
 
 
 def pad_stacked_cache(cache: Dict[str, torch.Tensor], max_seq: int, cfg,
@@ -321,19 +340,27 @@ class MLA(nn.Module):
 
 
 def _mla_q(p: MLA, x, cfg, positions):
+    """(q_nope, q_rope) of this rank's heads: the query latent computed
+    whole (wq_a gathered over the data axes), then, on blocks whose heads
+    are split over `model`, taken through `pvary` into wq_b's heads."""
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q_lat = rms_norm(torch.matmul(x, p.wq_a.to(COMPUTE_DTYPE)), p.q_norm,
-                     cfg.norm_eps)
-    q = _proj(q_lat, p.wq_b.to(COMPUTE_DTYPE))
+    q_lat = rms_norm(torch.matmul(x, gathered(p.wq_a).to(COMPUTE_DTYPE)),
+                     gathered(p.q_norm), cfg.norm_eps)
+    group = model_group(p.wq_b, 1)
+    if group is not None:
+        q_lat = coll.pvary(q_lat, group)
+    q = _proj(q_lat, gathered(p.wq_b).to(COMPUTE_DTYPE))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     cos, sin = rope_tables(positions, rope_d, cfg.rope_theta)
     return q_nope, apply_rope(q_rope, cos, sin)
 
 
 def _mla_kv_latent(p: MLA, x, cfg, positions):
+    """(c_kv, k_rope), computed whole on every rank (wkv_a gathered over
+    the data axes)."""
     kvlr, rope_d = cfg.kv_lora_rank, cfg.qk_rope_head_dim
-    kv = torch.matmul(x, p.wkv_a.to(COMPUTE_DTYPE))
-    c_kv = rms_norm(kv[..., :kvlr], p.kv_norm, cfg.norm_eps)
+    kv = torch.matmul(x, gathered(p.wkv_a).to(COMPUTE_DTYPE))
+    c_kv = rms_norm(kv[..., :kvlr], gathered(p.kv_norm), cfg.norm_eps)
     k_rope = kv[..., None, kvlr:]  # [B,T,1,rope_d] shared across heads
     cos, sin = rope_tables(positions, rope_d, cfg.rope_theta)
     return c_kv, apply_rope(k_rope, cos, sin)[..., 0, :]
@@ -345,13 +372,20 @@ def _mla_scale(cfg) -> float:
 
 def mla_forward(p: MLA, x, cfg, positions, *, q_chunk: int = 512):
     """Prefill MLA: keys decompressed from the latent (exact). Returns
-    (out, c_kv, k_rope): prefill caches the latent."""
+    (out, c_kv, k_rope): prefill caches the latent. On blocks whose heads
+    are split over `model`, the latents enter this rank's heads through
+    `pvary` (so wq_a, wkv_a and the norms take their whole gradient on
+    every model rank, and k_rope, which every head reads, its heads'
+    on all of them), and wo runs row-parallel (`attn_out`)."""
     B, T, _ = x.shape
     q_nope, q_rope = _mla_q(p, x, cfg, positions[None, :])
     c_kv, k_rope = _mla_kv_latent(p, x, cfg, positions[None, :])
-    k_nope = _proj(c_kv, p.wkv_b_k.to(COMPUTE_DTYPE)).float()
-    v = _proj(c_kv, p.wkv_b_v.to(COMPUTE_DTYPE))
-    kr = k_rope.float()
+    group = model_group(p.wkv_b_k, 1)
+    c_in, kr = ((c_kv, k_rope) if group is None else
+                (coll.pvary(c_kv, group), coll.pvary(k_rope, group)))
+    k_nope = _proj(c_in, gathered(p.wkv_b_k).to(COMPUTE_DTYPE)).float()
+    v = _proj(c_in, gathered(p.wkv_b_v).to(COMPUTE_DTYPE))
+    kr = kr.float()
     scale = _mla_scale(cfg)
     n_chunks = _n_chunks(T, q_chunk)
     outs = []
@@ -365,7 +399,7 @@ def mla_forward(p: MLA, x, cfg, positions, *, q_chunk: int = 512):
         probs = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE)
         outs.append(torch.einsum("bhts,bshk->bthk", probs, v))
     out = torch.cat(outs, dim=1) if n_chunks > 1 else outs[0]
-    return _out_proj(out, p.wo.to(COMPUTE_DTYPE)), c_kv, k_rope
+    return attn_out(p, out, cfg), c_kv, k_rope
 
 
 def init_mla_cache(cfg, batch: int, max_seq: int, device

@@ -17,11 +17,11 @@ Sharding: each module class names the logical axes of its own parameters
 in `AXES`; `module_axes` assembles a model's tree of them, the second
 element of the JAX package's `init_params`, with a leading "layers" on
 every layer stack (`prepend_layers_axis`). Built with `mesh=` a process
-mesh, a model of `sharding.layout.supports_blocks` keeps each rank's
-block of every weight (drawn whole, a module at a time, so the values
-are the single-device init's); the embedding then looks up its vocab
-block and sums over `model`, the head gives this rank's vocab columns of
-the logits, and `cross_entropy` combines them over `model` (`vocab=`).
+mesh, a model of any family keeps each rank's block of every weight
+(drawn whole, a module at a time, so the values are the single-device
+init's); the embedding then looks up its vocab block and sums over
+`model`, the head gives this rank's vocab columns of the logits, and
+`cross_entropy` combines them over `model` (`vocab=`).
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from torch.utils import checkpoint as _checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.sharding import collectives as coll
 from repro_torch.sharding.layout import (block_start, gathered, keep_blocks_,
-                                         model_group, supports_blocks)
+                                         model_group)
 from repro_torch.sharding.rules import active_rules, current_rules
 
 PARAM_DTYPE = torch.bfloat16
@@ -326,12 +326,10 @@ class LM(nn.Module):
     of the parameters and of `init_cache`'s tensors: the JAX package's
     axes trees.
 
-    With `mesh` a process mesh (`launch.mesh.make_process_mesh`) and
-    `cfg` of a family that `sharding.layout.supports_blocks`, each rank
-    keeps its block of every weight (`layout` is then the mesh): each
-    module is drawn whole and cut to its block before the next is drawn.
-    Other families, and other meshes, keep whole weights (`layout`
-    None)."""
+    With `mesh` a process mesh (`launch.mesh.make_process_mesh`), each
+    rank keeps its block of every weight (`layout` is then the mesh):
+    each module is drawn whole and cut to its block before the next is
+    drawn. Other meshes keep whole weights (`layout` None)."""
     AXES = dict(final_norm=("embed",))
 
     def __init__(self, cfg, *, device=None, seed: Optional[int] = 0,
@@ -343,7 +341,7 @@ class LM(nn.Module):
         self.cfg = cfg
         self.device = device
         self.layout = (mesh if mesh is not None and getattr(
-            mesh, "process", False) and supports_blocks(cfg) else None)
+            mesh, "process", False) else None)
         self.embed = self._kept(Embedding(cfg.vocab_size, cfg.d_model,
                                           device=device, gen=gen))
         self._build(cfg, device, gen)

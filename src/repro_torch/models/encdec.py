@@ -28,29 +28,45 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (COMPUTE_DTYPE, LM, ckpt,
                                        cross_entropy, embed, param,
                                        prepend_layers_axis, rms_norm,
-                                       zeros_init)
+                                       vocab_split, zeros_init)
 from repro_torch.models.mlp import MLP, mlp_forward
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.layout import gathered, model_group
 
 Cache = Dict[str, object]
 
 
-def _attention(q, k, v, wo):
+def _attention(p: attn_lib.GQA, q, k, v, cfg=None):
     """Unmasked attention of q [B,T,H,hd] over k, v [B,S,KV,hd], then the
-    out projection."""
+    out projection (`attention.attn_out`: row-parallel on blocks)."""
     probs = torch.softmax(attn_lib._grouped_scores(q, k), dim=-1)
-    return attn_lib._out_proj(attn_lib._grouped_out(probs, v),
-                              wo.to(COMPUTE_DTYPE))
+    return attn_lib.attn_out(p, attn_lib._grouped_out(probs, v), cfg)
 
 
-def cross_attn_forward(p: attn_lib.GQA, x, enc_kv):
-    """x [B,T,d] queries; enc_kv = (k, v) [B,S,KV,hd] precomputed."""
-    q = attn_lib._proj(x, p.wq.to(COMPUTE_DTYPE))
-    return _attention(q, *enc_kv, p.wo)
+def cross_attn_forward(p: attn_lib.GQA, x, enc_kv, cfg=None):
+    """x [B,T,d] queries; enc_kv = (k, v) [B,S,KV,hd] precomputed (as
+    this rank's query heads read them, `cross_kv`). On blocks whose query
+    heads are split over `model`, x enters through `pvary`. `cfg` (the
+    JAX package's argument) is needed on blocks only."""
+    group = model_group(p.wq, 1)
+    if group is not None:
+        x = coll.pvary(x, group)
+    q = attn_lib._proj(x, gathered(p.wq).to(COMPUTE_DTYPE))
+    return _attention(p, q, *enc_kv, cfg)
 
 
-def cross_kv(p: attn_lib.GQA, enc_states):
-    return (attn_lib._proj(enc_states, p.wk.to(COMPUTE_DTYPE)),
-            attn_lib._proj(enc_states, p.wv.to(COMPUTE_DTYPE)))
+def cross_kv(p: attn_lib.GQA, enc_states, cfg=None):
+    """The cross keys and values of the encoder states [B,S,d] (the same
+    on every model rank): on blocks whose key/value heads are split over
+    `model`, this rank's, the states entering through `pvary`; whose
+    query heads alone are split, the replicated heads its query heads
+    read (`attention._kv_for_heads`)."""
+    group = model_group(p.wk, 1)
+    if group is not None:
+        enc_states = coll.pvary(enc_states, group)
+    k = attn_lib._proj(enc_states, gathered(p.wk).to(COMPUTE_DTYPE))
+    v = attn_lib._proj(enc_states, gathered(p.wv).to(COMPUTE_DTYPE))
+    return attn_lib._kv_for_heads(p, k, v, cfg, p.wq.shape[1])
 
 
 class EncLayer(nn.Module):
@@ -82,22 +98,25 @@ class DecLayer(nn.Module):
 
 def enc_layer_forward(p: EncLayer, x, cfg, positions):
     """Bidirectional self-attention (no causal mask), then the MLP."""
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    h = rms_norm(x, gathered(p.ln1), cfg.norm_eps)
     q, k, v = attn_lib._qkv(p.attn, h, cfg, positions[None, :])
-    x = x + _attention(q, k, v, p.attn.wo)
-    return x + mlp_forward(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp)
+    x = x + _attention(p.attn, q, k, v, cfg)
+    return x + mlp_forward(p.mlp, rms_norm(x, gathered(p.ln2), cfg.norm_eps),
+                           cfg.mlp)
 
 
 def _cross_mlp(p: DecLayer, x, enc_kv, cfg):
-    x = x + cross_attn_forward(p.cross_attn,
-                               rms_norm(x, p.ln_x, cfg.norm_eps), enc_kv)
-    return x + mlp_forward(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp)
+    x = x + cross_attn_forward(
+        p.cross_attn, rms_norm(x, gathered(p.ln_x), cfg.norm_eps), enc_kv,
+        cfg)
+    return x + mlp_forward(p.mlp, rms_norm(x, gathered(p.ln2), cfg.norm_eps),
+                           cfg.mlp)
 
 
 def dec_layer_forward(p: DecLayer, x, enc_kv, cfg, positions,
                       q_chunk: int = 512):
     """-> (x, self-attention keys, values)."""
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    h = rms_norm(x, gathered(p.ln1), cfg.norm_eps)
     y, k, v = attn_lib.gqa_forward(p.self_attn, h, cfg, positions,
                                    q_chunk=q_chunk)
     return _cross_mlp(p, x + y, enc_kv, cfg), k, v
@@ -116,10 +135,12 @@ class EncDec(LM):
     AXES = dict(LM.AXES, enc_norm=("embed",))
 
     def _build(self, cfg, device, gen) -> None:
-        self.enc_layers = nn.ModuleList(EncLayer(cfg, device=device, gen=gen)
-                                        for _ in range(cfg.encoder_layers))
-        self.dec_layers = nn.ModuleList(DecLayer(cfg, device=device, gen=gen)
-                                        for _ in range(cfg.num_layers))
+        self.enc_layers = nn.ModuleList(
+            self._kept(EncLayer(cfg, device=device, gen=gen))
+            for _ in range(cfg.encoder_layers))
+        self.dec_layers = nn.ModuleList(
+            self._kept(DecLayer(cfg, device=device, gen=gen))
+            for _ in range(cfg.num_layers))
         self.enc_norm = param(zeros_init((cfg.d_model,), device=device))
 
     def encode(self, frames) -> torch.Tensor:
@@ -130,7 +151,7 @@ class EncDec(LM):
         for layer in self.enc_layers:
             x = ckpt(lambda h, lp=layer: enc_layer_forward(
                 lp, h, self.cfg, positions))(x)
-        return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
+        return rms_norm(x, gathered(self.enc_norm), self.cfg.norm_eps)
 
     def loss_fn(self, batch, *, q_chunk: int = 512, **_):
         cfg = self.cfg
@@ -140,10 +161,11 @@ class EncDec(LM):
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=x.device)
         for layer in self.dec_layers:
-            kv = cross_kv(layer.cross_attn, enc)
+            kv = cross_kv(layer.cross_attn, enc, cfg)
             x = ckpt(lambda h, lp=layer, kv=kv: dec_layer_forward(
                 lp, h, kv, cfg, positions, q_chunk=q_chunk)[0])(x)
-        ce = cross_entropy(self.logits(x), batch["labels"])
+        ce = cross_entropy(self.logits(x), batch["labels"],
+                           vocab=vocab_split(self.head()))
         return ce, dict(ce=ce, aux=ce.new_zeros(()))
 
     def cache_axes(self, batch: int, max_seq: int) -> dict:
@@ -179,7 +201,7 @@ class EncDec(LM):
         positions = torch.arange(T, dtype=torch.int32, device=x.device)
         ks, vs, cks, cvs = [], [], [], []
         for layer in self.dec_layers:
-            kv = cross_kv(layer.cross_attn, enc)
+            kv = cross_kv(layer.cross_attn, enc, cfg)
             x, k, v = dec_layer_forward(layer, x, kv, cfg, positions,
                                         q_chunk=q_chunk)
             ks.append(k)

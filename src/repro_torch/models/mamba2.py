@@ -30,7 +30,9 @@ from torch import nn
 from repro_torch.models.common import (COMPUTE_DTYPE, LM, causal_conv, ckpt,
                                        cross_entropy, dense_init, embed,
                                        ones_init, param, rms_norm,
-                                       zeros_init)
+                                       vocab_split, zeros_init)
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.layout import block_start, gathered, model_group
 from repro_torch.sharding.rules import maybe_constrain
 
 Cache = Dict[str, torch.Tensor]
@@ -131,29 +133,104 @@ def ssd_chunked(x, dtA, B, C, chunk: int, init_state=None):
 def _split(p: Mamba2Block, h, cfg):
     """rms-normed stream -> (z, xBC, dt float32)."""
     d_in, _, _, conv_dim = _dims(cfg)
-    zxbcdt = torch.matmul(h, p.in_proj.to(COMPUTE_DTYPE))
+    zxbcdt = torch.matmul(h, gathered(p.in_proj).to(COMPUTE_DTYPE))
     return (zxbcdt[..., :d_in], zxbcdt[..., d_in:d_in + conv_dim],
             zxbcdt[..., d_in + conv_dim:].float())
 
 
-def _gate_out(p: Mamba2Block, x, y, z, cfg):
-    """y [..., d_in] bf16 gated by silu(z), normed, projected, added."""
-    y = rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
-    return x + torch.matmul(y, p.out_proj.to(COMPUTE_DTYPE))
+def _over_model(w: torch.Tensor, dim: int, group):
+    """The weight w whole over `model` for a rank that reads its own part
+    of it: all-gathered along `dim` where it is split there (the
+    gradient reduce-scattered back into the block), else taken through
+    `pvary` (its gradient summed over the ranks)."""
+    if model_group(w, dim) is not None:
+        return coll.gather_weight(w, group, dim)
+    return coll.pvary(w, group)
+
+
+def _split_heads(p: Mamba2Block, h, cfg, group):
+    """On blocks whose heads are split over `model` (`group`): (z, xBC,
+    dt float32, conv_w, conv_b) of this rank's heads, xBC = its heads'
+    x, then B and C whole (every head reads them). in_proj's columns
+    (z | x | B | C | dt) split over `model` do not follow the heads: each
+    rank's columns, the stream entering through `pvary`, are all-gathered
+    over `model`, and each rank takes its heads' parts of the whole."""
+    d_in, _, _, conv_dim = _dims(cfg)
+    P = cfg.ssm_headdim
+    h0, Hl = block_start(p.A_log, 0), p.A_log.shape[0]
+    c0, c1 = h0 * P, (h0 + Hl) * P
+    w = gathered(p.in_proj).to(COMPUTE_DTYPE)
+    h = coll.pvary(h, group)
+    if model_group(p.in_proj, 1) is not None:
+        zx = coll.all_gather(torch.matmul(h, w), group, dim=-1)
+    else:
+        zx = torch.matmul(h, coll.pvary(w, group))
+    xBC = torch.cat([zx[..., d_in + c0:d_in + c1],
+                     zx[..., 2 * d_in:d_in + conv_dim]], dim=-1)
+    dt = zx[..., d_in + conv_dim + h0:d_in + conv_dim + h0 + Hl].float()
+    cw = _over_model(p.conv_w, 1, group)
+    cb = _over_model(p.conv_b, 0, group)
+    return (zx[..., c0:c1], xBC, dt,
+            torch.cat([cw[:, c0:c1], cw[:, d_in:]], dim=1),
+            torch.cat([cb[c0:c1], cb[d_in:]]))
+
+
+def _gate_out(p: Mamba2Block, x, y, z, cfg, group=None):
+    """y [..., d_in] bf16 gated by silu(z), normed, projected, added. On
+    blocks whose heads are split over `model` (`group`), y and z are this
+    rank's heads' channels: the norm's sum of squares over all of d_in is
+    summed over `model` (then taken through `pvary`, as each rank scales
+    its own channels by it), and out_proj runs row-parallel
+    (`collectives.row_parallel`)."""
+    g = y * F.silu(z)
+    if group is None:
+        y = rms_norm(g, p.norm, cfg.norm_eps)
+    else:
+        gf = g.float()
+        ss = coll.psum(torch.sum(gf * gf, dim=-1, keepdim=True), group)
+        var = coll.pvary(ss, group) / _dims(cfg)[0]
+        y = (gf * torch.rsqrt(var + cfg.norm_eps)
+             * (1.0 + p.norm.float())).to(g.dtype)
+    w = gathered(p.out_proj).to(COMPUTE_DTYPE)
+    return x + (torch.matmul(y, w) if group is None
+                else coll.row_parallel(y, w, group))
+
+
+def _heads_group(p: Mamba2Block):
+    """The `model` group when the block's heads are split over it; None
+    when every rank computes every head. Raises on blocks that split
+    `model` otherwise (d_inner, in_proj or the conv channels, but not the
+    heads): there every rank would read all of a split weight alike."""
+    group = model_group(p.A_log, 0)
+    if group is None and any(
+            model_group(w, d) is not None for w, d in (
+                (p.in_proj, 1), (p.conv_w, 1), (p.out_proj, 0))):
+        raise NotImplementedError(
+            "Mamba-2 blocks split over model without splitting the heads")
+    return group
 
 
 def block_forward(p: Mamba2Block, x, cfg):
     """x [B,T,d] -> (out, conv state [B,k-1,conv_dim], ssm state
-    [B,H,P,N])."""
+    [B,H,P,N]). On blocks whose heads are split over `model`, this rank
+    computes its heads (`_split_heads`, `_gate_out`): the conv state and
+    the SSM state are then those of its heads' channels."""
     B_, T, _ = x.shape
     d_in, H, N, _ = _dims(cfg)
     k = cfg.conv_kernel
-    z, xBC, dt = _split(p, rms_norm(x, p.ln, cfg.norm_eps), cfg)
+    h = rms_norm(x, gathered(p.ln), cfg.norm_eps)
+    group = _heads_group(p)
+    if group is None:
+        z, xBC, dt = _split(p, h, cfg)
+        conv_w, conv_b = p.conv_w, p.conv_b
+    else:
+        z, xBC, dt, conv_w, conv_b = _split_heads(p, h, cfg, group)
+        H = p.A_log.shape[0]
+        d_in = H * cfg.ssm_headdim
 
     # depthwise causal conv
     xBC_pad = F.pad(xBC, (0, 0, k - 1, 0))
-    xBC_c = F.silu(causal_conv(xBC_pad, p.conv_w)
-                   + p.conv_b.to(COMPUTE_DTYPE))
+    xBC_c = F.silu(causal_conv(xBC_pad, conv_w) + conv_b.to(COMPUTE_DTYPE))
 
     xs = xBC_c[..., :d_in].reshape(B_, T, H, cfg.ssm_headdim)
     Bm = xBC_c[..., d_in:d_in + N].float()
@@ -174,7 +251,7 @@ def block_forward(p: Mamba2Block, x, cfg):
     y, ssm_state = ssd_chunked(x_dt, dtA, Bm, Cm, chunk)
     y = y[:, :T] + xs.float() * p.D[None, None, :, None]
     y = y.reshape(B_, T, d_in).to(COMPUTE_DTYPE)
-    out = maybe_constrain(_gate_out(p, x, y, z, cfg),
+    out = maybe_constrain(_gate_out(p, x, y, z, cfg, group),
                           ("batch", "seq", "embed"))
     # the last k-1 rows of the padded input, zero rows included when T is
     # shorter
@@ -215,14 +292,16 @@ class Mamba2(LM):
     each), final norm, head (tied in mamba2-1.3b)."""
 
     def _build(self, cfg, device, gen) -> None:
-        self.layers = nn.ModuleList(Mamba2Block(cfg, device=device, gen=gen)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(
+            self._kept(Mamba2Block(cfg, device=device, gen=gen))
+            for _ in range(cfg.num_layers))
 
     def loss_fn(self, batch, **_):
         x = embed(self.embed, batch["tokens"])
         for block in self.layers:
             x = ckpt(lambda h, b=block: block_forward(b, h, self.cfg)[0])(x)
-        ce = cross_entropy(self.logits(x), batch["labels"])
+        ce = cross_entropy(self.logits(x), batch["labels"],
+                           vocab=vocab_split(self.head()))
         return ce, dict(ce=ce, aux=ce.new_zeros(()))
 
     def cache_axes(self, batch: int, max_seq: int) -> dict:

@@ -50,8 +50,8 @@ class MLP(nn.Module):
 def mlp_forward(p: MLP, x: torch.Tensor, kind: str) -> torch.Tensor:
     """On blocks (`sharding.layout`): each weight gathered over the data
     axes; with `ffn` split over `model`, w_up and w_gate column-parallel
-    (x enters through `pvary`) and w_down row-parallel (the partial
-    outputs summed over `model`)."""
+    (x enters through `pvary`) and w_down row-parallel
+    (`collectives.row_parallel`)."""
     group = model_group(p.w_up, 1)
     if group is not None:
         x = coll.pvary(x, group)
@@ -61,5 +61,7 @@ def mlp_forward(p: MLP, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = activation(g, kind) * up
     else:
         h = activation(up, kind)
-    out = torch.matmul(h, gathered(p.w_down).to(COMPUTE_DTYPE))
-    return out if group is None else coll.psum(out, group)
+    w_down = gathered(p.w_down).to(COMPUTE_DTYPE)
+    if group is None:
+        return torch.matmul(h, w_down)
+    return coll.row_parallel(h, w_down, group)

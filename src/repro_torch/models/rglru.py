@@ -36,8 +36,10 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (COMPUTE_DTYPE, LM, causal_conv, ckpt,
                                        cross_entropy, dense_init, embed,
                                        param, prepend_layers_axis, rms_norm,
-                                       zeros_init)
+                                       vocab_split, zeros_init)
 from repro_torch.models.mlp import MLP, activation, mlp_forward
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.layout import block_start, gathered, model_group
 from repro_torch.sharding.rules import maybe_constrain
 
 C_GATE = 8.0
@@ -141,9 +143,29 @@ def _rglru_scan(x_gated, a_pow, h0=None):
     return b
 
 
+def _gates(p: RecurrentBlock, xc):
+    """The gates' pre-activations (xc @ w_a, xc @ w_x) in float32 of the
+    conv output xc [B,T,w] float32. On blocks whose LRU width is split
+    over `model`, w_a and w_x are split by rows alone: each rank's
+    product over its channels of xc is a partial one over every column,
+    summed over `model` (one float32 psum of the two stacked), then
+    taken through `pvary` to this rank's columns."""
+    group = model_group(p.w_a, 0)
+    if group is None:
+        return xc @ p.w_a.float(), xc @ p.w_x.float()
+    both = torch.stack([xc @ gathered(p.w_a).float(),
+                        xc @ gathered(p.w_x).float()])
+    both = coll.pvary(coll.psum(both, group), group)
+    lo = block_start(p.w_a, 0)
+    mine = both[..., lo:lo + xc.shape[-1]]
+    return mine[0], mine[1]
+
+
 def _recurrent_branch(p: RecurrentBlock, xw, cfg, conv_hist=None, h0=None):
     """xw [B,T,w] conv input -> (y bf16, new conv history [B,k-1,w], last
-    state [B,w] float32)."""
+    state [B,w] float32). On blocks whose LRU width is split over
+    `model`, w is this rank's channels: the conv, the biases, lam and the
+    scan are per channel."""
     B_, T, w = xw.shape
     k = cfg.conv_kernel
     if conv_hist is None:
@@ -153,8 +175,9 @@ def _recurrent_branch(p: RecurrentBlock, xw, cfg, conv_hist=None, h0=None):
     # the bias added in float32: XLA keeps the sum unrounded where the
     # JAX package casts it to float32 right after
     xc = causal_conv(xp, p.conv_w).float() + p.conv_b.float()
-    r = torch.sigmoid(xc @ p.w_a.float() + p.b_a.float())
-    i = torch.sigmoid(xc @ p.w_x.float() + p.b_x.float())
+    ra, ix = _gates(p, xc)
+    r = torch.sigmoid(ra + p.b_a.float())
+    i = torch.sigmoid(ix + p.b_x.float())
     log_a = -C_GATE * F.softplus(-p.lam) * r               # log a^(c r)
     h = _rglru_scan(i * xc, torch.exp(log_a), h0)
     return h.to(COMPUTE_DTYPE), xp[:, xp.shape[1] - (k - 1):], h[:, -1]
@@ -163,14 +186,24 @@ def _recurrent_branch(p: RecurrentBlock, xw, cfg, conv_hist=None, h0=None):
 def recurrent_block_forward(p: RecurrentBlock, x, cfg, conv_hist=None,
                             h0=None):
     """x [B,T,d] -> (x, conv history [B,k-1,w], last state [B,w]); with
-    no history and state, the ones before position 0 (zeros)."""
-    h = rms_norm(x, p.ln, cfg.norm_eps)
-    xw = torch.matmul(h, p.w_in.to(COMPUTE_DTYPE))
-    gate = activation(torch.matmul(h, p.w_gate_in.to(COMPUTE_DTYPE)), "gelu")
+    no history and state, the ones before position 0 (zeros). On blocks
+    whose LRU width is split over `model`, w_in and w_gate_in run
+    column-parallel (the normed stream enters through `pvary`) and w_out
+    row-parallel (`collectives.row_parallel`)."""
+    h = rms_norm(x, gathered(p.ln), cfg.norm_eps)
+    group = model_group(p.w_in, 1)
+    if group is not None:
+        h = coll.pvary(h, group)
+    xw = torch.matmul(h, gathered(p.w_in).to(COMPUTE_DTYPE))
+    gate = activation(torch.matmul(h, gathered(p.w_gate_in).to(
+        COMPUTE_DTYPE)), "gelu")
     y, hist, h_last = _recurrent_branch(p, xw, cfg, conv_hist, h0)
-    x = x + torch.matmul(y * gate, p.w_out.to(COMPUTE_DTYPE))
+    w_out = gathered(p.w_out).to(COMPUTE_DTYPE)
+    x = x + (torch.matmul(y * gate, w_out) if group is None
+             else coll.row_parallel(y * gate, w_out, group))
     x = maybe_constrain(x, ("batch", "seq", "embed"))
-    x = x + mlp_forward(p.mlp, rms_norm(x, p.ln_mlp, cfg.norm_eps), cfg.mlp)
+    x = x + mlp_forward(p.mlp, rms_norm(x, gathered(p.ln_mlp), cfg.norm_eps),
+                        cfg.mlp)
     return x, hist, h_last
 
 
@@ -186,15 +219,15 @@ def recurrent_block_decode(p: RecurrentBlock, x, cfg, cache):
 
 def _attn_mlp(p: AttnBlock, x, y, cfg):
     x = x + y
-    return x + mlp_forward(p.mlp, rms_norm(x, p.ln_mlp, cfg.norm_eps),
-                           cfg.mlp)
+    return x + mlp_forward(p.mlp, rms_norm(x, gathered(p.ln_mlp),
+                                           cfg.norm_eps), cfg.mlp)
 
 
 def attn_block_forward(p: AttnBlock, x, cfg, positions, *,
                        q_chunk: int = 512):
     """`cfg` with the window (`_attn_cfg`). -> (x, k, v), k and v trimmed
     to the last `local_window` positions."""
-    h = rms_norm(x, p.ln, cfg.norm_eps)
+    h = rms_norm(x, gathered(p.ln), cfg.norm_eps)
     y, k, v = attn_lib.gqa_forward(p.attn, h, cfg, positions,
                                    q_chunk=q_chunk)
     w = cfg.local_window
@@ -219,10 +252,11 @@ class RecurrentGemma(LM):
 
     def _build(self, cfg, device, gen) -> None:
         n_groups, trailing = _group_layout(cfg)
-        self.groups = nn.ModuleList(Group(cfg, device=device, gen=gen)
-                                    for _ in range(n_groups))
+        self.groups = nn.ModuleList(
+            self._kept(Group(cfg, device=device, gen=gen))
+            for _ in range(n_groups))
         self.trailing = nn.ModuleList(
-            RecurrentBlock(cfg, device=device, gen=gen)
+            self._kept(RecurrentBlock(cfg, device=device, gen=gen))
             for _ in range(trailing))
 
     def loss_fn(self, batch, *, q_chunk: int = 512, **_):
@@ -242,7 +276,8 @@ class RecurrentGemma(LM):
                 b, h, acfg, positions, q_chunk=q_chunk)[0])(x)
         for block in self.trailing:
             x = ckpt(rec)(x, block)
-        ce = cross_entropy(self.logits(x), batch["labels"])
+        ce = cross_entropy(self.logits(x), batch["labels"],
+                           vocab=vocab_split(self.head()))
         return ce, dict(ce=ce, aux=ce.new_zeros(()))
 
     def cache_axes(self, batch: int, max_seq: int) -> dict:

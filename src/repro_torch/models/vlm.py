@@ -6,7 +6,10 @@ d_model], which `vision_proj` maps into the LM stream ahead of the text.
 The image prefix takes the first positions, so the cache covers image and
 text and its idx starts at num_image_tokens + T. Without image
 embeddings the prefix is zeros. `loss_fn` takes the CE on the text
-positions only, with the aux coefficient fixed at 0.01 as JAX's.
+positions only, with the aux coefficient fixed at 0.01 as JAX's. On
+blocks `vision_proj` is gathered over the data axes before the image
+projection (every model rank holds it whole and computes it alike); the
+text backbone is the transformer's.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 
 from repro_torch.models.common import COMPUTE_DTYPE, dense_init, embed, param
 from repro_torch.models.transformer import Transformer
+from repro_torch.sharding.layout import gathered
 
 
 class VLM(Transformer):
@@ -32,7 +36,7 @@ class VLM(Transformer):
                 (B, self.cfg.num_image_tokens, self.cfg.d_model),
                 dtype=COMPUTE_DTYPE, device=tokens.device)
         img = torch.matmul(img_embeds.to(COMPUTE_DTYPE),
-                           self.vision_proj.to(COMPUTE_DTYPE))
+                           gathered(self.vision_proj).to(COMPUTE_DTYPE))
         return torch.cat([img, embed(self.embed, tokens)], dim=1)
 
     def loss_fn(self, batch, *, q_chunk: int = 512, **_):

@@ -11,6 +11,10 @@ backward is the transpose `jax.grad` takes through `shard_map`:
     pvary(x)       x as it is; backward: the all-reduce sum of the
                    cotangents
     all_gather(x)  tiled along `dim`; backward: the summed reduce-scatter
+    row_parallel(x, w)
+                   the row-parallel product: x @ w of this rank's rows of
+                   w, summed over the group in float32 and rounded once;
+                   backward: the local product's
 
 `psum` and `pmean` give a value that is the same on every rank of the
 group, and each rank's code then consumes it alike: the gradient is
@@ -187,6 +191,42 @@ class _AllGather(torch.autograd.Function):
                           dtype=ct.dtype, device=ct.device)
         reduce_scatter_(out.view(-1), cs.view(-1), group)
         return out.movedim(0, dim), None, None
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of 2-D bf16 operands, its float32 sums unrounded: cuBLAS's
+    float32 output on the card; float32 operands (exact) elsewhere."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _RowParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.save_for_backward(x, w)
+        out = _mm_f32(x.reshape(-1, w.shape[0]), w)
+        all_reduce_(out, group)
+        return out.to(x.dtype).view(x.shape[:-1] + (w.shape[1],))
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w = ctx.saved_tensors
+        c = ct.reshape(-1, ct.shape[-1])
+        dx = torch.matmul(c, w.t()).view(x.shape)
+        dw = torch.matmul(x.reshape(-1, w.shape[0]).t(), c)
+        return dx, dw, None
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """x [..., k] @ w [k, n], where x and w are this rank's columns and
+    rows of a product whose k is split over `group` (a row-parallel
+    projection): the partial products summed over the group in float32,
+    then rounded once to x's dtype, as one device rounds the whole
+    product (a sum of products rounded each would part from it by an
+    ulp of each: far more, through a recurrence, than the tests allow).
+    Its gradients are the local product's."""
+    return _RowParallel.apply(x, w, group)
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:

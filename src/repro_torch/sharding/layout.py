@@ -15,10 +15,10 @@ blocks and tags each with its `Placement`; the layers read the tags:
                        it (tensor parallelism), else None
 
 A parameter without a tag is whole (one device, a stacked mesh, or a
-process mesh for the families that keep whole weights), and the layers
-then compute as before. The optimizer and the converters read
-`placement` and `global_shape` to move blocks to and from the single-
-device layout (`train.optimizer`, `convert`).
+model built without `mesh=`), and the layers then compute as before.
+The optimizer and the converters read `placement` and `global_shape` to
+move blocks to and from the single-device layout (`train.optimizer`,
+`convert`).
 """
 from __future__ import annotations
 
@@ -80,13 +80,6 @@ def is_block(t: torch.Tensor) -> bool:
     """Whether t is a strict part of its whole tensor."""
     pl = placement(t)
     return pl is not None and tuple(t.shape) != pl.shape
-
-
-def supports_blocks(cfg) -> bool:
-    """Whether the model of `cfg` keeps blocks on a process mesh: the
-    decoder-only GQA transformers, dense and MoE. The other families
-    (MLA, the VLM, Mamba-2, RG-LRU, Whisper) keep whole weights there."""
-    return cfg.family in ("dense", "moe") and cfg.attention == "gqa"
 
 
 def mesh_rules(mesh) -> ShardingRules:

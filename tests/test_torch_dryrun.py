@@ -284,11 +284,12 @@ def test_fake_run_counts_equal_real_step(arch, kind):
 
 def test_cell_record_carries_a_rank_trace_where_the_cell_runs_sharded():
     """A production-mesh record takes rank 0's temporaries and collective
-    bytes from the rank trace for the train cell of a family that keeps
-    blocks, and leaves them null with `NO_RANK_TRACE` for a serving cell
-    and for a family that keeps whole weights (no rank trace is run);
-    `trace_rank` refuses those cells; a rank's microbatches are cut to
-    whole rows a data rank (16 of 256 rows over 32 data ranks: 8)."""
+    bytes from the rank trace for a train cell, of a GQA transformer and
+    of Mamba-2 alike (every family keeps blocks), and leaves them null
+    with `NO_RANK_TRACE` for a serving cell of either (no rank trace is
+    run); `trace_rank` refuses the serving cells; a rank's microbatches
+    are cut to whole rows a data rank (16 of 256 rows over 32 data ranks:
+    8)."""
     fake = dict(argument_bytes=10, peak_bytes=30, flops=1.0,
                 bytes_accessed=2.0, leaves=[], trace_s=0.0, microbatches=1,
                 int8_moments=False)
@@ -303,7 +304,8 @@ def test_cell_record_carries_a_rank_trace_where_the_cell_runs_sharded():
 
     for arch, shape, runs in (("qwen2-7b", "train_4k", True),
                               ("qwen2-7b", "prefill_32k", False),
-                              ("mamba2-1.3b", "train_4k", False)):
+                              ("mamba2-1.3b", "train_4k", True),
+                              ("mamba2-1.3b", "prefill_32k", False)):
         rec = dryrun.cell_record(arch, shape, "pod16x16", lambda: fake,
                                  rank_trace)
         pd = rec["per_device"]
@@ -315,9 +317,9 @@ def test_cell_record_carries_a_rank_trace_where_the_cell_runs_sharded():
         else:
             assert pd["temp_bytes"] is None and pd["coll_bytes"] is None
             assert pd["reason"] == dryrun.NO_RANK_TRACE
-    assert len(calls) == 1
+    assert len(calls) == 2
     for arch, shape in (("qwen2-7b", "prefill_32k"),
-                        ("mamba2-1.3b", "train_4k")):
+                        ("mamba2-1.3b", "prefill_32k")):
         with pytest.raises(ValueError, match="no rank trace"):
             dryrun.trace_rank(reduced_config(arch), SHAPES[shape],
                               {"data": 2, "model": 2}, device="cpu")
