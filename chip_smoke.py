@@ -163,7 +163,24 @@
    decode against the full forward with frames drawn from a seed, 32
    requests (prompts of 4-64 tokens, budgets 8-64) on 8 slots with
    max_seq 448, 4 replayed, one step profiled; (d) the ten reduced
-   configs on the card against the CPU, same weights.
+   configs on the card against the CPU, same weights; (h) serving on a
+   process mesh (`lm_serve_process`, under build/lm_serve_process/,
+   removed at the end): Qwen2-7B at full width cut to 4 layers, prefill
+   of 4 x 256 tokens and 8 decode steps under an NCCL group of world size
+   1 in this process, the model keeping its blocks, logits and cache
+   bit-equal (digests of their bits) to the whole-weight model's; then
+   four child processes of this script on the one card
+   (`--lm-serve-child`), a gloo group with card tensors at (data 2,
+   model 2): reduced Qwen2-7B, H2O-Danube3 (its ring of 16 wrapping from
+   model rank 1's slots to rank 0's), DeepSeek-V2 and InternVL2 from the
+   seeded init, each rank keeping its blocks of the weights and of the
+   cache (its rows, its block of the sequence), prefill of 4 x 14
+   positions and 4 decode steps fed tokens from a seed: each rank's
+   logits within 0.03 of the single-process model's on the card, the
+   cache gathered back (`layout.whole_blocks`) within 0.03 of its
+   largest value, its idx and filled slots equal, and each rank's dry-run
+   trace of the decode step (`launch.dryrun.trace_rank`) noting the
+   collectives its first gloo step moved.
 10. LM training (`lm_train_path`): (a) Qwen2-7B at full width cut to 8
    layers (2.98 B parameters: 16 B of training state a parameter for 28
    layers would not fit 80 GB), trained on 4 x 1,024 tokens that
@@ -3959,12 +3976,280 @@ def lm_reduced_card_vs_cpu():
     return out
 
 
+LM_SERVE_PG_DIR = ROOT / "build" / "lm_serve_process"
+LM_SERVE_PG_ARCHS = ("qwen2-7b", "h2o-danube-3-4b", "deepseek-v2-236b",
+                     "internvl2-1b")
+# 4 rows of 14 positions (InternVL2: its 8 image positions and 6 tokens)
+# padded to 32, then 4 steps: positions 14-17 cross from model rank 0's
+# block of 16 into rank 1's, and H2O-Danube3's ring of 16 (8 slots a
+# rank) wraps from slot 15 on rank 1 to slot 0 on rank 0
+LM_SERVE_PG_B, LM_SERVE_PG_T, LM_SERVE_PG_MAX = 4, 14, 32
+LM_SERVE_PG_STEPS = 4
+# tests/test_torch_process_group_lm_serve.py's TOL_LOGITS: bf16 products
+# round in other places on blocks, and the softmax is combined over
+# `model` by log-sum-exp in float32 where one process rounds the
+# probabilities to bf16
+LM_SERVE_PG_TOL = 0.03
+# (h)'s world-1 run: Qwen2-7B at full width cut to 4 layers, 4 x 256
+# prompt tokens padded to 512, 8 decode steps
+LM_SERVE_ONE_LAYERS, LM_SERVE_ONE_T, LM_SERVE_ONE_STEPS = 4, 256, 8
+
+
+def lm_serve_inputs(cfg, batch: int, prompt: int, steps: int, seed: int):
+    """(tokens [batch, prompt], extra inputs, decode tokens [steps,
+    batch]) of `cfg` from a numpy seed, on the CPU; `prompt` counts the
+    VLM's image positions."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    extra = {}
+    if cfg.family == "vlm":
+        prompt -= cfg.num_image_tokens
+        extra["img_embeds"] = torch.as_tensor(rng.standard_normal(
+            (batch, cfg.num_image_tokens, cfg.d_model))).to(torch.bfloat16)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (batch, prompt)))
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, batch)))
+    return tokens, extra, feed
+
+
+def lm_serve_steps(model, tokens, extra, feed, max_seq: int, q_chunk: int):
+    """Prefill padded to `max_seq` and a decode step a row of `feed`:
+    (the logits of each, on the CPU; the cache; the collectives of the
+    first decode step)."""
+    from repro_torch.sharding.collectives import CollectiveLog
+    dev = model.device
+    logits, cache = model.prefill(
+        tokens.to(dev), q_chunk=q_chunk, pad_cache_to=max_seq,
+        **{k: v.to(dev) for k, v in extra.items()})
+    out, first = [logits.float().cpu()], None
+    for i in range(feed.shape[0]):
+        with CollectiveLog() as log:
+            logits, cache = model.decode_step(cache, feed[i][:, None].to(dev))
+        first = first or log
+        out.append(logits.float().cpu())
+    return out, cache, first
+
+
+def lm_serve_child(spec: dict) -> int:
+    """One process of (h)'s group: gloo with card tensors, every process
+    on the one card, the (data 2, model 2) process mesh; each config of
+    LM_SERVE_PG_ARCHS from the seeded init on blocks, its rows prefilled
+    and decoded (`lm_serve_steps`), the cache gathered back to the
+    single-process layout (every rank takes part; rank 0 saves it), and
+    the dry run's trace of this rank's decode step. Prints JSON."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import reduced_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.dryrun import trace_rank
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import get_model
+    from repro_torch.sharding.layout import serve_rows, whole_blocks
+
+    torch.set_num_threads(1)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(spec["store"], world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=spec["timeout"]))
+    out = dict(rank=rank, world=world)
+    try:
+        mesh = make_process_mesh(LM_PG_MESH, "cuda",
+                                 timeout=spec["timeout"])
+        rows = serve_rows(LM_SERVE_PG_B, mesh)
+        out["rows"] = [rows.start, rows.stop]
+        for arch in LM_SERVE_PG_ARCHS:
+            t0 = time.perf_counter()
+            cfg = reduced_config(arch)
+            model = get_model(cfg)(cfg, seed=0, mesh=mesh)
+            tokens, extra, feed = lm_serve_inputs(
+                cfg, LM_SERVE_PG_B, LM_SERVE_PG_T, LM_SERVE_PG_STEPS, 5)
+            logits, cache, log = lm_serve_steps(
+                model, tokens[rows], {k: v[rows] for k, v in extra.items()},
+                feed[:, rows], LM_SERVE_PG_MAX, 8)
+            whole = whole_blocks(
+                cache, model.cache_axes(LM_SERVE_PG_B, LM_SERVE_PG_MAX),
+                model.cache_shapes(LM_SERVE_PG_B, LM_SERVE_PG_MAX), mesh)
+            arrays = {f"logits{i}": t.numpy() for i, t in enumerate(logits)}
+            if rank == 0:
+                arrays.update({f"{k}/{n}": t.float().cpu().numpy()
+                               for k, c in whole.items()
+                               for n, t in c.items()})
+            np.savez(Path(spec["dir"]) / f"{arch}_r{rank}.npz", **arrays)
+            traced = trace_rank(cfg, ShapeConfig(
+                "decode", LM_SERVE_PG_MAX, LM_SERVE_PG_B, "decode"),
+                LM_PG_MESH, rank, q_chunk=8)
+            out[arch] = dict(
+                coll=log.bytes, coll_calls=log.calls,
+                traced=traced["coll_by_kind"],
+                traced_calls=traced["coll_calls"],
+                traced_temp=traced["temp_bytes"],
+                cache_shapes={f"{k}/{n}": list(t.shape)
+                              for k, c in cache.items()
+                              for n, t in c.items()},
+                device=str(model.device),
+                seconds=time.perf_counter() - t0)
+            del model, cache, whole
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def lm_serve_world_one(drive, smi) -> dict:
+    """(h) Qwen2-7B x4 at full width served under the local layout (whole
+    weights) and then on blocks under an NCCL group of world size 1 (the
+    1x1 process mesh): the logits and every cache leaf bit-equal."""
+    import dataclasses
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_config(LM_SERVE_ARCH),
+                              num_layers=LM_SERVE_ONE_LAYERS)
+    tokens, extra, feed = lm_serve_inputs(
+        cfg, LM_SERVE_PG_B, LM_SERVE_ONE_T, LM_SERVE_ONE_STEPS, 7)
+    runs = {}
+    for label in ("whole", "nccl"):
+        mesh = None
+        if label == "nccl":
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(
+                    str(LM_SERVE_PG_DIR / "store_nccl"), 1),
+                rank=0, world_size=1,
+                device_id=torch.device("cuda", torch.cuda.current_device()),
+                timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+        try:
+            if label == "nccl":
+                mesh = make_process_mesh({"data": 1, "model": 1})
+            model = get_model(cfg)(cfg, seed=0, mesh=mesh)
+            (logits, cache, _), secs, peak = drive(
+                f"{cfg.name} x{cfg.num_layers} serve, {label}",
+                lambda: lm_serve_steps(model, tokens, extra, feed,
+                                       2 * LM_SERVE_ONE_T, 512), [])
+            check(not any(drive.last.values()),
+                  f"lm serve (h) {label} launched kernels: {drive.last}")
+            runs[label] = dict(
+                seconds=secs, peak_gib=peak,
+                digests=[bit_digest(t) for t in logits]
+                + [bit_digest(t) for t in lm_tree_leaves(cache)])
+            del model, cache
+        finally:
+            if label == "nccl":
+                dist.destroy_process_group()
+        lm_release()
+    check(not dist.is_initialized(), "the NCCL group was not destroyed")
+    a, b = runs["whole"], runs["nccl"]
+    check(a["digests"] == b["digests"],
+          f"{cfg.name} x{cfg.num_layers}: serving on the NCCL world-1 "
+          f"process mesh differs from whole weights in "
+          f"{sum(x != y for x, y in zip(a['digests'], b['digests']))} of "
+          f"{len(a['digests'])} tensors")
+    out = {k: dict(v, digests=len(v["digests"])) for k, v in runs.items()}
+    log(f"lm serve (h) world 1, {cfg.name} x{cfg.num_layers}, "
+        f"{LM_SERVE_PG_B} x {LM_SERVE_ONE_T} tokens and "
+        f"{LM_SERVE_ONE_STEPS} decode steps on {smi}: NCCL process mesh "
+        f"(blocks) bit-equal to whole weights: {out}")
+    return out
+
+
+def lm_serve_group(smi) -> dict:
+    """(h) Four child processes on the one card over gloo with card
+    tensors at (data 2, model 2), against the same serving in this
+    process with whole weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import get_model
+
+    world = LM_PG_MESH["data"] * LM_PG_MESH["model"]
+    t0 = time.perf_counter()
+    outs = run_process_group(world, dict(dir=str(LM_SERVE_PG_DIR)),
+                             "lm_serve", flag="--lm-serve-child",
+                             where=LM_SERVE_PG_DIR)
+    group_s = time.perf_counter() - t0
+    res = {}
+    for arch in LM_SERVE_PG_ARCHS:
+        cfg = reduced_config(arch)
+        model = get_model(cfg)(cfg, seed=0)
+        tokens, extra, feed = lm_serve_inputs(
+            cfg, LM_SERVE_PG_B, LM_SERVE_PG_T, LM_SERVE_PG_STEPS, 5)
+        logits, cache, _ = lm_serve_steps(model, tokens, extra, feed,
+                                          LM_SERVE_PG_MAX, 8)
+        check(all(o[arch]["device"].startswith("cuda") for o in outs),
+              f"{arch} at 2x2: not on the card: {[o[arch] for o in outs]}")
+        errs = []
+        for o in outs:
+            got = np.load(LM_SERVE_PG_DIR / f"{arch}_r{o['rank']}.npz")
+            rows = slice(*o["rows"])
+            for i, want in enumerate(logits):
+                w = want[rows].numpy()
+                errs.append(float(np.abs(got[f"logits{i}"] - w).max()
+                                  / np.abs(w).max()))
+            row = o[arch]
+            check(row["coll"] == row["traced"]
+                  and row["coll_calls"] == row["traced_calls"],
+                  f"{arch} at 2x2 rank {o['rank']}: the dry run's decode "
+                  f"trace notes {row['traced']} {row['traced_calls']}, the "
+                  f"gloo step moved {row['coll']} {row['coll_calls']}")
+        got = np.load(LM_SERVE_PG_DIR / f"{arch}_r0.npz")
+        cache_err = 0.0
+        for k, c in cache.items():
+            for n, t in c.items():
+                want, mine = t.float().cpu().numpy(), got[f"{k}/{n}"]
+                check(want.shape == mine.shape,
+                      f"{arch}: gathered {k}/{n} {mine.shape}, one "
+                      f"process {want.shape}")
+                if n == "idx":
+                    check(np.array_equal(want, mine),
+                          f"{arch}: gathered {k}/{n} differs")
+                    continue
+                axes = tuple(range(3, want.ndim))
+                check(np.array_equal((want != 0).any(axis=axes),
+                                     (mine != 0).any(axis=axes)),
+                      f"{arch}: the gathered cache's filled slots differ")
+                cache_err = max(cache_err, float(
+                    np.abs(want - mine).max() / np.abs(want).max()))
+        check(max(errs) <= LM_SERVE_PG_TOL
+              and cache_err <= LM_SERVE_PG_TOL,
+              f"{arch} at 2x2 vs one process on the card: logits "
+              f"{max(errs)}, cache {cache_err} apart")
+        res[arch] = dict(logits_err=max(errs), cache_err=cache_err,
+                         coll_bytes_a_step=outs[0][arch]["coll"],
+                         coll_calls_a_step=outs[0][arch]["coll_calls"],
+                         traced_temp=outs[0][arch]["traced_temp"],
+                         cache_block=outs[0][arch]["cache_shapes"],
+                         child_seconds=[o[arch]["seconds"] for o in outs])
+        del model, cache
+        torch.cuda.empty_cache()
+    log(f"lm serve (h) gloo, {world} processes on the card at "
+        f"{LM_PG_MESH}, {group_s:.1f} s on {smi}: {res}")
+    return dict(res, group_s=group_s)
+
+
+def lm_serve_process(drive, smi) -> dict:
+    """(h) Prefill and decode over one process a shard."""
+    shutil.rmtree(LM_SERVE_PG_DIR, ignore_errors=True)
+    LM_SERVE_PG_DIR.mkdir(parents=True)
+    try:
+        return dict(world_one=lm_serve_world_one(drive, smi),
+                    gloo_2x2=lm_serve_group(smi))
+    finally:
+        shutil.rmtree(LM_SERVE_PG_DIR, ignore_errors=True)
+
+
 def lm_serve_path(drive, smi):
     """The LM serving path: (a) Qwen2-7B served at full width, (b)
     Danube3 past its window, (c) full-width 2-layer DeepSeek-V2 and DBRX,
     (e) Mamba2-1.3B, (f) RecurrentGemma-9B past its window and (g)
     Whisper-tiny, each at full width and depth, (d) the reduced configs
-    on the card against the CPU."""
+    on the card against the CPU, (h) serving over one process a shard."""
     log(f"lm serve path on {smi}")
     out = {}
     for key, phase in (("qwen", lm_serve_qwen), ("window", lm_serve_window),
@@ -3979,6 +4264,10 @@ def lm_serve_path(drive, smi):
     out["reduced"] = lm_reduced_card_vs_cpu()
     out["reduced_phase_s"] = time.perf_counter() - t0
     log(f"lm phase reduced: {out['reduced_phase_s']:.2f} s")
+    t0 = time.perf_counter()
+    out["process"] = lm_serve_process(drive, smi)
+    out["process_phase_s"] = time.perf_counter() - t0
+    log(f"lm phase process: {out['process_phase_s']:.2f} s")
     log(f"lm serve: {smi} " + json.dumps(out, default=str))
     return out
 
@@ -4943,6 +5232,8 @@ def main() -> int:
         return process_group_child(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--lm-group-child"]:
         return lm_group_child(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--lm-serve-child"]:
+        return lm_serve_child(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2

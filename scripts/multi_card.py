@@ -78,7 +78,20 @@ one process a card:
    LM_DEEPEST_GIB; (i) Mamba2-1.3B at its full 48 layers on (data =
    cards / 2, model = 2) in both layouts, then on blocks one more step
    under `torch.profiler`: the device time of the all-gathers of
-   in_proj's output (`zxbcdt`, the forward's) against the step's.
+   in_proj's output (`zxbcdt`, the forward's) against the step's; (j)
+   serving Qwen3-32B on (data 1, model = cards), each card keeping its
+   blocks of the weights and of the KV cache (its block of the sequence,
+   every KV head): at 8 layers, 4 prompts of 512 tokens padded to 1,024
+   and 8 decode steps against the same on one card with whole weights
+   (rank 0's), each step's logits within 0.03 of the largest; then at
+   its full 64 layers, 16 prompts of 2,048 tokens padded to 32,768
+   positions (the decode_32k cell's cache length; 137 GB of cache in all,
+   more than one card holds beside the weights), prefill timed, then 32
+   greedy decode steps, each timed: decode ms a step against the bound
+   of the card's weight and cache bytes over 3.35 TB/s, tokens/s, each
+   card's peak, and one step's collectives by kind (bytes and calls);
+   then one more step under `torch.profiler`: rank 0's device time by
+   op, NCCL's share, and the step's wall time.
 
     python3 scripts/multi_card.py --lm     # the LM worker alone
     torchrun --nproc-per-node=4 scripts/multi_card.py --lm-worker d
@@ -111,7 +124,7 @@ PPR_QUERIES, PPR_WALKS = 16, 1 << 21
 TIMEOUT_S = 420         # a torchrun command; its group's collectives: 360
 # the LM worker's torchrun command; its group's collectives wait for rank
 # 0 to write a snapshot of ~124 GB
-LM_TIMEOUT_S = 1260
+LM_TIMEOUT_S = 1560
 LM_SNAPSHOT_MAX_S = 120  # the most seconds (d)'s write may take
 # the most bytes (d) writes: a host may bound what one command writes to
 # its disk, freed blocks included (90 GiB on a four-card H100 host)
@@ -493,7 +506,153 @@ def lm_snapshot(mesh, live: list, batch, build) -> tuple:
     return model, state, step, rep
 
 
-def lm_worker(parts: str = "abcdefghi") -> int:
+# (j): Qwen3-32B served at (data 1, model = cards)
+SERVE_ARCH = "qwen3-32b"
+SERVE_SMALL = dict(layers=8, rows=4, prompt=512, max_seq=1024, steps=8)
+SERVE_FULL = dict(rows=16, prompt=2048, max_seq=32768, steps=32)
+SERVE_TOL = 0.03          # tests/test_torch_process_group_lm_serve.py's
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+
+
+def serve_run(model, tokens, feed, max_seq: int, greedy: bool = False):
+    """Prefill `tokens` padded to `max_seq`, then a decode step for each
+    row of `feed` (or, with `greedy`, its count of steps on the argmax):
+    (logits of each on the CPU, cache, prefill seconds, each decode
+    step's seconds, the collectives of the second step)."""
+    import torch
+    from repro_torch.sharding.collectives import CollectiveLog
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens, q_chunk=512, pad_cache_to=max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out, steps, log = [logits.cpu()], [], None
+    for i in range(feed.shape[0]):
+        tok = logits.argmax(-1) if greedy else feed[i][:, None]
+        with CollectiveLog() as one:
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(cache, tok)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        if i == 1:
+            log = one
+        out.append(logits.cpu())
+    return out, cache, prefill_s, steps, log
+
+
+def serve_profile(model, cache, token, top: int = 12) -> dict:
+    """One decode step under `torch.profiler`: its wall ms, the device
+    time of its ops (self time, summed over streams), NCCL's part, and
+    the `top` ops by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode_step(cache, token)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), key=lambda r: -r[1])
+    device = sum(ms for _, ms, _ in rows)
+    return dict(wall_ms=wall * 1e3, device_ms=device,
+                nccl_ms=sum(ms for k, ms, _ in rows if "nccl" in k.lower()),
+                top=[dict(op=k, ms=ms, calls=n) for k, ms, n in rows[:top]])
+
+
+def serve_part(cards: int, rank: int, gather) -> tuple:
+    """(j): (ok, the report)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import get_model
+
+    mesh = make_process_mesh({"data": 1, "model": cards},
+                             timeout=LM_TIMEOUT_S - 60)
+    dev = mesh.devices[0]
+    q3 = get_config(SERVE_ARCH)
+    rng = np.random.default_rng(0)
+
+    def draw(n):
+        return (torch.as_tensor(rng.integers(0, q3.vocab_size,
+                                             (n["rows"], n["prompt"]))).to(dev),
+                torch.as_tensor(rng.integers(0, q3.vocab_size,
+                                             (n["steps"], n["rows"]))).to(dev))
+
+    out, ok = {}, True
+    # x8: the cards against one card with whole weights
+    small = dataclasses.replace(q3, num_layers=SERVE_SMALL["layers"])
+    tokens, feed = draw(SERVE_SMALL)
+    model = get_model(small)(small, device=dev, seed=0, mesh=mesh)
+    got = serve_run(model, tokens, feed, SERVE_SMALL["max_seq"])[0]
+    del model
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = get_model(small)(small, device=dev, seed=0)
+        want = serve_run(one, tokens, feed, SERVE_SMALL["max_seq"])[0]
+        del one
+        torch.cuda.empty_cache()
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, want)]
+        agree = bool(max(errs) <= SERVE_TOL and all(
+            bool(t.isfinite().all()) for t in got))
+        out["x8"] = dict(SERVE_SMALL, logits_err=errs, agree=agree)
+        print(json.dumps(dict(lm=f"{SERVE_ARCH} serve x8, (1, {cards}) "
+                              "blocks vs one card whole", **out["x8"])),
+              flush=True)
+        ok &= agree
+    dist.barrier()
+
+    # x64: every layer, the decode_32k cache length
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model(q3)(q3, device=dev, seed=0, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens, feed = draw(SERVE_FULL)
+    logits, cache, prefill_s, steps, log = serve_run(
+        model, tokens, feed, SERVE_FULL["max_seq"], greedy=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for c in cache.values() for t in c.values())
+    bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    step_ms = [t * 1e3 for t in steps]
+    timed = sorted(step_ms[1:])            # the first step warms up
+    median = timed[len(timed) // 2]
+    finite = all(bool(t.isfinite().all()) for t in logits)
+    res = dict(SERVE_FULL, layers=q3.num_layers, mesh=dict(mesh.shape),
+               init_s=init_s, prefill_s=prefill_s, step_ms=step_ms,
+               median_step_ms=median, bound_ms=bound_ms,
+               of_bound=median / bound_ms,
+               tokens_per_s=SERVE_FULL["rows"] / (median / 1e3),
+               prefill_tokens_per_s=SERVE_FULL["rows"] * SERVE_FULL["prompt"]
+               / prefill_s,
+               weight_bytes=gather(weight_bytes),
+               cache_bytes=gather(cache_bytes), peak_gib=gather(peak),
+               coll_bytes_a_step=dict(log.bytes),
+               coll_calls_a_step=dict(log.calls),
+               cache_block={f"{k}/{n}": list(t.shape)
+                            for k, c in cache.items() for n, t in c.items()},
+               finite=finite)
+    res["profile"] = serve_profile(model, cache, feed[0][:, None])
+    out["x64"] = res
+    ok &= finite and max(res["peak_gib"]) < LM_PEAK_GIB
+    if rank == 0:
+        print(json.dumps(dict(lm=f"{SERVE_ARCH} serve x64, (1, {cards}) "
+                              "blocks", **res)), flush=True)
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return ok, out
+
+
+def lm_worker(parts: str = "abcdefghij") -> int:
     """The LM training step over NCCL, one process a card (see the module
     doc, part 3): the parts named in `parts`."""
     import dataclasses
@@ -820,6 +979,9 @@ def lm_worker(parts: str = "abcdefghi") -> int:
         if rank == 0:
             print(json.dumps(dict(lm="qwen2-7b snapshot", **snap)),
                   flush=True)
+    if "j" in parts:
+        served, out["qwen3_serve"] = serve_part(cards, rank, gather)
+        ok &= served
     if rank == 0:
         print(json.dumps(dict(lm_ok=bool(ok))), flush=True)
     dist.barrier()

@@ -31,20 +31,24 @@ and records:
 Production-mesh rows give each device's share of the argument bytes,
 from `ShardingRules.spec` and `local_shape` on an abstract 16x16 or
 2x16x16 mesh. For the train cells (every family keeps blocks on a
-process mesh) they also give one rank's temporaries and collective
-bytes: `trace_rank`
+process mesh) and the serving cells of the decoder-only transformers
+(prefill and decode on blocks, the cache in the serving layout) they
+also give one rank's temporaries and collective bytes: `trace_rank`
 runs rank 0's step of the process-mesh program (its blocks of the
-weights, its rows, its ZeRO slice) on fake tensors under
-`launch.mesh.make_rank_mesh`, whose collectives move nothing and are
-noted by a `sharding.collectives.CollectiveLog`. The other cells leave
-them null (`NO_RANK_TRACE`: the serving cells, whose layouts are
-ROADMAP item 4g).
+weights, its rows, its ZeRO slice or its cache block) on fake tensors
+under `launch.mesh.make_rank_mesh`, whose collectives move nothing and
+are noted by a `sharding.collectives.CollectiveLog`. The serving cells
+of Mamba-2, RG-LRU and Whisper leave them null (`NO_RANK_TRACE`: their
+layouts are ROADMAP item 4h).
 
 Results land in results/dryrun_torch/<cell>.json; existing cells are
 skipped, so the sweep is restartable cell by cell:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b \\
         --shape train_4k --mesh single [--device cpu]
+
+`--rank-only` traces rank 0 alone, without the single-device trace, into
+results/dryrun_torch/<cell>__rank.json.
 
 Without `--device` the fake tensors are the card's (nothing is allocated
 there).
@@ -78,7 +82,9 @@ from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
                                      make_rank_mesh)
 from repro_torch.models import get_model
 from repro_torch.models.common import remat_policy
+from repro_torch.models.transformer import Transformer
 from repro_torch.sharding.collectives import CollectiveLog
+from repro_torch.sharding.layout import serve_rows
 from repro_torch.sharding.rules import (ShardingRules, active_rules,
                                         default_rules)
 from repro_torch.train import (AdamWConfig, init_state, make_train_step,
@@ -87,8 +93,10 @@ from repro_torch.train import (AdamWConfig, init_state, make_train_step,
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 MESHES = {"pod16x16": False, "pod2x16x16": True}
-NO_RANK_TRACE = ("no rank trace: only the train step runs sharded on a "
-                 "process mesh (ROADMAP 4g: the serving layouts)")
+NOT_TRACED = "no rank trace run (the CLI's: minutes of host time a cell)"
+NO_RANK_TRACE = ("no rank trace: Mamba-2, RG-LRU and Whisper serve with "
+                 "whole weights only (ROADMAP 4h: their caches split over "
+                 "ffn, q_heads and kv_heads)")
 
 
 def microbatches_for(cfg, multi_pod: bool) -> int:
@@ -303,45 +311,71 @@ def rank_microbatches(cfg, shape, dp: int,
     return nm
 
 
+def rank_traceable(cfg, shape) -> bool:
+    """Whether the cell runs on a process mesh with blocks: every train
+    step, and the serving of the decoder-only transformers."""
+    return shape.kind == "train" or issubclass(get_model(cfg), Transformer)
+
+
 def trace_rank(cfg, shape, mesh_shape: Dict[str, int], rank: int = 0, *,
                device=None, q_chunk: int = 512,
                microbatches: Optional[int] = None,
                int8_moments: Optional[bool] = None,
                remat: str = "full") -> dict:
-    """One rank's train step of the cell over a process mesh of
-    `mesh_shape`, on fake tensors at that rank's shapes (its blocks of
-    the weights, its ZeRO slice of the state; the step takes the global
-    batch and keeps its rows, as `run_training` does) on `device` (the
-    card when None), under `make_rank_mesh`. Returns its FLOPs, bytes
-    accessed, argument bytes, peak bytes, and the bytes and calls of its
-    collectives by kind (`CollectiveLog`: the init's exchange of the
-    state is not counted, the step's is)."""
-    if shape.kind != "train":
+    """One rank's step of the cell over a process mesh of `mesh_shape`,
+    on fake tensors at that rank's shapes on `device` (the card when
+    None), under `make_rank_mesh`. A train step takes the global batch
+    and keeps its rows, as `run_training` does, with the rank's blocks of
+    the weights and its ZeRO slice of the state; prefill and decode take
+    the rank's rows (`layout.serve_rows`), and decode the rank's blocks
+    of the cache. Returns its FLOPs, bytes accessed, argument bytes, peak
+    bytes, and the bytes and calls of its collectives by kind
+    (`CollectiveLog`: the init's exchange of the state is not counted,
+    the step's is)."""
+    if not rank_traceable(cfg, shape):
         raise ValueError(f"{cfg.name} {shape.name}: {NO_RANK_TRACE}")
     device = resolve_device(device)
     mesh = make_rank_mesh(mesh_shape, rank, device)
     rules = ShardingRules(mesh, default_rules("pod" in mesh_shape))
-    dp = rules._axis_size(tuple(a for a in ("pod", "data")
-                                if a in mesh_shape))
-    nm = rank_microbatches(cfg, shape, dp, microbatches)
-    int8 = int8_for(cfg) if int8_moments is None else int8_moments
+    train = shape.kind == "train"
+    nm = int8 = None
+    if train:
+        dp = rules._axis_size(tuple(a for a in ("pod", "data")
+                                    if a in mesh_shape))
+        nm = rank_microbatches(cfg, shape, dp, microbatches)
+        int8 = int8_for(cfg) if int8_moments is None else int8_moments
     with FakeTensorMode():
         model = get_model(cfg)(cfg, device=device, seed=None, mesh=mesh)
-        adam = AdamWConfig(int8_moments=int8)
-        params = lm_param_tree(model)
-        state = init_state(params, adam, mesh=mesh)
-        step = make_train_step(cfg, model, adam, num_microbatches=nm,
-                               loss_kwargs=dict(q_chunk=q_chunk), mesh=mesh)
         inputs = _fake_inputs(cfg, shape, device)
+        state = ()
+        if train:
+            adam = AdamWConfig(int8_moments=int8)
+            state = init_state(lm_param_tree(model), adam, mesh=mesh)
+            step = make_train_step(cfg, model, adam, num_microbatches=nm,
+                                   loss_kwargs=dict(q_chunk=q_chunk),
+                                   mesh=mesh)
+            run = lambda: step(state, inputs)  # noqa: E731
+        else:
+            rows = serve_rows(shape.global_batch, mesh)
+            inputs = {k: v[rows] for k, v in inputs.items()}
+            if shape.kind == "prefill":
+                extra = {k: v for k, v in inputs.items() if k != "tokens"}
+                run = lambda: model.prefill(  # noqa: E731
+                    inputs["tokens"], q_chunk=q_chunk, **extra)
+            else:
+                state = model.init_cache(shape.global_batch, shape.seq_len)
+                run = lambda: model.decode_step(  # noqa: E731
+                    state, inputs["token"])
         args = sum(t.numel() * t.element_size()
                    for t in list(model.parameters()) + list(
                        tree_leaves(state)) + list(inputs.values()))
         live = LiveBytes(baseline=args)
         flops = FlopCounterMode(display=False)
+        policy = remat_policy(remat) if train else contextlib.nullcontext()
         t0 = time.perf_counter()
-        with active_rules(rules), remat_policy(remat), live, flops, \
+        with active_rules(rules), policy, live, flops, \
                 CollectiveLog() as log:
-            step(state, inputs)
+            run()
         secs = time.perf_counter() - t0
     return dict(flops=float(flops.get_total_flops()),
                 bytes_accessed=float(live.accessed), argument_bytes=args,
@@ -366,14 +400,17 @@ def mesh_rules(multi_pod: bool) -> ShardingRules:
 
 
 def cell_record(arch: str, shape_name: str, mesh_name: str,
-                trace: Callable[[], dict],
+                trace: Optional[Callable[[], dict]],
                 rank_trace: Optional[Callable[[], dict]] = None) -> dict:
     """The JSON record of one cell at `mesh_name` ("pod16x16" or
     "pod2x16x16"): the step traced on one device (`trace()`, which
-    returns `trace_cell`'s dict), the mesh's per-device argument bytes,
-    and where the cell runs sharded, rank 0's temporaries and collective
-    bytes on the mesh (`rank_trace()`, which returns `trace_rank`'s dict
-    for that mesh; null with `NO_RANK_TRACE` otherwise)."""
+    returns `trace_cell`'s dict; with `trace` None, the record of the
+    rank trace alone, `method` "rank_only"), the mesh's per-device
+    argument bytes, and where the cell runs sharded (`rank_traceable`),
+    rank 0's temporaries and collective bytes on the mesh
+    (`rank_trace()`, which returns `trace_rank`'s dict for that mesh;
+    null otherwise, with `NO_RANK_TRACE` where the cell does not run
+    sharded and `NOT_TRACED` where no `rank_trace` was given)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     record = dict(cell=f"{arch}__{shape_name}__{mesh_name}", arch=arch,
@@ -385,20 +422,34 @@ def cell_record(arch: str, shape_name: str, mesh_name: str,
                             "§Arch-applicability)")
         return record
     try:
-        traced = trace()
-        args, peak = traced["argument_bytes"], traced["peak_bytes"]
-        mem = dict(argument_size_in_bytes=args,
-                   temp_size_in_bytes=peak - args, peak_bytes=peak)
-        roof = build_roofline(arch, shape_name, "local1x1", 1,
-                              {"flops": traced["flops"],
-                               "bytes accessed": traced["bytes_accessed"]},
-                              mem, "", model_flops_for(cfg, shape))
         rules = mesh_rules(MESHES[mesh_name])
-        per_device = dict(
-            chips=rules.mesh.size,
-            argument_bytes=per_device_bytes(traced["leaves"], rules),
-            temp_bytes=None, coll_bytes=None, reason=NO_RANK_TRACE)
-        if rank_trace is not None and shape.kind == "train":
+        if trace is not None:
+            traced = trace()
+            args, peak = traced["argument_bytes"], traced["peak_bytes"]
+            mem = dict(argument_size_in_bytes=args,
+                       temp_size_in_bytes=peak - args, peak_bytes=peak)
+            roof = build_roofline(arch, shape_name, "local1x1", 1,
+                                  {"flops": traced["flops"],
+                                   "bytes accessed":
+                                       traced["bytes_accessed"]},
+                                  mem, "", model_flops_for(cfg, shape))
+            record |= dict(
+                method="direct_count", t_trace_s=traced["trace_s"],
+                memory=mem,
+                cost=dict(flops=traced["flops"],
+                          bytes_accessed=traced["bytes_accessed"]),
+                roofline=roof.to_dict(), fits_80gb=peak <= HBM_BYTES,
+                microbatches=traced["microbatches"],
+                int8_moments=traced["int8_moments"])
+            mesh_args = per_device_bytes(traced["leaves"], rules)
+        else:
+            record["method"] = "rank_only"
+            mesh_args = mesh_argument_bytes(cfg, shape, MESHES[mesh_name])
+        traceable = rank_traceable(cfg, shape)
+        per_device = dict(chips=rules.mesh.size, argument_bytes=mesh_args,
+                          temp_bytes=None, coll_bytes=None,
+                          reason=NOT_TRACED if traceable else NO_RANK_TRACE)
+        if rank_trace is not None and traceable:
             ranked = rank_trace()
             per_device |= dict(
                 temp_bytes=ranked["temp_bytes"],
@@ -407,17 +458,9 @@ def cell_record(arch: str, shape_name: str, mesh_name: str,
                     "rank", "argument_bytes", "peak_bytes", "flops",
                     "coll_by_kind", "coll_calls", "microbatches",
                     "trace_s")))
-        record |= dict(
-            status="ok", method="direct_count",
-            t_trace_s=traced["trace_s"], memory=mem,
-            cost=dict(flops=traced["flops"],
-                      bytes_accessed=traced["bytes_accessed"]),
-            roofline=roof.to_dict(), fits_80gb=peak <= HBM_BYTES,
-            microbatches=traced["microbatches"],
-            int8_moments=traced["int8_moments"],
-            per_device=per_device,
-            params_total=cfg.param_count(),
-            params_active=cfg.active_param_count())
+        record |= dict(status="ok", per_device=per_device,
+                       params_total=cfg.param_count(),
+                       params_active=cfg.active_param_count())
     except Exception as e:  # noqa: BLE001 — the sweep survives a cell
         record |= dict(status="error", reason=f"{type(e).__name__}: {e}",
                        traceback=traceback.format_exc()[-4000:])
@@ -427,18 +470,21 @@ def cell_record(arch: str, shape_name: str, mesh_name: str,
 def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
              q_chunk: int = 512, force: bool = False, device=None,
              results_dir: str = RESULTS_DIR,
-             trace: Optional[Callable[[], dict]] = None) -> dict:
+             trace: Optional[Callable[[], dict]] = None,
+             rank_only: bool = False) -> dict:
     """One cell's record, written to `results_dir` (read back from there
     unless `force`); `trace` as `cell_record`'s, by default a trace of
     the cell at full width on `device`; the rank trace (where the cell
-    has one) at full width on the mesh, on `device`."""
+    has one) at full width on the mesh, on `device`. With `rank_only`,
+    the rank trace alone, into <cell>__rank.json."""
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
-    out_path = os.path.join(results_dir,
-                            f"{arch}__{shape_name}__{mesh_name}.json")
+    out_path = os.path.join(
+        results_dir, f"{arch}__{shape_name}__{mesh_name}"
+        + ("__rank" if rank_only else "") + ".json")
     if os.path.exists(out_path) and not force:
         with open(out_path) as f:
             return json.load(f)
-    if trace is None:
+    if trace is None and not rank_only:
         trace = lambda: trace_cell(get_config(arch),  # noqa: E731
                                    SHAPES[shape_name], device=device,
                                    q_chunk=q_chunk)
@@ -446,7 +492,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         get_config(arch), SHAPES[shape_name], dict(make_production_mesh(
             multi_pod=multi_pod, abstract=True).shape),
         device=device, q_chunk=q_chunk)
-    record = cell_record(arch, shape_name, mesh_name, trace, rank_trace)
+    record = cell_record(arch, shape_name, mesh_name,
+                         None if rank_only else trace, rank_trace)
     os.makedirs(results_dir, exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(record, f, indent=2)
@@ -465,6 +512,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device of the fake tensors (default: the "
                     "CUDA card)")
+    ap.add_argument("--results-dir", default=RESULTS_DIR)
+    ap.add_argument("--rank-only", action="store_true",
+                    help="trace rank 0 of the production mesh alone, "
+                    "without the single-device trace")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else list(ARCHS)
@@ -485,10 +536,21 @@ def main(argv=None):
 
             for mp in meshes:
                 r = run_cell(arch, shape, mp, q_chunk=args.q_chunk,
-                             force=args.force, trace=trace)
+                             force=args.force, device=args.device,
+                             results_dir=args.results_dir, trace=trace,
+                             rank_only=args.rank_only)
                 status = r["status"]
                 extra = ""
-                if status == "ok":
+                if status == "ok" and args.rank_only:
+                    pd = r["per_device"]
+                    if pd["temp_bytes"] is not None:
+                        extra = (f" rank-temp={pd['temp_bytes'] / 2**30:.2f}"
+                                 f"GiB rank-coll="
+                                 f"{pd['coll_bytes'] / 2**30:.4f}GiB "
+                                 f"traced in {pd['rank']['trace_s']:.1f} s")
+                    else:
+                        extra = f" {pd['reason']}"
+                elif status == "ok":
                     extra = (f" flops={r['cost']['flops']:.4g} "
                              f"peak={r['memory']['peak_bytes'] / 2**30:.2f}"
                              f"GiB per-device-args="

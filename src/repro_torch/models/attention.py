@@ -14,6 +14,16 @@ KV caches are laid out [B, S_max, ...] per layer, stacked [L, B, S_max,
 ...] per layer stack, with a per-sequence position `idx` [B] (stacked
 [L, B]). Unlike JAX, decode writes the cache in place: the views a layer
 gets are slices of the stacked tensors.
+
+On a model that keeps blocks (`sharding.layout`) decode takes the JAX
+dry run's serving layout: each rank holds its rows and its block of the
+sequence (`layout.seq_group`: `cache_seq` over `model`), every KV head
+whole. The rank computes q, k and v of its heads as training does; the
+new token's k and v and the queries are gathered over `model`; only the
+rank whose block holds a row's slot writes it; each rank scores every
+head against its own positions, and the softmax is combined over
+`model` in float32 by log-sum-exp (`_combine`), after which the rank
+takes its heads' part into the row-parallel out projection.
 """
 from __future__ import annotations
 
@@ -28,7 +38,8 @@ from repro_torch.models.common import (COMPUTE_DTYPE, apply_rope,
                                        dense_init, param, rms_norm,
                                        rope_tables, zeros_init)
 from repro_torch.sharding import collectives as coll
-from repro_torch.sharding.layout import block_start, gathered, model_group
+from repro_torch.sharding.layout import (block_start, gathered, model_group,
+                                        seq_group)
 
 NEG_INF = -1e30
 
@@ -107,9 +118,8 @@ class GQA(nn.Module):
 def _qkv(p: GQA, x, cfg, positions):
     """q, k, v of the heads this rank computes: all of them, or on blocks
     whose query heads are split over `model` its query heads (x enters
-    through `pvary`) and the key/value heads they read: its own when
-    `kv_heads` are split too, else those of the replicated ones that its
-    query heads' groups use (taken through `pvary`), one a query head."""
+    through `pvary`) and its own key/value heads when `kv_heads` are
+    split too, else every key/value head (see `_kv_for_heads`)."""
     hd = cfg.resolved_head_dim
     group = model_group(p.wq, 1)
     kv_split = model_group(p.wk, 1) is not None
@@ -128,9 +138,7 @@ def _qkv(p: GQA, x, cfg, positions):
         q = rms_norm(q, qn, cfg.norm_eps)
         k = rms_norm(k, kn, cfg.norm_eps)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
-    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    k, v = _kv_for_heads(p, k, v, cfg, q.shape[2])
-    return q, k, v
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def _kv_for_heads(p: GQA, k, v, cfg, n_heads: int):
@@ -199,17 +207,19 @@ def gqa_forward(p: GQA, x, cfg, positions, *, q_chunk: int = 512):
     (out, k, v): prefill caches the keys and values (JAX recomputes them).
     On blocks whose query heads are split over `model`, each rank attends
     with its heads and wo runs row-parallel: the partial outputs are
-    summed over `model`."""
+    summed over `model`; k and v are then the rank's key/value heads, or
+    every one where `kv_heads` are not split."""
     B, T, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions[None, :])
+    kh, vh = _kv_for_heads(p, k, v, cfg, q.shape[2])
     n_chunks = _n_chunks(T, q_chunk)
     outs = []
     for qi, qpi in zip(q.chunk(n_chunks, dim=1),
                        positions.chunk(n_chunks)):
-        s = _grouped_scores(qi, k)                       # [B,KV,G,qc,S]
+        s = _grouped_scores(qi, kh)                      # [B,KV,G,qc,S]
         mask = _causal_mask(qpi, positions, cfg.sliding_window)
         s = torch.where(mask, s, NEG_INF)
-        outs.append(_grouped_out(torch.softmax(s, dim=-1), v))
+        outs.append(_grouped_out(torch.softmax(s, dim=-1), vh))
     out = torch.cat(outs, dim=1) if n_chunks > 1 else outs[0]
     return attn_out(p, out, cfg), k, v
 
@@ -277,20 +287,70 @@ def _ring_slot(idx, S: int, window: Optional[int]):
     return idx % S if window else torch.clamp(idx, max=S - 1)
 
 
+def _seq_block(cache_leaf, group):
+    """(S, s0): the whole cache's length and the first position of this
+    rank's block of it (dim 1 of a layer's leaf [B, S_loc, ...])."""
+    n = cache_leaf.shape[1]
+    if group is None:
+        return n, 0
+    return n * group.shards, n * group.rank
+
+
+def _write_owned(leaf, at, new):
+    """leaf[b, at[b]] = new[b] for each row b whose slot lies in this
+    rank's block of the sequence (at = slot - s0 in [0, S_loc): every row
+    on one rank); the other rows write back what they read. No host
+    sync."""
+    n = leaf.shape[1]
+    own = (at >= 0) & (at < n)
+    at = at.clamp(0, n - 1)
+    bidx = torch.arange(leaf.shape[0], device=leaf.device)
+    own = own.view((-1,) + (1,) * (new.ndim - 1))
+    leaf[bidx, at] = torch.where(own, new.to(leaf.dtype), leaf[bidx, at])
+
+
+def _combine(s, attend, group):
+    """softmax(s) over the last dim, applied by `attend` to the values,
+    where s [..., S_loc] float32 holds this rank's block of the positions
+    split over `group`: each rank's local max m, sum l and unnormalised
+    output o = attend(exp(s - m)) (float32, [..., D] with s's leading
+    dims) combined by log-sum-exp: M = pmax(m), L = psum(l e^(m - M)),
+    O = psum(o e^(m - M)), out = O / L. A rank with no valid position
+    (every score NEG_INF) has m = NEG_INF and contributes
+    e^(NEG_INF - M) = 0."""
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    o = attend(e)
+    top = m.clone()
+    coll.pmax_(top, group)
+    scale = torch.exp(m - top)
+    buf = torch.cat([(l * scale).flatten(), (o * scale).flatten()])
+    coll.all_reduce_(buf, group)
+    L = buf[:l.numel()].view(l.shape)
+    return buf[l.numel():].view(o.shape) / L
+
+
 def gqa_decode(p: GQA, x, cfg, cache):
     """One-token decode. x [B,1,d]. Writes the new key and value into
     `cache` (k, v [B,S,KV,hd], idx [B]) in place and advances idx.
-    Sliding-window caches are ring buffers."""
+    Sliding-window caches are ring buffers. On blocks, the cache is the
+    rank's rows and sequence block with every KV head (module doc)."""
     B = x.shape[0]
     idx = cache["idx"]                                   # [B]
     q, k, v = _qkv(p, x, cfg, idx[:, None])
-    S = cache["k"].shape[1]
+    group = seq_group(p.wq)
+    qg, kg = model_group(p.wq, 1), model_group(p.wk, 1)
+    if qg is not None:
+        q = coll.all_gather(q, qg, 2)                    # [B,1,Hp,hd]
+    if kg is not None:
+        k, v = coll.all_gather(k, kg, 2), coll.all_gather(v, kg, 2)
+    S, s0 = _seq_block(cache["k"], group)
     slot = _ring_slot(idx, S, cfg.sliding_window).long()
-    bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0]
-    cache["v"][bidx, slot] = v[:, 0]
-    s = _grouped_scores(q, cache["k"])                   # [B,KV,G,1,S]
-    kpos = torch.arange(S, device=x.device)
+    _write_owned(cache["k"], slot - s0, k[:, 0])
+    _write_owned(cache["v"], slot - s0, v[:, 0])
+    s = _grouped_scores(q, cache["k"])                   # [B,KV,G,1,S_loc]
+    kpos = s0 + torch.arange(cache["k"].shape[1], device=x.device)
     if cfg.sliding_window:
         # ring buffer: valid slots are the last min(idx+1, S) writes
         age = (slot[:, None] - kpos[None, :]) % S
@@ -298,12 +358,18 @@ def gqa_decode(p: GQA, x, cfg, cache):
     else:
         valid = kpos[None, :] <= idx[:, None]
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-    out = _grouped_out(torch.softmax(s, dim=-1), cache["v"])
-    mask_h = _head_mask(cfg, x.device)
-    if mask_h is not None:
-        out = out * mask_h[:, None]
+    if group is None:
+        out = _grouped_out(torch.softmax(s, dim=-1), cache["v"])
+    else:
+        vf = cache["v"].float()
+        o = _combine(s, lambda e: torch.einsum("bkgts,bskd->bkgtd", e, vf),
+                     group)                              # [B,KV,G,1,hd]
+        out = o.permute(0, 3, 1, 2, 4).reshape(
+            B, 1, -1, vf.shape[-1]).to(COMPUTE_DTYPE)
+        if qg is not None:                  # this rank's heads' part
+            out = out.narrow(2, block_start(p.wo, 0), p.wo.shape[0])
     idx += 1
-    return _out_proj(out, p.wo.to(COMPUTE_DTYPE))
+    return attn_out(p, out, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -414,30 +480,46 @@ def init_mla_cache(cfg, batch: int, max_seq: int, device
 
 def mla_decode(p: MLA, x, cfg, cache):
     """Absorbed-form decode: attention runs against the compressed latent.
-    Writes the new latent into `cache` in place and advances idx."""
-    B = x.shape[0]
+    Writes the new latent into `cache` in place and advances idx. On
+    blocks (module doc) the latent, whole on every rank, is written by
+    the owner of its slot; the absorbed queries of every head are
+    gathered over `model`, and the latent output `out_lat` is combined
+    over it before the rank's heads of wkv_b_v and wo."""
     idx = cache["idx"]                                   # [B]
     positions = idx[:, None]
     q_nope, q_rope = _mla_q(p, x, cfg, positions)        # [B,1,H,*]
     c_new, kr_new = _mla_kv_latent(p, x, cfg, positions)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    S = c_kv.shape[1]
-    bidx = torch.arange(B, device=x.device)
+    group, hg = seq_group(p.wq_b), model_group(p.wkv_b_k, 1)
+    S, s0 = _seq_block(c_kv, group)
     slot = torch.clamp(idx, max=S - 1).long()
-    c_kv[bidx, slot] = c_new[:, 0]
-    k_rope[bidx, slot] = kr_new[:, 0]
+    _write_owned(c_kv, slot - s0, c_new[:, 0])
+    _write_owned(k_rope, slot - s0, kr_new[:, 0])
     # absorb W^UK into q: q_c [B,1,H,kv_lora]
     q_c = torch.einsum("bthk,rhk->bthr", q_nope,
-                       p.wkv_b_k.to(COMPUTE_DTYPE))
+                       gathered(p.wkv_b_k).to(COMPUTE_DTYPE))
+    if hg is not None:
+        q_c, q_rope = coll.all_gather(q_c, hg, 2), coll.all_gather(
+            q_rope, hg, 2)
     s = (torch.einsum("bthr,bsr->bhts", q_c.float(), c_kv.float())
          + torch.einsum("bthk,bsk->bhts", q_rope.float(), k_rope.float())
          ) * _mla_scale(cfg)
-    valid = torch.arange(S, device=x.device)[None, :] <= idx[:, None]
+    kpos = s0 + torch.arange(c_kv.shape[1], device=x.device)
+    valid = kpos[None, :] <= idx[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    probs = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE)
-    # attend in latent space, then decompress
-    out_lat = torch.einsum("bhts,bsr->bthr", probs, c_kv)  # [B,1,H,kv_lora]
+    if group is None:
+        probs = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE)
+        # attend in latent space, then decompress
+        out_lat = torch.einsum("bhts,bsr->bthr", probs, c_kv)
+    else:
+        cf = c_kv.float()
+        o = _combine(s, lambda e: torch.einsum("bhts,bsr->bhtr", e, cf),
+                     group)                              # [B,H,1,kv_lora]
+        out_lat = o.transpose(1, 2).to(COMPUTE_DTYPE)    # [B,1,H,kv_lora]
+        if hg is not None:                  # this rank's heads' part
+            out_lat = out_lat.narrow(2, block_start(p.wkv_b_v, 1),
+                                     p.wkv_b_v.shape[1])
     out = torch.einsum("bthr,rhk->bthk", out_lat,
-                       p.wkv_b_v.to(COMPUTE_DTYPE))
+                       gathered(p.wkv_b_v).to(COMPUTE_DTYPE))
     idx += 1
-    return _out_proj(out, p.wo.to(COMPUTE_DTYPE))
+    return attn_out(p, out, cfg)

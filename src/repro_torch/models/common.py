@@ -366,6 +366,16 @@ class LM(nn.Module):
     def param_axes(self) -> dict:
         return module_axes(self)
 
+    def serve_whole(self) -> None:
+        """Raises on a model that keeps blocks: the families whose serving
+        caches split over other axes than the sequence (Mamba-2's and
+        RG-LRU's states, Whisper's cross keys; ROADMAP 4h) serve with
+        whole weights only."""
+        if self.layout is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: serving on a process mesh (blocks) is "
+                "the decoder-only transformers' (ROADMAP 4h)")
+
     def cache_axes(self, batch: int, max_seq: int) -> dict:
         raise NotImplementedError
 

@@ -100,6 +100,7 @@ def enc_layer_forward(p: EncLayer, x, cfg, positions):
     """Bidirectional self-attention (no causal mask), then the MLP."""
     h = rms_norm(x, gathered(p.ln1), cfg.norm_eps)
     q, k, v = attn_lib._qkv(p.attn, h, cfg, positions[None, :])
+    k, v = attn_lib._kv_for_heads(p.attn, k, v, cfg, q.shape[2])
     x = x + _attention(p.attn, q, k, v, cfg)
     return x + mlp_forward(p.mlp, rms_norm(x, gathered(p.ln2), cfg.norm_eps),
                            cfg.mlp)
@@ -175,6 +176,7 @@ class EncDec(LM):
 
     @torch.inference_mode()
     def init_cache(self, batch: int, max_seq: int) -> Cache:
+        self.serve_whole()
         cfg, dev = self.cfg, self.device
         L = cfg.num_layers
         self_c = attn_lib.init_gqa_cache(cfg, batch, max_seq, dev)
@@ -191,6 +193,7 @@ class EncDec(LM):
                 pad_cache_to: Optional[int] = None):
         """Encode `frames` (zeros when None), run the decoder over tokens
         [B, T]: the last position's logits [B,1,V] and the cache."""
+        self.serve_whole()
         cfg = self.cfg
         B_, T = tokens.shape
         if frames is None:
@@ -220,6 +223,7 @@ class EncDec(LM):
     @torch.inference_mode()
     def decode_step(self, cache: Cache, token) -> Tuple[torch.Tensor, Cache]:
         """token [B,1] -> (logits [B,1,V], cache updated in place)."""
+        self.serve_whole()
         x = embed(self.embed, token)
         for i, layer in enumerate(self.dec_layers):
             x = dec_layer_decode(

@@ -312,6 +312,7 @@ class Mamba2(LM):
     @torch.inference_mode()
     def init_cache(self, batch: int, max_seq: int) -> Cache:
         """A state cache: no sequence axis, so `max_seq` sets nothing."""
+        self.serve_whole()
         _, H, N, conv_dim = _dims(self.cfg)
         L, k, dev = self.cfg.num_layers, self.cfg.conv_kernel, self.device
         return dict(
@@ -327,6 +328,7 @@ class Mamba2(LM):
         """Full forward over tokens [B, T]: the last position's logits
         [B,1,V] and the cache. The state cache has no sequence axis, so
         `q_chunk` and `pad_cache_to` change nothing."""
+        self.serve_whole()
         del q_chunk, pad_cache_to
         B_, T = tokens.shape
         x = embed(self.embed, tokens)
@@ -343,6 +345,7 @@ class Mamba2(LM):
     @torch.inference_mode()
     def decode_step(self, cache: Cache, token) -> Tuple[torch.Tensor, Cache]:
         """token [B,1] -> (logits [B,1,V], cache updated in place)."""
+        self.serve_whole()
         x = embed(self.embed, token)
         for i, block in enumerate(self.layers):
             x = block_decode(block, x, self.cfg,

@@ -292,6 +292,7 @@ class RecurrentGemma(LM):
 
     @torch.inference_mode()
     def init_cache(self, batch: int, max_seq: int) -> Cache:
+        self.serve_whole()
         cfg, dev = self.cfg, self.device
         w, k = _lru_width(cfg), cfg.conv_kernel
         rec = dict(conv=torch.zeros((batch, k - 1, w), dtype=COMPUTE_DTYPE,
@@ -317,6 +318,7 @@ class RecurrentGemma(LM):
         [B,1,V] and the cache. The attention blocks keep their last
         `local_window` keys; `pad_cache_to` grows or rolls them into the
         ring of decode."""
+        self.serve_whole()
         cfg, acfg = self.cfg, _attn_cfg(self.cfg)
         B_, T = tokens.shape
         x = embed(self.embed, tokens)
@@ -348,6 +350,7 @@ class RecurrentGemma(LM):
     @torch.inference_mode()
     def decode_step(self, cache: Cache, token) -> Tuple[torch.Tensor, Cache]:
         """token [B,1] -> (logits [B,1,V], cache updated in place)."""
+        self.serve_whole()
         cfg, acfg = self.cfg, _attn_cfg(self.cfg)
         x = embed(self.embed, token)
         rec, attn = cache["groups"]["rec"], cache["groups"]["attn"]

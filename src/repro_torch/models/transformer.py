@@ -21,6 +21,16 @@ Serving API (the methods `ContinuousBatcher` calls):
 A cache is {"dense": {...}, "moe": {...}}, one entry per layer stack, of
 stacked tensors [L, B, S, ...] and a position idx [L, B] int32: the JAX
 package's layout, so the two compare leaf by leaf.
+
+On a model that keeps blocks (built with `mesh=` a process mesh) the
+serving API runs on each rank's part, in the JAX dry run's serving
+layout: `init_cache(batch, max_seq)` gives the rank's blocks of the
+cache (`sharding.layout.cache_spec`: e.g. [L, B/dp, S/mp, KV, hd], idx
+[L, B/dp]); `prefill` and `decode_step` take the rank's rows of the
+tokens (`layout.serve_rows`) and return those rows' logits over the whole
+vocabulary (gathered over `model` from the vocab-parallel head). Prefill
+runs training's forward and re-lays each layer's keys and values into
+the decode layout (`_seq_blocks`).
 """
 from __future__ import annotations
 
@@ -35,7 +45,9 @@ from repro_torch.models.common import (LM, ckpt, cross_entropy, embed, param,
                                        vocab_split, zeros_init)
 from repro_torch.models.mlp import MLP, mlp_forward
 from repro_torch.models.moe import MoE, moe_forward
-from repro_torch.sharding.layout import gathered
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.layout import (block_shapes, cache_spec, gathered,
+                                         model_group, seq_group)
 from repro_torch.sharding.rules import maybe_constrain
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
@@ -85,7 +97,7 @@ class Block(nn.Module):
         return maybe_constrain(x, ("batch", "seq", "embed")), aux, kv
 
     def decode(self, x, cfg, cache: Dict[str, torch.Tensor]):
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        h = rms_norm(x, gathered(self.ln1), cfg.norm_eps)
         if cfg.attention == "mla":
             h = attn_lib.mla_decode(self.attn, h, cfg, cache)
         else:
@@ -162,17 +174,48 @@ class Transformer(LM):
               else attn_lib.GQA_CACHE_AXES)
         return {key: prepend_layers_axis(ax) for key, _ in self.stacks()}
 
+    def cache_shapes(self, batch: int, max_seq: int) -> dict:
+        """The whole cache's shapes (the single-device `init_cache`'s)."""
+        init = (attn_lib.init_mla_cache if self.cfg.attention == "mla"
+                else attn_lib.init_gqa_cache)
+        c1 = init(self.cfg, batch, max_seq, "meta")
+        return {key: {n: (len(layers),) + tuple(t.shape)
+                      for n, t in c1.items()}
+                for key, layers in self.stacks()}
+
     @torch.inference_mode()
     def init_cache(self, batch: int, max_seq: int) -> Cache:
-        if self.cfg.attention == "mla":
-            c1 = attn_lib.init_mla_cache(self.cfg, batch, max_seq,
-                                         self.device)
-        else:
-            c1 = attn_lib.init_gqa_cache(self.cfg, batch, max_seq,
-                                         self.device)
-        return {key: {name: t.expand((len(layers),) + t.shape).clone()
-                      for name, t in c1.items()}
-                for key, layers in self.stacks()}
+        """The cache of `batch` sequences of up to `max_seq` positions;
+        on blocks, this rank's blocks of it."""
+        shapes = self.cache_shapes(batch, max_seq)
+        if self.layout is not None:
+            shapes = block_shapes(shapes, self.cache_axes(batch, max_seq),
+                                  self.layout)
+        return {key: {n: torch.zeros(shape, dtype=torch.int32 if n == "idx"
+                                     else attn_lib.COMPUTE_DTYPE,
+                                     device=self.device)
+                      for n, shape in c.items()}
+                for key, c in shapes.items()}
+
+    def _seq_blocks(self, block: Block, kv: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """One layer's cache entries [B, S, ...] from the forward's head
+        split to the decode layout (`cache_spec`): the rank's block of the
+        sequence, with every KV head: one all_to_all over `model` where
+        the keys and values are split over it by head, else the rank's
+        slice of the whole heads. As they are on whole weights or a
+        `model` of one."""
+        group = seq_group(block.ln1)
+        if group is None:
+            return kv
+        rows, S = next(iter(kv.values())).shape[:2]
+        cache_spec(self.layout, ("batch", "cache_seq"), (rows, S))
+        n_loc = S // group.shards
+        split = (self.cfg.attention != "mla"
+                 and model_group(block.attn.wk, 1) is not None)
+        return {n: (coll.all_to_all(t, group, 1, 2) if split else
+                    t.narrow(1, n_loc * group.rank, n_loc).clone())
+                for n, t in kv.items()}
 
     @torch.inference_mode()
     def prefill(self, tokens, *, q_chunk: int = 512,
@@ -180,7 +223,10 @@ class Transformer(LM):
         """Full-sequence forward over `tokens` [B, T] (after any prefix a
         subclass adds); returns the last position's logits [B,1,V] and the
         filled cache. Sliding-window caches keep the last `window`
-        positions; `pad_cache_to` grows the cache to decode capacity."""
+        positions; `pad_cache_to` grows the cache to decode capacity. The
+        trim, the padding and the ring's roll act on global positions,
+        before a model on blocks cuts each layer's entries to its
+        sequence block."""
         cfg = self.cfg
         x = self.embed_inputs(tokens, **extra)
         B, T = x.shape[:2]
@@ -189,20 +235,32 @@ class Transformer(LM):
         trim = cfg.attention != "mla" and window and window < T
         cache: Cache = {}
         for key, layers in self.stacks():
-            entries = []
-            for block in layers:
+            c = {}
+            for i, block in enumerate(layers):
                 x, _, kv = block(x, cfg, positions, q_chunk=q_chunk)
                 if trim:
                     kv = {n: t[:, -window:] for n, t in kv.items()}
-                entries.append(kv)
-            c = {n: torch.stack([e[n] for e in entries])
-                 for n in entries[0]}
+                if pad_cache_to:
+                    kv = {n: t[0] for n, t in attn_lib.pad_stacked_cache(
+                        {n: t[None] for n, t in kv.items()}, pad_cache_to,
+                        cfg, T).items()}
+                # each layer's entries go straight into the stack: a list
+                # stacked at the end would hold the cache twice
+                for n, t in self._seq_blocks(block, kv).items():
+                    if n not in c:
+                        c[n] = t.new_empty((len(layers),) + t.shape)
+                    c[n][i] = t
             c["idx"] = torch.full((len(layers), B), T, dtype=torch.int32,
                                   device=x.device)
-            if pad_cache_to:
-                c = attn_lib.pad_stacked_cache(c, pad_cache_to, cfg, T)
             cache[key] = c
-        return self.logits(x[:, -1:]), cache
+        return self._whole_vocab(self.logits(x[:, -1:])), cache
+
+    def _whole_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Logits over the whole vocabulary: a vocab-parallel head's
+        columns gathered over `model`."""
+        group = model_group(self.head().table, 0)
+        return logits if group is None else coll.all_gather(logits, group,
+                                                            logits.ndim - 1)
 
     @torch.inference_mode()
     def decode_step(self, cache: Cache, token) -> Tuple[torch.Tensor, Cache]:
@@ -214,4 +272,4 @@ class Transformer(LM):
             for i, block in enumerate(layers):
                 x = block.decode(x, self.cfg,
                                  {n: t[i] for n, t in c.items()})
-        return self.logits(x), cache
+        return self._whole_vocab(self.logits(x)), cache

@@ -15,6 +15,9 @@ backward is the transpose `jax.grad` takes through `shard_map`:
                    the row-parallel product: x @ w of this rank's rows of
                    w, summed over the group in float32 and rounded once;
                    backward: the local product's
+    all_to_all(x)  block j of one dim to rank j, the blocks received
+                   concatenated along another (serving's cache re-layout;
+                   no gradient)
 
 `psum` and `pmean` give a value that is the same on every rank of the
 group, and each rank's code then consumes it alike: the gradient is
@@ -33,7 +36,8 @@ backward reduce-scatters the gradient back into the block.
 
 Every collective here is noted, by kind and bytes (an all-reduce's
 buffer, an all-gather's gathered output, a reduce-scatter's scattered
-input), by each `CollectiveLog` open at the time. A `FakeGroup` stands
+input, an all-to-all's sent buffer), by each `CollectiveLog` open at the
+time. A `FakeGroup` stands
 for a group of a mesh that has no processes (the dry run's production
 meshes, on fake tensors): its collectives are noted and give tensors of
 the right shape without communicating.
@@ -51,8 +55,8 @@ _logs: List["CollectiveLog"] = []
 
 class CollectiveLog:
     """While open (`with`), the bytes of every collective of this module,
-    by kind ("all_reduce", "all_gather", "reduce_scatter"), on any
-    thread: `bytes[kind]`, `calls[kind]` and `total`."""
+    by kind ("all_reduce", "all_gather", "reduce_scatter", "all_to_all"),
+    on any thread: `bytes[kind]`, `calls[kind]` and `total`."""
 
     def __init__(self):
         self.bytes: Dict[str, int] = {}
@@ -139,6 +143,21 @@ def all_gather_(out: torch.Tensor, inp: torch.Tensor, group) -> None:
                         group=group.group)
     else:
         dist.all_gather_into_tensor(out, inp, group=group.group)
+
+
+def all_to_all_(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """`out` [shards * m] := block `rank` of every rank's `inp` [shards *
+    m], in rank order (`all_to_all_single`; gloo exchanges CPU tensors
+    only, so card tensors on a gloo group go through the host)."""
+    _note("all_to_all", inp)
+    if isinstance(group, FakeGroup):
+        out.copy_(inp)
+    elif _gloo_on_card(inp, group):
+        host = torch.empty(out.shape, dtype=out.dtype)
+        dist.all_to_all_single(host, inp.cpu(), group=group.group)
+        out.copy_(host)
+    else:
+        dist.all_to_all_single(out, inp, group=group.group)
 
 
 class _PSum(torch.autograd.Function):
@@ -248,6 +267,20 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every rank's x concatenated along `dim`, in rank order
     (`jax.lax.all_gather(..., tiled=True)`)."""
     return _AllGather.apply(x, group, dim)
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, cat_dim: int
+               ) -> torch.Tensor:
+    """x cut into `shards` equal blocks along `split_dim`, block j sent to
+    rank j; the blocks received, rank by rank, concatenated along
+    `cat_dim` (`jax.lax.all_to_all(..., tiled=True)`). No gradient."""
+    n = group.shards
+    xs = x.movedim(split_dim, 0)
+    send = xs.reshape((n, -1)).contiguous()
+    recv = torch.empty_like(send)
+    all_to_all_(recv.view(-1), send.view(-1), group)
+    blocks = recv.view((n, xs.shape[0] // n) + xs.shape[1:]).unbind(0)
+    return torch.cat([b.movedim(0, split_dim) for b in blocks], dim=cat_dim)
 
 
 def gather_weight(w: torch.Tensor, group, dim: int) -> torch.Tensor:

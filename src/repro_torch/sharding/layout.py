@@ -19,6 +19,22 @@ model built without `mesh=`), and the layers then compute as before.
 The optimizer and the converters read `placement` and `global_shape` to
 move blocks to and from the single-device layout (`train.optimizer`,
 `convert`).
+
+A serving cache on such a model is laid out as the JAX package's dry run
+lays out its decode program's `cache_sh`: `ShardingRules.spec` of the
+cache's axes, the rows over the data axes and `cache_seq` over `model`
+(the flash-decoding split; every KV head whole on every rank):
+
+    cache_spec(mesh, axes, shape)   a cache leaf's spec (refuses a layout
+                                    whose sequence stays whole on a
+                                    `model` of several ranks)
+    seq_group(w)                    the `model` group the sequence splits
+                                    over (rank j holds positions j * S_loc
+                                    onwards), None when whole
+    serve_rows(batch, mesh)         the rows of a global batch a rank
+                                    serves
+    cut_blocks / whole_blocks       a whole tree to a rank's blocks and
+                                    back (every rank calls the latter)
 """
 from __future__ import annotations
 
@@ -172,3 +188,84 @@ def whole(t: torch.Tensor) -> torch.Tensor:
                     DATA_AXES) else MODEL_AXES)
                 out = coll.gather_weight(out, group, dim)
     return out
+
+
+# ---------------------------------------------------------------------------
+# serving caches
+# ---------------------------------------------------------------------------
+
+def cache_spec(mesh, axes, shape) -> PartitionSpec:
+    """The spec of a cache leaf of `shape` with logical `axes` on `mesh`.
+    Raises where `cache_seq` stays whole (its length does not divide over
+    `model`) while `model` has several ranks: the rules would then split
+    the KV heads instead, a layout the port's decode does not take."""
+    spec = mesh_rules(mesh).spec(axes, shape)
+    if "cache_seq" in axes and mesh.shape.get("model", 1) > 1:
+        d = axes.index("cache_seq")
+        if spec[d] != MODEL_AXES[0]:
+            raise ValueError(f"a cache of {shape[d]} positions does not "
+                             f"split over model={mesh.shape['model']}: the "
+                             "decode layout splits the sequence")
+    return spec
+
+
+def seq_group(t: torch.Tensor):
+    """The `model` group over which a serving cache's sequence splits on
+    the model whose parameter t is (its rank j holds positions j * S_loc
+    to (j + 1) * S_loc); None on whole weights or a `model` of one."""
+    pl = placement(t)
+    if pl is None or pl.mesh.shape.get("model", 1) == 1:
+        return None
+    return pl.mesh.group(MODEL_AXES)
+
+
+def serve_rows(batch: int, mesh) -> slice:
+    """The rows of a global batch of `batch` sequences that this rank of
+    the process mesh serves: its block over the data axes, or all of
+    them where `batch` does not divide over those."""
+    rules = mesh_rules(mesh)
+    return rules.block((batch,), rules.spec(("batch",), (batch,)),
+                       mesh.coords)[0]
+
+
+def _tree_map(fn, tree, *others):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    return fn(tree, *others)
+
+
+def block_shapes(shapes, axes, mesh):
+    """A tree of whole shapes cut to this rank's block shapes."""
+    rules = mesh_rules(mesh)
+    return _tree_map(lambda s, a: rules.local_shape(
+        tuple(s), cache_spec(mesh, a, tuple(s))), shapes, axes)
+
+
+def cut_blocks(tree, axes, mesh):
+    """A tree of whole tensors (a cache of one device) cut to this rank's
+    blocks (copies), each leaf by `cache_spec` of its logical `axes`."""
+    rules = mesh_rules(mesh)
+
+    def cut(t, a):
+        shape = tuple(t.shape)
+        return t[rules.block(shape, cache_spec(mesh, a, shape),
+                             mesh.coords)].clone()
+    return _tree_map(cut, tree, axes)
+
+
+def whole_blocks(tree, axes, shapes, mesh):
+    """`cut_blocks` undone: every rank's blocks of a tree gathered into
+    the whole tensors of `shapes`, on every rank (each must call it)."""
+    def gather(t, a, shape):
+        spec = cache_spec(mesh, a, tuple(shape))
+        for dim, part in enumerate(spec):
+            if part is None:
+                continue
+            axes_d = part if isinstance(part, tuple) else (part,)
+            group = mesh.group(DATA_AXES if set(axes_d) <= set(DATA_AXES)
+                               else MODEL_AXES)
+            t = coll.gather_weight(t, group, dim)
+        return t
+    with torch.no_grad():
+        return _tree_map(gather, tree, axes, shapes)

@@ -285,11 +285,12 @@ def test_fake_run_counts_equal_real_step(arch, kind):
 def test_cell_record_carries_a_rank_trace_where_the_cell_runs_sharded():
     """A production-mesh record takes rank 0's temporaries and collective
     bytes from the rank trace for a train cell, of a GQA transformer and
-    of Mamba-2 alike (every family keeps blocks), and leaves them null
-    with `NO_RANK_TRACE` for a serving cell of either (no rank trace is
-    run); `trace_rank` refuses the serving cells; a rank's microbatches
-    are cut to whole rows a data rank (16 of 256 rows over 32 data ranks:
-    8)."""
+    of Mamba-2 alike (every family keeps blocks), and for a serving cell
+    of the GQA transformer (its prefill and decode run on blocks), and
+    leaves them null with `NO_RANK_TRACE` for Mamba-2's serving cell (no
+    rank trace is run); `trace_rank` refuses that cell; a rank's
+    microbatches are cut to whole rows a data rank (16 of 256 rows over
+    32 data ranks: 8)."""
     fake = dict(argument_bytes=10, peak_bytes=30, flops=1.0,
                 bytes_accessed=2.0, leaves=[], trace_s=0.0, microbatches=1,
                 int8_moments=False)
@@ -303,7 +304,7 @@ def test_cell_record_carries_a_rank_trace_where_the_cell_runs_sharded():
         return ranked
 
     for arch, shape, runs in (("qwen2-7b", "train_4k", True),
-                              ("qwen2-7b", "prefill_32k", False),
+                              ("qwen2-7b", "prefill_32k", True),
                               ("mamba2-1.3b", "train_4k", True),
                               ("mamba2-1.3b", "prefill_32k", False)):
         rec = dryrun.cell_record(arch, shape, "pod16x16", lambda: fake,
@@ -317,12 +318,49 @@ def test_cell_record_carries_a_rank_trace_where_the_cell_runs_sharded():
         else:
             assert pd["temp_bytes"] is None and pd["coll_bytes"] is None
             assert pd["reason"] == dryrun.NO_RANK_TRACE
-    assert len(calls) == 2
-    for arch, shape in (("qwen2-7b", "prefill_32k"),
-                        ("mamba2-1.3b", "prefill_32k")):
-        with pytest.raises(ValueError, match="no rank trace"):
-            dryrun.trace_rank(reduced_config(arch), SHAPES[shape],
-                              {"data": 2, "model": 2}, device="cpu")
+    assert len(calls) == 3
+    with pytest.raises(ValueError, match="no rank trace.*4h"):
+        dryrun.trace_rank(reduced_config("mamba2-1.3b"),
+                          SHAPES["prefill_32k"], {"data": 2, "model": 2},
+                          device="cpu")
     nemotron = get_config("nemotron-4-340b")
     assert dryrun.rank_microbatches(nemotron, SHAPES["train_4k"], 16) == 16
     assert dryrun.rank_microbatches(nemotron, SHAPES["train_4k"], 32) == 8
+
+
+def test_rank_only_cli_traces_the_serving_cells_of_a_reduced_config(
+        tmp_path, monkeypatch):
+    """`--rank-only` writes rank 0's trace alone (no single-device trace)
+    for reduced Qwen2-7B's prefill and decode cells and reduced
+    DeepSeek-V2's decode cell (the configs and the shapes cut small, the
+    meshes the production 16x16 and 2x16x16): temporaries and collective
+    bytes in each record, the decode's cache block over the data axes
+    and `model`, and Mamba-2's decode cell with `NO_RANK_TRACE`."""
+    small = {"prefill_32k": ShapeConfig("prefill_32k", 64, 64, "prefill"),
+             "decode_32k": ShapeConfig("decode_32k", 64, 64, "decode")}
+    monkeypatch.setattr(dryrun, "get_config", reduced_config)
+    monkeypatch.setattr(dryrun, "SHAPES", small)
+    cells = (("qwen2-7b", "prefill_32k"), ("qwen2-7b", "decode_32k"),
+             ("deepseek-v2-236b", "decode_32k"), ("mamba2-1.3b",
+                                                  "decode_32k"))
+    for arch, shape in cells:
+        dryrun.main(["--arch", arch, "--shape", shape, "--rank-only",
+                     "--device", "cpu", "--results-dir", str(tmp_path)])
+    for arch, shape in cells:
+        for mesh in ("pod16x16", "pod2x16x16"):
+            with open(tmp_path / f"{arch}__{shape}__{mesh}__rank.json") as f:
+                rec = json.load(f)
+            pd = rec["per_device"]
+            assert rec["status"] == "ok" and rec["method"] == "rank_only"
+            assert "memory" not in rec and pd["argument_bytes"] > 0
+            if arch == "mamba2-1.3b":
+                assert pd["reason"] == dryrun.NO_RANK_TRACE
+                assert pd["temp_bytes"] is None
+                continue
+            assert pd["reason"] is None and pd["temp_bytes"] > 0
+            kinds = pd["rank"]["coll_by_kind"]
+            # the FSDP gathers of the weights and the gathered logits
+            assert kinds["all_gather"] > 0, kinds
+            if shape == "decode_32k":
+                # the softmax's max and its (sum, output) over `model`
+                assert pd["rank"]["coll_calls"]["all_reduce"] >= 2
