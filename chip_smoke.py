@@ -165,17 +165,23 @@
    max_seq 448, 4 replayed, one step profiled; (d) the ten reduced
    configs on the card against the CPU, same weights; (h) serving on a
    process mesh (`lm_serve_process`, under build/lm_serve_process/,
-   removed at the end): Qwen2-7B at full width cut to 4 layers, prefill
-   of 4 x 256 tokens and 8 decode steps under an NCCL group of world size
-   1 in this process, the model keeping its blocks, logits and cache
-   bit-equal (digests of their bits) to the whole-weight model's; then
-   four child processes of this script on the one card
-   (`--lm-serve-child`), a gloo group with card tensors at (data 2,
-   model 2): reduced Qwen2-7B, H2O-Danube3 (its ring of 16 wrapping from
-   model rank 1's slots to rank 0's), DeepSeek-V2 and InternVL2 from the
-   seeded init, each rank keeping its blocks of the weights and of the
-   cache (its rows, its block of the sequence), prefill of 4 x 14
-   positions and 4 decode steps fed tokens from a seed: each rank's
+   removed at the end): Qwen2-7B at full width cut to 4 layers and
+   RecurrentGemma-9B at full width cut to one pattern group and one
+   trailing block (4 layers), prefill of 4 x 256 tokens and 8 decode
+   steps under an NCCL group of world size 1 in this process, the model
+   keeping its blocks, logits and cache bit-equal (digests of their
+   bits) to the whole-weight model's; then four child processes of this
+   script on the one card (`--lm-serve-child`), a gloo group with card
+   tensors at (data 2, model 2): reduced Qwen2-7B, H2O-Danube3 (its ring
+   of 16 wrapping from model rank 1's slots to rank 0's), DeepSeek-V2,
+   InternVL2, Mamba2-1.3B (its conv state over the packed channels, its
+   SSM state over heads), RecurrentGemma-9B (30 prompt positions: its
+   local attention's ring of 32 wraps from model rank 1's block of 16 to
+   rank 0's) and Whisper-tiny (encoder frames from a seed, its cross keys
+   over KV heads) from the seeded init, each rank keeping its blocks of
+   the weights and of the cache (its rows, its block of the sequence,
+   the channels or the heads), prefill of 4 x 14 positions (30 for
+   RecurrentGemma) and 4 decode steps fed tokens from a seed: each rank's
    logits within 0.03 of the single-process model's on the card, the
    cache gathered back (`layout.whole_blocks`) within 0.03 of its
    largest value, its idx and filled slots equal, and each rank's dry-run
@@ -3452,13 +3458,13 @@ def lm_param_bytes(model) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
-def lm_tree_leaves(tree):
-    """The tensors of a nested LM cache."""
-    for t in tree.values():
+def lm_cache_leaves(tree, prefix=""):
+    """(the '/'-joined path, tensor) of each leaf of a nested LM cache."""
+    for name, t in tree.items():
         if isinstance(t, dict):
-            yield from lm_tree_leaves(t)
+            yield from lm_cache_leaves(t, f"{prefix}{name}/")
         else:
-            yield t
+            yield prefix + name, t
 
 
 def lm_idx_leaves(tree, prefix=""):
@@ -3801,7 +3807,7 @@ def lm_serve_ssm(drive, smi):
     # a decode step reads every weight once and reads and writes the
     # slots' state (the SSM state and the conv history)
     state = sum(t.numel() * t.element_size()
-                for t in lm_tree_leaves(batcher.cache))
+                for _, t in lm_cache_leaves(batcher.cache))
     out["state_bytes"] = state
     out["decode_bound_ms"] = bound_ms = \
         (out["weight_bytes"] + 2 * state) / HBM_BYTES_PER_S * 1e3
@@ -3908,7 +3914,7 @@ def lm_serve_audio(drive, smi):
     # a decode step reads every weight and the slots' self and cross
     # keys and values once
     cache = sum(t.numel() * t.element_size()
-                for t in lm_tree_leaves(batcher.cache))
+                for _, t in lm_cache_leaves(batcher.cache))
     out["decode_bound_ms"] = bound_ms = \
         (out["weight_bytes"] + cache) / HBM_BYTES_PER_S * 1e3
     log(f"{cfg.name}: decode vs full forward at B={LM_FULL_B}, "
@@ -3978,27 +3984,33 @@ def lm_reduced_card_vs_cpu():
 
 LM_SERVE_PG_DIR = ROOT / "build" / "lm_serve_process"
 LM_SERVE_PG_ARCHS = ("qwen2-7b", "h2o-danube-3-4b", "deepseek-v2-236b",
-                     "internvl2-1b")
+                     "internvl2-1b", "mamba2-1.3b", "recurrentgemma-9b",
+                     "whisper-tiny")
 # 4 rows of 14 positions (InternVL2: its 8 image positions and 6 tokens)
 # padded to 32, then 4 steps: positions 14-17 cross from model rank 0's
 # block of 16 into rank 1's, and H2O-Danube3's ring of 16 (8 slots a
-# rank) wraps from slot 15 on rank 1 to slot 0 on rank 0
-LM_SERVE_PG_B, LM_SERVE_PG_T, LM_SERVE_PG_MAX = 4, 14, 32
+# rank) wraps from slot 15 on rank 1 to slot 0 on rank 0; RecurrentGemma's
+# 30 positions: its ring of 32 (16 slots a rank) wraps from slot 31 on
+# rank 1 to slot 0 on rank 0
+LM_SERVE_PG_B, LM_SERVE_PG_MAX = 4, 32
+LM_SERVE_PG_T = {"recurrentgemma-9b": 30}           # 14 otherwise
 LM_SERVE_PG_STEPS = 4
 # tests/test_torch_process_group_lm_serve.py's TOL_LOGITS: bf16 products
 # round in other places on blocks, and the softmax is combined over
 # `model` by log-sum-exp in float32 where one process rounds the
 # probabilities to bf16
 LM_SERVE_PG_TOL = 0.03
-# (h)'s world-1 run: Qwen2-7B at full width cut to 4 layers, 4 x 256
-# prompt tokens padded to 512, 8 decode steps
+# (h)'s world-1 runs: Qwen2-7B at full width cut to 4 layers and
+# RecurrentGemma-9B cut to one pattern group and one trailing block, 4 x
+# 256 prompt tokens padded to 512, 8 decode steps
+LM_SERVE_ONE_ARCHS = (LM_SERVE_ARCH, "recurrentgemma-9b")
 LM_SERVE_ONE_LAYERS, LM_SERVE_ONE_T, LM_SERVE_ONE_STEPS = 4, 256, 8
 
 
 def lm_serve_inputs(cfg, batch: int, prompt: int, steps: int, seed: int):
     """(tokens [batch, prompt], extra inputs, decode tokens [steps,
     batch]) of `cfg` from a numpy seed, on the CPU; `prompt` counts the
-    VLM's image positions."""
+    VLM's image positions; Whisper's encoder frames are drawn too."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -4007,6 +4019,9 @@ def lm_serve_inputs(cfg, batch: int, prompt: int, steps: int, seed: int):
         prompt -= cfg.num_image_tokens
         extra["img_embeds"] = torch.as_tensor(rng.standard_normal(
             (batch, cfg.num_image_tokens, cfg.d_model))).to(torch.bfloat16)
+    if cfg.encoder_layers:
+        extra["frames"] = torch.as_tensor(rng.standard_normal(
+            (batch, cfg.encoder_seq, cfg.d_model))).to(torch.bfloat16)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                           (batch, prompt)))
     feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, batch)))
@@ -4066,7 +4081,8 @@ def lm_serve_child(spec: dict) -> int:
             cfg = reduced_config(arch)
             model = get_model(cfg)(cfg, seed=0, mesh=mesh)
             tokens, extra, feed = lm_serve_inputs(
-                cfg, LM_SERVE_PG_B, LM_SERVE_PG_T, LM_SERVE_PG_STEPS, 5)
+                cfg, LM_SERVE_PG_B, LM_SERVE_PG_T.get(arch, 14),
+                LM_SERVE_PG_STEPS, 5)
             logits, cache, log = lm_serve_steps(
                 model, tokens[rows], {k: v[rows] for k, v in extra.items()},
                 feed[:, rows], LM_SERVE_PG_MAX, 8)
@@ -4075,9 +4091,8 @@ def lm_serve_child(spec: dict) -> int:
                 model.cache_shapes(LM_SERVE_PG_B, LM_SERVE_PG_MAX), mesh)
             arrays = {f"logits{i}": t.numpy() for i, t in enumerate(logits)}
             if rank == 0:
-                arrays.update({f"{k}/{n}": t.float().cpu().numpy()
-                               for k, c in whole.items()
-                               for n, t in c.items()})
+                arrays.update({k: t.float().cpu().numpy()
+                               for k, t in lm_cache_leaves(whole)})
             np.savez(Path(spec["dir"]) / f"{arch}_r{rank}.npz", **arrays)
             traced = trace_rank(cfg, ShapeConfig(
                 "decode", LM_SERVE_PG_MAX, LM_SERVE_PG_B, "decode"),
@@ -4087,9 +4102,8 @@ def lm_serve_child(spec: dict) -> int:
                 traced=traced["coll_by_kind"],
                 traced_calls=traced["coll_calls"],
                 traced_temp=traced["temp_bytes"],
-                cache_shapes={f"{k}/{n}": list(t.shape)
-                              for k, c in cache.items()
-                              for n, t in c.items()},
+                cache_shapes={k: list(t.shape)
+                              for k, t in lm_cache_leaves(cache)},
                 device=str(model.device),
                 seconds=time.perf_counter() - t0)
             del model, cache, whole
@@ -4100,7 +4114,8 @@ def lm_serve_child(spec: dict) -> int:
 
 
 def lm_serve_world_one(drive, smi) -> dict:
-    """(h) Qwen2-7B x4 at full width served under the local layout (whole
+    """(h) Each config of LM_SERVE_ONE_ARCHS at full width cut to
+    LM_SERVE_ONE_LAYERS layers, served under the local layout (whole
     weights) and then on blocks under an NCCL group of world size 1 (the
     1x1 process mesh): the logits and every cache leaf bit-equal."""
     import dataclasses
@@ -4111,51 +4126,55 @@ def lm_serve_world_one(drive, smi) -> dict:
     from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.models import get_model
 
-    cfg = dataclasses.replace(get_config(LM_SERVE_ARCH),
-                              num_layers=LM_SERVE_ONE_LAYERS)
-    tokens, extra, feed = lm_serve_inputs(
-        cfg, LM_SERVE_PG_B, LM_SERVE_ONE_T, LM_SERVE_ONE_STEPS, 7)
-    runs = {}
-    for label in ("whole", "nccl"):
-        mesh = None
-        if label == "nccl":
-            dist.init_process_group(
-                "nccl", store=dist.FileStore(
-                    str(LM_SERVE_PG_DIR / "store_nccl"), 1),
-                rank=0, world_size=1,
-                device_id=torch.device("cuda", torch.cuda.current_device()),
-                timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
-        try:
+    out = {}
+    for arch in LM_SERVE_ONE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=LM_SERVE_ONE_LAYERS)
+        tokens, extra, feed = lm_serve_inputs(
+            cfg, LM_SERVE_PG_B, LM_SERVE_ONE_T, LM_SERVE_ONE_STEPS, 7)
+        runs = {}
+        for label in ("whole", "nccl"):
+            mesh = None
             if label == "nccl":
-                mesh = make_process_mesh({"data": 1, "model": 1})
-            model = get_model(cfg)(cfg, seed=0, mesh=mesh)
-            (logits, cache, _), secs, peak = drive(
-                f"{cfg.name} x{cfg.num_layers} serve, {label}",
-                lambda: lm_serve_steps(model, tokens, extra, feed,
-                                       2 * LM_SERVE_ONE_T, 512), [])
-            check(not any(drive.last.values()),
-                  f"lm serve (h) {label} launched kernels: {drive.last}")
-            runs[label] = dict(
-                seconds=secs, peak_gib=peak,
-                digests=[bit_digest(t) for t in logits]
-                + [bit_digest(t) for t in lm_tree_leaves(cache)])
-            del model, cache
-        finally:
-            if label == "nccl":
-                dist.destroy_process_group()
-        lm_release()
-    check(not dist.is_initialized(), "the NCCL group was not destroyed")
-    a, b = runs["whole"], runs["nccl"]
-    check(a["digests"] == b["digests"],
-          f"{cfg.name} x{cfg.num_layers}: serving on the NCCL world-1 "
-          f"process mesh differs from whole weights in "
-          f"{sum(x != y for x, y in zip(a['digests'], b['digests']))} of "
-          f"{len(a['digests'])} tensors")
-    out = {k: dict(v, digests=len(v["digests"])) for k, v in runs.items()}
-    log(f"lm serve (h) world 1, {cfg.name} x{cfg.num_layers}, "
-        f"{LM_SERVE_PG_B} x {LM_SERVE_ONE_T} tokens and "
-        f"{LM_SERVE_ONE_STEPS} decode steps on {smi}: NCCL process mesh "
-        f"(blocks) bit-equal to whole weights: {out}")
+                dist.init_process_group(
+                    "nccl", store=dist.FileStore(
+                        str(LM_SERVE_PG_DIR / f"store_nccl_{arch}"), 1),
+                    rank=0, world_size=1,
+                    device_id=torch.device("cuda",
+                                           torch.cuda.current_device()),
+                    timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+            try:
+                if label == "nccl":
+                    mesh = make_process_mesh({"data": 1, "model": 1})
+                model = get_model(cfg)(cfg, seed=0, mesh=mesh)
+                (logits, cache, _), secs, peak = drive(
+                    f"{cfg.name} x{cfg.num_layers} serve, {label}",
+                    lambda: lm_serve_steps(model, tokens, extra, feed,
+                                           2 * LM_SERVE_ONE_T, 512), [])
+                check(not any(drive.last.values()),
+                      f"lm serve (h) {label} launched kernels: {drive.last}")
+                runs[label] = dict(
+                    seconds=secs, peak_gib=peak,
+                    digests=[bit_digest(t) for t in logits]
+                    + [bit_digest(t) for _, t in lm_cache_leaves(cache)])
+                del model, cache
+            finally:
+                if label == "nccl":
+                    dist.destroy_process_group()
+            lm_release()
+        check(not dist.is_initialized(), "the NCCL group was not destroyed")
+        a, b = runs["whole"], runs["nccl"]
+        check(a["digests"] == b["digests"],
+              f"{cfg.name} x{cfg.num_layers}: serving on the NCCL world-1 "
+              f"process mesh differs from whole weights in "
+              f"{sum(x != y for x, y in zip(a['digests'], b['digests']))} "
+              f"of {len(a['digests'])} tensors")
+        out[arch] = {k: dict(v, digests=len(v["digests"]))
+                     for k, v in runs.items()}
+        log(f"lm serve (h) world 1, {cfg.name} x{cfg.num_layers}, "
+            f"{LM_SERVE_PG_B} x {LM_SERVE_ONE_T} tokens and "
+            f"{LM_SERVE_ONE_STEPS} decode steps on {smi}: NCCL process "
+            f"mesh (blocks) bit-equal to whole weights: {out[arch]}")
     return out
 
 
@@ -4179,7 +4198,8 @@ def lm_serve_group(smi) -> dict:
         cfg = reduced_config(arch)
         model = get_model(cfg)(cfg, seed=0)
         tokens, extra, feed = lm_serve_inputs(
-            cfg, LM_SERVE_PG_B, LM_SERVE_PG_T, LM_SERVE_PG_STEPS, 5)
+            cfg, LM_SERVE_PG_B, LM_SERVE_PG_T.get(arch, 14),
+            LM_SERVE_PG_STEPS, 5)
         logits, cache, _ = lm_serve_steps(model, tokens, extra, feed,
                                           LM_SERVE_PG_MAX, 8)
         check(all(o[arch]["device"].startswith("cuda") for o in outs),
@@ -4200,22 +4220,21 @@ def lm_serve_group(smi) -> dict:
                   f"gloo step moved {row['coll']} {row['coll_calls']}")
         got = np.load(LM_SERVE_PG_DIR / f"{arch}_r0.npz")
         cache_err = 0.0
-        for k, c in cache.items():
-            for n, t in c.items():
-                want, mine = t.float().cpu().numpy(), got[f"{k}/{n}"]
-                check(want.shape == mine.shape,
-                      f"{arch}: gathered {k}/{n} {mine.shape}, one "
-                      f"process {want.shape}")
-                if n == "idx":
-                    check(np.array_equal(want, mine),
-                          f"{arch}: gathered {k}/{n} differs")
-                    continue
-                axes = tuple(range(3, want.ndim))
-                check(np.array_equal((want != 0).any(axis=axes),
-                                     (mine != 0).any(axis=axes)),
-                      f"{arch}: the gathered cache's filled slots differ")
-                cache_err = max(cache_err, float(
-                    np.abs(want - mine).max() / np.abs(want).max()))
+        for k, t in lm_cache_leaves(cache):
+            want, mine = t.float().cpu().numpy(), got[k]
+            check(want.shape == mine.shape,
+                  f"{arch}: gathered {k} {mine.shape}, one process "
+                  f"{want.shape}")
+            if k.endswith("idx"):
+                check(np.array_equal(want, mine),
+                      f"{arch}: gathered {k} differs")
+                continue
+            axes = tuple(range(3, want.ndim))
+            check(np.array_equal((want != 0).any(axis=axes),
+                                 (mine != 0).any(axis=axes)),
+                  f"{arch}: the gathered cache's filled slots differ")
+            cache_err = max(cache_err, float(
+                np.abs(want - mine).max() / np.abs(want).max()))
         check(max(errs) <= LM_SERVE_PG_TOL
               and cache_err <= LM_SERVE_PG_TOL,
               f"{arch} at 2x2 vs one process on the card: logits "

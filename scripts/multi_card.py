@@ -91,11 +91,28 @@ one process a card:
    of the card's weight and cache bytes over 3.35 TB/s, tokens/s, each
    card's peak, and one step's collectives by kind (bytes and calls);
    then one more step under `torch.profiler`: rank 0's device time by
-   op, NCCL's share, and the step's wall time.
+   op, NCCL's share, and the step's wall time; (k) serving
+   RecurrentGemma-9B at its full 38 layers and Mamba2-1.3B at its full
+   48 on (data 1, model = cards), each card keeping its blocks of the
+   weights and of the state caches (RG-LRU's channels and its local
+   attention's ring of 2,048 positions split over `model`, Mamba-2's
+   packed conv channels and its SSM heads): 128 rows (decode_32k's
+   global batch) of 2,048 prompt tokens from a seed, prefilled 32 rows
+   at a time, then 32 greedy decode steps, each timed: prefill seconds,
+   decode ms a step against the bound of the card's weight and cache
+   bytes over 3.35 TB/s, tokens/s, each card's peak, one step's
+   collectives by kind; then rank 0 serves the same prompts on its one
+   card with whole weights, fed the cards' greedy tokens, each step's
+   logits against the cards' (reported: at full depth bf16 rounding
+   alone parts one card's logits from its own float32 ones by more than
+   0.03); then the layout's algebra in float32 compute (8 rows of 1,024
+   tokens, 4 steps fed tokens from a seed): the cards' logits within
+   1e-3 of one card's whole float32 weights, beside one card's bf16
+   logits' distance from its float32 ones.
 
     python3 scripts/multi_card.py --lm     # the LM worker alone
     torchrun --nproc-per-node=4 scripts/multi_card.py --lm-worker d
-                                           # some of its parts (a-i)
+                                           # some of its parts (a-k)
 
 Prints the card's name and power limit and one JSON line per part; exits
 non-zero if a part fails or disagrees.
@@ -123,8 +140,9 @@ ENGINES = ("counts", "walks", "improved", "ppr")
 PPR_QUERIES, PPR_WALKS = 16, 1 << 21
 TIMEOUT_S = 420         # a torchrun command; its group's collectives: 360
 # the LM worker's torchrun command; its group's collectives wait for rank
-# 0 to write a snapshot of ~124 GB
-LM_TIMEOUT_S = 1560
+# 0 to write a snapshot of ~124 GB, and for rank 0's one-card serving
+# runs of (j) and (k)
+LM_TIMEOUT_S = 2400
 LM_SNAPSHOT_MAX_S = 120  # the most seconds (d)'s write may take
 # the most bytes (d) writes: a host may bound what one command writes to
 # its disk, freed blocks included (90 GiB on a four-card H100 host)
@@ -652,7 +670,219 @@ def serve_part(cards: int, rank: int, gather) -> tuple:
     return ok, out
 
 
-def lm_worker(parts: str = "abcdefghij") -> int:
+# (k): RecurrentGemma-9B and Mamba2-1.3B served at (data 1, model = cards)
+STATE_SERVE_ARCHS = ("recurrentgemma-9b", "mamba2-1.3b")
+# decode_32k's global batch of rows, prefilled `group` rows at a time
+STATE_SERVE = dict(rows=128, prompt=2048, steps=32, group=32)
+# the layout's algebra in float32 compute (whole float32 weights of
+# RecurrentGemma-9B take 42 GB of one card): the first rows and positions
+# of STATE_SERVE's prompts, fed tokens from a seed; the cards' logits
+# within STATE_F32_TOL of one card's. At full depth, bf16 rounding alone
+# puts one card's bf16 logits far from its own float32 ones, so the bf16
+# runs are compared and reported, not held to SERVE_TOL
+STATE_CHECK = dict(rows=8, prompt=1024, steps=4, group=8)
+STATE_F32_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def float32_compute():
+    """The LM modules' compute dtype float32 (`COMPUTE_DTYPE` of each, and
+    `collectives.row_parallel`'s products of float32 operands), restored
+    after; with a model's weights `.float()`'d, one card and a process
+    mesh then compute the same function up to float32 rounding."""
+    import importlib
+    import torch
+    from repro_torch.sharding import collectives as coll
+    mods = [importlib.import_module(f"repro_torch.models.{n}") for n in (
+        "common", "attention", "encdec", "mamba2", "mlp", "moe", "rglru",
+        "vlm")]
+    saved = [m.COMPUTE_DTYPE for m in mods], coll._mm_f32
+    for m in mods:
+        m.COMPUTE_DTYPE = torch.float32
+    coll._mm_f32 = lambda a, b: torch.mm(a.float(), b.float())
+    try:
+        yield
+    finally:
+        for m, dtype in zip(mods, saved[0]):
+            m.COMPUTE_DTYPE = dtype
+        coll._mm_f32 = saved[1]
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def prefill_groups(model, tokens, max_seq: int, group: int):
+    """`model.prefill` of `tokens` `group` rows at a time, padded to
+    `max_seq`: (the last position's logits, the cache), each leaf of the
+    groups' caches concatenated along its "batch" axis."""
+    import torch
+    from repro_torch.sharding.layout import tree_map
+    parts = [model.prefill(tokens[i:i + group], q_chunk=512,
+                           pad_cache_to=max_seq)
+             for i in range(0, tokens.shape[0], group)]
+    logits = torch.cat([p[0] for p in parts])
+    cache = tree_map(lambda a, *ts: torch.cat(ts, dim=a.index("batch")),
+                     model.cache_axes(tokens.shape[0], max_seq),
+                     *[p[1] for p in parts])
+    return logits, cache
+
+
+def state_serve_run(model, tokens, n: dict, feed=None, keep=True):
+    """Prefill `tokens` in groups of `n["group"]` rows, then `n["steps"]`
+    decode steps, each on the argmax of the last logits or, with `feed`,
+    on its row: (the logits of each on the CPU where `keep`, the tokens
+    fed, the cache, prefill seconds, each step's seconds, the second
+    step's collectives)."""
+    import torch
+    from repro_torch.sharding.collectives import CollectiveLog
+    max_seq = n["prompt"] + n["steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill_groups(model, tokens, max_seq, n["group"])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out, fed, steps, log = [logits.cpu()] if keep else [], [], [], None
+    for i in range(n["steps"]):
+        tok = logits.argmax(-1) if feed is None else feed[i]
+        fed.append(tok)
+        with CollectiveLog() as one:
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(cache, tok)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        if i == 1:
+            log = one
+        if keep:
+            out.append(logits.cpu())
+    return out, fed, cache, prefill_s, steps, log
+
+
+def state_serve_part(cards: int, rank: int, gather) -> tuple:
+    """(k): (ok, the report)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from chip_smoke import lm_cache_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import get_model
+
+    mesh = make_process_mesh({"data": 1, "model": cards},
+                             timeout=LM_TIMEOUT_S - 60)
+    dev = mesh.devices[0]
+    n = STATE_SERVE
+    out, ok = {}, True
+    for arch in STATE_SERVE_ARCHS:
+        cfg = get_config(arch)
+        rng = np.random.default_rng(0)
+        tokens = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (n["rows"], n["prompt"]))).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = get_model(cfg)(cfg, device=dev, seed=0, mesh=mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        got, fed, cache, prefill_s, steps, log = state_serve_run(
+            model, tokens, n, keep=rank == 0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in model.parameters())
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for _, t in lm_cache_leaves(cache))
+        bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+        step_ms = [t * 1e3 for t in steps]
+        timed = sorted(step_ms[1:])            # the first step warms up
+        median = timed[len(timed) // 2]
+        res = dict(n, layers=cfg.num_layers, mesh=dict(mesh.shape),
+                   init_s=init_s, prefill_s=prefill_s, step_ms=step_ms,
+                   median_step_ms=median, bound_ms=bound_ms,
+                   of_bound=median / bound_ms,
+                   tokens_per_s=n["rows"] / (median / 1e3),
+                   prefill_tokens_per_s=n["rows"] * n["prompt"] / prefill_s,
+                   weight_bytes=gather(weight_bytes),
+                   cache_bytes=gather(cache_bytes), peak_gib=gather(peak),
+                   coll_bytes_a_step=dict(log.bytes),
+                   coll_calls_a_step=dict(log.calls),
+                   cache_block={k: list(t.shape)
+                                for k, t in lm_cache_leaves(cache)})
+        del model, cache
+        torch.cuda.empty_cache()
+        if rank == 0:
+            # one card, whole weights, fed the cards' greedy tokens
+            torch.cuda.reset_peak_memory_stats()
+            one = get_model(cfg)(cfg, device=dev, seed=0)
+            want, _, cache, one_prefill_s, one_steps, _ = state_serve_run(
+                one, tokens, n, feed=fed)
+            del one, cache
+            torch.cuda.empty_cache()
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            same = float(np.mean([bool((a.argmax(-1) == b.argmax(-1)).all(
+            )) for a, b in zip(got, want)]))
+            finite = all(bool(t.isfinite().all()) for t in got)
+            one_ms = sorted(t * 1e3 for t in one_steps[1:])
+            res.update(logits_err=errs, max_logits_err=max(errs),
+                       within_serve_tol=bool(max(errs) <= SERVE_TOL),
+                       steps_argmax_equal=same, finite=finite,
+                       one_card=dict(
+                           prefill_s=one_prefill_s,
+                           median_step_ms=one_ms[len(one_ms) // 2],
+                           peak_gib=torch.cuda.max_memory_allocated()
+                           / 2 ** 30))
+            del want
+        del got
+        dist.barrier()
+        res["float32"] = state_float32_check(cfg, mesh, tokens, rank)
+        if rank == 0:
+            f32 = res["float32"]
+            ok &= (res["finite"] and max(res["peak_gib"]) < LM_PEAK_GIB
+                   and f32["max_err"] <= STATE_F32_TOL)
+            print(json.dumps(dict(lm=f"{arch} serve x{cfg.num_layers}, "
+                                  f"(1, {cards}) blocks vs one card whole",
+                                  **res)), flush=True)
+        out[arch] = res
+        dist.barrier()
+    return ok, out
+
+
+def state_float32_check(cfg, mesh, tokens, rank: int) -> dict:
+    """(k)'s check of the layout's algebra: STATE_CHECK's rows and
+    positions of `tokens` served in float32 compute on the cards' blocks
+    and, on rank 0, by one card's whole weights, fed the same tokens from
+    a seed; rank 0 also serves them in bf16 on one card (the rounding's
+    own distance from float32). Rank 0 gets the errors (every rank
+    takes part)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import get_model
+    n = STATE_CHECK
+    dev = mesh.devices[0]
+    toks = tokens[:n["rows"], :n["prompt"]]
+    feed = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (n["steps"], n["rows"], 1))).to(dev)
+    with float32_compute():
+        model = get_model(cfg)(cfg, device=dev, seed=0, mesh=mesh).float()
+        got = state_serve_run(model, toks, n, feed=feed, keep=rank == 0)[0]
+        del model
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return {}
+    with float32_compute():
+        one = get_model(cfg)(cfg, device=dev, seed=0).float()
+        want = state_serve_run(one, toks, n, feed=feed)[0]
+        del one
+    torch.cuda.empty_cache()
+    one = get_model(cfg)(cfg, device=dev, seed=0)
+    bf16 = state_serve_run(one, toks, n, feed=feed)[0]
+    del one
+    torch.cuda.empty_cache()
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    return dict(STATE_CHECK, errs=errs, max_err=max(errs),
+                one_card_bf16_vs_float32=[
+                    rel_err(a, b) for a, b in zip(bf16, want)])
+
+
+def lm_worker(parts: str = "abcdefghijk") -> int:
     """The LM training step over NCCL, one process a card (see the module
     doc, part 3): the parts named in `parts`."""
     import dataclasses
@@ -982,6 +1212,9 @@ def lm_worker(parts: str = "abcdefghij") -> int:
     if "j" in parts:
         served, out["qwen3_serve"] = serve_part(cards, rank, gather)
         ok &= served
+    if "k" in parts:
+        served, out["state_serve"] = state_serve_part(cards, rank, gather)
+        ok &= served
     if rank == 0:
         print(json.dumps(dict(lm_ok=bool(ok))), flush=True)
     dist.barrier()
@@ -993,7 +1226,7 @@ def mamba2_profile(cfg, mesh, adam, batch, build) -> dict:
     """A warm-up step of `cfg` on blocks, then one under `torch.profiler`
     on every card: this card's device time of the step and of the kernels
     launched inside the forward's all-gathers of in_proj's output over
-    `model` (`models.mamba2._split_heads`, marked here by a
+    `model` (`models.mamba2._zx_whole`, marked here by a
     `record_function`); the backward's reduce-scatters are not marked."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function

@@ -30,16 +30,13 @@ and records:
 
 Production-mesh rows give each device's share of the argument bytes,
 from `ShardingRules.spec` and `local_shape` on an abstract 16x16 or
-2x16x16 mesh. For the train cells (every family keeps blocks on a
-process mesh) and the serving cells of the decoder-only transformers
-(prefill and decode on blocks, the cache in the serving layout) they
-also give one rank's temporaries and collective bytes: `trace_rank`
-runs rank 0's step of the process-mesh program (its blocks of the
-weights, its rows, its ZeRO slice or its cache block) on fake tensors
-under `launch.mesh.make_rank_mesh`, whose collectives move nothing and
-are noted by a `sharding.collectives.CollectiveLog`. The serving cells
-of Mamba-2, RG-LRU and Whisper leave them null (`NO_RANK_TRACE`: their
-layouts are ROADMAP item 4h).
+2x16x16 mesh, and one rank's temporaries and collective bytes: every
+family trains, prefills and decodes on blocks over a process mesh (the
+cache in the serving layout), and `trace_rank` runs rank 0's step of
+the process-mesh program (its blocks of the weights, its rows, its ZeRO
+slice or its cache blocks) on fake tensors under
+`launch.mesh.make_rank_mesh`, whose collectives move nothing and are
+noted by a `sharding.collectives.CollectiveLog`.
 
 Results land in results/dryrun_torch/<cell>.json; existing cells are
 skipped, so the sweep is restartable cell by cell:
@@ -82,7 +79,6 @@ from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
                                      make_rank_mesh)
 from repro_torch.models import get_model
 from repro_torch.models.common import remat_policy
-from repro_torch.models.transformer import Transformer
 from repro_torch.sharding.collectives import CollectiveLog
 from repro_torch.sharding.layout import serve_rows
 from repro_torch.sharding.rules import (ShardingRules, active_rules,
@@ -94,9 +90,6 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 MESHES = {"pod16x16": False, "pod2x16x16": True}
 NOT_TRACED = "no rank trace run (the CLI's: minutes of host time a cell)"
-NO_RANK_TRACE = ("no rank trace: Mamba-2, RG-LRU and Whisper serve with "
-                 "whole weights only (ROADMAP 4h: their caches split over "
-                 "ffn, q_heads and kv_heads)")
 
 
 def microbatches_for(cfg, multi_pod: bool) -> int:
@@ -311,12 +304,6 @@ def rank_microbatches(cfg, shape, dp: int,
     return nm
 
 
-def rank_traceable(cfg, shape) -> bool:
-    """Whether the cell runs on a process mesh with blocks: every train
-    step, and the serving of the decoder-only transformers."""
-    return shape.kind == "train" or issubclass(get_model(cfg), Transformer)
-
-
 def trace_rank(cfg, shape, mesh_shape: Dict[str, int], rank: int = 0, *,
                device=None, q_chunk: int = 512,
                microbatches: Optional[int] = None,
@@ -332,8 +319,6 @@ def trace_rank(cfg, shape, mesh_shape: Dict[str, int], rank: int = 0, *,
     bytes, and the bytes and calls of its collectives by kind
     (`CollectiveLog`: the init's exchange of the state is not counted,
     the step's is)."""
-    if not rank_traceable(cfg, shape):
-        raise ValueError(f"{cfg.name} {shape.name}: {NO_RANK_TRACE}")
     device = resolve_device(device)
     mesh = make_rank_mesh(mesh_shape, rank, device)
     rules = ShardingRules(mesh, default_rules("pod" in mesh_shape))
@@ -406,11 +391,9 @@ def cell_record(arch: str, shape_name: str, mesh_name: str,
     "pod2x16x16"): the step traced on one device (`trace()`, which
     returns `trace_cell`'s dict; with `trace` None, the record of the
     rank trace alone, `method` "rank_only"), the mesh's per-device
-    argument bytes, and where the cell runs sharded (`rank_traceable`),
-    rank 0's temporaries and collective bytes on the mesh
-    (`rank_trace()`, which returns `trace_rank`'s dict for that mesh;
-    null otherwise, with `NO_RANK_TRACE` where the cell does not run
-    sharded and `NOT_TRACED` where no `rank_trace` was given)."""
+    argument bytes, and rank 0's temporaries and collective bytes on the
+    mesh (`rank_trace()`, which returns `trace_rank`'s dict for that
+    mesh; null, with `NOT_TRACED`, where no `rank_trace` was given)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     record = dict(cell=f"{arch}__{shape_name}__{mesh_name}", arch=arch,
@@ -445,11 +428,10 @@ def cell_record(arch: str, shape_name: str, mesh_name: str,
         else:
             record["method"] = "rank_only"
             mesh_args = mesh_argument_bytes(cfg, shape, MESHES[mesh_name])
-        traceable = rank_traceable(cfg, shape)
         per_device = dict(chips=rules.mesh.size, argument_bytes=mesh_args,
                           temp_bytes=None, coll_bytes=None,
-                          reason=NOT_TRACED if traceable else NO_RANK_TRACE)
-        if rank_trace is not None and traceable:
+                          reason=NOT_TRACED)
+        if rank_trace is not None:
             ranked = rank_trace()
             per_device |= dict(
                 temp_bytes=ranked["temp_bytes"],

@@ -260,6 +260,14 @@ def pad_stacked_cache(cache: Dict[str, torch.Tensor], max_seq: int, cfg,
     return cache
 
 
+def pad_layer_cache(kv: Dict[str, torch.Tensor], max_seq: int, cfg,
+                    prompt_len: int) -> Dict[str, torch.Tensor]:
+    """`pad_stacked_cache` of one layer's entries [B, S, ...]."""
+    return {n: t[0] for n, t in pad_stacked_cache(
+        {n: t[None] for n, t in kv.items()}, max_seq, cfg,
+        prompt_len).items()}
+
+
 GQA_CACHE_AXES = dict(k=("batch", "cache_seq", "kv_heads", "head_dim"),
                       v=("batch", "cache_seq", "kv_heads", "head_dim"),
                       idx=("batch",))

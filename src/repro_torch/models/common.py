@@ -36,8 +36,8 @@ from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.sharding import collectives as coll
-from repro_torch.sharding.layout import (block_start, gathered, keep_blocks_,
-                                         model_group)
+from repro_torch.sharding.layout import (block_shapes, block_start, gathered,
+                                         keep_blocks_, model_group, tree_map)
 from repro_torch.sharding.rules import active_rules, current_rules
 
 PARAM_DTYPE = torch.bfloat16
@@ -366,18 +366,34 @@ class LM(nn.Module):
     def param_axes(self) -> dict:
         return module_axes(self)
 
-    def serve_whole(self) -> None:
-        """Raises on a model that keeps blocks: the families whose serving
-        caches split over other axes than the sequence (Mamba-2's and
-        RG-LRU's states, Whisper's cross keys; ROADMAP 4h) serve with
-        whole weights only."""
-        if self.layout is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: serving on a process mesh (blocks) is "
-                "the decoder-only transformers' (ROADMAP 4h)")
-
     def cache_axes(self, batch: int, max_seq: int) -> dict:
         raise NotImplementedError
+
+    def _cache_meta(self, batch: int, max_seq: int) -> dict:
+        """The whole cache of `batch` sequences of up to `max_seq`
+        positions (the single-device layout) as meta tensors: its shapes
+        and dtypes."""
+        raise NotImplementedError
+
+    def cache_shapes(self, batch: int, max_seq: int) -> dict:
+        """The whole cache's shapes (the single-device `init_cache`'s)."""
+        return tree_map(lambda t: tuple(t.shape),
+                        self._cache_meta(batch, max_seq))
+
+    @torch.inference_mode()
+    def init_cache(self, batch: int, max_seq: int) -> dict:
+        """The cache of `batch` sequences of up to `max_seq` positions,
+        zeros; on blocks, this rank's blocks of it (`layout.cache_spec`
+        of `cache_axes`: its rows, and its block of the sequence, the
+        channels or the heads over `model`)."""
+        meta = self._cache_meta(batch, max_seq)
+        shapes = tree_map(lambda t: tuple(t.shape), meta)
+        if self.layout is not None:
+            shapes = block_shapes(shapes, self.cache_axes(batch, max_seq),
+                                  self.layout)
+        return tree_map(lambda t, s: torch.zeros(s, dtype=t.dtype,
+                                                 device=self.device),
+                        meta, shapes)
 
     def logits(self, x) -> torch.Tensor:
         """The final norm and the head over the stream x [B, T, d]."""
@@ -391,6 +407,13 @@ class LM(nn.Module):
         """The head over the normed stream (this rank's vocab columns
         when the head is split: `vocab_split(self.head())`)."""
         return unembed(self.head(), hidden)
+
+    def _whole_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Logits over the whole vocabulary: a vocab-parallel head's
+        columns gathered over `model` (serving's logits)."""
+        group = model_group(self.head().table, 0)
+        return logits if group is None else coll.all_gather(logits, group,
+                                                            logits.ndim - 1)
 
     def loss_fn(self, batch, **kw):
         """(loss, dict(ce, aux)) of a batch {tokens, labels [B, T], and the

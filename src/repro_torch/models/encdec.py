@@ -11,7 +11,13 @@ the encoder states (no RoPE, no mask).
 keys and values and each layer's cross keys and values; `decode_step`
 advances the decoder one token, writing the cache in place. The cache is
 {self: {k, v, idx} [L, B, ...], cross_k, cross_v [L, B, S_enc, KV, hd]},
-the JAX package's layout.
+the JAX package's layout. On a model that keeps blocks (built with
+`mesh=` a process mesh) the serving API runs on each rank's part, in the
+JAX dry run's serving layout (`LM.init_cache`): the self-attention cache
+split over sequence on `model` (`attention.gqa_decode`), the cross keys
+and values over `kv_heads` (the rank's KV heads, or every one where the
+rules leave them whole), the rows over the data axes; the logits are the
+rank's rows over the whole vocabulary.
 
 `loss_fn` takes the frames from the batch (JAX's `make_batch` gives
 zeros); each encoder and decoder layer runs under `ckpt`, the cross keys
@@ -31,7 +37,7 @@ from repro_torch.models.common import (COMPUTE_DTYPE, LM, ckpt,
                                        vocab_split, zeros_init)
 from repro_torch.models.mlp import MLP, mlp_forward
 from repro_torch.sharding import collectives as coll
-from repro_torch.sharding.layout import gathered, model_group
+from repro_torch.sharding.layout import gathered, model_group, seq_blocks
 
 Cache = Dict[str, object]
 
@@ -55,18 +61,26 @@ def cross_attn_forward(p: attn_lib.GQA, x, enc_kv, cfg=None):
     return _attention(p, q, *enc_kv, cfg)
 
 
-def cross_kv(p: attn_lib.GQA, enc_states, cfg=None):
+def cross_kv_heads(p: attn_lib.GQA, enc_states):
     """The cross keys and values of the encoder states [B,S,d] (the same
-    on every model rank): on blocks whose key/value heads are split over
-    `model`, this rank's, the states entering through `pvary`; whose
-    query heads alone are split, the replicated heads its query heads
-    read (`attention._kv_for_heads`)."""
+    on every model rank) in the layout of the cache's `kv_heads`: on
+    blocks whose key/value heads are split over `model`, this rank's,
+    the states entering through `pvary`; else every head."""
     group = model_group(p.wk, 1)
     if group is not None:
         enc_states = coll.pvary(enc_states, group)
     k = attn_lib._proj(enc_states, gathered(p.wk).to(COMPUTE_DTYPE))
     v = attn_lib._proj(enc_states, gathered(p.wv).to(COMPUTE_DTYPE))
-    return attn_lib._kv_for_heads(p, k, v, cfg, p.wq.shape[1])
+    return k, v
+
+
+def cross_kv(p: attn_lib.GQA, enc_states, cfg=None):
+    """The cross keys and values as this rank's query heads read them:
+    `cross_kv_heads`, then, on blocks whose query heads alone are split,
+    the replicated heads its query heads read
+    (`attention._kv_for_heads`)."""
+    return attn_lib._kv_for_heads(p, *cross_kv_heads(p, enc_states), cfg,
+                                  p.wq.shape[1])
 
 
 class EncLayer(nn.Module):
@@ -124,8 +138,9 @@ def dec_layer_forward(p: DecLayer, x, enc_kv, cfg, positions,
 
 
 def dec_layer_decode(p: DecLayer, x, cache, enc_kv, cfg):
-    """One token; writes the self-attention cache (k, v, idx) in place."""
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    """One token; writes the self-attention cache (k, v, idx) in place.
+    enc_kv as this rank's query heads read them (`cross_kv`)."""
+    h = rms_norm(x, gathered(p.ln1), cfg.norm_eps)
     y = attn_lib.gqa_decode(p.self_attn, h, cfg, cache)
     return _cross_mlp(p, x + y, enc_kv, cfg)
 
@@ -174,26 +189,25 @@ class EncDec(LM):
         return dict(self=prepend_layers_axis(attn_lib.GQA_CACHE_AXES),
                     cross_k=cross, cross_v=cross)
 
-    @torch.inference_mode()
-    def init_cache(self, batch: int, max_seq: int) -> Cache:
-        self.serve_whole()
-        cfg, dev = self.cfg, self.device
-        L = cfg.num_layers
-        self_c = attn_lib.init_gqa_cache(cfg, batch, max_seq, dev)
-        shape = (L, batch, cfg.encoder_seq, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        return dict(
-            self={n: t.expand((L,) + t.shape).clone()
-                  for n, t in self_c.items()},
-            cross_k=torch.zeros(shape, dtype=COMPUTE_DTYPE, device=dev),
-            cross_v=torch.zeros(shape, dtype=COMPUTE_DTYPE, device=dev))
+    def _cache_meta(self, batch: int, max_seq: int) -> Cache:
+        cfg, L = self.cfg, self.cfg.num_layers
+        self_c = attn_lib.init_gqa_cache(cfg, batch, max_seq, "meta")
+        cross = torch.empty((L, batch, cfg.encoder_seq, cfg.num_kv_heads,
+                             cfg.resolved_head_dim), dtype=COMPUTE_DTYPE,
+                            device="meta")
+        return dict(self={n: t.expand((L,) + t.shape)
+                          for n, t in self_c.items()},
+                    cross_k=cross, cross_v=cross)
 
     @torch.inference_mode()
     def prefill(self, tokens, *, frames=None, q_chunk: int = 512,
                 pad_cache_to: Optional[int] = None):
         """Encode `frames` (zeros when None), run the decoder over tokens
-        [B, T]: the last position's logits [B,1,V] and the cache."""
-        self.serve_whole()
+        [B, T]: the last position's logits [B,1,V] and the cache. On
+        blocks the self-attention cache is padded in global positions,
+        then cut to the rank's block of the sequence
+        (`layout.seq_blocks`); the cross keys and values are kept in the
+        cache's `kv_heads` layout (`cross_kv_heads`)."""
         cfg = self.cfg
         B_, T = tokens.shape
         if frames is None:
@@ -202,31 +216,42 @@ class EncDec(LM):
         enc = self.encode(frames)
         x = embed(self.embed, tokens)
         positions = torch.arange(T, dtype=torch.int32, device=x.device)
-        ks, vs, cks, cvs = [], [], [], []
+        entries = []
         for layer in self.dec_layers:
-            kv = cross_kv(layer.cross_attn, enc, cfg)
+            p = layer.cross_attn
+            ck, cv = cross_kv_heads(p, enc)
+            kv = attn_lib._kv_for_heads(p, ck, cv, cfg, p.wq.shape[1])
             x, k, v = dec_layer_forward(layer, x, kv, cfg, positions,
                                         q_chunk=q_chunk)
-            ks.append(k)
-            vs.append(v)
-            cks.append(kv[0])
-            cvs.append(kv[1])
-        self_c = dict(k=torch.stack(ks), v=torch.stack(vs),
-                      idx=torch.full((len(ks), B_), T, dtype=torch.int32,
-                                     device=x.device))
-        if pad_cache_to:
-            self_c = attn_lib.pad_stacked_cache(self_c, pad_cache_to, cfg, T)
-        cache = dict(self=self_c, cross_k=torch.stack(cks),
-                     cross_v=torch.stack(cvs))
-        return self.logits(x[:, -1:]), cache
+            self_kv = dict(k=k, v=v)
+            if pad_cache_to:
+                self_kv = attn_lib.pad_layer_cache(self_kv, pad_cache_to,
+                                                   cfg, T)
+            sa = layer.self_attn
+            entries.append(dict(seq_blocks(
+                sa.wq, self_kv, model_group(sa.wk, 1) is not None),
+                cross_k=ck, cross_v=cv))
+        stack = {n: torch.stack([e[n] for e in entries])
+                 for n in entries[0]}
+        self_c = dict(k=stack["k"], v=stack["v"],
+                      idx=torch.full((len(entries), B_), T,
+                                     dtype=torch.int32, device=x.device))
+        cache = dict(self=self_c, cross_k=stack["cross_k"],
+                     cross_v=stack["cross_v"])
+        return self._whole_vocab(self.logits(x[:, -1:])), cache
 
     @torch.inference_mode()
     def decode_step(self, cache: Cache, token) -> Tuple[torch.Tensor, Cache]:
-        """token [B,1] -> (logits [B,1,V], cache updated in place)."""
-        self.serve_whole()
+        """token [B,1] -> (logits [B,1,V], cache updated in place). The
+        cached cross keys and values are mapped to this rank's query
+        heads as they are read (`attention._kv_for_heads`)."""
         x = embed(self.embed, token)
         for i, layer in enumerate(self.dec_layers):
+            p = layer.cross_attn
+            enc_kv = attn_lib._kv_for_heads(
+                p, cache["cross_k"][i], cache["cross_v"][i], self.cfg,
+                p.wq.shape[1])
             x = dec_layer_decode(
                 layer, x, {n: t[i] for n, t in cache["self"].items()},
-                (cache["cross_k"][i], cache["cross_v"][i]), self.cfg)
-        return self.logits(x), cache
+                enc_kv, self.cfg)
+        return self._whole_vocab(self.logits(x)), cache

@@ -18,6 +18,13 @@ full forward part if TF32 is enabled.
 The cache is {conv [L, B, k-1, conv_dim] bf16, ssm [L, B, H, P, N]
 float32, idx [L, B] int32}, the JAX package's layout; decode writes it
 in place. `loss_fn` runs the full forward, each layer under `ckpt`.
+
+On a model that keeps blocks (built with `mesh=` a process mesh) the
+serving API runs on each rank's part, in the JAX dry run's serving
+layout (`LM.init_cache`): `ssm` over `q_heads` (the rank's heads, those
+training splits), `conv` over `ffn`, an even block of the packed x | B |
+C channels that need not be its heads' (`block_decode`), the rows over
+the data axes; the logits are the rank's rows over the whole vocabulary.
 """
 from __future__ import annotations
 
@@ -148,23 +155,34 @@ def _over_model(w: torch.Tensor, dim: int, group):
     return coll.pvary(w, group)
 
 
-def _split_heads(p: Mamba2Block, h, cfg, group):
-    """On blocks whose heads are split over `model` (`group`): (z, xBC,
-    dt float32, conv_w, conv_b) of this rank's heads, xBC = its heads'
-    x, then B and C whole (every head reads them). in_proj's columns
-    (z | x | B | C | dt) split over `model` do not follow the heads: each
+def _zx_whole(p: Mamba2Block, h, group):
+    """in_proj's whole output (z | x | B | C | dt) on every rank of the
+    `model` group `group` of blocks whose heads are split over it:
+    in_proj's columns split over `model` do not follow the heads, so each
     rank's columns, the stream entering through `pvary`, are all-gathered
-    over `model`, and each rank takes its heads' parts of the whole."""
-    d_in, _, _, conv_dim = _dims(cfg)
-    P = cfg.ssm_headdim
-    h0, Hl = block_start(p.A_log, 0), p.A_log.shape[0]
-    c0, c1 = h0 * P, (h0 + Hl) * P
+    over `model`; where in_proj is whole over `model`, each rank's own
+    product."""
     w = gathered(p.in_proj).to(COMPUTE_DTYPE)
     h = coll.pvary(h, group)
     if model_group(p.in_proj, 1) is not None:
-        zx = coll.all_gather(torch.matmul(h, w), group, dim=-1)
-    else:
-        zx = torch.matmul(h, coll.pvary(w, group))
+        return coll.all_gather(torch.matmul(h, w), group, dim=-1)
+    return torch.matmul(h, coll.pvary(w, group))
+
+
+def _head_channels(p: Mamba2Block, cfg):
+    """(first head, heads, first and end x channel) of this rank."""
+    P = cfg.ssm_headdim
+    h0, Hl = block_start(p.A_log, 0), p.A_log.shape[0]
+    return h0, Hl, h0 * P, (h0 + Hl) * P
+
+
+def _split_heads(p: Mamba2Block, zx, cfg, group):
+    """On blocks whose heads are split over `model` (`group`): (z, xBC,
+    dt float32, conv_w, conv_b) of this rank's heads from in_proj's whole
+    output zx (`_zx_whole`), xBC = its heads' x, then B and C whole
+    (every head reads them)."""
+    d_in, _, _, conv_dim = _dims(cfg)
+    h0, Hl, c0, c1 = _head_channels(p, cfg)
     xBC = torch.cat([zx[..., d_in + c0:d_in + c1],
                      zx[..., 2 * d_in:d_in + conv_dim]], dim=-1)
     dt = zx[..., d_in + conv_dim + h0:d_in + conv_dim + h0 + Hl].float()
@@ -173,6 +191,13 @@ def _split_heads(p: Mamba2Block, h, cfg, group):
     return (zx[..., c0:c1], xBC, dt,
             torch.cat([cw[:, c0:c1], cw[:, d_in:]], dim=1),
             torch.cat([cb[c0:c1], cb[d_in:]]))
+
+
+def _conv_block(p: Mamba2Block, packed):
+    """This rank's block of the packed conv channels x | B | C (the last
+    dim of `packed`): the block of conv_w, which the cache's `conv` (over
+    `ffn`) shares; all of them where conv_w is whole."""
+    return packed.narrow(-1, block_start(p.conv_w, 1), p.conv_w.shape[1])
 
 
 def _gate_out(p: Mamba2Block, x, y, z, cfg, group=None):
@@ -213,18 +238,23 @@ def _heads_group(p: Mamba2Block):
 def block_forward(p: Mamba2Block, x, cfg):
     """x [B,T,d] -> (out, conv state [B,k-1,conv_dim], ssm state
     [B,H,P,N]). On blocks whose heads are split over `model`, this rank
-    computes its heads (`_split_heads`, `_gate_out`): the conv state and
-    the SSM state are then those of its heads' channels."""
+    computes its heads (`_split_heads`, `_gate_out`): the SSM state is
+    then its heads', and the conv state its block of the packed channels
+    (`_conv_block`, the serving cache's layout), cut from in_proj's whole
+    output, which every rank holds."""
     B_, T, _ = x.shape
-    d_in, H, N, _ = _dims(cfg)
+    d_in, H, N, conv_dim = _dims(cfg)
     k = cfg.conv_kernel
     h = rms_norm(x, gathered(p.ln), cfg.norm_eps)
     group = _heads_group(p)
     if group is None:
         z, xBC, dt = _split(p, h, cfg)
         conv_w, conv_b = p.conv_w, p.conv_b
+        packed = xBC
     else:
-        z, xBC, dt, conv_w, conv_b = _split_heads(p, h, cfg, group)
+        zx = _zx_whole(p, h, group)
+        z, xBC, dt, conv_w, conv_b = _split_heads(p, zx, cfg, group)
+        packed = _conv_block(p, zx[..., d_in:d_in + conv_dim])
         H = p.A_log.shape[0]
         d_in = H * cfg.ssm_headdim
 
@@ -253,28 +283,55 @@ def block_forward(p: Mamba2Block, x, cfg):
     y = y.reshape(B_, T, d_in).to(COMPUTE_DTYPE)
     out = maybe_constrain(_gate_out(p, x, y, z, cfg, group),
                           ("batch", "seq", "embed"))
-    # the last k-1 rows of the padded input, zero rows included when T is
+    # the last k-1 rows of the conv input, zero rows in front when T is
     # shorter
-    conv_state = xBC_pad[:, xBC_pad.shape[1] - (k - 1):]
+    tail = packed[:, max(T - (k - 1), 0):]
+    conv_state = F.pad(tail, (0, 0, k - 1 - tail.shape[1], 0))
     return out, conv_state, ssm_state
+
+
+def _conv_step(conv, new, conv_w, conv_b):
+    """One step of the depthwise conv over channels: conv [B,k-1,C] the
+    history (shifted in place to end with new [B,C]), conv_w [k,C],
+    conv_b [C] -> silu(conv + bias) [B,C]."""
+    hist = torch.cat([conv, new[:, None]], dim=1)             # [B,k,C]
+    out = (hist.float() * conv_w.float()).sum(dim=1).to(COMPUTE_DTYPE)
+    conv.copy_(hist[:, 1:])
+    return F.silu(out + conv_b.to(COMPUTE_DTYPE))
 
 
 def block_decode(p: Mamba2Block, x, cfg, cache: Cache):
     """One-token recurrent update of x [B,1,d]; writes this layer's cache
-    (conv [B,k-1,conv_dim], ssm [B,H,P,N], idx [B]) in place."""
+    (conv [B,k-1,conv_dim], ssm [B,H,P,N], idx [B]) in place. On blocks
+    whose heads are split over `model`, the cache is the rank's: conv its
+    block of the packed channels, ssm its heads. Each rank convolves its
+    own block of channels (its conv_w and the new column of in_proj's
+    whole output) and the conv outputs are all-gathered over `model`
+    (one [B, conv_dim] bf16 a layer), from which it takes its heads' x
+    and B and C; its heads' SSM update, then `_gate_out` as in
+    `block_forward`."""
     B_ = x.shape[0]
-    d_in, H, N, _ = _dims(cfg)
-    z, xBC, dt = _split(p, rms_norm(x, p.ln, cfg.norm_eps), cfg)
-    z, xBC, dt = z[:, 0], xBC[:, 0], dt[:, 0]
-
-    hist = torch.cat([cache["conv"], xBC[:, None]], dim=1)    # [B,k,cd]
-    conv = (hist.float() * p.conv_w.float()).sum(dim=1).to(COMPUTE_DTYPE)
-    xBC_c = F.silu(conv + p.conv_b.to(COMPUTE_DTYPE))
-    cache["conv"].copy_(hist[:, 1:])
-
-    xs = xBC_c[..., :d_in].reshape(B_, H, cfg.ssm_headdim).float()
-    Bm = xBC_c[..., d_in:d_in + N].float()
-    Cm = xBC_c[..., d_in + N:].float()
+    d_in, H, N, conv_dim = _dims(cfg)
+    h = rms_norm(x, gathered(p.ln), cfg.norm_eps)
+    group = _heads_group(p)
+    if group is None:
+        z, xBC, dt = _split(p, h, cfg)
+        z, dt = z[:, 0], dt[:, 0]
+        xBC_c = _conv_step(cache["conv"], xBC[:, 0], p.conv_w, p.conv_b)
+        xs = xBC_c[..., :d_in]
+    else:
+        zx = _zx_whole(p, h, group)[:, 0]
+        h0, Hl, c0, c1 = _head_channels(p, cfg)
+        mine = _conv_step(cache["conv"], _conv_block(
+            p, zx[:, d_in:d_in + conv_dim]), p.conv_w, p.conv_b)
+        xBC_c = (mine if model_group(p.conv_w, 1) is None
+                 else coll.all_gather(mine, group, dim=-1))
+        xs, z = xBC_c[:, c0:c1], zx[:, c0:c1]
+        dt = zx[:, d_in + conv_dim + h0:d_in + conv_dim + h0 + Hl].float()
+        H, d_in = Hl, c1 - c0
+    xs = xs.reshape(B_, H, cfg.ssm_headdim).float()
+    Bm = xBC_c[..., -2 * N:-N].float()
+    Cm = xBC_c[..., -N:].float()
     dt = F.softplus(dt + p.dt_bias)                           # [B,H]
     decay = torch.exp(dt * -torch.exp(p.A_log))               # [B,H]
     ssm = cache["ssm"]
@@ -284,7 +341,7 @@ def block_decode(p: Mamba2Block, x, cfg, cache: Cache):
         + xs * p.D[None, :, None]                             # [B,H,P]
     y = y.reshape(B_, 1, d_in).to(COMPUTE_DTYPE)
     cache["idx"] += 1
-    return _gate_out(p, x, y, z[:, None], cfg)
+    return _gate_out(p, x, y, z[:, None], cfg, group)
 
 
 class Mamba2(LM):
@@ -309,26 +366,24 @@ class Mamba2(LM):
                     ssm=("layers", "batch", "q_heads", None, "state"),
                     idx=("layers", "batch"))
 
-    @torch.inference_mode()
-    def init_cache(self, batch: int, max_seq: int) -> Cache:
+    def _cache_meta(self, batch: int, max_seq: int) -> Cache:
         """A state cache: no sequence axis, so `max_seq` sets nothing."""
-        self.serve_whole()
         _, H, N, conv_dim = _dims(self.cfg)
-        L, k, dev = self.cfg.num_layers, self.cfg.conv_kernel, self.device
+        L, k = self.cfg.num_layers, self.cfg.conv_kernel
         return dict(
-            conv=torch.zeros((L, batch, k - 1, conv_dim), dtype=COMPUTE_DTYPE,
-                             device=dev),
-            ssm=torch.zeros((L, batch, H, self.cfg.ssm_headdim, N),
-                            dtype=torch.float32, device=dev),
-            idx=torch.zeros((L, batch), dtype=torch.int32, device=dev))
+            conv=torch.empty((L, batch, k - 1, conv_dim), dtype=COMPUTE_DTYPE,
+                             device="meta"),
+            ssm=torch.empty((L, batch, H, self.cfg.ssm_headdim, N),
+                            dtype=torch.float32, device="meta"),
+            idx=torch.empty((L, batch), dtype=torch.int32, device="meta"))
 
     @torch.inference_mode()
     def prefill(self, tokens, *, q_chunk: int = 512,
                 pad_cache_to: Optional[int] = None):
         """Full forward over tokens [B, T]: the last position's logits
-        [B,1,V] and the cache. The state cache has no sequence axis, so
-        `q_chunk` and `pad_cache_to` change nothing."""
-        self.serve_whole()
+        [B,1,V] and the cache (on blocks, the rank's: `block_forward`).
+        The state cache has no sequence axis, so `q_chunk` and
+        `pad_cache_to` change nothing."""
         del q_chunk, pad_cache_to
         B_, T = tokens.shape
         x = embed(self.embed, tokens)
@@ -340,14 +395,13 @@ class Mamba2(LM):
         cache = dict(conv=torch.stack(convs), ssm=torch.stack(ssms),
                      idx=torch.full((len(self.layers), B_), T,
                                     dtype=torch.int32, device=x.device))
-        return self.logits(x[:, -1:]), cache
+        return self._whole_vocab(self.logits(x[:, -1:])), cache
 
     @torch.inference_mode()
     def decode_step(self, cache: Cache, token) -> Tuple[torch.Tensor, Cache]:
         """token [B,1] -> (logits [B,1,V], cache updated in place)."""
-        self.serve_whole()
         x = embed(self.embed, token)
         for i, block in enumerate(self.layers):
             x = block_decode(block, x, self.cfg,
                              {n: t[i] for n, t in cache.items()})
-        return self.logits(x), cache
+        return self._whole_vocab(self.logits(x)), cache

@@ -22,6 +22,14 @@ attn: {k, v, idx} [G, B, ...]}, trailing: {conv, h, idx} [n, B, ...]},
 the JAX package's layout; decode writes it in place. `loss_fn` runs the
 full forward, each block under `ckpt`; the doubling scan is
 differentiable as written.
+
+On a model that keeps blocks (built with `mesh=` a process mesh) the
+serving API runs on each rank's part, in the JAX dry run's serving
+layout (`LM.init_cache`): the recurrent blocks' conv and h over `ffn`
+(the LRU channels the rank computes), the local attention's ring of
+`min(max_seq, local_window)` positions over `model` (`cache_seq`, the
+KV head whole: `attention.gqa_decode`), the rows over the data axes;
+the logits are the rank's rows over the whole vocabulary.
 """
 from __future__ import annotations
 
@@ -39,7 +47,8 @@ from repro_torch.models.common import (COMPUTE_DTYPE, LM, causal_conv, ckpt,
                                        vocab_split, zeros_init)
 from repro_torch.models.mlp import MLP, activation, mlp_forward
 from repro_torch.sharding import collectives as coll
-from repro_torch.sharding.layout import block_start, gathered, model_group
+from repro_torch.sharding.layout import (block_start, gathered, model_group,
+                                         seq_blocks)
 from repro_torch.sharding.rules import maybe_constrain
 
 C_GATE = 8.0
@@ -208,7 +217,10 @@ def recurrent_block_forward(p: RecurrentBlock, x, cfg, conv_hist=None,
 
 
 def recurrent_block_decode(p: RecurrentBlock, x, cfg, cache):
-    """One token; writes this block's cache (conv, h, idx) in place."""
+    """One token; writes this block's cache (conv, h, idx) in place. On
+    blocks whose LRU width is split over `model`, the cache's conv and h
+    are this rank's channels, the ones `recurrent_block_forward`
+    computes."""
     x, hist, h_last = recurrent_block_forward(p, x, cfg, cache["conv"],
                                               cache["h"])
     cache["conv"].copy_(hist)
@@ -237,7 +249,7 @@ def attn_block_forward(p: AttnBlock, x, cfg, positions, *,
 
 
 def attn_block_decode(p: AttnBlock, x, cfg, cache):
-    h = rms_norm(x, p.ln, cfg.norm_eps)
+    h = rms_norm(x, gathered(p.ln), cfg.norm_eps)
     return _attn_mlp(p, x, attn_lib.gqa_decode(p.attn, h, cfg, cache), cfg)
 
 
@@ -290,19 +302,20 @@ class RecurrentGemma(LM):
             axes["trailing"] = prepend_layers_axis(rec)
         return axes
 
-    @torch.inference_mode()
-    def init_cache(self, batch: int, max_seq: int) -> Cache:
-        self.serve_whole()
-        cfg, dev = self.cfg, self.device
+    def _cache_meta(self, batch: int, max_seq: int) -> Cache:
+        cfg = self.cfg
         w, k = _lru_width(cfg), cfg.conv_kernel
-        rec = dict(conv=torch.zeros((batch, k - 1, w), dtype=COMPUTE_DTYPE,
-                                    device=dev),
-                   h=torch.zeros((batch, w), dtype=torch.float32, device=dev),
-                   idx=torch.zeros((batch,), dtype=torch.int32, device=dev))
-        attn = attn_lib.init_gqa_cache(_attn_cfg(cfg), batch, max_seq, dev)
+        rec = dict(conv=torch.empty((batch, k - 1, w), dtype=COMPUTE_DTYPE,
+                                    device="meta"),
+                   h=torch.empty((batch, w), dtype=torch.float32,
+                                 device="meta"),
+                   idx=torch.empty((batch,), dtype=torch.int32,
+                                   device="meta"))
+        attn = attn_lib.init_gqa_cache(_attn_cfg(cfg), batch, max_seq,
+                                       "meta")
 
         def stack(c, *lead):
-            return {n: t.expand(lead + t.shape).clone() for n, t in c.items()}
+            return {n: t.expand(lead + t.shape) for n, t in c.items()}
 
         cache = dict(groups=dict(rec=stack(rec, len(self.groups),
                                            _n_rec(cfg)),
@@ -317,8 +330,10 @@ class RecurrentGemma(LM):
         """Full forward over tokens [B, T]: the last position's logits
         [B,1,V] and the cache. The attention blocks keep their last
         `local_window` keys; `pad_cache_to` grows or rolls them into the
-        ring of decode."""
-        self.serve_whole()
+        ring of decode. On blocks the trim, the padding and the roll act
+        on global positions, then each attention layer's keys and values
+        are cut to the rank's block of the ring (`layout.seq_blocks`);
+        the recurrent blocks' states are already the rank's channels."""
         cfg, acfg = self.cfg, _attn_cfg(self.cfg)
         B_, T = tokens.shape
         x = embed(self.embed, tokens)
@@ -338,19 +353,20 @@ class RecurrentGemma(LM):
             recs.append(rec)
             x, kc, vc = attn_block_forward(group.attn, x, acfg, positions,
                                            q_chunk=q_chunk)
-            attns.append(dict(k=kc, v=vc, idx=idx))
-        attn = _stack(attns)
-        if pad_cache_to:
-            attn = attn_lib.pad_stacked_cache(attn, pad_cache_to, acfg, T)
-        cache = dict(groups=dict(rec=_stack(recs), attn=attn))
+            kv = dict(k=kc, v=vc)
+            if pad_cache_to:
+                kv = attn_lib.pad_layer_cache(kv, pad_cache_to, acfg, T)
+            p = group.attn.attn
+            attns.append(dict(seq_blocks(
+                p.wq, kv, model_group(p.wk, 1) is not None), idx=idx))
+        cache = dict(groups=dict(rec=_stack(recs), attn=_stack(attns)))
         if len(self.trailing):
             x, cache["trailing"] = rec_stack(x, self.trailing)
-        return self.logits(x[:, -1:]), cache
+        return self._whole_vocab(self.logits(x[:, -1:])), cache
 
     @torch.inference_mode()
     def decode_step(self, cache: Cache, token) -> Tuple[torch.Tensor, Cache]:
         """token [B,1] -> (logits [B,1,V], cache updated in place)."""
-        self.serve_whole()
         cfg, acfg = self.cfg, _attn_cfg(self.cfg)
         x = embed(self.embed, token)
         rec, attn = cache["groups"]["rec"], cache["groups"]["attn"]
@@ -363,4 +379,4 @@ class RecurrentGemma(LM):
         for i, block in enumerate(self.trailing):
             x = recurrent_block_decode(
                 block, x, cfg, {n: t[i] for n, t in cache["trailing"].items()})
-        return self.logits(x), cache
+        return self._whole_vocab(self.logits(x)), cache

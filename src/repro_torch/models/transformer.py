@@ -30,7 +30,7 @@ cache (`sharding.layout.cache_spec`: e.g. [L, B/dp, S/mp, KV, hd], idx
 tokens (`layout.serve_rows`) and return those rows' logits over the whole
 vocabulary (gathered over `model` from the vocab-parallel head). Prefill
 runs training's forward and re-lays each layer's keys and values into
-the decode layout (`_seq_blocks`).
+the decode layout (`layout.seq_blocks`).
 """
 from __future__ import annotations
 
@@ -45,9 +45,7 @@ from repro_torch.models.common import (LM, ckpt, cross_entropy, embed, param,
                                        vocab_split, zeros_init)
 from repro_torch.models.mlp import MLP, mlp_forward
 from repro_torch.models.moe import MoE, moe_forward
-from repro_torch.sharding import collectives as coll
-from repro_torch.sharding.layout import (block_shapes, cache_spec, gathered,
-                                         model_group, seq_group)
+from repro_torch.sharding.layout import gathered, model_group, seq_blocks
 from repro_torch.sharding.rules import maybe_constrain
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
@@ -174,48 +172,13 @@ class Transformer(LM):
               else attn_lib.GQA_CACHE_AXES)
         return {key: prepend_layers_axis(ax) for key, _ in self.stacks()}
 
-    def cache_shapes(self, batch: int, max_seq: int) -> dict:
-        """The whole cache's shapes (the single-device `init_cache`'s)."""
+    def _cache_meta(self, batch: int, max_seq: int) -> Cache:
         init = (attn_lib.init_mla_cache if self.cfg.attention == "mla"
                 else attn_lib.init_gqa_cache)
         c1 = init(self.cfg, batch, max_seq, "meta")
-        return {key: {n: (len(layers),) + tuple(t.shape)
+        return {key: {n: t.expand((len(layers),) + t.shape)
                       for n, t in c1.items()}
                 for key, layers in self.stacks()}
-
-    @torch.inference_mode()
-    def init_cache(self, batch: int, max_seq: int) -> Cache:
-        """The cache of `batch` sequences of up to `max_seq` positions;
-        on blocks, this rank's blocks of it."""
-        shapes = self.cache_shapes(batch, max_seq)
-        if self.layout is not None:
-            shapes = block_shapes(shapes, self.cache_axes(batch, max_seq),
-                                  self.layout)
-        return {key: {n: torch.zeros(shape, dtype=torch.int32 if n == "idx"
-                                     else attn_lib.COMPUTE_DTYPE,
-                                     device=self.device)
-                      for n, shape in c.items()}
-                for key, c in shapes.items()}
-
-    def _seq_blocks(self, block: Block, kv: Dict[str, torch.Tensor]
-                    ) -> Dict[str, torch.Tensor]:
-        """One layer's cache entries [B, S, ...] from the forward's head
-        split to the decode layout (`cache_spec`): the rank's block of the
-        sequence, with every KV head: one all_to_all over `model` where
-        the keys and values are split over it by head, else the rank's
-        slice of the whole heads. As they are on whole weights or a
-        `model` of one."""
-        group = seq_group(block.ln1)
-        if group is None:
-            return kv
-        rows, S = next(iter(kv.values())).shape[:2]
-        cache_spec(self.layout, ("batch", "cache_seq"), (rows, S))
-        n_loc = S // group.shards
-        split = (self.cfg.attention != "mla"
-                 and model_group(block.attn.wk, 1) is not None)
-        return {n: (coll.all_to_all(t, group, 1, 2) if split else
-                    t.narrow(1, n_loc * group.rank, n_loc).clone())
-                for n, t in kv.items()}
 
     @torch.inference_mode()
     def prefill(self, tokens, *, q_chunk: int = 512,
@@ -241,12 +204,12 @@ class Transformer(LM):
                 if trim:
                     kv = {n: t[:, -window:] for n, t in kv.items()}
                 if pad_cache_to:
-                    kv = {n: t[0] for n, t in attn_lib.pad_stacked_cache(
-                        {n: t[None] for n, t in kv.items()}, pad_cache_to,
-                        cfg, T).items()}
+                    kv = attn_lib.pad_layer_cache(kv, pad_cache_to, cfg, T)
                 # each layer's entries go straight into the stack: a list
                 # stacked at the end would hold the cache twice
-                for n, t in self._seq_blocks(block, kv).items():
+                split = (cfg.attention != "mla"
+                         and model_group(block.attn.wk, 1) is not None)
+                for n, t in seq_blocks(block.ln1, kv, split).items():
                     if n not in c:
                         c[n] = t.new_empty((len(layers),) + t.shape)
                     c[n][i] = t
@@ -254,13 +217,6 @@ class Transformer(LM):
                                   device=x.device)
             cache[key] = c
         return self._whole_vocab(self.logits(x[:, -1:])), cache
-
-    def _whole_vocab(self, logits: torch.Tensor) -> torch.Tensor:
-        """Logits over the whole vocabulary: a vocab-parallel head's
-        columns gathered over `model`."""
-        group = model_group(self.head().table, 0)
-        return logits if group is None else coll.all_gather(logits, group,
-                                                            logits.ndim - 1)
 
     @torch.inference_mode()
     def decode_step(self, cache: Cache, token) -> Tuple[torch.Tensor, Cache]:

@@ -22,15 +22,22 @@ move blocks to and from the single-device layout (`train.optimizer`,
 
 A serving cache on such a model is laid out as the JAX package's dry run
 lays out its decode program's `cache_sh`: `ShardingRules.spec` of the
-cache's axes, the rows over the data axes and `cache_seq` over `model`
-(the flash-decoding split; every KV head whole on every rank):
+cache's axes, the rows over the data axes; a KV cache's `cache_seq` over
+`model` (the flash-decoding split; every KV head whole on every rank),
+a state cache's channels or heads over `model` as the rules give them
+(Mamba-2's `conv` over `ffn` and `ssm` over `q_heads`, RG-LRU's `conv`
+and `h` over `ffn`, Whisper's cross keys and values over `kv_heads`),
+an indivisible dim whole:
 
-    cache_spec(mesh, axes, shape)   a cache leaf's spec (refuses a layout
-                                    whose sequence stays whole on a
-                                    `model` of several ranks)
+    cache_spec(mesh, axes, shape)   a cache leaf's spec (refuses a KV
+                                    layout whose sequence stays whole on
+                                    a `model` of several ranks)
     seq_group(w)                    the `model` group the sequence splits
                                     over (rank j holds positions j * S_loc
                                     onwards), None when whole
+    seq_blocks(w, kv, split)        one layer's keys and values from the
+                                    forward's head split to the rank's
+                                    block of the sequence
     serve_rows(batch, mesh)         the rows of a global batch a rank
                                     serves
     cut_blocks / whole_blocks       a whole tree to a rank's blocks and
@@ -196,9 +203,10 @@ def whole(t: torch.Tensor) -> torch.Tensor:
 
 def cache_spec(mesh, axes, shape) -> PartitionSpec:
     """The spec of a cache leaf of `shape` with logical `axes` on `mesh`.
-    Raises where `cache_seq` stays whole (its length does not divide over
-    `model`) while `model` has several ranks: the rules would then split
-    the KV heads instead, a layout the port's decode does not take."""
+    Raises where a leaf's `cache_seq` stays whole (its length does not
+    divide over `model`) while `model` has several ranks: the rules would
+    then split the KV heads instead, a layout the port's decode does not
+    take. A state leaf (no `cache_seq`) takes the rules' spec as it is."""
     spec = mesh_rules(mesh).spec(axes, shape)
     if "cache_seq" in axes and mesh.shape.get("model", 1) > 1:
         d = axes.index("cache_seq")
@@ -219,6 +227,24 @@ def seq_group(t: torch.Tensor):
     return pl.mesh.group(MODEL_AXES)
 
 
+def seq_blocks(w: torch.Tensor, kv, split: bool):
+    """One layer's cache entries {name: [B, S, ...]} from the forward's
+    head split to the decode layout on the model whose parameter w is:
+    the rank's block of the sequence with every KV head, by one
+    all_to_all over `model` where `split` (the forward gave the rank its
+    own KV heads), else the rank's slice of the whole heads. As they are
+    on whole weights or a `model` of one."""
+    group = seq_group(w)
+    if group is None:
+        return kv
+    rows, S = next(iter(kv.values())).shape[:2]
+    cache_spec(placement(w).mesh, ("batch", "cache_seq"), (rows, S))
+    n_loc = S // group.shards
+    return {n: (coll.all_to_all(t, group, 1, 2) if split else
+                t.narrow(1, n_loc * group.rank, n_loc).clone())
+            for n, t in kv.items()}
+
+
 def serve_rows(batch: int, mesh) -> slice:
     """The rows of a global batch of `batch` sequences that this rank of
     the process mesh serves: its block over the data axes, or all of
@@ -228,9 +254,11 @@ def serve_rows(batch: int, mesh) -> slice:
                        mesh.coords)[0]
 
 
-def _tree_map(fn, tree, *others):
+def tree_map(fn, tree, *others):
+    """fn over the leaves of a tree of nested dicts (and of `others`, of
+    the same structure, leaf beside leaf)."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(o[k] for o in others))
+        return {k: tree_map(fn, v, *(o[k] for o in others))
                 for k, v in tree.items()}
     return fn(tree, *others)
 
@@ -238,7 +266,7 @@ def _tree_map(fn, tree, *others):
 def block_shapes(shapes, axes, mesh):
     """A tree of whole shapes cut to this rank's block shapes."""
     rules = mesh_rules(mesh)
-    return _tree_map(lambda s, a: rules.local_shape(
+    return tree_map(lambda s, a: rules.local_shape(
         tuple(s), cache_spec(mesh, a, tuple(s))), shapes, axes)
 
 
@@ -251,7 +279,7 @@ def cut_blocks(tree, axes, mesh):
         shape = tuple(t.shape)
         return t[rules.block(shape, cache_spec(mesh, a, shape),
                              mesh.coords)].clone()
-    return _tree_map(cut, tree, axes)
+    return tree_map(cut, tree, axes)
 
 
 def whole_blocks(tree, axes, shapes, mesh):
@@ -268,4 +296,4 @@ def whole_blocks(tree, axes, shapes, mesh):
             t = coll.gather_weight(t, group, dim)
         return t
     with torch.no_grad():
-        return _tree_map(gather, tree, axes, shapes)
+        return tree_map(gather, tree, axes, shapes)

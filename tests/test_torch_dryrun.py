@@ -285,10 +285,10 @@ def test_fake_run_counts_equal_real_step(arch, kind):
 def test_cell_record_carries_a_rank_trace_where_the_cell_runs_sharded():
     """A production-mesh record takes rank 0's temporaries and collective
     bytes from the rank trace for a train cell, of a GQA transformer and
-    of Mamba-2 alike (every family keeps blocks), and for a serving cell
-    of the GQA transformer (its prefill and decode run on blocks), and
-    leaves them null with `NO_RANK_TRACE` for Mamba-2's serving cell (no
-    rank trace is run); `trace_rank` refuses that cell; a rank's
+    of Mamba-2 alike, and for a serving cell of both (every family
+    trains, prefills and decodes on blocks); `trace_rank` traces reduced
+    Mamba-2's prefill at 2x2 (its heads and its conv block over `model`),
+    with temporaries and the gathers of in_proj's output; a rank's
     microbatches are cut to whole rows a data rank (16 of 256 rows over
     32 data ranks: 8)."""
     fake = dict(argument_bytes=10, peak_bytes=30, flops=1.0,
@@ -303,42 +303,50 @@ def test_cell_record_carries_a_rank_trace_where_the_cell_runs_sharded():
         calls.append(1)
         return ranked
 
-    for arch, shape, runs in (("qwen2-7b", "train_4k", True),
-                              ("qwen2-7b", "prefill_32k", True),
-                              ("mamba2-1.3b", "train_4k", True),
-                              ("mamba2-1.3b", "prefill_32k", False)):
+    for arch, shape in (("qwen2-7b", "train_4k"), ("qwen2-7b", "prefill_32k"),
+                        ("mamba2-1.3b", "train_4k"),
+                        ("mamba2-1.3b", "prefill_32k")):
         rec = dryrun.cell_record(arch, shape, "pod16x16", lambda: fake,
                                  rank_trace)
         pd = rec["per_device"]
         assert rec["status"] == "ok", rec
-        if runs:
-            assert (pd["temp_bytes"], pd["coll_bytes"], pd["reason"]) == (
-                4, 5, None)
-            assert pd["rank"]["coll_by_kind"] == {"all_gather": 5}
-        else:
-            assert pd["temp_bytes"] is None and pd["coll_bytes"] is None
-            assert pd["reason"] == dryrun.NO_RANK_TRACE
-    assert len(calls) == 3
-    with pytest.raises(ValueError, match="no rank trace.*4h"):
-        dryrun.trace_rank(reduced_config("mamba2-1.3b"),
-                          SHAPES["prefill_32k"], {"data": 2, "model": 2},
-                          device="cpu")
+        assert (pd["temp_bytes"], pd["coll_bytes"], pd["reason"]) == (
+            4, 5, None)
+        assert pd["rank"]["coll_by_kind"] == {"all_gather": 5}
+    assert len(calls) == 4
+    traced = dryrun.trace_rank(reduced_config("mamba2-1.3b"),
+                               ShapeConfig("p", 32, 4, "prefill"),
+                               {"data": 2, "model": 2}, device="cpu")
+    assert traced["temp_bytes"] > 0 and traced["coll_bytes"] > 0
+    assert traced["coll_calls"]["all_gather"] > 0
     nemotron = get_config("nemotron-4-340b")
     assert dryrun.rank_microbatches(nemotron, SHAPES["train_4k"], 16) == 16
     assert dryrun.rank_microbatches(nemotron, SHAPES["train_4k"], 32) == 8
 
 
+def _mamba2_heads_16(name):
+    """Reduced configs, Mamba-2's widened to 16 heads (expand 4), so that
+    its heads, conv channels and in_proj columns split over a `model` of
+    16 (the reduced 8 heads do not)."""
+    cfg = reduced_config(name)
+    return (dataclasses.replace(cfg, ssm_expand=4)
+            if name == "mamba2-1.3b" else cfg)
+
+
 def test_rank_only_cli_traces_the_serving_cells_of_a_reduced_config(
         tmp_path, monkeypatch):
     """`--rank-only` writes rank 0's trace alone (no single-device trace)
-    for reduced Qwen2-7B's prefill and decode cells and reduced
-    DeepSeek-V2's decode cell (the configs and the shapes cut small, the
-    meshes the production 16x16 and 2x16x16): temporaries and collective
-    bytes in each record, the decode's cache block over the data axes
-    and `model`, and Mamba-2's decode cell with `NO_RANK_TRACE`."""
+    for reduced Qwen2-7B's prefill and decode cells and the decode cells
+    of reduced DeepSeek-V2 and Mamba-2 (the configs and the shapes cut
+    small, Mamba-2 at 16 heads, the meshes the production 16x16 and
+    2x16x16): temporaries and collective bytes in each record, and the
+    decode's cache blocks over the data axes and `model`: Mamba-2's
+    `conv` over its packed channels and `ssm` over its heads, the rank's
+    argument bytes its blocks of the weights and of the cache and its
+    tokens."""
     small = {"prefill_32k": ShapeConfig("prefill_32k", 64, 64, "prefill"),
              "decode_32k": ShapeConfig("decode_32k", 64, 64, "decode")}
-    monkeypatch.setattr(dryrun, "get_config", reduced_config)
+    monkeypatch.setattr(dryrun, "get_config", _mamba2_heads_16)
     monkeypatch.setattr(dryrun, "SHAPES", small)
     cells = (("qwen2-7b", "prefill_32k"), ("qwen2-7b", "decode_32k"),
              ("deepseek-v2-236b", "decode_32k"), ("mamba2-1.3b",
@@ -353,14 +361,35 @@ def test_rank_only_cli_traces_the_serving_cells_of_a_reduced_config(
             pd = rec["per_device"]
             assert rec["status"] == "ok" and rec["method"] == "rank_only"
             assert "memory" not in rec and pd["argument_bytes"] > 0
-            if arch == "mamba2-1.3b":
-                assert pd["reason"] == dryrun.NO_RANK_TRACE
-                assert pd["temp_bytes"] is None
-                continue
             assert pd["reason"] is None and pd["temp_bytes"] > 0
             kinds = pd["rank"]["coll_by_kind"]
             # the FSDP gathers of the weights and the gathered logits
             assert kinds["all_gather"] > 0, kinds
-            if shape == "decode_32k":
+            if shape == "decode_32k" and arch != "mamba2-1.3b":
                 # the softmax's max and its (sum, output) over `model`
                 assert pd["rank"]["coll_calls"]["all_reduce"] >= 2
+            if arch == "mamba2-1.3b":
+                _check_mamba2_rank_blocks(rec, mesh)
+
+
+def _check_mamba2_rank_blocks(rec, mesh):
+    """Rank 0's cache blocks of the Mamba-2 decode cell `rec` on `mesh`
+    (64 rows over the data axes, the 544 packed conv channels and the 16
+    heads over `model`), and its argument bytes: its blocks of the
+    weights and of the cache, and its int64 tokens."""
+    from repro_torch.launch.mesh import make_production_mesh, make_rank_mesh
+    from repro_torch.models import get_model
+    cfg = _mamba2_heads_16("mamba2-1.3b")
+    shape = dict(make_production_mesh(multi_pod=mesh == "pod2x16x16",
+                                      abstract=True).shape)
+    dp = 64 // (32 if mesh == "pod2x16x16" else 16)
+    model = get_model(cfg)(cfg, device="meta", seed=None,
+                           mesh=make_rank_mesh(shape, 0, "meta"))
+    cache = model.init_cache(64, 64)
+    L = cfg.num_layers
+    assert tuple(cache["conv"].shape) == (L, dp, 3, 544 // 16)
+    assert tuple(cache["ssm"].shape) == (L, dp, 1, 32, 16)
+    assert tuple(cache["idx"].shape) == (L, dp)
+    blocks = sum(t.numel() * t.element_size() for t in list(
+        model.parameters()) + list(cache.values()))
+    assert rec["per_device"]["rank"]["argument_bytes"] == blocks + dp * 8
