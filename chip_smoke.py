@@ -19,16 +19,25 @@
    both sum with atomics in different orders, and exact on the count
    engines' first-round sums, single-device and sharded; walk_step exact
    from given uniforms (a) and from key words (b), at the first round of
-   the sharded walk engine at P=2; uniform bit-equal to its plain version
-   at the walk engine's 1.46e8 draws on the card, and at 2^20 draws to the
-   plain version on the CPU), with times of the kernel, the plain version
+   the sharded walk engine at P=2, and (b) with its edge output at the
+   single-device walk engine's first round (1.46e8 slots); uniform
+   bit-equal to its plain version at 1.46e8 draws on the card, at 2^20
+   draws to the plain version on the CPU, at sizes with every tail past
+   the last quad, and on its 64-bit path past 2^32 draws; the SASS
+   loops of both threefry kernels counted with cuobjdump and timed at one
+   instruction per lane per clock), with times of the kernel, the plain version
    and a one-call PyTorch yardstick where there is one, beside the least
    time the card could take (bytes over the HBM rate, or operations over
    the FP32 rate).
 3. Single-device path on doc_link_graph(2**20): power_iteration, then
    simple_pagerank with the walk engine and with the count engine (traced).
    Each run must agree with power iteration (L1 < 0.15, top-10 >= 0.6) and
-   launch its kernels; the count engine's residual must be 0.
+   launch its kernels; the count engine's residual must be 0. The walk
+   engine launches one keyed walk_step a round and no standalone uniform;
+   three of its rounds are timed unprofiled, then profiled with device
+   activity only, for the idle share; on doc_link_graph(2^16) its run and
+   traced run equal, bit for bit, the same engine with each kernel
+   replaced by its plain version on the card.
 4. Sharded path on the same graph, P shards stacked on the card: the count
    engine at P=4 with unpacked lanes (zeta bit-identical to step 3's count
    engine, overflow and residual 0) and the walk engine at P=2 (nothing
@@ -335,15 +344,19 @@ def device_ms(fn, iters: int, *parts) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_dev_us(e) for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
+        # CUPTI has been seen to drop a session's first kernel: each kernel
+        # counts at its mean over the launches recorded, times its
+        # launches a call
+        us = sum(_dev_us(e) / e.count * max(1, round(e.count / iters))
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count
                  and any(p in e.key for p in parts))
         if us > 0:
             break
         log(f"device_ms: profiler session {attempt + 1} recorded no "
             f"device time for {parts}")
     check(us > 0, f"the profiler recorded no device time for {parts}")
-    return us / 1e3 / iters
+    return us / 1e3
 
 
 def bound(nbytes: float, ops: float = 0.0) -> dict:
@@ -354,6 +367,112 @@ def bound(nbytes: float, ops: float = 0.0) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes=int(nbytes), bound_ops=int(ops))
+
+
+# lanes of an SM that issue one instruction each a clock: 4 schedulers,
+# each one warp instruction of 32 lanes a clock
+ISSUE_LANES_PER_SM = 128
+# the integer ALU pipe's lanes an SM (16 a scheduler) and the opcodes taken
+# to run on it: logic, shifts, three-input adds, compares and selects;
+# IMAD (the adds the compiler moves there) and the float ops run on the
+# FMA pipe beside it
+ALU_LANES_PER_SM = 64
+ALU_OPCODES = ("LOP3", "SHF", "IADD3", "LEA", "ISETP", "SEL", "VIMNMX",
+               "VIADDMNMX", "FSETP", "PLOP3", "PRMT", "MOV")
+
+
+def sass_loop(lib_path, part: str):
+    """The largest loop of the kernel whose symbol holds `part` in the
+    SASS of a built library (`cuobjdump -sass`): {"instructions": the
+    loop's SASS instructions (from a backward branch's target to the
+    branch), "draws": the threefry draws in it (each ends in the one FADD
+    of its `- 1.0f`, so however the compiler unrolled the loop),
+    "kernel_instructions": the kernel's, "opcodes": the loop's count by
+    opcode}; None where the toolkit has no cuobjdump."""
+    import re
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log(f"sass: no cuobjdump for {part}: not measured")
+        return None
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    line = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);")
+    for section in text.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if part not in name:
+            continue
+        code = [(int(a, 16), op, rest) for a, op, rest
+                in line.findall(section)]
+        best = (0, 0)
+        for addr, op, rest in code:
+            target = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and target \
+                    and int(target.group(1), 16) < addr:
+                start = int(target.group(1), 16)
+                best = max(best, (sum(start <= a <= addr
+                                      for a, _, _ in code), start))
+        count, start = best
+        ops = {}
+        for addr, op, _ in code:
+            if count and start <= addr < start + 16 * count:
+                key = op.split(".")[0]
+                ops[key] = ops.get(key, 0) + 1
+        return dict(symbol=name, instructions=count,
+                    draws=ops.get("FADD", 0), kernel_instructions=len(code),
+                    opcodes=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
+    log(f"sass: no kernel holding {part} in {lib_path}")
+    return None
+
+
+def sm_clock_busy(fn, iters: int) -> dict:
+    """The SM clock nvidia-smi reports while the card runs `iters` queued
+    calls of `fn`, and its maximum (MHz)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(iters):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    now, most = (float(x) for x in out.split(","))
+    return dict(sm_mhz=now, max_sm_mhz=most)
+
+
+def issue_ms(instructions: float, mhz: float,
+             lanes: int = ISSUE_LANES_PER_SM) -> float:
+    """The time `instructions` lane-instructions take on the whole card at
+    one instruction per lane per clock (`lanes` an SM)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return instructions / (lanes * sms * mhz * 1e6) * 1e3
+
+
+def alu_instructions(opcodes: dict) -> int:
+    return sum(c for op, c in opcodes.items() if op in ALU_OPCODES)
+
+
+def sass_fields(library: str, part: str, call, draws: int) -> dict:
+    """The SASS loop of the threefry kernel whose symbol holds `part` in
+    kernel `library`, per draw (its instructions over its draws), and the
+    time `draws` draws take at that count at the issue rate and on the
+    ALU pipe, at the SM clock under `call`; {} without cuobjdump."""
+    from repro_torch.kernels import common
+    sass = sass_loop(common.library_path(library), part)
+    if not sass or not sass["draws"]:
+        return {}
+    per_draw = sass["instructions"] / sass["draws"]
+    alu = alu_instructions(sass["opcodes"]) / sass["draws"]
+    clock = sm_clock_busy(call, 1000)
+    return dict(sass_loop_instructions=sass["instructions"],
+                sass_draws_in_loop=sass["draws"], sass_per_draw=per_draw,
+                sass_opcodes=sass["opcodes"], alu_per_draw=alu, **clock,
+                issue_ms=issue_ms(per_draw * draws, clock["sm_mhz"]),
+                alu_pipe_ms=issue_ms(alu * draws, clock["sm_mhz"],
+                                     ALU_LANES_PER_SM))
 
 
 def nvidia_smi_line() -> str:
@@ -381,13 +500,14 @@ def kernel_phase(g, K):
     # histogram: the arrivals of the walk engine's first round, and the same
     # number of valid ids spread uniformly (no hub) in the same slots
     state = engine_walks.init_state(g, K, prng.PRNGKey(0))
-    _, survive, dst, _ = engine_walks.advance(g.row_ptr, g.col_idx,
-                                              g.out_deg, EPS, state)
-    ids = torch.where(survive, dst, -1)
+    _, dst, moved, _ = engine_walks.advance(g.row_ptr, g.col_idx, g.out_deg,
+                                            EPS, state)
+    moved = moved.bool()
+    ids = torch.where(moved, dst, -1)
     gen = torch.Generator(device=dev).manual_seed(0)
-    uniform = torch.where(survive, torch.randint(
+    uniform = torch.where(moved, torch.randint(
         0, n, ids.shape, generator=gen, device=dev, dtype=torch.int32), -1)
-    del state, survive, dst
+    del state, moved, dst
     W = ids.numel()
     hot = {}
     for name, x in (("real", ids), ("uniform", uniform)):
@@ -423,15 +543,7 @@ def kernel_phase(g, K):
             f"{histogram_ops.sample_size(W)} sampled) taking "
             f"{h['hot_share']:.4f} of the counts; the largest count is "
             f"{h['hub_share']:.4f} of them")
-    del shifted, uniform
-
-    # the threefry draws of that round (the uniform kernel), for the walk
-    # engine's breakdown
-    k = prng.PRNGKey(1)
-    threefry_ms = cuda_ms(lambda: prng.uniform(k, (W,), device=dev), 3)
-    log(f"prng.uniform of {W} float32 (the uniform kernel, a call): "
-        f"{threefry_ms:.3f} ms")
-    del ids
+    del shifted, uniform, ids
 
     # segment_spmv: the power-iteration push from the uniform start vector
     src = g.edge_src()
@@ -475,7 +587,7 @@ def kernel_phase(g, K):
         f"{rel_lib:.3e}; {rows['segment_spmv']}")
     del src, deg_e, x0, contrib, exact, y_k, y_p, pos, hot
 
-    return rows, threefry_ms
+    return rows
 
 
 def sampler_phase(g, K, rows):
@@ -737,6 +849,9 @@ def walk_step_phase(g, K):
         plain_ms=cuda_ms(lambda: walk_step_ref(loc, alv, ut, ue, *tables,
                                                eps=EPS), 3),
         **bound(24 * cap + table_bytes))
+    row.update(sass_fields(
+        "walk_step", "walk_step_keyed_kernelIiLb0",
+        lambda: walk_step_keyed(loc, alv, kt, ke, *tables, eps=EPS), draws))
     # the same integer work at the H100's INT32 throughput (64 lanes per SM
     # per clock, 132 SMs, 1.98 GHz boost), for comparison only
     int_ms = THREEFRY_OPS_PER_DRAW * draws / (64 * 132 * 1.98e9) * 1e3
@@ -745,6 +860,62 @@ def walk_step_phase(g, K):
         f"uniforms: {entry_a}; (b)'s operations at the INT32 throughput "
         f"would take {int_ms:.4f} ms")
     row["entry_a"] = entry_a
+    del args, loc, alv, ut, ue, tables
+    torch.cuda.empty_cache()
+    row["single_device_edges"] = walk_step_edges_row(g, K)
+    return row
+
+
+def walk_step_edges_row(g, K):
+    """walk_step (b) with the edge output at the single-device walk
+    engine's first round (W = n*K slots, all alive, the engine's own keys):
+    bit-equal to its plain version, timed with and without the edge output
+    against the bound of its bytes and operations, its SASS loop counted
+    and timed at the issue rate."""
+    from repro_torch import prng
+    from repro_torch.core import engine_walks
+    from repro_torch.kernels.walk_step import walk_step_keyed
+    from repro_torch.kernels.walk_step.ref import walk_step_keyed_ref
+
+    state = engine_walks.init_state(g, K, prng.PRNGKey(0))
+    _, kt, ke = prng.split(state.key, 3)
+    args = (state.pos, state.alive, kt, ke, g.row_ptr, g.col_idx, g.out_deg)
+    W = state.pos.numel()
+    got = walk_step_keyed(*args, eps=EPS, edges=True)
+    want = walk_step_keyed_ref(*args, eps=EPS, edges=True)
+    check(all(a.dtype == b.dtype for a, b in zip(got, want))
+          and got[1].dtype == state.alive.dtype,
+          "walk_step (b) with edges: output dtypes differ")
+    err = max(int((a.long() - b.long()).abs().max())
+              for a, b in zip(got, want))
+    check(err == 0, f"walk_step (b) with edges at W={W}: differs from its "
+                    f"plain version by {err}")
+    moved = int(want[1].sum())
+    live = int((g.out_deg.index_select(0, state.pos) > 0).sum())
+    draws = live + moved
+    del got, want
+    table_bytes = 4 * (g.row_ptr.numel() + g.col_idx.numel()
+                       + g.out_deg.numel())
+    # pos and alive read, new_pos, new_alive and edge written
+    slot_bytes = 2 * (4 + state.alive.element_size()) + 4
+
+    def call():
+        return walk_step_keyed(*args, eps=EPS, edges=True)
+
+    row = dict(
+        ms=cuda_ms(call, 20),
+        ms_without_edges=cuda_ms(lambda: walk_step_keyed(*args, eps=EPS),
+                                 20),
+        plain_ms=cuda_ms(lambda: walk_step_keyed_ref(*args, eps=EPS,
+                                                     edges=True), 2),
+        library_ms=None, max_abs_err=err,
+        shape=f"W={W} slots, all alive ({state.alive.dtype}), {draws} "
+              f"draws, {moved} moved, n={g.n}",
+        **bound(slot_bytes * W + table_bytes, THREEFRY_OPS_PER_DRAW * draws))
+    row.update(sass_fields("walk_step", "walk_step_keyed_kernelIhLb1", call,
+                           draws))
+    log(f"walk_step (b) with edges, the single-device walk engine's first "
+        f"round: PASS, exact; {row}")
     return row
 
 
@@ -818,7 +989,7 @@ def main_path(g, K, drive):
 
     counts_zeta = None
     for engine, traced, kernels in (
-            ("walks", False, ["histogram"]),
+            ("walks", False, ["walk_step", "histogram"]),
             ("counts", True, ["multinomial_rows", "segment_spmv"])):
         res, secs, peak = drive(
             f"simple_pagerank[{engine}]",
@@ -830,7 +1001,13 @@ def main_path(g, K, drive):
         info = dict(seconds=secs, rounds=res.logical_rounds, K=K,
                     walks=K * g.n, l1=l1, top10=top, zeta_max=zmax,
                     zeta_sum=int(res.zeta.sum(dtype=torch.int64)),
-                    peak_gib=peak)
+                    peak_gib=peak, launches=dict(drive.last))
+        if engine == "walks":
+            # every draw is made inside the keyed walk step, one a round
+            check(drive.last["uniform"] == 0
+                  and drive.last["walk_step"] == res.logical_rounds,
+                  f"walks: launches {drive.last} over "
+                  f"{res.logical_rounds} rounds")
         if engine == "counts":
             # run_traced raises on any round whose residual is not 0
             info.update(residual=0,
@@ -843,24 +1020,116 @@ def main_path(g, K, drive):
             out["scores"] = np.asarray(res.pi)
         del res
         torch.cuda.empty_cache()
+    walks_breakdown(g, K)
+    out["walks_plain"] = walks_plain_check(drive)
     return out, pi_ref, counts_zeta
 
 
+def walks_breakdown(g, K):
+    """Rounds 1-3 of the single-device walk engine: their wall time
+    unprofiled, then their device time by kernel under the profiler with
+    device activity only; the idle share is 1 - device busy over the
+    unprofiled wall time (host tracing would lengthen the rounds)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import engine_walks
+
+    def step(s):
+        return engine_walks._step_core(g.row_ptr, g.col_idx, g.out_deg,
+                                       EPS, s)[0]
+
+    rounds = 3
+    state = engine_walks.init_state(g, K, prng.PRNGKey(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = state
+    for _ in range(rounds):
+        s = step(s)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    del s
+    stats = {}
+    profile_rounds(step, state, rounds, "single-device walks, rounds 1-3",
+                   groups={"walk_step": "walk_step_keyed_kernel",
+                           "histogram": "histogram"},
+                   stats=stats, host=False)
+    idle = max(0.0, 1 - stats["busy_ms"] / wall_ms)
+    log(f"single-device walks, rounds 1-3 unprofiled: wall {wall_ms:.3f} ms "
+        f"a round, device busy {stats['busy_ms']:.3f} ms a round (profiled),"
+        f" idle share {idle:.3f}")
+    del state
+    torch.cuda.empty_cache()
+
+
+N_WALKS_PLAIN = 1 << 16
+
+
+def walks_plain_check(drive):
+    """The single-device walk engine on the card, untraced and traced, on
+    doc_link_graph(N_WALKS_PLAIN), against the same engine run with each
+    kernel replaced by its plain version on the card: zeta, rounds and
+    traces bit-equal, no standalone uniform launched."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import engine_walks, walks_per_node_for
+    from repro_torch.graphs import doc_link_graph
+    from repro_torch.kernels.histogram.ref import histogram_ref
+    from repro_torch.kernels.walk_step.ref import walk_step_keyed_ref
+
+    g = doc_link_graph(N_WALKS_PLAIN, seed=0)
+    K = walks_per_node_for(g.n, EPS)
+    key = prng.PRNGKey(3)
+    (run, traced), secs, peak = drive(
+        f"engine_walks run + run_traced[doc_link_graph({g.n})]",
+        lambda: (engine_walks.run(g, EPS, K, key),
+                 engine_walks.run_traced(g, EPS, K, key)),
+        ["walk_step", "histogram"])
+    check(drive.last["uniform"] == 0, f"walks at n={g.n}: a standalone "
+                                      f"uniform was launched")
+    saved = engine_walks.walk_step_keyed, engine_walks.histogram
+    engine_walks.walk_step_keyed = walk_step_keyed_ref
+    engine_walks.histogram = histogram_ref
+    try:
+        plain = engine_walks.run(g, EPS, K, key)
+        plain_traced = engine_walks.run_traced(g, EPS, K, key)
+    finally:
+        engine_walks.walk_step_keyed, engine_walks.histogram = saved
+    check(torch.equal(run.zeta, plain.zeta) and run.round == plain.round,
+          f"walks at n={g.n}: zeta or rounds differ from the plain versions'")
+    check(torch.equal(traced[0].zeta, plain_traced[0].zeta)
+          and traced[1] == plain_traced[1],
+          f"walks traced at n={g.n}: zeta or traces differ from the plain "
+          f"versions'")
+    info = dict(n=g.n, K=K, rounds=run.round, seconds=secs, peak_gib=peak,
+                zeta_equal_plain=True, traces_equal_plain=True,
+                launches=dict(drive.last))
+    log(f"single-device walks vs plain versions on the card: PASS, {info}")
+    return info
+
+
 def profile_rounds(step, state, rounds, label, top=10, groups=None,
-                   stats=None):
+                   stats=None, host=True):
     """Run `rounds` steps under torch.profiler and print the device time of
     the kernels by name, the device's busy time (kernels, copies and sets)
     and its idle share of the wall time, and the device time of each of
     `groups` (label: a part of the kernel's name) and of the rest. Returns
     the last state; fills `stats` (a dict), when given, with a round's
-    wall and busy ms, the idle share and the device ops."""
+    wall and busy ms, the idle share and the device ops. With `host` the
+    profiler traces the host's ops too, which lengthens the wall time and
+    so overstates the idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        # a throwaway first kernel: CUPTI has been seen to drop a
+        # session's first one
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(rounds):
             state = step(state)
@@ -2688,7 +2957,10 @@ def three_phase_path(drive, sharded_rounds):
         seconds=secs, rounds=res.logical_rounds, peak_gib=peak)
     del res
     res, secs, peak = drive(f"improved_pagerank[erdos_renyi({g.n})]",
-                            lambda: improved_pagerank(g, EPS), ["histogram"])
+                            lambda: improved_pagerank(g, EPS),
+                            ["walk_step", "histogram"])
+    check(drive.last["uniform"] == 0, "improved single-device: a standalone "
+                                      "uniform was launched")
     l1, top = accuracy("improved single-device", res.pi, pi_ref, g.n)
     expect = g.n * K2 / EPS
     visits = int(res.zeta.sum(dtype=torch.int64))
@@ -2731,7 +3003,9 @@ def three_phase_path(drive, sharded_rounds):
     torch.cuda.empty_cache()
     res, secs, peak = drive(f"directed_local_pagerank[doc_link_graph({g.n})]",
                             lambda: directed_local_pagerank(g, EPS),
-                            ["histogram"])
+                            ["walk_step", "histogram"])
+    check(drive.last["uniform"] == 0, "directed single-device: a standalone "
+                                      "uniform was launched")
     l1, top = accuracy("directed single-device", res.pi, pi_ref, g.n)
     report("directed single-device, doc_link_graph", res, secs, peak,
            dict(rounds=res.logical_rounds, phase1=res.phase1_rounds,
@@ -2759,17 +3033,24 @@ def three_phase_path(drive, sharded_rounds):
     return out, phase_rows, cells_row
 
 
+# a draw past 2^32 elements, for the kernel's 64-bit path (17.2 GB)
+UNIFORM_WIDE = (1 << 32) + 1000
+
+
 def uniform_phase(W, dev):
     """The uniform kernel at the walk engine's draw, W = n*K float32:
     bit-equal to its plain version on the card, and at 2^20 draws to the
-    plain version on the CPU; timed against its bound and the plain
-    version. The kernel computes the counter's high word as the plain
-    version does, but no check reaches it: a draw of 2^32 elements would
-    need over 100 GB of the plain version's int64 temporaries."""
+    plain version on the CPU; every ragged tail (sizes that are no
+    multiple of four, and sizes below a quad);
+    the 64-bit path at UNIFORM_WIDE draws, at its first, last and
+    2^32-crossing elements against `uniform_of_counters`; timed
+    against its bound and the plain version, its SASS loop counted and
+    timed at the issue rate."""
     import torch
     from repro_torch import prng
     from repro_torch.kernels.uniform import uniform
-    from repro_torch.kernels.uniform.ref import uniform_ref
+    from repro_torch.kernels.uniform.ref import (uniform_of_counters,
+                                                 uniform_ref)
 
     key = prng.PRNGKey(11)
     got = uniform(key, (W,), device=dev)
@@ -2784,18 +3065,42 @@ def uniform_phase(W, dev):
     check(torch.equal(uniform(key, (small,), device=dev).cpu().view(
         torch.int32), host.view(torch.int32)),
         "uniform: 2^20 draws differ from the plain version on the CPU")
-    del host
+    ragged = 0
+    for size in (1, 2, 3, 4, 5, 6, 7, 8, 9, 1023, small - 3, small - 2,
+                 small - 1):
+        out = uniform(key, (size,), device=dev)
+        ragged += 1
+        check(torch.equal(out.cpu().view(torch.int32),
+                          host[:size].view(torch.int32)),
+              f"uniform: {size} draws differ from the plain version")
+    del host, out
+    torch.cuda.empty_cache()
+    wide = uniform(key, (UNIFORM_WIDE,), device=dev)
+    where = torch.cat([torch.arange(4096), torch.arange(
+        min((1 << 32) - 2048, UNIFORM_WIDE), UNIFORM_WIDE)])
+    check(torch.equal(wide[where.to(dev)].cpu().view(torch.int32),
+                      uniform_of_counters(key, where).view(torch.int32)),
+          f"uniform: the 64-bit path at {UNIFORM_WIDE} draws differs from "
+          f"the hash of its counters")
+    del wide
+    torch.cuda.empty_cache()
+
+    def call():
+        return uniform(key, (W,), device=dev)
+
     row = dict(
-        ms=device_ms(lambda: uniform(key, (W,), device=dev), 10,
-                     "uniform_kernel"),
-        call_ms=cuda_ms(lambda: uniform(key, (W,), device=dev), 10),
+        ms=device_ms(call, 10, "uniform_quad_kernel"),
+        call_ms=cuda_ms(call, 10),
         plain_ms=cuda_ms(lambda: uniform_ref(key, (W,), device=dev), 2),
         library_ms=None, max_abs_err=err,
         torch_rand_ms=cuda_ms(lambda: torch.rand(W, device=dev), 10),
-        shape=f"{W} float32 draws",
+        shape=f"{W} float32 draws", ragged_checks=ragged,
+        wide_draws_checked=int(where.numel()),
         **bound(4 * W, THREEFRY_OPS_PER_DRAW * W))
+    row.update(sass_fields("uniform", "uniform_quad_kernel", call, W))
     log(f"uniform: PASS, {W} draws bit-equal to the plain version on the "
-        f"card, and 2^20 to it on the CPU; {row} (torch.rand, another "
+        f"card, and 2^20 to it on the CPU, {ragged} ragged sizes, the "
+        f"64-bit path at {UNIFORM_WIDE} draws; {row} (torch.rand, another "
         f"generator and so not the same function, for scale only)")
     return row
 
@@ -3007,7 +3312,9 @@ def ppr_path(g, drive):
         "personalized_pagerank[query 0]",
         lambda: personalized_pagerank(g, EPS, src0, W, key=prng.PRNGKey(0),
                                       weights=w0),
-        ["uniform", "histogram"])
+        ["walk_step", "histogram"])
+    check(drive.last["uniform"] == 0, "single-query PPR: a standalone "
+                                      "uniform was launched")
     l1, top, mass = ppr_accuracy("single-query PPR", vec.cpu().numpy(),
                                  ref[0], W)
     out["single"] = dict(seconds=secs, rounds=drive.last["histogram"],
@@ -5291,7 +5598,7 @@ def main() -> int:
     phases = {}
     try:
         t0 = time.perf_counter()
-        rows, threefry_ms = kernel_phase(g, K)
+        rows = kernel_phase(g, K)
         sampler_phase(g, K, rows)
         torch.cuda.empty_cache()
         rows["walk_step"] = walk_step_phase(g, K)
@@ -5351,11 +5658,10 @@ def main() -> int:
         return 1
 
     walks = runs["walks"]
-    share = 2 * walks["rounds"] * threefry_ms / 1e3 / walks["seconds"]
     log(f"phases: build {build_s:.2f} s, graph {graph_s:.2f} s, power "
         f"iteration {runs['power_iteration']['seconds']:.3f} s, walks "
-        f"{walks['seconds']:.3f} s (uniform kernel ~{share:.1%}: 2 draws x "
-        f"{walks['rounds']} rounds x {threefry_ms:.3f} ms), counts "
+        f"{walks['seconds']:.3f} s ({walks['rounds']} rounds, "
+        f"{walks['launches']['walk_step']} keyed walk_step launches), counts "
         f"{runs['counts']['seconds']:.3f} s, sharded counts P=4 "
         f"{sharded['counts']['seconds']:.3f} s, sharded walks P=2 "
         f"{sharded['walks']['seconds']:.3f} s; three-phase "

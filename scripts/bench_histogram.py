@@ -71,12 +71,13 @@ def main() -> int:
         print("bench_histogram: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch import prng
-    from repro_torch.core import engine_walks, walks_per_node_for
+    from repro_torch.core import walks_per_node_for
     from repro_torch.graphs import doc_link_graph
     from repro_torch.kernels import common
     from repro_torch.kernels.histogram import histogram
     from repro_torch.kernels.histogram import ops
     from repro_torch.kernels.histogram.ref import histogram_ref
+    from repro_torch.kernels.walk_step import walk_step_keyed
 
     for name, text in common.build_all().items():
         for line in text.splitlines():
@@ -90,11 +91,15 @@ def main() -> int:
     g = doc_link_graph(1 << 20, seed=0)
     n = g.n
     K = walks_per_node_for(n, eps)
-    state = engine_walks.init_state(g, K, prng.PRNGKey(0))
-    _, survive, dst, _ = engine_walks.advance(g.row_ptr, g.col_idx,
-                                              g.out_deg, eps, state)
+    # the walk engine's first round: every walk alive at its start vertex,
+    # the engine's keys (init_state's key, split in three)
+    pos = torch.arange(n, dtype=torch.int32, device=g.device).repeat(K)
+    _, k_term, k_edge = prng.split(prng.PRNGKey(0), 3)
+    dst, survive = walk_step_keyed(pos, torch.ones_like(pos), k_term, k_edge,
+                                   g.row_ptr, g.col_idx, g.out_deg, eps=eps)
+    survive = survive.bool()
     real = torch.where(survive, dst, -1)
-    del state, dst
+    del pos, dst
     gen = torch.Generator(device=real.device).manual_seed(0)
     uniform = torch.where(survive, torch.randint(
         0, n, real.shape, generator=gen, device=real.device,

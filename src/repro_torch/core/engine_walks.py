@@ -1,6 +1,8 @@
 """Walk-array engine — Algorithm 1 as a dense array of walk positions.
 
-Walks are advanced with vectorized gathers; visit counters grow by a
+A round is one launch of `walk_step`'s keyed entry, which draws each
+walk's two threefry uniforms where it consumes them (as XLA fuses
+`jax.random.uniform` into the step on the TPU); visit counters grow by a
 histogram of the round's arrivals (the `histogram` kernel on the card).
 Mathematically identical to the paper's process (walks are iid PageRank
 random walks terminated at the first eps-reset); the CONGEST message
@@ -23,6 +25,7 @@ from repro_torch import prng
 from repro_torch.core.accounting import RoundTrace
 from repro_torch.core.graph import CSRGraph
 from repro_torch.kernels.histogram import histogram
+from repro_torch.kernels.walk_step import walk_step_keyed
 
 
 @dataclasses.dataclass
@@ -48,43 +51,36 @@ def init_state(graph: CSRGraph, walks_per_node: int, key: torch.Tensor,
                      zeta=zeta, key=key, round=0)
 
 
-def advance(row_ptr, col_idx, out_deg, eps: float, state: WalkState):
-    """The walk decisions of one round: (key, survive, dst, edge_ids)."""
+def advance(row_ptr, col_idx, out_deg, eps: float, state: WalkState, *,
+            edges: bool = False):
+    """The walk decisions of one round, one keyed `walk_step` launch:
+    (key, new_pos, new_alive, edge). `new_pos` keeps the old position where
+    the walk did not move; `edge` (with `edges`, else None) is the edge id
+    each walk moved along, -1 where it did not."""
     key, k_term, k_edge = prng.split(state.key, 3)
-    pos = state.pos
-    u_term = prng.uniform(k_term, pos.shape, device=pos.device)
-    deg = out_deg.index_select(0, pos)
-    # dangling vertex == immediate reset (Avrachenkov convention)
-    survive = state.alive & (u_term >= eps) & (deg > 0)
-    u_edge = prng.uniform(k_edge, pos.shape, device=pos.device)
-    j = torch.minimum((u_edge * torch.clamp(deg, min=1)).to(torch.int32),
-                      torch.clamp(deg - 1, min=0))
-    edge_ids = row_ptr.index_select(0, pos) + j
-    dst = col_idx.index_select(
-        0, torch.clamp(edge_ids, 0, col_idx.shape[0] - 1))
-    return key, survive, dst, edge_ids
+    # a dangling vertex is an immediate reset (Avrachenkov convention)
+    out = walk_step_keyed(state.pos, state.alive, k_term, k_edge, row_ptr,
+                          col_idx, out_deg, eps=eps, edges=edges)
+    return (key, *out) if edges else (key, *out, None)
 
 
-def _step_core(row_ptr, col_idx, out_deg, eps: float, state: WalkState):
-    """One synchronous round. Returns (new_state, moving_mask, edge_ids)."""
-    key, survive, dst, edge_ids = advance(row_ptr, col_idx, out_deg, eps,
-                                          state)
-    arrivals = histogram(torch.where(survive, dst, -1), state.zeta.shape[0])
-    new_state = WalkState(
-        pos=torch.where(survive, dst, state.pos),
-        alive=survive,
-        zeta=state.zeta + arrivals,
-        key=key,
-        round=state.round + 1,
-    )
-    return new_state, survive, edge_ids
+def _step_core(row_ptr, col_idx, out_deg, eps: float, state: WalkState, *,
+               edges: bool = False):
+    """One synchronous round. Returns (new_state, edge): `edge` as
+    `advance` gives it."""
+    key, pos, alive, edge = advance(row_ptr, col_idx, out_deg, eps, state,
+                                    edges=edges)
+    arrivals = histogram(torch.where(alive, pos, -1), state.zeta.shape[0])
+    new_state = WalkState(pos=pos, alive=alive, zeta=state.zeta + arrivals,
+                          key=key, round=state.round + 1)
+    return new_state, edge
 
 
 def _run_while(row_ptr, col_idx, out_deg, state: WalkState, eps: float,
                max_rounds: int) -> WalkState:
     """Step `state` until no walk is alive or `max_rounds` is reached."""
     while state.round < max_rounds and bool(state.alive.any()):
-        state, _, _ = _step_core(row_ptr, col_idx, out_deg, eps, state)
+        state, _ = _step_core(row_ptr, col_idx, out_deg, eps, state)
     return state
 
 
@@ -97,16 +93,13 @@ def run(graph: CSRGraph, eps: float, walks_per_node: int, key: torch.Tensor,
 
 def _step_traced(row_ptr, col_idx, out_deg, state: WalkState, eps: float,
                  n_edges: int):
-    new_state, survive, edge_ids = _step_core(row_ptr, col_idx, out_deg,
-                                              eps, state)
+    new_state, edge = _step_core(row_ptr, col_idx, out_deg, eps, state,
+                                 edges=True)
     # CONGEST payload: count of walks per edge this round (Lemma 1 messages)
-    edge_counts = torch.zeros(n_edges, dtype=torch.int32,
-                              device=survive.device)
-    edge_counts.index_add_(0, torch.where(survive, edge_ids, 0),
-                           survive.to(torch.int32))
+    edge_counts = histogram(edge, n_edges)
     stats = dict(
         active=int(state.alive.sum()),
-        moved=int(survive.sum()),
+        moved=int(new_state.alive.sum()),
         messages=int((edge_counts > 0).sum()),
         max_edge_count=int(edge_counts.max()) if n_edges else 0,
     )

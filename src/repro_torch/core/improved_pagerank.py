@@ -25,9 +25,9 @@ Three phases, as in the paper:
 Estimator: pi_v = zeta_v * eps / (n*K), as in Algorithm 1.
 
 The draws are the JAX package's, bit for bit: Phase 1 and the tail draw
-threefry uniforms through `prng`, and every count of ids (the per-edge
-traces, the Phase-2 requests, the Phase-3 visits) runs through the
-`histogram` kernel on the card.
+their threefry uniforms inside the keyed `walk_step` launch of each step,
+and every count of ids (the per-edge traces, the Phase-2 requests, the
+Phase-3 visits) runs through the `histogram` kernel on the card.
 """
 from __future__ import annotations
 
@@ -48,6 +48,7 @@ from repro_torch.core.simple_pagerank import (PageRankResult,
                                               walks_per_node_for)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.histogram import histogram
+from repro_torch.kernels.walk_step import walk_step_keyed
 
 _I32 = torch.int32
 
@@ -109,31 +110,21 @@ def _phase1_scan(row_ptr, col_idx, out_deg, src: torch.Tensor,
                  key: torch.Tensor, eps: float, lam: int) -> dict:
     """`lam` steps of every coupon from `src` [S]. Step i draws with the
     i-th key of `split(key, lam)`, split again into the termination and
-    edge keys, one uniform of each a coupon."""
+    edge keys, one uniform of each a coupon: one keyed `walk_step` launch,
+    which draws them where it consumes them."""
     S, dev = src.shape[0], src.device
     traj = torch.empty((lam, S), dtype=_I32, device=dev)
     edges = torch.empty((lam, S), dtype=_I32, device=dev)
     moved = torch.empty((lam, S), dtype=torch.bool, device=dev)
     pos = src
     alive = torch.ones(S, dtype=torch.bool, device=dev)
-    last = max(col_idx.shape[0] - 1, 0)
     for i, k in enumerate(prng.split(key, lam)):
         k_term, k_edge = prng.split(k)
-        u_term = prng.uniform(k_term, (S,), device=dev)
-        deg = out_deg.index_select(0, pos)
-        survive = alive & (u_term >= eps) & (deg > 0)
-        del u_term
-        u_edge = prng.uniform(k_edge, (S,), device=dev)
-        j = torch.minimum((u_edge * torch.clamp(deg, min=1)).to(_I32),
-                          torch.clamp(deg - 1, min=0))
-        del u_edge, deg
-        edge_ids = row_ptr.index_select(0, pos) + j
-        dst = col_idx.index_select(0, torch.clamp(edge_ids, 0, last))
-        pos = torch.where(survive, dst, pos)
+        pos, alive, edges[i] = walk_step_keyed(
+            pos, alive, k_term, k_edge, row_ptr, col_idx, out_deg, eps=eps,
+            edges=True)
         traj[i] = pos
-        moved[i] = survive
-        edges[i] = torch.where(survive, edge_ids, -1)
-        alive = survive
+        moved[i] = alive
     return dict(traj=traj, edges=edges, moved=moved, dest=pos,
                 valid_arrivals=moved.sum(dim=0, dtype=_I32),
                 terminated=~moved[-1])

@@ -8,7 +8,9 @@ kernel is CUDA C++ for `sm_90a` with a plain C interface. The
 sources are compiled at first use, one `nvcc` per source and all at once,
 into shared libraries under `build/kernels/` at the root of the checkout,
 and loaded with `ctypes`. A library's file name carries the hash of its
-source and flags, so an edited source is rebuilt. Nothing here runs at
+source, of the headers of this tree that the source includes (the threefry
+generator of `threefry.cuh`, which `uniform` and `walk_step` share), and
+of the flags, so an edited source or header is rebuilt. Nothing here runs at
 import: the CPU paths never touch `nvcc`.
 """
 from __future__ import annotations
@@ -16,10 +18,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -65,9 +68,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> List[Path]:
+    """The source of kernel `name`, then every header it includes by a
+    quoted path, directly or through another header."""
+    files = [SOURCES[name]]
+    for path in files:
+        for inc in _LOCAL_INCLUDE.findall(path.read_text()):
+            found = (path.parent / inc).resolve()
+            if found not in files:
+                files.append(found)
+    return files
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        b"".join(f.read_bytes() for f in source_files(name))
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

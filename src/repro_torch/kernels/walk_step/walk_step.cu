@@ -17,16 +17,20 @@
 //      with threefry-2x32 (20 rounds) on the 64-bit counter i under each
 //      key, as jax.random.uniform does in partitionable mode: the xor of
 //      the two output words, >> 9, | 0x3F800000, as a float, minus 1.
-//      This is what routing.advance_owned launches. A slot that is not
-//      alive skips both draws and a slot that terminates skips the edge
-//      draw: their outputs do not depend on them.
+//      This is what routing.advance_owned, the single-device walk engine
+//      (engine_walks.advance) and Algorithm 2's Phase 1
+//      (improved_pagerank._phase1_scan) launch. A slot that is not alive
+//      skips both draws and a slot that terminates skips the edge draw:
+//      their outputs do not depend on them. On request it also writes
+//      edge = row_ptr[pos] + j where the slot moves and -1 elsewhere, the
+//      single-device engines' CONGEST payload and Phase 1's edge table.
 //
 // Bound on this card. (a) moves bytes: 24 B a slot (four 4-byte inputs,
 // two 4-byte outputs) plus the tables once; there are a handful of
-// integer operations a slot. (b) moves 16 B a slot but spends ~200 32-bit
-// integer operations on each of its (up to) two threefry draws, so at
-// H100 rates it is bound by operations: 2.9e8 eligible slots x 2 draws
-// x ~200 ops is ~1.2e11 ops, against ~4.7 GB of bytes.
+// integer operations a slot. (b) moves 16 B a slot with int32 `alive`,
+// 10 B with bool (4 B more with the edge output), and spends ~115 32-bit
+// integer operations on each of its (up to) two threefry draws
+// (threefry.cuh, the same device code as uniform.cu).
 //
 // Design: one thread per slot, a grid-stride loop. deg, row_ptr and
 // col_idx are gathered straight from global memory through the read-only
@@ -42,52 +46,26 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "../threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// threefry-2x32, 20 rounds; returns the xor of the two output words
-__device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1,
-                                                 uint32_t x0, uint32_t x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[i % 2][k]);
-      x1 ^= x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-  return x0 ^ x1;
-}
-
-__device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1,
-                                            long long i) {
-  const uint32_t bits = threefry_xor(
-      k0, k1, static_cast<uint32_t>(static_cast<unsigned long long>(i) >> 32),
-      static_cast<uint32_t>(i));
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-}
-
-// The edge pick of a surviving walk at local vertex p of degree deg.
-__device__ __forceinline__ int32_t pick(int32_t p, int32_t deg, float u_edge,
-                                        const int32_t* __restrict__ row_ptr,
-                                        const int32_t* __restrict__ col_idx,
-                                        long long m) {
+// The edge a surviving walk at local vertex p of degree deg takes:
+// row_ptr[p] + j, not clipped (walk_step_keyed's `edge` output).
+__device__ __forceinline__ long long edge_of(
+    int32_t p, int32_t deg, float u_edge, const int32_t* __restrict__ row_ptr) {
   const float scaled = __fmul_rn(u_edge, static_cast<float>(deg));
   int32_t j = static_cast<int32_t>(scaled);  // truncation toward zero
   j = min(j, deg - 1);
-  long long eid = static_cast<long long>(__ldg(row_ptr + p)) + j;
+  return static_cast<long long>(__ldg(row_ptr + p)) + j;
+}
+
+// The head of edge `eid`, clipped to the table.
+__device__ __forceinline__ int32_t head_of(long long eid,
+                                           const int32_t* __restrict__ col_idx,
+                                           long long m) {
   eid = eid < 0 ? 0 : (eid > m - 1 ? m - 1 : eid);
   return __ldg(col_idx + eid);
 }
@@ -110,13 +88,18 @@ __global__ void walk_step_kernel(const int32_t* __restrict__ pos,
     const int32_t p = min(max(p0, 0), n - 1);
     const int32_t deg = __ldg(out_deg + p);
     const bool survive = alive[i] != 0 && u_term[i] >= eps && deg > 0;
-    new_pos[i] = survive ? pick(p, deg, u_edge[i], row_ptr, col_idx, m) : p0;
+    new_pos[i] = survive
+        ? head_of(edge_of(p, deg, u_edge[i], row_ptr), col_idx, m) : p0;
     new_alive[i] = survive ? 1 : 0;
   }
 }
 
+// Alive: the type of alive and new_alive, int32_t (the sharded engines) or
+// uint8_t (a torch bool tensor: the single-device engines). kEdges: also
+// write edge[i], the edge id the slot moved along, -1 where it did not move
+template <typename Alive, bool kEdges>
 __global__ void walk_step_keyed_kernel(const int32_t* __restrict__ pos,
-                                       const int32_t* __restrict__ alive,
+                                       const Alive* __restrict__ alive,
                                        uint32_t kt0, uint32_t kt1,
                                        uint32_t ke0, uint32_t ke1,
                                        const int32_t* __restrict__ row_ptr,
@@ -125,24 +108,49 @@ __global__ void walk_step_keyed_kernel(const int32_t* __restrict__ pos,
                                        long long w, int n, long long m,
                                        float eps,
                                        int32_t* __restrict__ new_pos,
-                                       int32_t* __restrict__ new_alive) {
+                                       Alive* __restrict__ new_alive,
+                                       int32_t* __restrict__ edge) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < w; i += stride) {
+    const unsigned long long c = static_cast<unsigned long long>(i);
     const int32_t p0 = pos[i];
     bool survive = false;
     int32_t out = p0;
+    long long eid = -1;
     if (alive[i] != 0) {
       const int32_t p = min(max(p0, 0), n - 1);
       const int32_t deg = __ldg(out_deg + p);
-      if (deg > 0 && uniform_at(kt0, kt1, i) >= eps) {
+      if (deg > 0 && threefry::uniform(kt0, kt1, c) >= eps) {
         survive = true;
-        out = pick(p, deg, uniform_at(ke0, ke1, i), row_ptr, col_idx, m);
+        eid = edge_of(p, deg, threefry::uniform(ke0, ke1, c), row_ptr);
+        out = head_of(eid, col_idx, m);
       }
     }
     new_pos[i] = out;
     new_alive[i] = survive ? 1 : 0;
+    if (kEdges) edge[i] = static_cast<int32_t>(eid);
+  }
+}
+
+template <typename Alive>
+void launch_keyed(const int32_t* pos, const void* alive, uint32_t kt0,
+                  uint32_t kt1, uint32_t ke0, uint32_t ke1,
+                  const int32_t* row_ptr, const int32_t* col_idx,
+                  const int32_t* out_deg, long long w, int n, long long m,
+                  float eps, int32_t* new_pos, void* new_alive, int32_t* edge,
+                  int grid, cudaStream_t stream) {
+  const Alive* a = static_cast<const Alive*>(alive);
+  Alive* na = static_cast<Alive*>(new_alive);
+  if (edge == nullptr) {
+    walk_step_keyed_kernel<Alive, false><<<grid, kThreads, 0, stream>>>(
+        pos, a, kt0, kt1, ke0, ke1, row_ptr, col_idx, out_deg, w, n, m, eps,
+        new_pos, na, edge);
+  } else {
+    walk_step_keyed_kernel<Alive, true><<<grid, kThreads, 0, stream>>>(
+        pos, a, kt0, kt1, ke0, ke1, row_ptr, col_idx, out_deg, w, n, m, eps,
+        new_pos, na, edge);
   }
 }
 
@@ -170,18 +178,31 @@ int walk_step_launch(const int32_t* pos, const int32_t* alive,
   return static_cast<int>(cudaGetLastError());
 }
 
-// (b) key words as inputs: the kernel draws its own uniforms.
-int walk_step_keyed_launch(const int32_t* pos, const int32_t* alive,
+// (b) key words as inputs: the kernel draws its own uniforms. `alive` and
+// `new_alive` hold int32 or, with alive_bytes == 1, bytes (torch bool).
+// `edge` may be null; otherwise it receives each slot's edge id (-1 where
+// the slot did not move).
+int walk_step_keyed_launch(const int32_t* pos, const void* alive,
                            uint32_t kt0, uint32_t kt1, uint32_t ke0,
                            uint32_t ke1, const int32_t* row_ptr,
                            const int32_t* col_idx, const int32_t* out_deg,
                            long long w, int n, long long m, float eps,
-                           int32_t* new_pos, int32_t* new_alive, int sms,
-                           cudaStream_t stream) {
+                           int alive_bytes, int32_t* new_pos, void* new_alive,
+                           int32_t* edge, int sms, cudaStream_t stream) {
   if (w == 0) return 0;
-  walk_step_keyed_kernel<<<grid_for(w, sms), kThreads, 0, stream>>>(
-      pos, alive, kt0, kt1, ke0, ke1, row_ptr, col_idx, out_deg, w, n, m, eps,
-      new_pos, new_alive);
+  if (alive_bytes != 1 && alive_bytes != 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int grid = grid_for(w, sms);
+  if (alive_bytes == 1) {
+    launch_keyed<uint8_t>(pos, alive, kt0, kt1, ke0, ke1, row_ptr, col_idx,
+                          out_deg, w, n, m, eps, new_pos, new_alive, edge,
+                          grid, stream);
+  } else {
+    launch_keyed<int32_t>(pos, alive, kt0, kt1, ke0, ke1, row_ptr, col_idx,
+                          out_deg, w, n, m, eps, new_pos, new_alive, edge,
+                          grid, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,8 +11,12 @@ overfull, no hot list) and integer segment_spmv (with and without a hot
 list) bit-exact; multinomial_rows, both entries, bit-exact against its
 plain version on the same card (no FMA contraction on either side); float
 segment_spmv within 1e-5 relative of a float64 sum (atomic order);
-walk_step bit-exact from given uniforms and from key words; uniform
-bit-exact against its plain version on the card and on the CPU; the
+walk_step bit-exact from given uniforms and from key words, with and
+without its edge output; uniform bit-exact against its plain version on
+the card and on the CPU, at every ragged tail, and a misaligned output
+refused; the
+single-device walk engine and Algorithm 2 / Section 5 on the card
+bit-exact against the CPU, with no standalone uniform launched; the
 sharded engines (walks, counts, and the three-phase Algorithm 2 and
 Section 5) and both PPR engines and the PPR service on the card bit-exact
 against the same run on the CPU, at counts whose draws stay in the
@@ -426,10 +430,22 @@ def test_cuda_walk_step_matches_plain(cuda):
     kt, ke = prng.split(prng.PRNGKey(9))
     got_b = walk_step_keyed(pos, alive, kt, ke, *tables, eps=0.2)
     want_b = walk_step_keyed_ref(pos, alive, kt, ke, *tables, eps=0.2)
-    assert common.launches["walk_step"] == before + 2
-    for a, b in zip(got + got_b, want + want_b):
-        assert torch.equal(a, b)
+    got_e = walk_step_keyed(pos, alive, kt, ke, *tables, eps=0.2, edges=True)
+    want_e = walk_step_keyed_ref(pos, alive, kt, ke, *tables, eps=0.2,
+                                 edges=True)
+    # a bool `alive`, as the single-device engines keep it
+    got_o = walk_step_keyed(pos, alive.bool(), kt, ke, *tables, eps=0.2,
+                            edges=True)
+    want_o = walk_step_keyed_ref(pos, alive.bool(), kt, ke, *tables, eps=0.2,
+                                 edges=True)
+    assert common.launches["walk_step"] == before + 4
+    assert len(got_e) == 3 and got_o[1].dtype == torch.bool
+    for a, b in zip(got + got_b + got_e + got_o,
+                    want + want_b + want_e + want_o):
+        assert a.dtype == b.dtype and torch.equal(a, b)
     assert int(got_b[1].sum()) > 0
+    assert bool((got_e[2] == -1).any()) and bool((got_e[2] >= 0).any())
+    assert torch.equal(got_o[1], got_e[1].bool())
 
 
 def test_cuda_sharded_engines_match_cpu(cuda):
@@ -578,13 +594,73 @@ def test_cuda_uniform_matches_plain(cuda, seed, shape):
     assert torch.equal(prng.uniform(key, shape, device=cuda), got)
 
 
+@pytest.mark.parametrize("tail", [0, 1, 2, 3])
+def test_cuda_uniform_ragged_sizes(cuda, tail):
+    """Sizes below a quad and sizes of whole quads plus `tail` floats:
+    bit-equal to the plain version."""
+    key = prng.PRNGKey(21)
+    for quads in (0, 1, 2, 1023, 1 << 18):
+        size = 4 * quads + tail
+        got = uniform(key, (size,), device=cuda)
+        want = uniform_ref(key, (size,))
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+def test_cuda_uniform_refuses_a_misaligned_output(cuda):
+    """The kernel's C entry takes a 16-byte aligned output only: an
+    address 4 bytes past one is refused with cudaErrorMisalignedAddress
+    and nothing is written."""
+    import ctypes
+    buf = torch.zeros(64, dtype=torch.float32, device=cuda)
+    fn = common.library("uniform").uniform_launch
+    fn.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream, sms = common.launch_args(buf)
+    assert fn(0, 7, 16, buf.data_ptr() + 4, sms, stream) == 716
+    torch.cuda.synchronize()
+    assert not bool(buf.any())
+    assert fn(0, 7, 16, buf.data_ptr(), sms, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:16].cpu(), uniform_ref(prng.PRNGKey(7), (16,)))
+
+
+def test_cuda_single_device_engines_match_cpu(cuda):
+    """The single-device walk engine, Algorithm 2 and Section 5 on the card
+    against the CPU, bit for bit: every draw inside the keyed walk step, one
+    launch a round or coupon step, no standalone uniform."""
+    from repro_torch.core import (directed_local_pagerank, engine_walks,
+                                  improved_pagerank)
+    g_cpu = directed_web(300, 5.0, seed=2, device="cpu")
+    g = g_cpu.to(cuda)
+    key = prng.PRNGKey(5)
+    common.reset_launches()
+    a = engine_walks.run(g, 0.2, 8, key)
+    assert common.launches["walk_step"] == a.round
+    t, traces = engine_walks.run_traced(g, 0.2, 8, key)
+    b = engine_walks.run(g_cpu, 0.2, 8, key)
+    u, traces_cpu = engine_walks.run_traced(g_cpu, 0.2, 8, key)
+    assert torch.equal(a.zeta.cpu(), b.zeta) and a.round == b.round
+    assert torch.equal(t.zeta.cpu(), u.zeta) and traces == traces_cpu
+    for fn in (improved_pagerank, directed_local_pagerank):
+        c = fn(g, 0.2, walks_per_node=8, key=key, device=cuda)
+        d = fn(g_cpu, 0.2, walks_per_node=8, key=key, device="cpu")
+        assert torch.equal(c.zeta.cpu(), d.zeta)
+        assert c.report.summary() == d.report.summary()
+    assert common.launches["uniform"] == 0
+
+
 def test_cuda_ppr_engines_match_cpu(cuda):
     g_cpu = directed_web(300, 5.0, seed=2, device="cpu")
     g = g_cpu.to(cuda)
     key = prng.PRNGKey(5)
     common.reset_launches()
     a = personalized_pagerank(g, 0.2, [0, 7], 3000, key=key, device=cuda)
-    assert common.launches["uniform"] > 0 and common.launches["histogram"] > 0
+    # the draws are made inside the keyed walk step
+    assert common.launches["uniform"] == 0
+    assert common.launches["walk_step"] > 0
+    assert common.launches["histogram"] > 0
     b = personalized_pagerank(g_cpu, 0.2, [0, 7], 3000, key=key,
                               device="cpu")
     assert torch.equal(a.cpu(), b)

@@ -2,8 +2,8 @@
 shard_map engines on forced host devices.
 
 One subprocess runs the JAX engines with 8 forced host devices and prints
-JSON; the port runs the same cases in process on the CPU, with P shards
-stacked on one device. Cases: both engines on the six shared fixtures at
+JSON; it starts with the module, and the port runs the same cases in
+process on the CPU, with P shards stacked on one device, while it runs. Cases: both engines on the six shared fixtures at
 P=8, and on two fixtures at P in {1, 3} (uneven padding); the count
 engine with packed and unpacked lanes. eps = 0.2, K = 8, key PRNGKey(0).
 The walk engine's `work_cap` straggler bound on erdos_renyi(64, 4), K = 4,
@@ -18,6 +18,11 @@ vertex id). The shard layouts (CSR cuts, the padded adjacency, the
 bucketed sampler layout and lane bounds) equal the JAX package's exactly.
 The packed lanes' two limits raise instead of dropping counts.
 """
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +31,7 @@ from repro.core.distributed import shard_graph as j_shard_graph
 from repro.core.distributed_counts import \
     shard_graph_padded as j_shard_graph_padded
 
-from conftest import SMALL_GRAPHS_SRC, run_forced_devices
+from conftest import REPO_SRC, SMALL_GRAPHS_SRC
 from repro_torch import convert, prng
 from repro_torch.core import simple_pagerank
 from repro_torch.core.collectives import StackedMesh
@@ -80,9 +85,27 @@ print(json.dumps(out))
 """ % (CASES, EPS, K, EPS, K, WORK_CAP_SHARDS, EPS)
 
 
-@pytest.fixture(scope="module")
-def jax_runs():
-    return run_forced_devices(JAX_RUNS, devices=8, timeout=900)
+@pytest.fixture(scope="module", autouse=True)
+def jax_proc():
+    """The JAX subprocess (8 forced host devices), started with the module
+    so that it runs beside every port case."""
+    env = dict(os.environ, PYTHONPATH=REPO_SRC,
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    proc = subprocess.Popen([sys.executable, "-c", JAX_RUNS], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")
@@ -92,6 +115,74 @@ def graphs(small_graphs):
         np.asarray(g.row_ptr), np.asarray(g.col_idx), np.asarray(g.out_deg),
         g.n, g.m, g.undirected, device="cpu")
         for name, g in small_graphs.items()}
+
+
+def _walk_summary(r):
+    return dict(zeta=r.zeta.tolist(), rounds=r.rounds, dropped=r.dropped,
+                waited=r.waited, round_active=r.round_active,
+                entries=r.a2a_entries_total, bytes=r.a2a_bytes_total)
+
+
+def _count_summary(r):
+    return dict(zeta=r.zeta.tolist(), rounds=r.rounds,
+                entries=r.a2a_entries_total, bytes=r.a2a_bytes_total,
+                lane_cap=r.lane_cap, overflow=r.overflow,
+                occupancy=list(r.occupancy), residual=r.residual)
+
+
+def _port_cases(graphs):
+    """The port's run of every case the JAX subprocess runs, by its label:
+    (summary, shards of the run) or the exception the run raised."""
+    jobs = {}
+    for name, P in CASES:
+        jobs[f"walks/{name}/{P}"] = (
+            _walk_summary, distributed_pagerank, graphs[name], K, {}, P)
+        for packed in (True, False):
+            jobs[f"counts/{name}/{P}/{int(packed)}"] = (
+                _count_summary, distributed_pagerank_counts, graphs[name], K,
+                dict(packed=packed), P)
+    g = erdos_renyi(64, 4.0, seed=0, device="cpu")
+    for P in WORK_CAP_SHARDS:
+        jobs[f"work_cap/{P}"] = (_walk_summary, distributed_pagerank, g, 4,
+                                 dict(work_cap=8), P)
+    port = {}
+    for label, (summary, fn, graph, walks, kw, P) in jobs.items():
+        try:
+            r = fn(graph, EPS, walks, prng.PRNGKey(0),
+                   mesh=StackedMesh(P, "cpu"), **kw)
+            port[label] = (summary(r), r.shards)
+        except Exception as e:      # raised again by its test
+            port[label] = e
+    return port
+
+
+@pytest.fixture(scope="module")
+def runs(jax_proc, graphs):
+    """{"jax": the JAX subprocess's JSON, "port": `_port_cases`}: the
+    port's cases run here while the subprocess runs."""
+    port = _port_cases(graphs)
+    try:
+        out, err = jax_proc.communicate(timeout=900)
+    finally:
+        if jax_proc.poll() is None:
+            jax_proc.kill()
+            jax_proc.communicate()
+    assert jax_proc.returncode == 0, err[-3000:]
+    return dict(jax=json.loads(out.strip().splitlines()[-1]), port=port)
+
+
+@pytest.fixture(scope="module")
+def jax_runs(runs):
+    return runs["jax"]
+
+
+def port_run(runs, label):
+    """The port's (summary, shards) of the case `label`, or what it
+    raised."""
+    got = runs["port"][label]
+    if isinstance(got, Exception):
+        raise got
+    return got
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -113,34 +204,26 @@ def test_shard_layouts_match_jax(small_graphs, graphs, name, shards):
 
 
 @pytest.mark.parametrize("name,shards", CASES)
-def test_walk_engine_bit_exact(jax_runs, graphs, name, shards):
-    r = distributed_pagerank(graphs[name], EPS, K, prng.PRNGKey(0),
-                             mesh=StackedMesh(shards, "cpu"))
+def test_walk_engine_bit_exact(runs, jax_runs, name, shards):
+    got, r_shards = port_run(runs, f"walks/{name}/{shards}")
     want = jax_runs[f"walks/{name}/{shards}"]
-    got = dict(zeta=r.zeta.tolist(), rounds=r.rounds, dropped=r.dropped,
-               waited=r.waited, round_active=r.round_active,
-               entries=r.a2a_entries_total, bytes=r.a2a_bytes_total)
     assert got == want
-    assert r.dropped == 0 and r.shards == shards
+    assert got["dropped"] == 0 and r_shards == shards
 
 
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("name,shards", CASES)
-def test_count_engine_bit_exact(jax_runs, graphs, name, shards, packed):
+def test_count_engine_bit_exact(runs, jax_runs, graphs, name, shards,
+                                packed):
     g = graphs[name]
-    r = distributed_pagerank_counts(g, EPS, K, prng.PRNGKey(0),
-                                    mesh=StackedMesh(shards, "cpu"),
-                                    packed=packed)
+    got, _ = port_run(runs, f"counts/{name}/{shards}/{int(packed)}")
     want = jax_runs[f"counts/{name}/{shards}/{int(packed)}"]
-    got = dict(zeta=r.zeta.tolist(), rounds=r.rounds,
-               entries=r.a2a_entries_total, bytes=r.a2a_bytes_total,
-               lane_cap=r.lane_cap, overflow=r.overflow,
-               occupancy=list(r.occupancy), residual=r.residual)
     assert got == want
     single = simple_pagerank(g, EPS, walks_per_node=K, key=prng.PRNGKey(0),
                              engine="counts", device="cpu")
-    np.testing.assert_array_equal(r.zeta.numpy(), single.zeta.numpy())
-    assert r.rounds == single.logical_rounds
+    np.testing.assert_array_equal(np.asarray(got["zeta"], np.int32),
+                                  single.zeta.numpy())
+    assert got["rounds"] == single.logical_rounds
 
 
 def test_packed_lanes_refuse_wide_shards():
@@ -185,20 +268,16 @@ def test_one_shard_packed_has_no_limit():
 
 
 @pytest.mark.parametrize("shards", WORK_CAP_SHARDS)
-def test_work_cap_bit_exact(jax_runs, shards):
+def test_work_cap_bit_exact(runs, jax_runs, shards):
     """`work_cap=8` steps at most 8 owned walks a shard in a round: on
     erdos_renyi(64, 4) with K = 4 the JAX engine takes 161 rounds at one
     shard (25 without the cap); the port matches it bit for bit."""
     g = erdos_renyi(64, 4.0, seed=0, device="cpu")
-    r = distributed_pagerank(g, EPS, 4, prng.PRNGKey(0),
-                             mesh=StackedMesh(shards, "cpu"), work_cap=8)
+    got, _ = port_run(runs, f"work_cap/{shards}")
     want = jax_runs[f"work_cap/{shards}"]
-    got = dict(zeta=r.zeta.tolist(), rounds=r.rounds, dropped=r.dropped,
-               waited=r.waited, round_active=r.round_active,
-               entries=r.a2a_entries_total, bytes=r.a2a_bytes_total)
     assert got == want
     if shards == 1:
-        assert r.rounds == 161
+        assert got["rounds"] == 161
         free = distributed_pagerank(g, EPS, 4, prng.PRNGKey(0),
                                     mesh=StackedMesh(1, "cpu"))
         assert free.rounds == 25
