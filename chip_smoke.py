@@ -18,9 +18,11 @@
    kernel's relative error at most twice the plain version's + 1e-6, since
    both sum with atomics in different orders, and exact on the count
    engines' first-round sums, single-device and sharded; walk_step exact
-   from given uniforms (a) and from key words (b), at the first round of
-   the sharded walk engine at P=2, and (b) with its edge output at the
-   single-device walk engine's first round (1.46e8 slots); uniform
+   from given uniforms (a) and, in place, from key words (b), at the first
+   round of the sharded walk engine at P=2, and (b) at the single-device
+   walk engine's first round (1.46e8 slots, with its edge output) and its
+   round 10 (with the appended arrivals), and on its 64-bit path past
+   2^31 slots; uniform
    bit-equal to its plain version at 1.46e8 draws on the card, at 2^20
    draws to the plain version on the CPU, at sizes with every tail past
    the last quad, and on its 64-bit path past 2^32 draws; the SASS
@@ -34,10 +36,11 @@
    Each run must agree with power iteration (L1 < 0.15, top-10 >= 0.6) and
    launch its kernels; the count engine's residual must be 0. The walk
    engine launches one keyed walk_step a round and no standalone uniform;
-   three of its rounds are timed unprofiled, then profiled with device
-   activity only, for the idle share; on doc_link_graph(2^16) its run and
-   traced run equal, bit for bit, the same engine with each kernel
-   replaced by its plain version on the card.
+   its rounds 1-3 and 10-12 are timed unprofiled, then profiled with
+   device activity only, for the idle share; on doc_link_graph(2^16) its
+   run and traced run equal, bit for bit, the same engine with each kernel
+   replaced by its plain version on the card, and its run makes one host
+   sync a round (the step's count of moves).
 4. Sharded path on the same graph, P shards stacked on the card: the count
    engine at P=4 with unpacked lanes (zeta bit-identical to step 3's count
    engine, overflow and residual 0) and the walk engine at P=2 (nothing
@@ -382,13 +385,15 @@ ALU_OPCODES = ("LOP3", "SHF", "IADD3", "LEA", "ISETP", "SEL", "VIMNMX",
 
 
 def sass_loop(lib_path, part: str):
-    """The largest loop of the kernel whose symbol holds `part` in the
-    SASS of a built library (`cuobjdump -sass`): {"instructions": the
-    loop's SASS instructions (from a backward branch's target to the
-    branch), "draws": the threefry draws in it (each ends in the one FADD
-    of its `- 1.0f`, so however the compiler unrolled the loop),
+    """The innermost loop that draws of the kernel whose symbol holds
+    `part` in the SASS of a built library (`cuobjdump -sass`): the
+    smallest loop (from a backward branch's target to the branch) that
+    holds a threefry draw (each ends in the one FADD of its `- 1.0f`, so
+    however the compiler unrolled the loop). {"instructions": the loop's
+    SASS instructions, "draws": the draws in it,
     "kernel_instructions": the kernel's, "opcodes": the loop's count by
-    opcode}; None where the toolkit has no cuobjdump."""
+    opcode}; None where the toolkit has no cuobjdump. Fails the phase
+    where no kernel's symbol holds `part`."""
     import re
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -404,15 +409,16 @@ def sass_loop(lib_path, part: str):
             continue
         code = [(int(a, 16), op, rest) for a, op, rest
                 in line.findall(section)]
-        best = (0, 0)
+        loops = []
         for addr, op, rest in code:
             target = re.search(r"0x([0-9a-f]+)", rest)
             if op.startswith("BRA") and target \
                     and int(target.group(1), 16) < addr:
                 start = int(target.group(1), 16)
-                best = max(best, (sum(start <= a <= addr
-                                      for a, _, _ in code), start))
-        count, start = best
+                body = [o for a, o, _ in code if start <= a <= addr]
+                if any(o.startswith("FADD") for o in body):
+                    loops.append((len(body), start))
+        count, start = min(loops) if loops else (0, 0)
         ops = {}
         for addr, op, _ in code:
             if count and start <= addr < start + 16 * count:
@@ -421,8 +427,7 @@ def sass_loop(lib_path, part: str):
         return dict(symbol=name, instructions=count,
                     draws=ops.get("FADD", 0), kernel_instructions=len(code),
                     opcodes=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
-    log(f"sass: no kernel holding {part} in {lib_path}")
-    return None
+    raise PhaseError(f"sass: no kernel symbol holds {part} in {lib_path}")
 
 
 def sm_clock_busy(fn, iters: int) -> dict:
@@ -459,11 +464,14 @@ def sass_fields(library: str, part: str, call, draws: int) -> dict:
     """The SASS loop of the threefry kernel whose symbol holds `part` in
     kernel `library`, per draw (its instructions over its draws), and the
     time `draws` draws take at that count at the issue rate and on the
-    ALU pipe, at the SM clock under `call`; {} without cuobjdump."""
+    ALU pipe, at the SM clock under `call`; {} without cuobjdump. Fails
+    the phase where the loop holds no draw."""
     from repro_torch.kernels import common
     sass = sass_loop(common.library_path(library), part)
-    if not sass or not sass["draws"]:
+    if sass is None:
         return {}
+    check(sass["draws"] > 0, f"sass: no draw found in the loop of "
+                             f"{sass['symbol']}")
     per_draw = sass["instructions"] / sass["draws"]
     alu = alu_instructions(sass["opcodes"]) / sass["draws"]
     clock = sm_clock_busy(call, 1000)
@@ -493,21 +501,24 @@ def kernel_phase(g, K):
     from repro_torch.kernels.segment_spmv import hot_list as segment_hot_list
     from repro_torch.kernels.segment_spmv import segment_spmv
     from repro_torch.kernels.segment_spmv.ref import segment_spmv_ref
+    from repro_torch.kernels.walk_step import walk_step_keyed_
 
     rows = {}
     n, dev = g.n, g.device
 
-    # histogram: the arrivals of the walk engine's first round, and the same
-    # number of valid ids spread uniformly (no hub) in the same slots
+    # histogram: the arrivals the walk engine's first round appends, and as
+    # many ids spread uniformly (no hub)
     state = engine_walks.init_state(g, K, prng.PRNGKey(0))
-    _, dst, moved, _ = engine_walks.advance(g.row_ptr, g.col_idx, g.out_deg,
-                                            EPS, state)
-    moved = moved.bool()
-    ids = torch.where(moved, dst, -1)
+    _, kt, ke = prng.split(state.key, 3)
+    arrivals = torch.empty_like(state.pos)
+    moved = int(walk_step_keyed_(state.pos, state.alive, kt, ke, g.row_ptr,
+                                 g.col_idx, g.out_deg, eps=EPS,
+                                 arrivals=arrivals))
+    ids = arrivals[:moved]
     gen = torch.Generator(device=dev).manual_seed(0)
-    uniform = torch.where(moved, torch.randint(
-        0, n, ids.shape, generator=gen, device=dev, dtype=torch.int32), -1)
-    del state, moved, dst
+    uniform = torch.randint(0, n, ids.shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+    del state
     W = ids.numel()
     hot = {}
     for name, x in (("real", ids), ("uniform", uniform)):
@@ -524,12 +535,10 @@ def kernel_phase(g, K):
             hot_share=float(want[table[table > 0].long() - 1].sum())
             / float(want.sum()))
         del got, want, table
-    shifted = ids + 1
     rows["histogram"] = dict(
         ms=hot["real"]["ms"],
         plain_ms=cuda_ms(lambda: histogram_ref(ids, n), 3),
-        library_ms=cuda_ms(lambda: torch.bincount(shifted, minlength=n + 1),
-                           3),
+        library_ms=cuda_ms(lambda: torch.bincount(ids, minlength=n), 3),
         max_abs_err=hot["real"]["err"], shape=f"W={W} ids, n={n}",
         uniform_ms=hot["uniform"]["ms"], **bound(4 * W + 4 * n))
     log(f"histogram: PASS, W={W} n={n} exact on real and uniform ids; "
@@ -543,7 +552,7 @@ def kernel_phase(g, K):
             f"{histogram_ops.sample_size(W)} sampled) taking "
             f"{h['hot_share']:.4f} of the counts; the largest count is "
             f"{h['hub_share']:.4f} of them")
-    del shifted, uniform, ids
+    del uniform, ids, arrivals
 
     # segment_spmv: the power-iteration push from the uniform start vector
     src = g.edge_src()
@@ -784,16 +793,100 @@ def received_lanes(sg, plan, flat_T, mesh):
     return recv_c.reshape(-1), ids.reshape(-1)
 
 
+def walk_step_bytes(W, alive_bytes, live, moved, tables, *, edge=False,
+                    arrivals=False) -> dict:
+    """The bytes the in-place keyed walk step must move: `alive` over all
+    W slots; each live slot's pos read and either its new pos (a
+    survivor) or its alive flag (a slot that ends) written; the table
+    entries it gathers (out_deg for every live slot, row_ptr and col_idx
+    for every survivor, each at most its table once); edge ids for every
+    slot, arrivals for every survivor. Beside it, the out-of-place
+    contract's bytes, for the rows of earlier PRs: pos and alive read and
+    written over every slot, edge ids too, the tables once."""
+    rp, ci, dg = tables
+    gathers = 4 * (min(dg.numel(), live) + min(rp.numel(), moved)
+                   + min(ci.numel(), moved))
+    inplace = (W * alive_bytes + 4 * live + 4 * moved
+               + alive_bytes * (live - moved) + gathers
+               + (4 * W if edge else 0) + (4 * moved if arrivals else 0))
+    old = (W * (2 * (4 + alive_bytes) + (4 if edge else 0))
+           + 4 * (rp.numel() + ci.numel() + dg.numel()))
+    return dict(inplace=inplace, old=old)
+
+
+def keyed_row(label, pos, alive, kt, ke, tables, *, edge=False,
+              arrivals=False, sass=False):
+    """walk_step's in-place keyed entry on copies of (pos, alive) against
+    its plain version on copies: pos, alive and edge ids bit for bit, the
+    appended arrivals as a histogram and their count; timed (the kernel's
+    device time; the copies are not counted) beside the in-place bound and
+    the out-of-place one; with `sass`, its SASS loop counted."""
+    import torch
+    from repro_torch.kernels.histogram.ref import histogram_ref
+    from repro_torch.kernels.walk_step import walk_step_keyed_
+    from repro_torch.kernels.walk_step.ref import walk_step_keyed_ref_
+
+    W = pos.numel()
+
+    def run(fn):
+        p, a = pos.clone(), alive.clone()
+        e = torch.empty_like(pos) if edge else None
+        arr = torch.empty_like(pos) if arrivals else None
+        count = fn(p, a, kt, ke, *tables, eps=EPS, edge=e, arrivals=arr)
+        return p, a, e, arr, count
+
+    got, want = run(walk_step_keyed_), run(walk_step_keyed_ref_)
+    err = max(int((x.long() - y.long()).abs().max()) if W else 0
+              for x, y in zip(got[:3], want[:3]) if x is not None)
+    live = int(alive.bool().sum())
+    moved = int(want[1].bool().sum())
+    if arrivals:
+        n = tables[2].numel()
+        check(int(got[4]) == int(want[4]) == moved
+              and torch.equal(histogram_ref(got[3][:moved], n),
+                              histogram_ref(want[3][:moved], n)),
+              f"walk_step {label}: the arrivals differ from the plain "
+              f"version's")
+    check(err == 0 and got[1].dtype == alive.dtype,
+          f"walk_step {label}: differs from its plain version by {err}")
+    deg = tables[2].index_select(0, pos.clamp(0, tables[2].numel() - 1))
+    draws = int((alive.bool() & (deg > 0)).sum()) + moved
+    del got, want, deg
+
+    def call():
+        return run(walk_step_keyed_)
+
+    nbytes = walk_step_bytes(W, alive.element_size(), live, moved, tables,
+                             edge=edge, arrivals=arrivals)
+    ops = THREEFRY_OPS_PER_DRAW * draws
+    row = dict(
+        ms=device_ms(call, 10, "walk_step_inplace_kernel"),
+        plain_ms=cuda_ms(lambda: run(walk_step_keyed_ref_), 2),
+        library_ms=None, max_abs_err=err,
+        shape=f"{label}: W={W} slots, {live} live ({alive.dtype}), {draws} "
+              f"draws, {moved} moved"
+              + (", edge ids" if edge else "")
+              + (", arrivals" if arrivals else ""),
+        old_bound_ms=bound(nbytes["old"], ops)["bound_ms"],
+        **bound(nbytes["inplace"], ops))
+    if sass:
+        row.update(sass_fields("walk_step", "walk_step_inplace_kernelIhLb0",
+                               call, draws))
+    log(f"walk_step (b) {label}: PASS, exact; {row}")
+    return row
+
+
 def walk_step_phase(g, K):
-    """walk_step at the first round of the sharded walk engine at P=2: each
-    shard's buffer of cap = W + 128 slots, eligible = the walks it owns."""
+    """walk_step at the main path's shapes: the sharded walk engine's first
+    round at P=2 (each shard's buffer of cap = W + 128 slots, eligible = the
+    walks it owns), both entry points; then the single-device engine's
+    first round and its round 10, and the 64-bit path past 2^31 slots."""
     import torch
     from repro_torch import prng
     from repro_torch.core.collectives import StackedMesh
     from repro_torch.core.distributed import init_state, shard_graph
-    from repro_torch.kernels.walk_step import walk_step, walk_step_keyed
-    from repro_torch.kernels.walk_step.ref import (walk_step_keyed_ref,
-                                                   walk_step_ref)
+    from repro_torch.kernels.walk_step import walk_step
+    from repro_torch.kernels.walk_step.ref import walk_step_ref
 
     shards, dev = 2, g.device
     mesh = StackedMesh(shards, dev)
@@ -808,115 +901,120 @@ def walk_step_phase(g, K):
     eligible = (pos >= 0) & (torch.div(pos, sg.n_loc, rounding_mode="floor")
                              == sid)
     local = torch.where(eligible, pos - sid * sg.n_loc, 0).to(torch.int32)
-    alive = eligible.to(torch.int32)
     keys = torch.stack([prng.split(k, 3) for k in state.key])
-    del state, pos, eligible
-    err, args = 0, None
+    del state, pos
+    err = 0
     for p in range(shards):
         tables = (sg.row_ptr[p], sg.col_idx[p], sg.out_deg[p])
         kt, ke = keys[p, 1], keys[p, 2]
         u_term = prng.uniform(kt, (cap,), device=dev)
         u_edge = prng.uniform(ke, (cap,), device=dev)
-        a = walk_step(local[p], alive[p], u_term, u_edge, *tables, eps=EPS)
-        a_ref = walk_step_ref(local[p], alive[p], u_term, u_edge, *tables,
+        alive = eligible[p].to(torch.int32)
+        a = walk_step(local[p], alive, u_term, u_edge, *tables, eps=EPS)
+        a_ref = walk_step_ref(local[p], alive, u_term, u_edge, *tables,
                               eps=EPS)
-        b = walk_step_keyed(local[p], alive[p], kt, ke, *tables, eps=EPS)
-        b_ref = walk_step_keyed_ref(local[p], alive[p], kt, ke, *tables,
-                                    eps=EPS)
-        for x, y in zip(a + b, a_ref + b_ref):
+        for x, y in zip(a, a_ref):
             err = max(err, int((x - y).abs().max()))
         if p == 0:
-            deg = sg.out_deg[0].index_select(0, local[0].long())
-            draws = int((alive[0].bool() & (deg > 0)).sum()) \
-                + int(b_ref[1].sum())
-            args = (local[0], alive[0], u_term, u_edge, kt, ke, tables,
-                    int(alive[0].sum()))
-        del a, a_ref, b, b_ref, u_term, u_edge
-    check(err == 0, f"walk_step differs from its plain version by {err}")
-    loc, alv, ut, ue, kt, ke, tables, n_elig = args
-    table_bytes = sum(4 * t.numel() for t in tables)
-    row = dict(
-        ms=cuda_ms(lambda: walk_step_keyed(loc, alv, kt, ke, *tables,
-                                           eps=EPS), 20),
-        plain_ms=cuda_ms(lambda: walk_step_keyed_ref(loc, alv, kt, ke,
-                                                     *tables, eps=EPS), 2),
-        library_ms=None, max_abs_err=err,
-        shape=f"cap={cap} slots, {n_elig} eligible, {draws} draws, "
-              f"n_loc={sg.n_loc}",
-        **bound(16 * cap + table_bytes, THREEFRY_OPS_PER_DRAW * draws))
-    entry_a = dict(
-        ms=cuda_ms(lambda: walk_step(loc, alv, ut, ue, *tables, eps=EPS), 20),
-        plain_ms=cuda_ms(lambda: walk_step_ref(loc, alv, ut, ue, *tables,
-                                               eps=EPS), 3),
-        **bound(24 * cap + table_bytes))
-    row.update(sass_fields(
-        "walk_step", "walk_step_keyed_kernelIiLb0",
-        lambda: walk_step_keyed(loc, alv, kt, ke, *tables, eps=EPS), draws))
-    # the same integer work at the H100's INT32 throughput (64 lanes per SM
-    # per clock, 132 SMs, 1.98 GHz boost), for comparison only
-    int_ms = THREEFRY_OPS_PER_DRAW * draws / (64 * 132 * 1.98e9) * 1e3
-    log(f"walk_step: PASS, both entry points exact on both shards (max "
-        f"diff {err}); (b) keyed, the main path's: {row}; (a) from given "
-        f"uniforms: {entry_a}; (b)'s operations at the INT32 throughput "
-        f"would take {int_ms:.4f} ms")
-    row["entry_a"] = entry_a
-    del args, loc, alv, ut, ue, tables
+            entry_a = dict(
+                ms=cuda_ms(lambda: walk_step(local[0], alive, u_term, u_edge,
+                                             *tables, eps=EPS), 20),
+                plain_ms=cuda_ms(lambda: walk_step_ref(
+                    local[0], alive, u_term, u_edge, *tables, eps=EPS), 3),
+                **bound(24 * cap + sum(4 * t.numel() for t in tables)))
+        del a, a_ref, u_term, u_edge, alive
+    check(err == 0, f"walk_step (a) differs from its plain version by {err}")
+    # (b) as routing.advance_owned launches it: in place, bool `alive`
+    row = keyed_row("sharded first round, P=2, shard 0", local[0],
+                    eligible[0], keys[0, 1], keys[0, 2],
+                    (sg.row_ptr[0], sg.col_idx[0], sg.out_deg[0]))
+    row.update(shape=row["shape"] + f", n_loc={sg.n_loc}", entry_a=entry_a)
+    log(f"walk_step: PASS, (a) from given uniforms exact on both shards: "
+        f"{entry_a}")
+    del local, eligible, keys, sg
     torch.cuda.empty_cache()
-    row["single_device_edges"] = walk_step_edges_row(g, K)
+    row["single_device"] = walk_step_single_device_rows(g, K)
+    row["wide"] = walk_step_wide_check(g)
     return row
 
 
-def walk_step_edges_row(g, K):
-    """walk_step (b) with the edge output at the single-device walk
-    engine's first round (W = n*K slots, all alive, the engine's own keys):
-    bit-equal to its plain version, timed with and without the edge output
-    against the bound of its bytes and operations, its SASS loop counted
-    and timed at the issue rate."""
+def walk_step_single_device_rows(g, K):
+    """walk_step (b) at the single-device walk engine's first round (W =
+    n*K slots, all alive, the engine's own keys) with the edge output, as
+    the traced runs launch it, its SASS loop counted, and without (the
+    sharded launch); then at the engine's round 10 (the state after nine
+    rounds), launched as the engine launches it, with the arrivals."""
     from repro_torch import prng
     from repro_torch.core import engine_walks
-    from repro_torch.kernels.walk_step import walk_step_keyed
-    from repro_torch.kernels.walk_step.ref import walk_step_keyed_ref
 
+    tables = (g.row_ptr, g.col_idx, g.out_deg)
     state = engine_walks.init_state(g, K, prng.PRNGKey(0))
     _, kt, ke = prng.split(state.key, 3)
-    args = (state.pos, state.alive, kt, ke, g.row_ptr, g.col_idx, g.out_deg)
-    W = state.pos.numel()
-    got = walk_step_keyed(*args, eps=EPS, edges=True)
-    want = walk_step_keyed_ref(*args, eps=EPS, edges=True)
-    check(all(a.dtype == b.dtype for a, b in zip(got, want))
-          and got[1].dtype == state.alive.dtype,
-          "walk_step (b) with edges: output dtypes differ")
-    err = max(int((a.long() - b.long()).abs().max())
-              for a, b in zip(got, want))
-    check(err == 0, f"walk_step (b) with edges at W={W}: differs from its "
-                    f"plain version by {err}")
-    moved = int(want[1].sum())
-    live = int((g.out_deg.index_select(0, state.pos) > 0).sum())
-    draws = live + moved
-    del got, want
-    table_bytes = 4 * (g.row_ptr.numel() + g.col_idx.numel()
-                       + g.out_deg.numel())
-    # pos and alive read, new_pos, new_alive and edge written
-    slot_bytes = 2 * (4 + state.alive.element_size()) + 4
+    first = (state.pos, state.alive, kt, ke, tables)
+    rows = dict(first_round=keyed_row("single-device first round", *first,
+                                      edge=True, sass=True))
+    rows["first_round"]["ms_without_edges"] = keyed_row(
+        "single-device first round, no outputs", *first)["ms"]
+    for _ in range(9):
+        state, _ = engine_walks._step_core(*tables, EPS, state)
+    _, kt, ke = prng.split(state.key, 3)
+    rows["round10"] = keyed_row("single-device round 10", state.pos,
+                                state.alive, kt, ke, tables, arrivals=True)
+    return rows
 
-    def call():
-        return walk_step_keyed(*args, eps=EPS, edges=True)
 
-    row = dict(
-        ms=cuda_ms(call, 20),
-        ms_without_edges=cuda_ms(lambda: walk_step_keyed(*args, eps=EPS),
-                                 20),
-        plain_ms=cuda_ms(lambda: walk_step_keyed_ref(*args, eps=EPS,
-                                                     edges=True), 2),
-        library_ms=None, max_abs_err=err,
-        shape=f"W={W} slots, all alive ({state.alive.dtype}), {draws} "
-              f"draws, {moved} moved, n={g.n}",
-        **bound(slot_bytes * W + table_bytes, THREEFRY_OPS_PER_DRAW * draws))
-    row.update(sass_fields("walk_step", "walk_step_keyed_kernelIhLb1", call,
-                           draws))
-    log(f"walk_step (b) with edges, the single-device walk engine's first "
-        f"round: PASS, exact; {row}")
-    return row
+# slots of the 64-bit check: past 2^31, so indices and counters are wide
+WALK_WIDE = (1 << 31) + 3 * 4096 + 5
+
+
+def walk_step_wide_check(g):
+    """The in-place keyed step's 64-bit path: WALK_WIDE slots, live only in
+    a window at the start and one across 2^31: at each live slot pos and
+    alive equal entry (a)'s plain version fed the hash of its counters
+    (`uniform_of_counters`), the arrivals' histogram and count equal, and
+    no slot outside the windows written."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels.histogram.ref import histogram_ref
+    from repro_torch.kernels.uniform.ref import uniform_of_counters
+    from repro_torch.kernels.walk_step import walk_step_keyed_
+    from repro_torch.kernels.walk_step.ref import walk_step_ref
+
+    dev, n = g.device, g.n
+    window = torch.cat([torch.arange(4096), torch.arange(
+        (1 << 31) - 2 * 4096 - 3, WALK_WIDE)]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    pos = torch.zeros(WALK_WIDE, dtype=torch.int32, device=dev)
+    alive = torch.zeros(WALK_WIDE, dtype=torch.bool, device=dev)
+    pos[window] = torch.randint(0, n, window.shape, generator=gen,
+                                device=dev, dtype=torch.int32)
+    alive[window] = torch.rand(window.shape, generator=gen, device=dev) < 0.8
+    p0, a0 = pos[window], alive[window]
+    kt, ke = prng.split(prng.PRNGKey(21))
+    arrivals = torch.empty_like(pos)
+    count = walk_step_keyed_(pos, alive, kt, ke, g.row_ptr, g.col_idx,
+                             g.out_deg, eps=EPS, arrivals=arrivals)
+    want_pos, want_alive = walk_step_ref(
+        p0, a0.to(torch.int32), uniform_of_counters(kt, window),
+        uniform_of_counters(ke, window), g.row_ptr, g.col_idx, g.out_deg,
+        eps=EPS)
+    moved = int(count)
+    ok = (torch.equal(pos[window], want_pos)
+          and torch.equal(alive[window], want_alive.bool())
+          and moved == int(want_alive.sum())
+          and torch.equal(histogram_ref(arrivals[:moved], n),
+                          histogram_ref(want_pos[want_alive.bool()], n))
+          and int(alive.sum()) == moved
+          and int(pos.sum(dtype=torch.int64))
+          == int(want_pos.sum(dtype=torch.int64)))
+    check(ok, f"walk_step (b) at {WALK_WIDE} slots (64-bit path) differs "
+              f"from the plain version of its counters")
+    info = dict(slots=WALK_WIDE, live=int(a0.sum()), moved=moved,
+                crossing=int((window >= (1 << 31)).sum()))
+    log(f"walk_step (b), 64-bit path: PASS, {info}")
+    del pos, alive, arrivals
+    torch.cuda.empty_cache()
+    return info
 
 
 class Runner:
@@ -1020,16 +1118,18 @@ def main_path(g, K, drive):
             out["scores"] = np.asarray(res.pi)
         del res
         torch.cuda.empty_cache()
-    walks_breakdown(g, K)
+    out["walks_windows"] = walks_breakdown(g, K)
     out["walks_plain"] = walks_plain_check(drive)
     return out, pi_ref, counts_zeta
 
 
 def walks_breakdown(g, K):
-    """Rounds 1-3 of the single-device walk engine: their wall time
-    unprofiled, then their device time by kernel under the profiler with
-    device activity only; the idle share is 1 - device busy over the
-    unprofiled wall time (host tracing would lengthen the rounds)."""
+    """Two windows of the single-device walk engine, rounds 1-3 and rounds
+    10-12: their wall time unprofiled, then their device time by kernel
+    under the profiler with device activity only; the idle share is 1 -
+    device busy over the unprofiled wall time (host tracing would lengthen
+    the rounds). The engine steps its state in place, so each run starts
+    from a fresh state."""
     import torch
     from repro_torch import prng
     from repro_torch.core import engine_walks
@@ -1038,27 +1138,37 @@ def walks_breakdown(g, K):
         return engine_walks._step_core(g.row_ptr, g.col_idx, g.out_deg,
                                        EPS, s)[0]
 
-    rounds = 3
-    state = engine_walks.init_state(g, K, prng.PRNGKey(0))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s = state
-    for _ in range(rounds):
-        s = step(s)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
-    del s
-    stats = {}
-    profile_rounds(step, state, rounds, "single-device walks, rounds 1-3",
-                   groups={"walk_step": "walk_step_keyed_kernel",
-                           "histogram": "histogram"},
-                   stats=stats, host=False)
-    idle = max(0.0, 1 - stats["busy_ms"] / wall_ms)
-    log(f"single-device walks, rounds 1-3 unprofiled: wall {wall_ms:.3f} ms "
-        f"a round, device busy {stats['busy_ms']:.3f} ms a round (profiled),"
-        f" idle share {idle:.3f}")
-    del state
-    torch.cuda.empty_cache()
+    def state_at(first):
+        s = engine_walks.init_state(g, K, prng.PRNGKey(0))
+        for _ in range(first - 1):
+            s = step(s)
+        torch.cuda.synchronize()
+        return s
+
+    rounds, out = 3, {}
+    for first in (1, 10):
+        label = f"single-device walks, rounds {first}-{first + rounds - 1}"
+        s = state_at(first)
+        live = s.live
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            s = step(s)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
+        stats = {}
+        profile_rounds(step, state_at(first), rounds, label,
+                       groups={"walk_step": "walk_step_inplace_kernel",
+                               "histogram": "histogram"},
+                       stats=stats, host=False)
+        idle = max(0.0, 1 - stats["busy_ms"] / wall_ms)
+        out[first] = dict(wall_ms=wall_ms, busy_ms=stats["busy_ms"],
+                          idle_share=idle, live_at_start=live)
+        log(f"{label} unprofiled: wall {wall_ms:.3f} ms a round, device "
+            f"busy {stats['busy_ms']:.3f} ms a round (profiled), idle share "
+            f"{idle:.3f}, {live} walks live at its start")
+        del s
+        torch.cuda.empty_cache()
+    return out
 
 
 N_WALKS_PLAIN = 1 << 16
@@ -1068,13 +1178,16 @@ def walks_plain_check(drive):
     """The single-device walk engine on the card, untraced and traced, on
     doc_link_graph(N_WALKS_PLAIN), against the same engine run with each
     kernel replaced by its plain version on the card: zeta, rounds and
-    traces bit-equal, no standalone uniform launched."""
+    traces bit-equal, no standalone uniform launched, and the untraced
+    run's host syncs (torch's sync debug mode) one a round."""
+    import warnings
+
     import torch
     from repro_torch import prng
     from repro_torch.core import engine_walks, walks_per_node_for
     from repro_torch.graphs import doc_link_graph
     from repro_torch.kernels.histogram.ref import histogram_ref
-    from repro_torch.kernels.walk_step.ref import walk_step_keyed_ref
+    from repro_torch.kernels.walk_step.ref import walk_step_keyed_ref_
 
     g = doc_link_graph(N_WALKS_PLAIN, seed=0)
     K = walks_per_node_for(g.n, EPS)
@@ -1086,14 +1199,33 @@ def walks_plain_check(drive):
         ["walk_step", "histogram"])
     check(drive.last["uniform"] == 0, f"walks at n={g.n}: a standalone "
                                       f"uniform was launched")
-    saved = engine_walks.walk_step_keyed, engine_walks.histogram
-    engine_walks.walk_step_keyed = walk_step_keyed_ref
+    # the untraced run's host reads: one a round, the kernel's count (the
+    # set-up's, outside the rounds, counted apart)
+    def syncs_of(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return out, sum("synchroniz" in str(w.message) for w in caught)
+
+    synced, setup_syncs = syncs_of(
+        lambda: engine_walks.init_state(g, K, key))
+    synced, syncs = syncs_of(lambda: engine_walks._run_while(
+        g.row_ptr, g.col_idx, g.out_deg, synced, EPS, 100_000))
+    check(syncs == synced.round == run.round,
+          f"walks at n={g.n}: {syncs} host syncs over {synced.round} "
+          f"rounds, not one a round")
+    saved = engine_walks.walk_step_keyed_, engine_walks.histogram
+    engine_walks.walk_step_keyed_ = walk_step_keyed_ref_
     engine_walks.histogram = histogram_ref
     try:
         plain = engine_walks.run(g, EPS, K, key)
         plain_traced = engine_walks.run_traced(g, EPS, K, key)
     finally:
-        engine_walks.walk_step_keyed, engine_walks.histogram = saved
+        engine_walks.walk_step_keyed_, engine_walks.histogram = saved
     check(torch.equal(run.zeta, plain.zeta) and run.round == plain.round,
           f"walks at n={g.n}: zeta or rounds differ from the plain versions'")
     check(torch.equal(traced[0].zeta, plain_traced[0].zeta)
@@ -1102,6 +1234,8 @@ def walks_plain_check(drive):
           f"versions'")
     info = dict(n=g.n, K=K, rounds=run.round, seconds=secs, peak_gib=peak,
                 zeta_equal_plain=True, traces_equal_plain=True,
+                host_syncs_a_round=syncs / synced.round,
+                setup_host_syncs=setup_syncs,
                 launches=dict(drive.last))
     log(f"single-device walks vs plain versions on the card: PASS, {info}")
     return info
@@ -3176,9 +3310,11 @@ class PPRCalls:
     """Within `capture()`, keeps the inputs of the first call of each
     kernel that a batched PPR superstep makes through the routing layer
     (shard 0's walk_step, the virtual histogram, the received-lane sum),
-    keyed as `PhaseCalls` keys them (phase "ppr"), and counts the calls."""
+    keyed as `PhaseCalls` keys them (phase "ppr"), and counts the calls.
+    The in-place walk step's tensors are kept as copies taken before it
+    runs."""
 
-    NAMES = {"walk_step_keyed": "walk_step", "histogram": "histogram",
+    NAMES = {"walk_step_keyed_": "walk_step", "histogram": "histogram",
              "segment_spmv": "segment_spmv"}
 
     def __init__(self):
@@ -3191,9 +3327,12 @@ class PPRCalls:
 
         def wrap(name):
             def run(*args, **kw):
-                entry = self.calls.setdefault(("ppr", self.NAMES[name]),
-                                              [0, args, kw])
-                entry[0] += 1
+                key = ("ppr", self.NAMES[name])
+                if key not in self.calls:
+                    self.calls[key] = [0, tuple(
+                        a.clone() if hasattr(a, "clone") else a
+                        for a in args), kw]
+                self.calls[key][0] += 1
                 return saved[name](*args, **kw)
             return run
 
@@ -3207,29 +3346,12 @@ class PPRCalls:
 
 
 def ppr_walk_step_row(count, args, kw):
-    """walk_step (b) on one shard's buffer of a batched PPR superstep,
-    exact against its plain version and timed beside its bound."""
-    from repro_torch.kernels.walk_step import walk_step_keyed
-    from repro_torch.kernels.walk_step.ref import walk_step_keyed_ref
-
+    """walk_step (b) on one shard's buffer of a batched PPR superstep, in
+    place as routing.advance_owned launches it, exact against its plain
+    version and timed beside its bound."""
     pos, alive, kt, ke, rp, ci, dg = args
-    got = walk_step_keyed(*args, **kw)
-    want = walk_step_keyed_ref(*args, **kw)
-    err = max(int((a - b).abs().max()) for a, b in zip(got, want))
-    check(err == 0, f"ppr walk_step: differs from its plain version by {err}")
-    deg = dg.index_select(0, pos.long())
-    draws = int((alive.bool() & (deg > 0)).sum()) + int(want[1].sum())
-    del got, want, deg
-    row = dict(
-        ms=cuda_ms(lambda: walk_step_keyed(*args, **kw), 10),
-        plain_ms=cuda_ms(lambda: walk_step_keyed_ref(*args, **kw), 2),
-        library_ms=None, max_abs_err=err, launches=count,
-        shape=f"one shard's cap = {pos.numel()} slots, "
-              f"{int(alive.sum())} live, {draws} draws",
-        **bound(16 * pos.numel() + 4 * (rp.numel() + ci.numel()
-                                        + dg.numel()),
-                THREEFRY_OPS_PER_DRAW * draws))
-    log(f"ppr walk_step: PASS, exact; {row}")
+    row = keyed_row("PPR shard", pos, alive, kt, ke, (rp, ci, dg))
+    row["launches"] = count
     return row
 
 
@@ -3301,7 +3423,7 @@ def ppr_path(g, drive):
     torch.cuda.empty_cache()
     profile_rounds(lambda _: engine.superstep(), None, 1,
                    "batched PPR, superstep 2 (profiled)",
-                   groups={"walk_step": "walk_step_keyed_kernel",
+                   groups={"walk_step": "walk_step_inplace_kernel",
                            "histogram": "histogram",
                            "segment_spmv": "segment_sum_kernel"})
     del engine

@@ -48,7 +48,7 @@ from repro_torch.core.simple_pagerank import (PageRankResult,
                                               walks_per_node_for)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.histogram import histogram
-from repro_torch.kernels.walk_step import walk_step_keyed
+from repro_torch.kernels.walk_step import walk_step_keyed_
 
 _I32 = torch.int32
 
@@ -110,19 +110,20 @@ def _phase1_scan(row_ptr, col_idx, out_deg, src: torch.Tensor,
                  key: torch.Tensor, eps: float, lam: int) -> dict:
     """`lam` steps of every coupon from `src` [S]. Step i draws with the
     i-th key of `split(key, lam)`, split again into the termination and
-    edge keys, one uniform of each a coupon: one keyed `walk_step` launch,
-    which draws them where it consumes them."""
+    edge keys, one uniform of each a coupon: one keyed `walk_step_`
+    launch, in place on a copy of `src` (the caller keeps `src`), which
+    draws them where it consumes them and writes its edge ids straight
+    into the step's row of the edge table."""
     S, dev = src.shape[0], src.device
     traj = torch.empty((lam, S), dtype=_I32, device=dev)
     edges = torch.empty((lam, S), dtype=_I32, device=dev)
     moved = torch.empty((lam, S), dtype=torch.bool, device=dev)
-    pos = src
+    pos = src.clone()
     alive = torch.ones(S, dtype=torch.bool, device=dev)
     for i, k in enumerate(prng.split(key, lam)):
         k_term, k_edge = prng.split(k)
-        pos, alive, edges[i] = walk_step_keyed(
-            pos, alive, k_term, k_edge, row_ptr, col_idx, out_deg, eps=eps,
-            edges=True)
+        walk_step_keyed_(pos, alive, k_term, k_edge, row_ptr, col_idx,
+                         out_deg, eps=eps, edge=edges[i])
         traj[i] = pos
         moved[i] = alive
     return dict(traj=traj, edges=edges, moved=moved, dest=pos,
@@ -281,10 +282,12 @@ def improved_pagerank(
     tail_rounds = 0
     traces_tail: List[RoundTrace] = []
     zeta_tail = torch.zeros(n, dtype=_I32, device=dev)
-    if bool(tail_active.any()):
+    tail_walks = int(tail_active.sum())
+    if tail_walks:
+        # stepped in place: nothing reads `cur` or `tail_active` after it
         state = WalkState(pos=cur, alive=tail_active, zeta=zeta_tail, key=k2,
-                          round=0)
-        while bool(state.alive.any()):
+                          round=0, live=tail_walks)
+        while state.live > 0:
             state, stats = _step_traced(graph.row_ptr, graph.col_idx,
                                         graph.out_deg, state, float(eps), m)
             traces_tail.append(RoundTrace(

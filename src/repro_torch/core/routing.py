@@ -15,8 +15,8 @@ shards held locally ([S, ...], see `core/collectives.py`) and `shard_id`
 as the [S] global shard ids of those rows. The helpers that exchange
 take the mesh; the others are plain tensor code.
 
-`advance_owned` launches the `walk_step` kernel (its keyed entry point,
-which draws the walk's uniforms itself) and `count_owned_arrivals` /
+`advance_owned` launches the `walk_step` kernel (its keyed entry point, in
+place, which draws the walk's uniforms itself) and `count_owned_arrivals` /
 `vertex_histogram` the `histogram` kernel on the card; `_seg_reduce` runs
 through `segment_spmv`. On the CPU each takes the kernel's plain version.
 
@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.kernels.histogram import histogram
 from repro_torch.kernels.segment_spmv import segment_spmv
-from repro_torch.kernels.walk_step import walk_step_keyed
+from repro_torch.kernels.walk_step import walk_step_keyed_
 
 _I32 = torch.int32
 
@@ -314,12 +314,14 @@ def advance_owned(rp: torch.Tensor, ci: torch.Tensor, dg: torch.Tensor,
     rp/ci/dg are each shard's CSR ([S, n_loc+1], [S, m_loc_pad],
     [S, n_loc]); k_term/k_edge are the shards' [S, 2] PRNG keys of the
     round, whose `uniform(key, (cap,))` draws decide the step. Returns
-    (survive, dst): `dst` is the new global vertex where `survive`.
-    One `walk_step` launch per shard, each drawing its own uniforms."""
-    local = torch.where(eligible, pos - _rows(shard_id) * n_loc, 0).to(_I32)
-    alive = eligible.to(_I32)
-    new_pos, new_alive = zip(*[
-        walk_step_keyed(local[s], alive[s], k_term[s], k_edge[s], rp[s],
-                        ci[s], dg[s], eps=eps)
-        for s in range(pos.shape[0])])
-    return torch.stack(new_alive) != 0, torch.stack(new_pos)
+    (survive, dst), bool and int32 [S, cap]: `dst` is the new global
+    vertex where `survive`. One in-place `walk_step_` launch per shard on
+    a bool copy of `eligible` and the local positions, each drawing its
+    own uniforms; `pos` and `eligible` are left as they were."""
+    dst = torch.where(eligible, pos - _rows(shard_id) * n_loc, 0).to(_I32)
+    survive = eligible.to(torch.bool, copy=True,
+                          memory_format=torch.contiguous_format)
+    for s in range(pos.shape[0]):
+        walk_step_keyed_(dst[s], survive[s], k_term[s], k_edge[s], rp[s],
+                         ci[s], dg[s], eps=eps)
+    return survive, dst

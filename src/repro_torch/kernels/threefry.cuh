@@ -9,9 +9,18 @@
 // exact float subtraction, so it is bit-exact with the plain version
 // (kernels/uniform/ref.py) whatever the compiler's flags.
 //
-// Each rotation is a funnel shift (one SHF). Below 2^32 elements a caller
-// passes the counter's high word as the constant 0 (uniform_lo), which
-// takes the first key injection of the high word off the critical path.
+// Pipes. A round step is x0 += x1; x1 = rotl(x1, r) ^ x0: a funnel shift
+// (SHF) and a LOP3 on the integer ALU pipe, 16 lanes a scheduler, beside
+// the add, which ptxas puts on the ALU pipe (IADD3) or the FMA pipe (IMAD,
+// VIADD). The ALU pipe is the floor of a draw. Written out as templates,
+// one per step and round, the draw compiles to fewer ALU-pipe instructions
+// than the same arithmetic as an unrolled loop did (PERF.md). Rotating by a
+// 32x32->64 product (x * 2^r: low word | high word, one IMAD.WIDE and one
+// LOP3) moves the shifts to the FMA pipe, but measured slower on the H100,
+// every round or a half or a third of them (PERF.md). Below 2^32 elements
+// a caller passes the counter's high word as the constant 0 (uniform_lo),
+// which takes the first key injection of the high word off the critical
+// path.
 
 #pragma once
 
@@ -19,8 +28,24 @@
 
 namespace threefry {
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
+// step s (0..19) of the 20: x0 += x1; x1 = rotl(x1, r) ^ x0
+template <int kStep>
+__device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1) {
+  constexpr int kRot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, kRot[(kStep / 4) % 2 * 4 + kStep % 4]) ^ x0;
+}
+
+// round i (0..4) of five: four steps, then a key injection
+template <int kRound>
+__device__ __forceinline__ void round4(uint32_t& x0, uint32_t& x1,
+                                       const uint32_t (&ks)[3]) {
+  mix<4 * kRound + 0>(x0, x1);
+  mix<4 * kRound + 1>(x0, x1);
+  mix<4 * kRound + 2>(x0, x1);
+  mix<4 * kRound + 3>(x0, x1);
+  x0 += ks[(kRound + 1) % 3];
+  x1 += ks[(kRound + 2) % 3] + static_cast<uint32_t>(kRound + 1);
 }
 
 // threefry-2x32, 20 rounds, of the counter words (x0, x1); returns the xor
@@ -28,20 +53,13 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
 __device__ __forceinline__ uint32_t xor_bits(uint32_t k0, uint32_t k1,
                                              uint32_t x0, uint32_t x1) {
   const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
   x0 += ks[0];
   x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[i % 2][k]);
-      x1 ^= x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
+  round4<0>(x0, x1, ks);
+  round4<1>(x0, x1, ks);
+  round4<2>(x0, x1, ks);
+  round4<3>(x0, x1, ks);
+  round4<4>(x0, x1, ks);
   return x0 ^ x1;
 }
 

@@ -32,20 +32,42 @@ def walk_step_ref(pos, alive, u_term, u_edge, row_ptr, col_idx, out_deg, *,
     return new_pos, survive.to(torch.int32)
 
 
-def walk_step_keyed_ref(pos, alive, key_term, key_edge, row_ptr, col_idx,
-                        out_deg, *, eps: float, edges: bool = False):
-    """`walk_step_ref` on the uniforms `prng.uniform(key, (W,))` of the two
-    keys: what the keyed kernel draws for itself. The draws take the plain
-    version too, so no kernel is held against another. `new_alive` has
-    the dtype of `alive` (int32 or bool). With `edges`, also the int32 [W]
-    edge id row_ptr[pos] + j of each slot that moved, -1 where it did
-    not."""
+def walk_step_keyed_ref_(pos, alive, key_term, key_edge, row_ptr, col_idx,
+                         out_deg, *, eps: float, edge=None, arrivals=None):
+    """In place: `walk_step_ref` on the uniforms `prng.uniform(key, (W,))`
+    of the two keys, what the keyed kernel draws for itself (the draws take
+    the plain version too, so no kernel is held against another). A
+    survivor's `pos` gets its new vertex and a slot that ends gets
+    `alive` = 0; nothing else of them changes. `edge` (int32 [W]) gets
+    row_ptr[pos] + j where the slot moved, -1 elsewhere; `arrivals`
+    (int32 [W]) gets the survivors' new vertices in its first entries, here
+    in slot order. Returns the int64 [1] count of them with `arrivals`,
+    else None."""
     W = pos.shape[0]
     u_term = uniform_ref(key_term, (W,), device=pos.device)
     u_edge = uniform_ref(key_edge, (W,), device=pos.device)
     new_pos, survive, eid = _step(pos, alive, u_term, u_edge, row_ptr,
                                   col_idx, out_deg, eps)
-    new_alive = survive.to(alive.dtype)
-    if not edges:
-        return new_pos, new_alive
-    return new_pos, new_alive, torch.where(survive, eid, -1).to(torch.int32)
+    del u_term, u_edge
+    alive.masked_fill_(~survive, 0)
+    pos.copy_(new_pos)
+    if edge is not None:
+        edge.copy_(torch.where(survive, eid, -1))
+    if arrivals is None:
+        return None
+    moved = new_pos[survive]
+    arrivals[:moved.shape[0]] = moved
+    return torch.tensor([moved.shape[0]], dtype=torch.int64,
+                        device=pos.device)
+
+
+def walk_step_keyed_ref(pos, alive, key_term, key_edge, row_ptr, col_idx,
+                        out_deg, *, eps: float, edges: bool = False):
+    """`walk_step_keyed_ref_` on copies of `pos` and `alive`: (new_pos,
+    new_alive), `new_alive` of the dtype of `alive`, and with `edges` the
+    int32 [W] edge ids."""
+    new_pos, new_alive = pos.clone(), alive.clone()
+    edge = torch.empty_like(pos) if edges else None
+    walk_step_keyed_ref_(new_pos, new_alive, key_term, key_edge, row_ptr,
+                         col_idx, out_deg, eps=eps, edge=edge)
+    return (new_pos, new_alive, edge) if edges else (new_pos, new_alive)

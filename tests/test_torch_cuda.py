@@ -12,9 +12,10 @@ list) bit-exact; multinomial_rows, both entries, bit-exact against its
 plain version on the same card (no FMA contraction on either side); float
 segment_spmv within 1e-5 relative of a float64 sum (atomic order);
 walk_step bit-exact from given uniforms and from key words, with and
-without its edge output; uniform bit-exact against its plain version on
-the card and on the CPU, at every ragged tail, and a misaligned output
-refused; the
+without its edge output, and its in-place entry at the edges of its tile
+of slots (arrivals compared as a histogram); uniform bit-exact against
+its plain version on the card and on the CPU, at every ragged tail, and a
+misaligned output refused; the
 single-device walk engine and Algorithm 2 / Section 5 on the card
 bit-exact against the CPU, with no standalone uniform launched; the
 sharded engines (walks, counts, and the three-phase Algorithm 2 and
@@ -61,8 +62,11 @@ from repro_torch.core.personalized_batch import \
     batched_personalized_pagerank
 from repro_torch.kernels.uniform import uniform
 from repro_torch.kernels.uniform.ref import uniform_ref
-from repro_torch.kernels.walk_step import walk_step, walk_step_keyed
+from repro_torch.kernels.walk_step import (walk_step, walk_step_keyed,
+                                           walk_step_keyed_)
+from repro_torch.kernels.walk_step.ops import TILE
 from repro_torch.kernels.walk_step.ref import (walk_step_keyed_ref,
+                                               walk_step_keyed_ref_,
                                                walk_step_ref)
 
 KEY_WORDS = (0xDEADBEEF, 0x12345678)
@@ -446,6 +450,53 @@ def test_cuda_walk_step_matches_plain(cuda):
     assert int(got_b[1].sum()) > 0
     assert bool((got_e[2] == -1).any()) and bool((got_e[2] >= 0).any())
     assert torch.equal(got_o[1], got_e[1].bool())
+
+
+@pytest.mark.parametrize("outputs", ["none", "edge", "arrivals", "both"])
+@pytest.mark.parametrize("alive_dtype", [torch.bool, torch.int32])
+@pytest.mark.parametrize("W", [0, 1, TILE - 1, TILE, TILE + 1,
+                               3 * TILE + 17])
+def test_cuda_walk_step_inplace_tile_edges(cuda, W, alive_dtype, outputs):
+    """The in-place keyed entry against its plain version at the edges of
+    the kernel's tile of slots, on a view of `alive` that is not 16-byte
+    aligned too: pos and alive bit for bit, dead slots untouched, the edge
+    ids, and the appended arrivals as a histogram with their count."""
+    g = directed_web(5000, 6.0, seed=1, device=cuda)
+    tables = (g.row_ptr, g.col_idx, g.out_deg)
+    rng = np.random.default_rng(W)
+    pos0 = torch.from_numpy(rng.integers(-2, g.n + 2, W).astype(np.int32))
+    live = torch.from_numpy(rng.random(W) < 0.7)
+    kt, ke = prng.split(prng.PRNGKey(W + 1))
+    for offset in (0, 3):
+        base = torch.zeros(W + offset, dtype=alive_dtype)
+        base[offset:] = live.to(alive_dtype)
+        runs = []
+        for fn in (walk_step_keyed_, walk_step_keyed_ref_):
+            alive = base.to(cuda)[offset:]
+            pos = pos0.to(cuda)
+            edge = (torch.full_like(pos, 7) if outputs in ("edge", "both")
+                    else None)
+            arr = (torch.full_like(pos, 7) if outputs in ("arrivals", "both")
+                   else None)
+            count = fn(pos, alive, kt, ke, *tables, eps=0.2, edge=edge,
+                       arrivals=arr)
+            runs.append((pos, alive, edge, arr, count))
+        (pos, alive, edge, arr, count), (r_pos, r_alive, r_edge, r_arr,
+                                         r_count) = runs
+        assert torch.equal(pos, r_pos) and torch.equal(alive, r_alive)
+        dead = ~live.to(cuda)
+        assert torch.equal(pos[dead], pos0.to(cuda)[dead])
+        if edge is not None:
+            assert torch.equal(edge, r_edge)
+        if arr is None:
+            assert count is None
+            continue
+        moved = int(count)
+        assert moved == int(r_count) == int(r_alive.bool().sum())
+        assert torch.equal(histogram_ref(arr[:moved], g.n),
+                           histogram_ref(r_arr[:moved], g.n))
+        assert bool((arr[moved:] == 7).all())
+    torch.cuda.synchronize()
 
 
 def test_cuda_sharded_engines_match_cpu(cuda):

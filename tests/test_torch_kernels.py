@@ -42,7 +42,8 @@ from repro_torch.kernels.multinomial_rows import (multinomial_buckets,
                                                   multinomial_rows)
 from repro_torch.kernels.segment_spmv import (hot_list, segment_spmv,
                                               segment_sum_int)
-from repro_torch.kernels.walk_step import walk_step, walk_step_keyed
+from repro_torch.kernels.walk_step import (walk_step, walk_step_keyed,
+                                           walk_step_keyed_)
 
 KEY_WORDS = (0xDEADBEEF, 0x12345678)
 
@@ -346,6 +347,9 @@ def test_cpu_wrappers_launch_nothing():
     walk_step(ids, ids, u, u, ids, ids, ids, eps=0.2)
     key = prng.PRNGKey(0)
     walk_step_keyed(ids, ids, key, key, ids, ids, ids, eps=0.2)
+    walk_step_keyed_(ids.clone(), ids.clone(), key, key, ids, ids, ids,
+                     eps=0.2, edge=torch.empty_like(ids),
+                     arrivals=torch.empty_like(ids))
     prng.uniform(key, (3,), device="cpu")
     assert common.launches == {"histogram": 0, "segment_spmv": 0,
                                "multinomial_rows": 0, "walk_step": 0,

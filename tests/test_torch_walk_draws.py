@@ -33,7 +33,7 @@ from repro_torch.core import engine_walks
 from repro_torch.core.graph import from_edges
 from repro_torch.kernels import common
 from repro_torch.kernels.uniform import ops as uniform_ops
-from repro_torch.kernels.walk_step import walk_step_keyed
+from repro_torch.kernels.walk_step import walk_step_keyed, walk_step_keyed_
 from repro_torch.kernels.walk_step.ref import walk_step_keyed_ref
 
 # the modules, whose names `repro_torch.core` gives to their entry points
@@ -132,8 +132,8 @@ def test_keyed_edges_name_the_edge_taken(graphs):
 
 @pytest.fixture
 def no_standalone_uniform(monkeypatch):
-    """Make every standalone threefry draw raise, and count the keyed
-    steps each engine takes."""
+    """Make every standalone threefry draw raise, and count the in-place
+    keyed steps each engine takes (True: with the edge output)."""
     def refuse(*args, **kw):
         raise AssertionError("a standalone uniform draw")
 
@@ -143,11 +143,11 @@ def no_standalone_uniform(monkeypatch):
     steps = []
 
     def counted(*args, **kw):
-        steps.append(kw.get("edges", False))
-        return walk_step_keyed(*args, **kw)
+        steps.append(kw.get("edge") is not None)
+        return walk_step_keyed_(*args, **kw)
 
-    monkeypatch.setattr(engine_walks, "walk_step_keyed", counted)
-    monkeypatch.setattr(three_phase, "walk_step_keyed", counted)
+    monkeypatch.setattr(engine_walks, "walk_step_keyed_", counted)
+    monkeypatch.setattr(three_phase, "walk_step_keyed_", counted)
     return steps
 
 
