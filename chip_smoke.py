@@ -232,7 +232,9 @@
    their gradient is mostly rounding noise).
 11. The dry run and the sharded MoE (`dryrun_path`): (a) the cells of
    `launch.dryrun` in DRYRUN_SMOKE_CELLS (24 of the 40; the CLI traces
-   all) traced at full width on fake card tensors, each `ok` or skipped
+   all) traced at full width on fake card tensors, in a child process of
+   this script that runs from the elastic phase on (host work beside the
+   card's phases), each `ok` or skipped
    with the JAX package's reason, with FLOPs, argument and peak bytes,
    the H100 roofline and whether the peak fits 80 GB, and all 40 cells'
    per-device argument bytes on the 16x16 and 2x16x16 meshes; (b) step
@@ -244,6 +246,19 @@
    capacity E/k: the sharded path on the 1x1 mesh equal to the gather
    path bit for bit (deterministic algorithms), on a stacked 2x2 mesh
    within 2e-2 of the largest |out|, 0 drops, both timed.
+12. The port's examples and audit script (`examples_path`), each imported
+   by path and its `main()` called at its card size, the launch counters
+   set to 0 before each and read after (kept out of the `{"kernels"}`
+   line's counts, printed on their own line): quickstart on
+   barabasi_albert(2^19, 3) (power iteration, Algorithm 1 traced,
+   Algorithm 2), the cluster example's clean and failing runs at 8
+   stacked shards (recovered pi bit-exact, 2 restarts), data weighting on
+   doc_link_graph(2^20), serving Qwen3-32B at full width cut to 16 layers
+   (32 requests of 64-1,024 prompt tokens and 16-64 new tokens, 8 slots,
+   max_seq 2,048), training the example's ~125M Qwen2 for 200 steps, and
+   the audit script at 8 shards with telemetry and `--strict`. Each
+   example's own checks gate the phase; each prints its seconds, and the
+   phase the bytes each wrote to storage (/proc/self/io).
 
 Steps 3 to 6 (4a and 4b included) are the main path: every engine is driven
 with the launch counters set to 0 just before it and read just after.
@@ -481,13 +496,6 @@ def sass_fields(library: str, part: str, call, draws: int) -> dict:
                 issue_ms=issue_ms(per_draw * draws, clock["sm_mhz"]),
                 alu_pipe_ms=issue_ms(alu * draws, clock["sm_mhz"],
                                      ALU_LANES_PER_SM))
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def kernel_phase(g, K):
@@ -1019,24 +1027,27 @@ def walk_step_wide_check(g):
 
 class Runner:
     """Drives entry points with the launch counters set to 0 just before
-    and read just after, summing what each run launched."""
+    and read just after, summing what each run launched; each run is a
+    stage of `launch.stages.Stages`, which times it between
+    synchronizations and reads the counters' rise."""
 
     def __init__(self):
+        import torch
         from repro_torch.kernels import common
+        from repro_torch.launch.stages import Stages
         self.common = common
+        self.stages = Stages(torch.device("cuda"))
         self.launches = {name: 0 for name in common.launches}
         self.last = {}
 
     def __call__(self, label, fn, must_launch):
         import torch
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         self.common.reset_launches()
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts = dict(self.common.launches)
+        with self.stages(label):
+            result = fn()
+        secs = self.stages.seconds[label]
+        counts = self.stages.launches[label]
         self.last = counts
         for name, c in counts.items():
             self.launches[name] += c
@@ -3846,43 +3857,6 @@ LM_REDUCED_ARCHS = ("qwen2-7b", "qwen3-32b", "h2o-danube-3-4b",
 LM_CARD_CPU_TOL = 0.05
 
 
-class TimedModel:
-    """Serves through `model`, timing each prefill and decode step between
-    synchronisations; each decode step is kept with the number of slots
-    of `batcher` that were active."""
-
-    def __init__(self, model):
-        self.model = model
-        self.device = model.device
-        self.batcher = None
-        self.prefill_s = 0.0
-        self.prefill_tokens = 0
-        self.decode_steps = []        # (active slots, seconds)
-
-    def init_cache(self, batch, max_seq):
-        return self.model.init_cache(batch, max_seq)
-
-    def prefill(self, tokens, **kw):
-        import torch
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = self.model.prefill(tokens, **kw)
-        torch.cuda.synchronize()
-        self.prefill_s += time.perf_counter() - t0
-        self.prefill_tokens += tokens.numel()
-        return out
-
-    def decode_step(self, cache, token):
-        import torch
-        active = sum(r is not None for r in self.batcher.active)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = self.model.decode_step(cache, token)
-        torch.cuda.synchronize()
-        self.decode_steps.append((active, time.perf_counter() - t0))
-        return out
-
-
 def lm_param_bytes(model) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
@@ -3977,6 +3951,7 @@ def lm_check_accounting(label, reqs, stats, slots):
 def lm_serve(drive, model, reqs, slots, max_seq):
     """Serve `reqs` through `ContinuousBatcher(slots, max_seq)` with each
     call timed; the accounting gates. Returns (numbers, batcher)."""
+    from repro_torch.launch.stages import TimedModel
     from repro_torch.serve import ContinuousBatcher
     name = model.cfg.name
     timed = TimedModel(model)
@@ -5385,6 +5360,8 @@ DRYRUN_SMOKE_CELLS = (
                         "recurrentgemma-9b", "internvl2-1b", "whisper-tiny")
        for s in ("decode_32k", "long_500k")]
     + [(a, "train_4k") for a in ("recurrentgemma-9b", "whisper-tiny")])
+DRYRUN_SWEEP_DIR = ROOT / "build" / "dryrun_sweep"
+DRYRUN_SWEEP_JOIN_S = 900         # (a)'s child process, from its start
 DRYRUN_ARGS_TOL = 0.01            # (b) argument bytes, relative
 DRYRUN_PEAK_TOL = 0.20            # (b) peak bytes, relative
 MOE_SHARDED_ARCH = "dbrx-132b"
@@ -5474,6 +5451,72 @@ def dryrun_sweep(smi) -> dict:
     host_s = time.perf_counter() - t0
     log(f"dryrun (a) on {smi}: {host_s:.1f} s of host time")
     return dict(cells=out, host_s=host_s)
+
+
+def dryrun_sweep_child(spec: dict) -> int:
+    """(a) in a child process of this script (`--dryrun-sweep-child`): its
+    host time runs beside the card's phases (`SweepChild`). The launch
+    counters are set to 0 before it; writes the sweep, its seconds and the
+    counters after it as JSON to spec["out"]."""
+    from repro_torch.kernels import common
+    common.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        sweep = dryrun_sweep(spec["smi"])
+    except PhaseError as e:
+        log(f"FAILED: {e}")
+        return 1
+    Path(spec["out"]).write_text(json.dumps(dict(
+        sweep=sweep, seconds=time.perf_counter() - t0,
+        launches=dict(common.launches)), default=str))
+    return 0
+
+
+class SweepChild:
+    """(a), the dry-run sweep, host work with nothing on the card, run by a
+    child process of this script from its start to `join` (in
+    `dryrun_path`), beside the phases between."""
+
+    def __init__(self, smi):
+        DRYRUN_SWEEP_DIR.mkdir(parents=True, exist_ok=True)
+        self.out = DRYRUN_SWEEP_DIR / "sweep.json"
+        self.out.unlink(missing_ok=True)
+        self.logf = open(DRYRUN_SWEEP_DIR / "sweep.log", "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--dryrun-sweep-child",
+             json.dumps(dict(smi=smi, out=str(self.out)))],
+            env=dict(os.environ, OMP_NUM_THREADS="1"),
+            stdout=self.logf, stderr=subprocess.STDOUT, text=True)
+        log(f"dryrun (a): started in child process {self.proc.pid}")
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def join(self) -> dict:
+        """Wait for the child (to DRYRUN_SWEEP_JOIN_S from its start), print
+        its output, and return its JSON; fails the phase unless it exited
+        0 with nothing launched."""
+        try:
+            self.proc.wait(timeout=max(
+                DRYRUN_SWEEP_JOIN_S - (time.perf_counter() - self.t0), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            self.stop()
+        self.logf.seek(0)
+        for line in self.logf.read().splitlines():
+            log(line)
+        self.logf.close()
+        rc = self.proc.returncode
+        check(rc == 0, f"dryrun sweep: its child exited {rc}")
+        res = json.loads(self.out.read_text())
+        check(not any(res["launches"].values()),
+              f"dryrun sweep launched kernels: {res['launches']}")
+        return res
 
 
 def dryrun_vs_card(smi) -> dict:
@@ -5651,17 +5694,21 @@ def moe_sharded_check(smi) -> dict:
     return out
 
 
-def dryrun_path(drive, smi):
-    """The dry run and the sharded MoE: (a) the sweep, (b) the dry run
-    against the card, (c) the sharded MoE on the card, (d) the rank
-    traces (`launch.dryrun.trace_rank`) against lm_train_path (d)'s gloo
-    2x2 processes. Launches none
-    of the five kernels: each part is driven with the counters at 0 and
-    must leave them there."""
+def dryrun_path(drive, smi, sweep):
+    """The dry run and the sharded MoE: (a) the sweep, whose child
+    `sweep` (a SweepChild) is joined here, (b) the dry run against the
+    card, (c) the sharded MoE on the card, (d) the rank traces
+    (`launch.dryrun.trace_rank`) against lm_train_path (d)'s gloo 2x2
+    processes. Launches none of the five kernels: each part is driven with
+    the counters at 0 and must leave them there."""
     log(f"dryrun path on {smi}")
-    out = {}
-    for key, phase in (("sweep", lambda: dryrun_sweep(smi)),
-                       ("vs_card", lambda: dryrun_vs_card(smi)),
+    t0 = time.perf_counter()
+    res = sweep.join()
+    out = dict(sweep=res["sweep"], sweep_phase_s=res["seconds"])
+    log(f"dryrun phase sweep: {res['seconds']:.2f} s in its child, beside "
+        f"the phases since elastic; {time.perf_counter() - t0:.2f} s "
+        f"waited for here")
+    for key, phase in (("vs_card", lambda: dryrun_vs_card(smi)),
                        ("moe_sharded", lambda: moe_sharded_check(smi)),
                        ("rank_vs_gloo", lambda: dryrun_rank_vs_gloo(smi))):
         out[key], secs, _ = drive(f"dryrun {key}", phase, [])
@@ -5674,6 +5721,119 @@ def dryrun_path(drive, smi):
     return out
 
 
+# The port's examples at their card sizes (`example_runs`)
+N_EXAMPLE_QUICKSTART = 1 << 19     # single-device Algorithm 2's [lam, S]
+# cut from the example's card size, 2^20: there its two runs took 75 s and
+# wrote ~10 GB of snapshots (0.54 GB each, every 10 of 78 rounds), past
+# the phase's share of the script's time and of the disk a command may
+# write (45 GiB in all; the elastic phase writes 38.0 GB of it)
+N_EXAMPLE_CLUSTER = 1 << 18
+N_EXAMPLE_DOCS = 1 << 20
+EXAMPLES_AUDIT_OUT = ROOT / "build" / "AUDIT_examples.json"
+
+
+def example_runs():
+    """(name, file, argv, kernels the run must launch) of each example."""
+    return (
+        ("quickstart", "examples/quickstart_torch.py",
+         ["--n", str(N_EXAMPLE_QUICKSTART)],
+         ["walk_step", "histogram", "segment_spmv"]),
+        ("pagerank_cluster", "examples/pagerank_cluster_torch.py",
+         ["--n", str(N_EXAMPLE_CLUSTER)], ["walk_step"]),
+        ("pagerank_data_weighting",
+         "examples/pagerank_data_weighting_torch.py",
+         ["--n-docs", str(N_EXAMPLE_DOCS)], ["walk_step", "histogram"]),
+        ("serve_lm", "examples/serve_lm_torch.py",
+         ["--full-width", "--layers", "16", "--requests", "32",
+          "--prompt-len", "64", "1025", "--budget", "16", "65",
+          "--slots", "8", "--max-seq", "2048"], []),
+        ("train_lm", "examples/train_lm_torch.py", [], []),
+        ("audit_engines", "scripts/audit_engines_torch.py",
+         ["--shards", "8", "--strict", "--out", str(EXAMPLES_AUDIT_OUT)],
+         ["walk_step"]),
+    )
+
+
+def io_counters() -> dict:
+    """This process's I/O counters, reaped children included
+    (/proc/self/io: `wchar` the bytes passed to write calls, files, pipes
+    and the terminal alike; `write_bytes` those sent to storage), or {}
+    where the kernel does not give them."""
+    try:
+        with open("/proc/self/io") as f:
+            return {k: int(v) for k, v in (
+                line.split(": ") for line in f.read().splitlines())}
+    except (OSError, ValueError):
+        return {}
+
+
+def io_written(before: dict) -> dict:
+    """`wchar` and `write_bytes` since `before` (an `io_counters()`)."""
+    now = io_counters()
+    return {k: now[k] - before[k] for k in ("wchar", "write_bytes")
+            if k in now and k in before}
+
+
+def example_summary(out) -> dict:
+    """The numbers of an example's returned dict, without its vectors,
+    its tokens, its losses past the first and last, the audit's
+    per-engine rows and its stages' launches (the Runner counts them);
+    its stages' seconds as `stage_seconds`."""
+    import numpy as np
+    out = dict(out)
+    if "losses" in out:
+        out["losses"] = [out["losses"][0], out["losses"][-1]]
+    if "seconds" in out:
+        out["stage_seconds"] = out.pop("seconds")
+    return {k: v for k, v in out.items()
+            if not isinstance(v, np.ndarray)
+            and k not in ("generated", "engines", "launches")}
+
+
+def examples_path(drive, smi):
+    """Each port example, and the audit script, through its `main()` at
+    its card size (`example_runs`), driven by `drive` (a Runner of its
+    own: these launches stay out of the main path's counts). An example
+    whose own check fails fails the phase."""
+    import importlib.util
+    log(f"examples path on {smi}; cut: the cluster example at "
+        f"{N_EXAMPLE_CLUSTER} vertices, not its card size 2^20 (its "
+        f"snapshots' writes and seconds)")
+    EXAMPLES_AUDIT_OUT.parent.mkdir(parents=True, exist_ok=True)
+    out, launches = {}, {}
+    for name, path, argv, must in example_runs():
+        spec = importlib.util.spec_from_file_location(
+            f"{name}_torch_example", ROOT / path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        log(f"example {name}: {path} {' '.join(argv)}")
+        io_before = io_counters()
+
+        def call():
+            try:
+                return module.main(argv)
+            except SystemExit as e:
+                raise PhaseError(f"example {name} exited: {e}") from None
+
+        res, secs, peak = drive(f"example {name}", call, must)
+        wrote = io_written(io_before)
+        launches[name] = dict(drive.last)
+        if name in ("serve_lm", "train_lm"):
+            check(not any(drive.last.values()),
+                  f"example {name} launched kernels: {drive.last}")
+        out[name] = dict(example_summary(res), seconds=secs, peak_gib=peak,
+                         written=wrote)
+        log(f"example {name}: {secs:.2f} s, written {wrote}, "
+            + json.dumps(out[name], default=str))
+        del res, module
+        lm_release()
+    log("examples launches (not in the kernels line): "
+        + json.dumps(launches))
+    log(f"examples: {smi} " + json.dumps(
+        {k: round(v["seconds"], 3) for k, v in out.items()}))
+    return out
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--process-group-child"]:
@@ -5682,6 +5842,8 @@ def main() -> int:
         return lm_group_child(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--lm-serve-child"]:
         return lm_serve_child(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--dryrun-sweep-child"]:
+        return dryrun_sweep_child(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5692,8 +5854,10 @@ def main() -> int:
     from repro_torch.core import walks_per_node_for
     from repro_torch.graphs import doc_link_graph
     from repro_torch.kernels import common
+    from repro_torch.launch.stages import nvidia_smi_line
 
     t_start = time.perf_counter()
+    io_start = io_counters()
     t0 = time.perf_counter()
     logs = common.build_all()
     build_s = time.perf_counter() - t0
@@ -5718,6 +5882,13 @@ def main() -> int:
 
     drive = Runner()
     phases = {}
+    sweep = None
+
+    def done(name, t0):
+        phases[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phases[name]:.2f} s; written since the start "
+            f"{io_written(io_start)}")
+
     try:
         t0 = time.perf_counter()
         rows = kernel_phase(g, K)
@@ -5727,22 +5898,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         rows["uniform"] = uniform_phase(g.n * K, g.device)
         torch.cuda.empty_cache()
-        phases["kernels"] = time.perf_counter() - t0
+        done("kernels", t0)
         t0 = time.perf_counter()
         runs, pi_ref, counts_zeta = main_path(g, K, drive)
-        phases["single_device"] = time.perf_counter() - t0
+        done("single_device", t0)
         t0 = time.perf_counter()
         sharded = sharded_path(g, K, drive, pi_ref, counts_zeta)
-        phases["sharded"] = time.perf_counter() - t0
+        done("sharded", t0)
         t0 = time.perf_counter()
         process_group_path(g, K, drive, sharded, counts_zeta)
-        phases["process_group"] = time.perf_counter() - t0
-        log(f"process group phase: {phases['process_group']:.1f} s")
+        done("process_group", t0)
         t0 = time.perf_counter()
+        sweep = SweepChild(smi)
         elastic_path(g, K, sharded["walks"]["K"], drive, pi_ref, counts_zeta,
                      sharded["counts"]["rounds"])
-        phases["elastic"] = time.perf_counter() - t0
-        log(f"elastic phase: {phases['elastic']:.1f} s")
+        done("elastic", t0)
         del counts_zeta
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -5750,34 +5920,40 @@ def main() -> int:
             drive, sharded["counts"]["rounds"])
         rows["multinomial_rows"]["phase1_cells"] = cells_row
         rows["three_phase_calls"] = phase_rows
-        phases["three_phase"] = time.perf_counter() - t0
+        done("three_phase", t0)
         t0 = time.perf_counter()
         ppr, rows["ppr_superstep"] = ppr_path(g, drive)
-        phases["ppr"] = time.perf_counter() - t0
+        done("ppr", t0)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         audit = audit_path(g, K, drive, pi_ref, ppr)
-        phases["audit"] = time.perf_counter() - t0
+        done("audit", t0)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         cli_phase()
-        phases["cli"] = time.perf_counter() - t0
+        done("cli", t0)
         t0 = time.perf_counter()
         small_check()
-        phases["small"] = time.perf_counter() - t0
+        done("small", t0)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         lm = lm_serve_path(drive, smi)
-        phases["lm"] = time.perf_counter() - t0
+        done("lm", t0)
         t0 = time.perf_counter()
         lm_train_path(drive, smi, runs.pop("scores"))
-        phases["lm_train"] = time.perf_counter() - t0
+        done("lm_train", t0)
         t0 = time.perf_counter()
-        dryrun_path(drive, smi)
-        phases["dryrun"] = time.perf_counter() - t0
+        dryrun_path(drive, smi, sweep)
+        done("dryrun", t0)
+        t0 = time.perf_counter()
+        examples_path(Runner(), smi)
+        done("examples", t0)
     except PhaseError as e:
         log(f"FAILED: {e}")
         return 1
+    finally:
+        if sweep is not None:
+            sweep.stop()
 
     walks = runs["walks"]
     log(f"phases: build {build_s:.2f} s, graph {graph_s:.2f} s, power "
@@ -5794,7 +5970,8 @@ def main() -> int:
         f"rounds), service {ppr['service']['supersteps']} supersteps; by "
         f"phase "
         f"{ {k: round(v, 2) for k, v in phases.items()} }; whole script "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{time.perf_counter() - t_start:.1f} s; written "
+        f"{io_written(io_start)}")
 
     replaces = {
         "histogram": "src/repro/kernels/histogram/histogram.py:67",

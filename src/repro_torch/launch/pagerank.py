@@ -372,23 +372,32 @@ def _run(mesh, n, eps, walks_per_node, graph_kind, checkpoint_dir, fail_at,
 
 
 def audit(eps: float, shards: int | None = None, device=None,
-          engines=None) -> dict:
+          engines=None, *, out: str = "AUDIT.json",
+          run_telemetry: bool = True, walks_per_node: int = 2,
+          strict: bool = True) -> dict:
     """The CONGEST audit of every engine (or of `engines`) on `shards`
     stacked shards (8 when None) on `device` (the card when None), or
-    under `torchrun` on the group's mesh: prints the wire table and
-    writes AUDIT.json in the working directory (rank 0), and exits
-    non-zero on any violation (every process: the merged report is the
-    same on each). Returns the report."""
+    under `torchrun` on the group's mesh: prints the wire table and a
+    `VIOLATION` line for each violation, and writes the report to `out`
+    (rank 0). With `strict` it exits non-zero on any violation (every
+    process: the merged report is the same on each). Returns the
+    report."""
     from repro_torch.analysis.congest import (audit_all_engines,
                                               format_wire_table)
     with _mesh(shards, device, default_shards=8) as mesh:
-        report = audit_all_engines(mesh, eps=eps, engines=engines)
+        report = audit_all_engines(mesh, eps=eps, engines=engines,
+                                   run_telemetry=run_telemetry,
+                                   walks_per_node=walks_per_node)
         if mesh.writer:
             print(format_wire_table(report))
-            with open("AUDIT.json", "w") as f:
+            for e in report["engines"].values():
+                for v in e["violations"]:
+                    print(f"VIOLATION [{v['engine']}] {v['kind']} at "
+                          f"{v['where']}: {v['message']}")
+            with open(out, "w") as f:
                 json.dump(report, f, indent=2, sort_keys=True)
-            print("[pagerank] wrote AUDIT.json")
-    if not report["ok"]:
+            print(f"[pagerank] wrote {out}")
+    if strict and not report["ok"]:
         raise SystemExit("[pagerank] CONGEST audit FAILED")
     return report
 

@@ -98,13 +98,14 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
                  checkpoint_dir: str | None = None,
                  checkpoint_every: int = 50, q_chunk: int = 512,
                  log_every: int = 10, seed: int = 0, device=None,
-                 mesh=None):
+                 mesh=None, step_seconds: list | None = None):
     """Train `cfg`'s model for `steps` steps (counted from 0, a resumed run
     going on from its checkpoint's step) under the sharding rules of
     `mesh` (`make_local_mesh(device)` when None). On a process mesh each
     rank trains on its own device and keeps its block of each weight and
     its ZeRO slice of the state. Returns (model, AdamW state,
-    the losses of the steps this call ran)."""
+    the losses of the steps this call ran); each step's wall seconds,
+    its loss read back included, go into `step_seconds` when given."""
     mesh = mesh or make_local_mesh(device)
     process = mesh.process
     if process:
@@ -139,9 +140,12 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
         losses = []
         t0 = time.time()
         for i in range(start_step, steps):
+            t_step = time.time()
             opt_state, metrics = step_fn(
                 opt_state, make_batch(cfg, data.batch_at(i), model.device))
             losses.append(float(metrics["loss"]))
+            if step_seconds is not None:
+                step_seconds.append(time.time() - t_step)
             if (i + 1) % log_every == 0:
                 dt = (time.time() - t0) / max(len(losses), 1)
                 say(f"[train] step {i+1:5d} loss {losses[-1]:.4f} "
@@ -149,7 +153,9 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
                     f"{dt*1e3:.0f} ms/step", flush=True)
             if ckpt and (i + 1) % checkpoint_every == 0:
                 ckpt.save(i + 1, snapshot(), blocking=process)
-        if ckpt:
+        if ckpt and start_step < steps and steps % checkpoint_every == 0:
+            ckpt.wait()         # the last step's snapshot, being written
+        elif ckpt:
             ckpt.save(steps, snapshot(), blocking=True)
         return model, opt_state, losses
 

@@ -1,5 +1,7 @@
 """The port stands alone: no module of `src/repro_torch/`, nor
-`chip_smoke.py`, imports `jax`, `ml_dtypes` or the JAX package `repro`."""
+`chip_smoke.py`, the port's examples (`examples/*_torch.py`) or
+scripts (`scripts/*_torch.py`), imports `jax`, `ml_dtypes` or the JAX
+package `repro`."""
 import ast
 import os
 import subprocess
@@ -10,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py")) \
+    + sorted((ROOT / "scripts").glob("*_torch.py"))
 
 
 def _imported_modules(path):
