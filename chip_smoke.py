@@ -229,7 +229,14 @@
    step on the card, losses within 2e-3, and each leaf's update (its
    gathered masters less their init) within 0.25 of the single
    process's in norm (the key biases of Qwen2 and InternVL2 excepted:
-   their gradient is mostly rounding noise).
+   their gradient is mostly rounding noise). Under both groups, the
+   exchange between blocks and ZeRO ranges (`lm_exchange_check`: reduced
+   DBRX on blocks, one step without the clip) bit-equal to its plain
+   reference: every rank's part widened to the leaf's flat vector,
+   all-gathered, summed in rank order and sliced (the init's masters and
+   the reduced gradient), one process's `apply_updates` on that gradient
+   (master, m, v) and its new weights' blocks; its all_to_all bytes and
+   calls and seconds logged.
 11. The dry run and the sharded MoE (`dryrun_path`): (a) the cells of
    `launch.dryrun` in DRYRUN_SMOKE_CELLS (24 of the 40; the CLI traces
    all) traced at full width on fake card tensors, in a child process of
@@ -5135,6 +5142,8 @@ def lm_process_world_one(drive, smi) -> dict:
                 digests=[bit_digest(t) for t in lm_state_tensors(model,
                                                                  state)])
             del model, state
+            if label == "nccl":
+                exchange = lm_exchange_check(mesh)
         finally:
             if label == "nccl":
                 dist.destroy_process_group()
@@ -5147,12 +5156,15 @@ def lm_process_world_one(drive, smi) -> dict:
           f"differs from the local mesh: losses {a['losses']} vs "
           f"{b['losses']}, {sum(x != y for x, y in zip(a['digests'], b['digests']))}"
           f" of {len(a['digests'])} tensors")
+    check(exchange["ok"], f"the exchange between blocks and ZeRO ranges "
+          f"under NCCL world 1 differs from its plain reference: {exchange}")
     out = {k: dict(v, digests=len(v["digests"])) for k, v in runs.items()}
     log(f"lm process (d) world 1, {cfg.name} x{cfg.num_layers}, "
         f"{LM_PG_STEPS} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens on "
         f"{smi}: NCCL process mesh bit-equal to the local mesh "
-        f"({len(a['digests'])} tensors): {out}")
-    return out
+        f"({len(a['digests'])} tensors): {out}; the exchange (reduced "
+        f"{LM_EXCHANGE_ARCH}) bit-equal to its reference: {exchange}")
+    return dict(out, exchange=exchange)
 
 
 def lm_group_child(spec: dict) -> int:
@@ -5202,11 +5214,141 @@ def lm_group_child(spec: dict) -> int:
                              device=str(state.step.device),
                              seconds=time.perf_counter() - t0)
             del model, state, host
+        out["exchange"] = lm_exchange_check(mesh)
         out["gate"] = lm_gate_peak(mesh)
     finally:
         dist.destroy_process_group()
     print(json.dumps(out))
     return 0
+
+
+LM_EXCHANGE_ARCH = "dbrx-132b"
+
+
+def lm_exchange_check(mesh) -> dict:
+    """The exchange between blocks and ZeRO ranges on this rank of a
+    process mesh (`train.optimizer`'s uneven all_to_all), reduced
+    LM_EXCHANGE_ARCH on blocks, fp32 moments, one step without the clip,
+    against its plain reference, bit for bit: every rank's part widened
+    to the leaf's flat vector, all-gathered, summed in rank order and
+    sliced (the init's masters: each block from the rank at coordinate 0
+    on each axis it is replicated over; the reduced gradient, / dp); the
+    state after `apply_updates` against one process's `apply_updates` on
+    that gradient, sliced, and the new weight blocks against its new
+    weights. Every rank calls it. Returns the checks, the step's
+    all_to_all bytes and calls, and the seconds of the gradient's
+    exchange and of `apply_updates`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import reduced_config
+    from repro_torch.convert import lm_param_tree
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import DATA_AXES, ZERO_AXES
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import get_model
+    from repro_torch.sharding import ShardingRules, active_rules, \
+        default_rules
+    from repro_torch.sharding.collectives import CollectiveLog
+    from repro_torch.sharding.layout import placement
+    from repro_torch.train import AdamWConfig, apply_updates, init_state
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import rank_grads
+
+    cfg = reduced_config(LM_EXCHANGE_ARCH)
+    adam = AdamWConfig(grad_clip=0.0)
+    dev = mesh.devices[0]
+    zero, dp = mesh.group(ZERO_AXES), mesh.group(DATA_AXES).shards
+    Z = zero.shards
+
+    def parts_of(leaf):
+        return None if leaf is None else topt._parts(leaf)
+
+    def widened_sum(leaf, values):
+        per = topt.zero_share(topt._pad_len(topt.leaf_size(leaf)), Z)
+        flat = torch.zeros(Z * per, device=dev)
+        at = 0
+        for i, t in enumerate(parts_of(leaf)):
+            pl = placement(t)
+            n = int(np.prod(pl.shape))
+            if values is not None:
+                w = torch.zeros(pl.shape, device=dev)
+                w[pl.index] = values[i].detach().float()
+                flat[at:at + n] = w.reshape(-1)
+            at += n
+        rows = [torch.empty_like(flat) for _ in range(Z)]
+        dist.all_gather(rows, flat, group=zero.group)
+        total = rows[0].clone()
+        for r in rows[1:]:
+            total += r
+        return total
+
+    def mine_of(whole, n):
+        out = torch.zeros(n, dtype=whole.dtype, device=dev)
+        got = whole[zero.rank * n:(zero.rank + 1) * n]
+        out[:got.numel()] = got
+        return out
+
+    rules = ShardingRules(mesh, default_rules(False))
+    batch = make_batch(cfg, SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_PG_SEQ,
+        global_batch=LM_PG_BATCH, seed=0)).batch_at(0), dev)
+    m = get_model(cfg)(cfg, device=dev, seed=0, mesh=mesh)
+    m.requires_grad_(True)
+    params = lm_param_tree(m)
+    leaves = list(topt.tree_leaves(params))
+    st = init_state(params, adam, mesh=mesh)
+    init = all(torch.equal(s, mine_of(widened_sum(
+        p, parts_of(p) if not any(
+            mesh.coords[a] for a in placement(parts_of(p)[0])
+            .replicated_over()) else None), s.numel()))
+        for p, s in zip(leaves, topt.tree_leaves(st.master)))
+    with active_rules(rules):
+        g, _ = rank_grads(m, params, batch, mesh, 1, dict(q_chunk=16))
+    given = list(topt.tree_leaves(g))
+    want = [widened_sum(p, parts_of(x)) / dp for p, x in zip(leaves, given)]
+    copy = topt.tree_map(lambda x: None if x is None else (
+        [t.clone() for t in x] if isinstance(x, list) else x.clone()), g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = topt.reduce_scatter_grads(params, copy, zero, dp)
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
+    grads = all(torch.equal(s, mine_of(w, s.numel()))
+                for s, w in zip(got, want))
+    del got, copy
+    with CollectiveLog() as clog:
+        t0 = time.perf_counter()
+        _, st, _ = apply_updates(params, g, st, adam, mesh=mesh)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    one = get_model(cfg)(cfg, device=dev, seed=0)
+    p1 = lm_param_tree(one)
+    it = iter(want)
+
+    def cut(leaf):
+        flat, at, out = next(it), 0, []
+        for t in topt._parts(leaf):
+            out.append(flat[at:at + t.numel()].view(t.shape))
+            at += t.numel()
+        return out if isinstance(leaf, list) else out[0]
+    _, st1, _ = apply_updates(p1, topt.tree_map(cut, p1),
+                              init_state(p1, adam), adam)
+    state = all(torch.equal(a, mine_of(w, a.numel()))
+                for f in ("master", "m", "v")
+                for a, w in zip(topt.tree_leaves(getattr(st, f)),
+                                topt.tree_leaves(getattr(st1, f))))
+    whole = dict(one.named_parameters())
+    weights = all(torch.equal(t, whole[k][placement(t).index])
+                  for k, t in m.named_parameters())
+    del m, one, st, st1, g, want
+    return dict(arch=cfg.name, init=init, grads=grads, state=state,
+                weights=weights, ok=init and grads and state and weights,
+                a2a_bytes=clog.bytes.get("all_to_all", 0),
+                a2a_calls=clog.calls.get("all_to_all", 0),
+                other_bytes={k: v for k, v in clog.bytes.items()
+                             if k != "all_to_all"},
+                grads_exchange_s=grads_s, apply_updates_s=step_s)
 
 
 def lm_gate_peak(mesh) -> dict:
@@ -5306,12 +5448,18 @@ def lm_process_group(smi) -> dict:
                          weight_bytes_whole=whole_w,
                          child_seconds=[r["seconds"] for r in rows])
         del model, state
+    exchange = [o["exchange"] for o in outs]
+    check(all(e["ok"] for e in exchange),
+          f"the exchange between blocks and ZeRO ranges at 2x2 differs from "
+          f"its plain reference: {exchange}")
     LM_PG_GATE.clear()
     LM_PG_GATE.update({r: o["gate"] for r, o in enumerate(outs)})
     log(f"lm process (d) gloo, {world} processes on the card at "
-        f"{LM_PG_MESH}, {group_s:.1f} s on {smi}: {res}; the dry run's "
-        f"gate step's peaks: {LM_PG_GATE}")
-    return dict(res, group_s=group_s, gate=dict(LM_PG_GATE))
+        f"{LM_PG_MESH}, {group_s:.1f} s on {smi}: {res}; the exchange "
+        f"(reduced {LM_EXCHANGE_ARCH}) bit-equal to its reference on every "
+        f"rank: {exchange}; the dry run's gate step's peaks: {LM_PG_GATE}")
+    return dict(res, group_s=group_s, exchange=exchange,
+                gate=dict(LM_PG_GATE))
 
 
 def lm_train_process(drive, smi) -> dict:

@@ -319,10 +319,10 @@ LM_SNAPSHOT_DIR = ROOT / "build" / "lm_snapshot"     # (d)'s, removed after
 # about 57 and 45 GiB by the bytes of the 8-layer runs (PERF.md), and
 # the allocated peak the deepest run's depth is chosen under. A card has
 # 79.18 GiB, of which ~3 go to the context and up to 6.88 were cached
-# but unallocated when runs on blocks ran out at 28 layers; and the two
-# runs' rise understates a layer's: the optimizer's temporaries of a
-# stacked leaf's ZeRO slice grow with the layers and set the peak only
-# past them.
+# but unallocated when runs on blocks ran out at 28 layers. On blocks the
+# optimizer's temporaries do not grow with the layers (one bucket's
+# buffers beside the rank's ranges, `train.optimizer`), so the two runs'
+# rise is a layer's.
 QWEN3_LAYERS = {"whole": 12, "blocks": 16}
 QWEN3_PEAK_GIB = 64.0
 # (g), (h): the allocated peak the deepest run's depth is chosen under

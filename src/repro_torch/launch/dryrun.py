@@ -83,8 +83,9 @@ from repro_torch.sharding.collectives import CollectiveLog
 from repro_torch.sharding.layout import serve_rows
 from repro_torch.sharding.rules import (ShardingRules, active_rules,
                                         default_rules)
-from repro_torch.train import (AdamWConfig, init_state, make_train_step,
-                               state_axes)
+from repro_torch.train import (AdamWConfig, apply_updates, init_state,
+                               make_train_step, state_axes)
+from repro_torch.train.train_step import rank_grads
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
@@ -318,7 +319,8 @@ def trace_rank(cfg, shape, mesh_shape: Dict[str, int], rank: int = 0, *,
     of the cache. Returns its FLOPs, bytes accessed, argument bytes, peak
     bytes, and the bytes and calls of its collectives by kind
     (`CollectiveLog`: the init's exchange of the state is not counted,
-    the step's is)."""
+    the step's is); of a train step, the host seconds of its update
+    (`optimizer_s`) beside the whole trace's (`trace_s`)."""
     device = resolve_device(device)
     mesh = make_rank_mesh(mesh_shape, rank, device)
     rules = ShardingRules(mesh, default_rules("pod" in mesh_shape))
@@ -332,14 +334,20 @@ def trace_rank(cfg, shape, mesh_shape: Dict[str, int], rank: int = 0, *,
     with FakeTensorMode():
         model = get_model(cfg)(cfg, device=device, seed=None, mesh=mesh)
         inputs = _fake_inputs(cfg, shape, device)
-        state = ()
+        state, optimizer_s = (), [None]
         if train:
             adam = AdamWConfig(int8_moments=int8)
-            state = init_state(lm_param_tree(model), adam, mesh=mesh)
-            step = make_train_step(cfg, model, adam, num_microbatches=nm,
-                                   loss_kwargs=dict(q_chunk=q_chunk),
-                                   mesh=mesh)
-            run = lambda: step(state, inputs)  # noqa: E731
+            params = lm_param_tree(model)
+            state = init_state(params, adam, mesh=mesh)
+            model.requires_grad_(True)
+
+            def run():
+                # make_train_step's process-mesh step, the update timed
+                grads, _ = rank_grads(model, params, inputs, mesh, nm,
+                                      dict(q_chunk=q_chunk))
+                t1 = time.perf_counter()
+                apply_updates(params, grads, state, adam, mesh=mesh)
+                optimizer_s[0] = time.perf_counter() - t1
         else:
             rows = serve_rows(shape.global_batch, mesh)
             inputs = {k: v[rows] for k, v in inputs.items()}
@@ -366,7 +374,8 @@ def trace_rank(cfg, shape, mesh_shape: Dict[str, int], rank: int = 0, *,
                 bytes_accessed=float(live.accessed), argument_bytes=args,
                 peak_bytes=live.peak, temp_bytes=live.peak - args,
                 coll_bytes=log.total, coll_by_kind=dict(log.bytes),
-                coll_calls=dict(log.calls), trace_s=secs, microbatches=nm,
+                coll_calls=dict(log.calls), trace_s=secs,
+                optimizer_s=optimizer_s[0], microbatches=nm,
                 int8_moments=int8, mesh=dict(mesh_shape), rank=rank)
 
 
@@ -436,10 +445,10 @@ def cell_record(arch: str, shape_name: str, mesh_name: str,
             per_device |= dict(
                 temp_bytes=ranked["temp_bytes"],
                 coll_bytes=ranked["coll_bytes"], reason=None,
-                rank=dict((k, ranked[k]) for k in (
+                rank=dict((k, ranked.get(k)) for k in (
                     "rank", "argument_bytes", "peak_bytes", "flops",
                     "coll_by_kind", "coll_calls", "microbatches",
-                    "trace_s")))
+                    "trace_s", "optimizer_s")))
         record |= dict(status="ok", per_device=per_device,
                        params_total=cfg.param_count(),
                        params_active=cfg.active_param_count())
@@ -530,6 +539,9 @@ def main(argv=None):
                                  f"GiB rank-coll="
                                  f"{pd['coll_bytes'] / 2**30:.4f}GiB "
                                  f"traced in {pd['rank']['trace_s']:.1f} s")
+                        if pd["rank"].get("optimizer_s") is not None:
+                            extra += (f" (update "
+                                      f"{pd['rank']['optimizer_s']:.1f} s)")
                     else:
                         extra = f" {pd['reason']}"
                 elif status == "ok":

@@ -76,6 +76,16 @@ class Mesh:
                            f"{self.shape}")
         return self.groups[key]
 
+    def group_coords(self, axes: Tuple[str, ...], r: int) -> Dict[str, int]:
+        """The coordinates of rank `r` of this rank's group over `axes`:
+        row-major over those of `axes` the mesh has, in `axes`' order (as
+        `make_process_mesh` and `make_rank_mesh` number a group's ranks),
+        this rank's own on the other axes."""
+        coords = dict(self.coords)
+        for a in reversed([a for a in axes if a in self.shape]):
+            coords[a], r = r % self.shape[a], r // self.shape[a]
+        return coords
+
     def barrier(self) -> None:
         """Wait for every process of a process mesh."""
         if self.process:

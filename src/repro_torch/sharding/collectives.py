@@ -30,9 +30,11 @@ forward and backward, remat re-runs included, or the group hangs.
 
 `reduce_scatter_`, `all_gather_` and `all_reduce_` are the plain
 (no-gradient) forms over flat buffers that the ZeRO optimizer moves its
-slices with. `gather_weight` is the FSDP gather of a weight held split
-over the data axes (`sharding.layout`): the tiled all_gather, whose
-backward reduce-scatters the gradient back into the block.
+slices with; `all_to_all_v` (uneven blocks) moves a rank's blocks to
+and from the ZeRO ranges. `gather_weight` is the FSDP gather of a weight
+held split over the data axes (`sharding.layout`): the tiled
+all_gather, whose backward reduce-scatters the gradient back into the
+block.
 
 Every collective here is noted, by kind and bytes (an all-reduce's
 buffer, an all-gather's gathered output, a reduce-scatter's scattered
@@ -85,7 +87,8 @@ def _note(kind: str, t: torch.Tensor) -> None:
 class FakeGroup:
     """A group of `shards` ranks of which this process plays `rank`,
     without processes: an all-reduce returns its input, an all-gather
-    repeats it, a reduce-scatter takes this rank's block. For tracing one
+    repeats it, a reduce-scatter takes this rank's block, an uneven
+    all_to_all gives zeros of the sizes asked for. For tracing one
     rank's step on fake tensors; the values mean nothing."""
     shards: int
     rank: int
@@ -158,6 +161,28 @@ def all_to_all_(out: torch.Tensor, inp: torch.Tensor, group) -> None:
         out.copy_(host)
     else:
         dist.all_to_all_single(out, inp, group=group.group)
+
+
+def all_to_all_v(send: torch.Tensor, send_splits: List[int],
+                 recv_splits: List[int], group) -> torch.Tensor:
+    """The all_to_all of uneven blocks: `send` [sum(send_splits)] cut at
+    `send_splits`, its block j sent to rank j; returns the blocks
+    received [sum(recv_splits)], rank by rank, rank j's `recv_splits[j]`
+    long (zeros of that length on a `FakeGroup`). Card tensors on a gloo
+    group go through the host."""
+    _note("all_to_all", send)
+    recv = torch.empty(sum(recv_splits), dtype=send.dtype,
+                       device=send.device)
+    if isinstance(group, FakeGroup):
+        return recv.zero_()
+    if _gloo_on_card(send, group):
+        host = torch.empty(recv.shape, dtype=recv.dtype)
+        dist.all_to_all_single(host, send.cpu(), recv_splits, send_splits,
+                               group=group.group)
+        return recv.copy_(host)
+    dist.all_to_all_single(recv, send, recv_splits, send_splits,
+                           group=group.group)
+    return recv
 
 
 class _PSum(torch.autograd.Function):

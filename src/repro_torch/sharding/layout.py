@@ -18,7 +18,11 @@ A parameter without a tag is whole (one device, a stacked mesh, or a
 model built without `mesh=`), and the layers then compute as before.
 The optimizer and the converters read `placement` and `global_shape` to
 move blocks to and from the single-device layout (`train.optimizer`,
-`convert`).
+`convert`). A block's elements in a range of its whole tensor's flat
+offsets are one run of the block's own order (`Grid`): `below` finds
+the run's ends, `boxes` cuts it into strided views of the whole tensor,
+so that a block moves to and from the ZeRO ranges of the flat state
+without its whole tensor ever being built.
 
 A serving cache on such a model is laid out as the JAX package's dry run
 lays out its decode program's `cache_sh`: `ShardingRules.spec` of the
@@ -47,7 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -83,6 +87,101 @@ class Placement:
         used = {a for d in range(len(self.shape)) for a in self.axes(d)}
         return tuple(a for a, n in self.mesh.shape.items()
                      if n > 1 and a not in used)
+
+
+class Grid(NamedTuple):
+    """A block of a tensor as the offsets of its elements in the whole
+    tensor's flat (row-major) order: `base` that of its first element,
+    `dims` (whole stride, extent, block stride) a dim, outermost first.
+    A dim the block spans whole is merged into the next outer one, and a
+    dim the block is one wide is dropped (its start is in `base`). The
+    block's own row-major order over `dims` is its order as a tensor, in
+    which the offsets strictly increase: the block's elements in one
+    range of offsets are one run of its own order."""
+    base: int
+    dims: Tuple[Tuple[int, int, int], ...]
+
+
+def block_grid(shape: Tuple[int, ...], index: Tuple[slice, ...]) -> Grid:
+    """The `Grid` of the block `index` (unit-step slices, a `Placement`'s
+    `index`) of a tensor of `shape`."""
+    dims = []                  # [stride, size, start, extent], outer first
+    stride = 1
+    for n, sl in reversed(list(zip(shape, index))):
+        start, stop, step = sl.indices(n)
+        if step != 1:
+            raise ValueError(f"a block's slices have unit steps: {index}")
+        if dims and dims[0][3] == dims[0][1]:      # the inner dim is whole
+            inner = dims[0]
+            dims[0] = [inner[0], n * inner[1], start * inner[1],
+                       (stop - start) * inner[1]]
+        else:
+            dims.insert(0, [stride, n, start, stop - start])
+        stride *= n
+    base = sum(d[0] * d[2] for d in dims)
+    out, block_stride = [], 1
+    for w, _, _, extent in reversed(dims):
+        if extent != 1:
+            out.insert(0, (w, extent, block_stride))
+            block_stride *= extent
+    return Grid(base, tuple(out))
+
+
+def below(grid: Grid, x: int) -> int:
+    """How many of the block's elements lie at whole offsets below `x`:
+    the elements in offsets [a, b) are its run [below(a), below(b))."""
+    y = x - grid.base
+    if y <= 0:
+        return 0
+    count = 0
+    for w, extent, block_stride in grid.dims:
+        q = y // w
+        if q >= extent:
+            return count + extent * block_stride
+        count += q * block_stride
+        y -= q * w
+    return count + (y > 0)
+
+
+def _split(extents: Tuple[int, ...], j0: int, j1: int) -> list:
+    """[j0, j1) of the row-major order over `extents` as boxes: [(first
+    position, box shape)], at most 2 len(extents) - 1 of them."""
+    if j0 >= j1:
+        return []
+    if len(extents) <= 1:
+        return [(j0, (j1 - j0,) * len(extents))]
+    inner = math.prod(extents[1:])
+    q0, r0 = divmod(j0, inner)
+    q1, r1 = divmod(j1, inner)
+
+    def row(q, a, b):
+        return [(q * inner + j, (1,) + s)
+                for j, s in _split(extents[1:], a, b)]
+    if q0 == q1:
+        return row(q0, r0, r1)
+    out = []
+    if r0:
+        out += row(q0, r0, inner)
+        q0 += 1
+    if q1 > q0:
+        out.append((q0 * inner, (q1 - q0,) + extents[1:]))
+    if r1:
+        out += row(q1, 0, r1)
+    return out
+
+
+def boxes(grid: Grid, j0: int, j1: int) -> list:
+    """The run [j0, j1) of the block's own order as boxes, each a strided
+    view of the whole tensor's flat vector: [(position of its first
+    element in the block's order, shape, offset of that element in the
+    whole tensor, strides)]. Row-major over its shape, a box is a
+    contiguous part of the run."""
+    strides = tuple(w for w, _, _ in grid.dims)
+    out = []
+    for j, shape in _split(tuple(e for _, e, _ in grid.dims), j0, j1):
+        offset = grid.base + sum((j // v) % e * w for w, e, v in grid.dims)
+        out.append((j, shape, offset, strides))
+    return out
 
 
 def placement(t: torch.Tensor) -> Optional[Placement]:
@@ -168,16 +267,6 @@ def varies_over_model(t: torch.Tensor) -> bool:
     return pl is not None and any(
         pl.axes(d) == MODEL_AXES for d in range(len(pl.shape))) and \
         pl.mesh.shape.get("model", 1) > 1
-
-
-def owner(t: torch.Tensor) -> bool:
-    """Whether this rank is the one that hands on t's block among the
-    ranks holding the same block (coordinate 0 on every axis it is
-    replicated over)."""
-    pl = placement(t)
-    if pl is None:
-        return True
-    return not any(pl.mesh.coords[a] for a in pl.replicated_over())
 
 
 def whole(t: torch.Tensor) -> torch.Tensor:

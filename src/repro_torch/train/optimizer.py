@@ -28,44 +28,62 @@ of elementwise torch ops a leaf (XLA fuses the JAX package's).
 
 ZeRO-1 on a process mesh (`launch.mesh.make_process_mesh`): with
 `mesh=`, `init_state` keeps of each leaf's flat padded vector only this
-rank's slice over the ZeRO axes (`state_axes`' "zero": every axis), cut
-at whole QBLOCK blocks (`zero_share`: the int8 scales are the
-single-device ones), and `apply_updates` reduce-scatters each rank's
-part of the gradient into the slices leaf by leaf, in buckets of at most
-`BUCKET` floats, takes the global norm as the sqrt of a psum of the
-slices' sums of squares, updates the slices with the same arithmetic,
-and all-gathers the new weights into the parameters. With one rank the
-slice is the whole vector and no arithmetic changes. `state_to_host` and
-`state_from_host` move a state, a ZeRO slice or a whole one, to and from
-the single-device layout of a snapshot.
+rank's range over the ZeRO axes (`state_axes`' "zero": every axis,
+ranks numbered row-major over `launch.mesh.ZERO_AXES`), cut at whole
+QBLOCK blocks (`zero_share`: the int8 scales are the single-device
+ones). `apply_updates` sums the ranks' parts of the gradient into the
+ranges leaf by leaf, takes the global norm as the sqrt of a psum of the
+ranges' sums of squares, updates the ranges with the same arithmetic,
+and moves the new weights back into the parameters. With one rank the
+range is the whole vector and no arithmetic changes. `state_to_host`
+and `state_from_host` move a state, a ZeRO range or a whole one, to and
+from the single-device layout of a snapshot.
 
 A model that keeps blocks (`sharding.layout`: FSDP over the data axes,
-tensor parallelism over `model`) keeps the same flat ZeRO state: a leaf's
-flat vector is that of its whole tensors, and a rank's blocks move to and
-from the ZeRO ranges through `_Whole`, which widens a block to its whole
-tensor (zeros elsewhere) while a bucket reads or writes it. The ranks
-holding the same block hand it on once (`sharding.layout.owner` for the
-init; `train_step.rank_grads` for gradients), so the bucketed
-reduce-scatter sums each element once; the all-gather of the new
-weights writes every whole tensor, of which each rank keeps its block.
-Transient: the whole tensors that a bucket's ranges are inside at once,
-at most about `shards` layers' tensors of one leaf (an embedding
-whole).
+tensor parallelism over `model`; every parameter tagged with its
+`Placement`) keeps the same flat state: a leaf's flat vector is that of
+its whole tensors. Its blocks move to and from the ranges by an uneven
+all_to_all over the ZeRO group (`collectives.all_to_all_v`), bucket by
+bucket, each bucket at most `BUCKET` floats over all ranks' ranges:
+every rank computes every rank's block of every part from the mesh's
+shape, the part's spec and that rank's coordinates (`_Plan`); a block's
+elements in a rank's bucket are one run of the block's own order
+(`layout.below`), sent as it lies, and land in the receiver's range as
+a few strided views (`layout.boxes`). Each element moves once a
+contributor and no rank holds a whole tensor of a block:
+
+    gradient  the ranks holding a block hand it on alike, but off model
+              rank 0 where the model ranks hold it alike
+              (`train_step.rank_grads`); the receiver sums them in
+              ZeRO-rank order, then divides by the data-parallel degree
+    init      only the holder at coordinate 0 on each axis the block is
+              replicated over hands it on
+    weights   the reverse: each rank sends each holder of a block the
+              part of its range in that block, cast to the weight's dtype
+
+A rank's transient is one bucket's buffers (a send and a receive of at
+most `BUCKET` floats each) beside its ranges. A model of untagged (whole)
+parameters keeps the bucketed reduce-scatter and all-gather of whole
+leaves, each rank's bucket rows read and written as strided views of the
+parts (`_row_boxes`).
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import itertools
+import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.sharding import collectives as coll
-from repro_torch.sharding.layout import global_numel, is_block, owner
+from repro_torch.sharding.layout import (below, block_grid, boxes,
+                                        global_numel, mesh_rules, placement)
 
 QBLOCK = 128
-BUCKET = 1 << 25         # floats a reduce-scatter or all-gather moves at most
+BUCKET = 1 << 25         # floats a bucket sends or receives at most
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,128 +211,224 @@ def _read_range(parts, lo: int, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-class _Whole:
-    """A leaf's flat vector (its whole tensors, one after another) over
-    this rank's `values` of its `parts` (the parameters; `values` their
-    blocks' values, the parameters themselves by default), read
-    (`read_rows`) or written (`write_rows`, then the block is copied into
-    `values`) by rows: row r of a bucket is the range [r * per + lo,
-    r * per + lo + m) of the ZeRO rank r's slice. A part that is whole is
-    read and written in place; a block is widened to its whole tensor
-    (`dtype`) when a row first reaches it, and dropped once each of its
-    elements was read or written: every element is reached once by the
-    rows of one exchange. The rows that lie whole inside one part move as
-    one strided view (they are `per` apart), so a bucket costs a few ops
-    a part, not one a rank."""
+class _Plan:
+    """A leaf of tagged parts (`sharding.layout.Placement`) on the ZeRO
+    group of `shards` ranks: each part's offset in the leaf's flat vector
+    and each ZeRO rank's `Grid` of its block of each part (computed from
+    the mesh's shape, the part's spec and the rank's coordinates:
+    `coords[s]` those of ZeRO rank s)."""
 
-    def __init__(self, parts, values=None, dtype=torch.float32):
-        self.parts = parts
-        self.values = parts if values is None else values
-        self.dtype = dtype
-        self.open = {}          # part -> [whole tensor, elements left]
+    def __init__(self, parts, shards: int):
+        from repro_torch.launch.mesh import ZERO_AXES
+        mesh = placement(parts[0]).mesh
+        rules = mesh_rules(mesh)
+        self.coords = [mesh.group_coords(ZERO_AXES, s) for s in range(shards)]
+        self.replicated = placement(parts[0]).replicated_over()
+        self.at = list(itertools.accumulate(
+            (global_numel(t) for t in parts), initial=0))
+        by_layout = {}
+        self.grids = []                 # [part][rank]
+        for t in parts:
+            pl = placement(t)
+            key = (pl.shape, pl.spec)
+            if key not in by_layout:
+                by_layout[key] = [block_grid(pl.shape,
+                                             rules.block(pl.shape, pl.spec, c))
+                                  for c in self.coords]
+            self.grids.append(by_layout[key])
 
-    def _spans(self, lo: int, per: int, rows: int, m: int):
-        """Per part i that the rows reach: (i, (r0, r1, first): the rows
-        r0..r1 whole inside it from its element `first` on, `per` apart,
-        or None; [(r, a, b, first)]: each other row's elements [a, b)
-        from the part's element `first`)."""
-        at = 0
-        for i, t in enumerate(self.parts):
-            n = global_numel(t)
-            r_min = max(0, (at - lo - m) // per + 1)
-            r_max = min(rows - 1, (at + n - 1 - lo) // per)
-            if r_min <= r_max:
-                f0 = max(r_min, -((lo - at) // per))
-                f1 = min(r_max, (at + n - m - lo) // per)
-                full = (f0, f1, f0 * per + lo - at) if f0 <= f1 else None
-                edges = []
-                for r in range(r_min, r_max + 1):
-                    if full is None or not f0 <= r <= f1:
-                        start = r * per + lo
-                        a, b = max(start, at), min(start + m, at + n)
-                        edges.append((r, a - start, b - start, a - at))
-                yield i, full, edges
-            at += n
-
-    def _flat(self, i: int, fill: bool) -> torch.Tensor:
-        """Part i's whole tensor, flat: the value itself where it is
-        whole (to read: a copy if it is not contiguous), else its block
-        widened (zeros elsewhere; `fill`: to read)."""
-        t = self.parts[i]
-        if not is_block(t):
-            v = self.values[i].detach()
-            return v.reshape(-1) if fill else v.view(-1)
-        if i not in self.open:
-            w = torch.zeros(t.placement.shape, dtype=self.dtype,
-                            device=t.device)
-            if fill:
-                w[t.placement.index] = self.values[i].detach()
-            self.open[i] = [w, w.numel()]
-        return self.open[i][0].view(-1)
-
-    def _done(self, i: int, k: int, write: bool) -> None:
-        if not is_block(self.parts[i]):
-            return
-        entry = self.open[i]
-        entry[1] -= k
-        if entry[1] == 0:
-            if write:
-                t = self.parts[i]
-                self.values[i].copy_(entry[0][t.placement.index])
-            del self.open[i]
-
-    @staticmethod
-    def _strided(flat: torch.Tensor, full, per: int, m: int):
-        r0, r1, first = full
-        return flat.as_strided((r1 - r0 + 1, m), (per, 1),
-                               flat.storage_offset() + first)
-
-    def read_rows(self, lo: int, per: int, out: torch.Tensor) -> None:
-        """out [rows, m] := each row's elements (zeros past the end)."""
-        out.zero_()
-        rows, m = out.shape
-        for i, full, edges in self._spans(lo, per, rows, m):
-            src = self._flat(i, True)
-            k = 0
-            if full is not None:
-                out[full[0]:full[1] + 1] = self._strided(src, full, per, m)
-                k += (full[1] - full[0] + 1) * m
-            for r, a, b, first in edges:
-                out[r, a:b] = src[first:first + b - a]
-                k += b - a
-            self._done(i, k, False)
-
-    def write_rows(self, lo: int, per: int, src: torch.Tensor) -> None:
-        """Each row's elements := src [rows, m], where they exist."""
-        rows, m = src.shape
-        for i, full, edges in self._spans(lo, per, rows, m):
-            dst = self._flat(i, False)
-            k = 0
-            if full is not None:
-                self._strided(dst, full, per, m).copy_(
-                    src[full[0]:full[1] + 1])
-                k += (full[1] - full[0] + 1) * m
-            for r, a, b, first in edges:
-                dst[first:first + b - a].copy_(src[r, a:b])
-                k += b - a
-            self._done(i, k, True)
+    def runs(self, s: int, a: int, b: int) -> list:
+        """[(part i, j0, j1)]: the runs [j0, j1) of ZeRO rank s's blocks
+        whose elements lie in [a, b) of the leaf's flat vector, part by
+        part."""
+        out = []
+        i = max(0, bisect.bisect_right(self.at, a) - 1)
+        while i < len(self.grids) and self.at[i] < b:
+            g = self.grids[i][s]
+            lo, hi = max(a, self.at[i]), min(b, self.at[i + 1])
+            if lo < hi:
+                j0, j1 = (below(g, lo - self.at[i]),
+                          below(g, hi - self.at[i]))
+                if j0 < j1:
+                    out.append((i, j0, j1))
+            i += 1
+        return out
 
 
-def _to_ranges(parts, values, zero, per: int, hand_on: bool
+def _view(t: torch.Tensor, shape, strides, at: int) -> torch.Tensor:
+    """The strided view of `t`'s elements from its element `at` on."""
+    return t.as_strided(shape, strides, t.storage_offset() + at)
+
+
+def _coalesced(runs) -> list:
+    """Runs [(part, j0, j1)] laid end to end in a buffer, as [(part, j0,
+    j1, buffer position)], a run that continues the one before it in the
+    same part merged into it."""
+    out, pos = [], 0
+    for i, j0, j1 in runs:
+        if out and out[-1][0] == i and out[-1][2] == j0:
+            out[-1][2] = j1
+        else:
+            out.append([i, j0, j1, pos])
+        pos += j1 - j0
+    return out
+
+
+def _pack(flats, runs, n: int, dtype) -> torch.Tensor:
+    """The runs [(part, j0, j1)] of the flat blocks `flats`, end to end
+    (`n` elements), as `dtype`: a view where they are one run of that
+    dtype already."""
+    merged = _coalesced(runs)
+    if len(merged) == 1 and flats[merged[0][0]].dtype == dtype:
+        i, j0, j1, _ = merged[0]
+        return flats[i][j0:j1]
+    out = torch.empty(n, dtype=dtype, device=flats[0].device)
+    for i, j0, j1, pos in merged:
+        out[pos:pos + j1 - j0].copy_(flats[i][j0:j1])
+    return out
+
+
+def _blocks_in(parts, values, zero, per: int, *, gradient: bool
                ) -> torch.Tensor:
     """This rank's ZeRO range (`per` floats) of the sum over the ZeRO
-    group of the ranks' `values` of a leaf's `parts` (their blocks, or
-    None: nothing), each rank's counted where `hand_on`."""
-    dev = parts[0].device
-    whole = _Whole(parts, values) if values is not None else None
-    mine = torch.empty(per, dtype=torch.float32, device=dev)
+    group of the ranks' `values` of a leaf's tagged `parts` (their
+    blocks, of any float dtype; None: zeros), in ZeRO-rank order. Of the
+    ranks holding the same block, the one at coordinate 0 on every axis
+    it is replicated over hands it on; with `gradient`, every one but
+    those off coordinate 0 on `model` where the block is replicated over
+    it (`train_step.rank_grads`: the data ranks' parts are summed; the
+    model ranks' are alike). The other ranks' values are not read. One
+    uneven all_to_all a bucket: each rank sends the runs of its blocks
+    that lie in each rank's bucket of its range, so each element moves
+    once a contributor and no whole tensor is built; what a bucket
+    receives, at most one run a contributor and part, is added into the
+    range through `boxes`."""
+    plan, me, Z = _Plan(parts, zero.shards), zero.rank, zero.shards
+    once = [a for a in plan.replicated if not gradient or a == "model"]
+    senders = [s for s in range(Z)
+               if not any(plan.coords[s][a] for a in once)]
+    sending = me in senders
+    flats = (None if values is None or not sending
+             else [v.detach().reshape(-1) for v in values])
+    mine = torch.zeros(per, dtype=torch.float32, device=parts[0].device)
+    for lo, m in _chunks(per, Z):
+        runs, send_splits = [], []
+        for r in range(Z):
+            rr = plan.runs(me, r * per + lo, r * per + lo + m) if sending \
+                else []
+            runs += rr
+            send_splits.append(sum(j1 - j0 for _, j0, j1 in rr))
+        n = sum(send_splits)
+        send = (torch.zeros(n, dtype=torch.float32, device=mine.device)
+                if flats is None else _pack(flats, runs, n, torch.float32))
+        a = me * per + lo
+        got = [(s, plan.runs(s, a, a + m)) for s in senders]
+        recv_splits = [0] * Z
+        for s, rr in got:
+            recv_splits[s] = sum(j1 - j0 for _, j0, j1 in rr)
+        recv = coll.all_to_all_v(send, send_splits, recv_splits, zero)
+        del send
+        pos = 0
+        for s, rr in got:
+            for i, j0, j1 in rr:
+                for j, shape, off, strides in boxes(plan.grids[i][s], j0,
+                                                    j1):
+                    k = pos + j - j0
+                    _view(mine, shape, strides,
+                          plan.at[i] + off - me * per).add_(
+                        recv[k:k + math.prod(shape)].view(shape))
+                pos += j1 - j0
+        del recv
+    return mine
+
+
+def _blocks_out(parts, mstr: torch.Tensor, zero) -> None:
+    """Every tagged part (a parameter's block) := its elements of the
+    ZeRO ranges, whose this rank's is `mstr`, cast to its dtype: the
+    reverse all_to_all of `_blocks_in`, each rank sending to each rank
+    the part of its bucket of the range that lies in that rank's blocks
+    (a block held alike by several ranks goes to each)."""
+    plan, me, Z = _Plan(parts, zero.shards), zero.rank, zero.shards
+    flats = [t.detach().view(-1) for t in parts]
+    per, dtype = mstr.numel(), parts[0].dtype
+    for lo, m in _chunks(per, Z):
+        a = me * per + lo
+        out, send_splits = [], []
+        for h in range(Z):
+            rr = plan.runs(h, a, a + m)
+            out += [(h, run) for run in rr]
+            send_splits.append(sum(j1 - j0 for _, j0, j1 in rr))
+        send = torch.empty(sum(send_splits), dtype=dtype, device=mstr.device)
+        pos = 0
+        for h, (i, j0, j1) in out:
+            for j, shape, off, strides in boxes(plan.grids[i][h], j0, j1):
+                k = pos + j - j0
+                send[k:k + math.prod(shape)].view(shape).copy_(
+                    _view(mstr, shape, strides, plan.at[i] + off - me * per))
+            pos += j1 - j0
+        runs, recv_splits = [], []
+        for r in range(Z):
+            rr = plan.runs(me, r * per + lo, r * per + lo + m)
+            runs += rr
+            recv_splits.append(sum(j1 - j0 for _, j0, j1 in rr))
+        recv = coll.all_to_all_v(send, send_splits, recv_splits, zero)
+        del send
+        for i, j0, j1, pos in _coalesced(runs):
+            flats[i][j0:j1].copy_(recv[pos:pos + j1 - j0])
+        del recv
+
+
+def _row_boxes(parts, per: int, rows: int, lo: int, m: int):
+    """The boxes in which a bucket's rows meet each of a leaf's whole
+    parts, row r the leaf's flat elements [r * per + lo, r * per + lo +
+    m), as `(i, j, shape, offset, strides)`: the box is the contiguous
+    run of the bucket [rows, m] (row-major) from its element j, and the
+    view of part i's flat vector from its element `offset` with
+    `strides`. The bucket is a block of the leaf seen as [rows, per], the
+    rows that lie whole in a part one box."""
+    grid = block_grid((rows, per), (slice(0, rows), slice(lo, lo + m)))
+    at = 0
+    for i, t in enumerate(parts):
+        n = t.numel()
+        for j, shape, off, strides in boxes(grid, below(grid, at),
+                                            below(grid, at + n)):
+            yield i, j, shape, off - at, strides
+        at += n
+
+
+def _whole_in(parts, values, zero, per: int) -> torch.Tensor:
+    """This rank's ZeRO range of the sum over the group of the ranks'
+    `values` of a leaf of whole (untagged) parts (None: zeros): the
+    bucketed reduce-scatter of the flat leaf."""
+    flats = (None if values is None
+             else [v.detach().reshape(-1) for v in values])
+    mine = torch.empty(per, dtype=torch.float32, device=parts[0].device)
     for lo, m in _chunks(per, zero.shards):
-        buf = torch.zeros((zero.shards, m), dtype=torch.float32, device=dev)
-        if whole is not None and hand_on:
-            whole.read_rows(lo, per, buf)
-        coll.reduce_scatter_(mine[lo:lo + m], buf.view(-1), zero)
+        buf = torch.zeros(zero.shards * m, dtype=torch.float32,
+                          device=mine.device)
+        if flats is not None:
+            for i, j, shape, off, strides in _row_boxes(parts, per,
+                                                        zero.shards, lo, m):
+                buf[j:j + math.prod(shape)].view(shape).copy_(
+                    _view(flats[i], shape, strides, off))
+        coll.reduce_scatter_(mine[lo:lo + m], buf, zero)
         del buf
     return mine
+
+
+def _whole_out(parts, mstr: torch.Tensor, zero) -> None:
+    """Every whole part := its elements of the all-gather of the ZeRO
+    ranges (this rank's `mstr`), cast to its dtype."""
+    flats = [t.detach().view(-1) for t in parts]
+    per, dtype = mstr.numel(), parts[0].dtype
+    for lo, m in _chunks(per, zero.shards):
+        recv = torch.empty(zero.shards * m, dtype=dtype, device=mstr.device)
+        coll.all_gather_(recv, mstr[lo:lo + m].to(dtype), zero)
+        for i, j, shape, off, strides in _row_boxes(parts, per, zero.shards,
+                                                    lo, m):
+            _view(flats[i], shape, strides, off).copy_(
+                recv[j:j + math.prod(shape)].view(shape))
+        del recv
 
 
 def _chunks(per: int, ranks: int):
@@ -362,16 +476,17 @@ def init_state(params, cfg: AdamWConfig, *, mesh=None) -> AdamState:
                      v=tree_map(zeros, params))
 
 
+def _tagged(parts) -> bool:
+    return placement(parts[0]) is not None
+
+
 def _init_zero(params, cfg: AdamWConfig, zero) -> AdamState:
     def slices(p):
         parts = _parts(p)
         per = zero_share(_pad_len(leaf_size(p)), zero.shards)
         dev = parts[0].device
-        if any(is_block(t) for t in parts):
-            # the ranges of whole tensors this rank holds blocks of: each
-            # block handed on by one of the ranks that hold it
-            master = _to_ranges(parts, parts, zero, per,
-                                all(owner(t) for t in parts))
+        if _tagged(parts):
+            master = _blocks_in(parts, parts, zero, per, gradient=False)
         else:
             master = _read_range(parts, zero.rank * per,
                                  torch.empty(per, dtype=torch.float32,
@@ -439,15 +554,19 @@ def reduce_scatter_grads(params, grads, zero, data_ranks: int) -> list:
     the sum over the ZeRO group of the ranks' parts (`grads`' leaves, of
     the shapes of `params`' blocks; a leaf None adds nothing), divided by
     `data_ranks`. Each leaf of `grads` is dropped once reduced, so that
-    its memory goes."""
+    its memory goes. A leaf of tagged parts moves by `_blocks_in`, whose
+    rule says which ranks give their part (`train_step.rank_grads`'), a
+    leaf of whole parts by the reduce-scatter."""
     out = []
     for (gtree, k), p in zip(leaf_slots(grads), tree_leaves(params)):
         g = gtree[k]
         gtree[k] = None
+        parts = _parts(p)
+        values = None if g is None else _parts(g)
         per = zero_share(_pad_len(leaf_size(p)), zero.shards)
-        mine = _to_ranges(_parts(p), None if g is None else _parts(g), zero,
-                          per, True)
-        del g
+        mine = (_blocks_in(parts, values, zero, per, gradient=True)
+                if _tagged(parts) else _whole_in(parts, values, zero, per))
+        del g, values
         if data_ranks > 1:
             mine.div_(data_ranks)
         out.append(mine)
@@ -456,17 +575,14 @@ def reduce_scatter_grads(params, grads, zero, data_ranks: int) -> list:
 
 @torch.no_grad()
 def _gather_params(params, master_slices: list, zero) -> None:
-    """Every parameter := the all-gather of its leaf's master slices, cast
+    """Every parameter := its elements of its leaf's master slices, cast
     to the parameter's dtype (of a block: its part of them)."""
     for p, mstr in zip(tree_leaves(params), master_slices):
         parts = _parts(p)
-        whole = _Whole(parts, dtype=parts[0].dtype)
-        per = mstr.numel()
-        for lo, m in _chunks(per, zero.shards):
-            recv = torch.empty(zero.shards * m, dtype=parts[0].dtype,
-                               device=mstr.device)
-            coll.all_gather_(recv, mstr[lo:lo + m].to(parts[0].dtype), zero)
-            whole.write_rows(lo, per, recv.view(zero.shards, m))
+        if _tagged(parts):
+            _blocks_out(parts, mstr, zero)
+        else:
+            _whole_out(parts, mstr, zero)
 
 
 @torch.no_grad()

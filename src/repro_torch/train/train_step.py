@@ -32,7 +32,8 @@ them, so only model rank 0 hands it on. A block split over the data axes
 comes out of its FSDP gather's backward already summed over the data
 ranks, each data rank holding its own block: it is handed on once. The
 ZeRO optimizer (`optimizer.apply_updates(..., mesh=)`) does the sum in
-its reduce-scatter.
+its exchange into the ZeRO ranges, whose rule of who hands a block on is
+this one.
 """
 from __future__ import annotations
 
@@ -160,7 +161,7 @@ def rank_grads(model, params, batch, mesh, num_microbatches: int = 1,
         loss = coll.pmean(loss, mesh.group(DATA_AXES))
     if mesh.coords.get("model", 0) != 0:
         # a leaf computed alike on every model rank: rank 0's copy is the
-        # one the reduce-scatter adds up
+        # one the optimizer's exchange adds up
         for (t, k), varies in zip(list(leaf_slots(grads)),
                                   _varying_leaves(model, params)):
             if not varies:

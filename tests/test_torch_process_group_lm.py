@@ -22,7 +22,9 @@ Parity levels:
     of reduced Qwen2-7B and DBRX); the residuals of `compressed_psum`;
     the model ranks of one data row among themselves (outputs and the
     gradients of every leaf computed whole); every rank's parameters
-    after a step (one all-gather of one state);
+    after a step (one all-gather of one state); the exchange between
+    blocks and ZeRO ranges against its plain reference (init, gradient,
+    state and weight blocks, fp32 and int8, at 2x2 and 4x1);
   * level 2: the collectives' values and gradients against `jax.grad`
     through `shard_map` (`TOL_F32` relative: a sum of 4 float32 in
     another order); the MoE's `out` within `TOL_LAYER` of its largest
@@ -557,6 +559,117 @@ def zero_steps():
             res[tag] = dict(losses=losses, lens=lens)
     return res
 
+def exchange():
+    # the exchange between blocks and ZeRO ranges (reduced configs on
+    # blocks, one step without the clip) against the plain reference:
+    # every rank's part widened to the leaf's flat vector, all-gathered,
+    # summed in rank order and sliced; the update against one process's
+    # `apply_updates` on the reference gradient; the bytes the exchange's
+    # all_to_all sends against the blocks each element moves from
+    import math
+    from repro_torch.sharding.collectives import CollectiveLog
+    from repro_torch.sharding.layout import placement
+    from repro_torch.train import apply_updates
+    from repro_torch.train import optimizer as topt
+    dp = data.shards
+
+    def parts_of(leaf):
+        return None if leaf is None else (
+            list(leaf) if isinstance(leaf, list) else [leaf])
+
+    def widened_sum(leaf, values):
+        per = topt.zero_share(_pad_len(leaf_size(leaf)), zero.shards)
+        flat = torch.zeros(zero.shards * per)
+        at = 0
+        for i, t in enumerate(parts_of(leaf)):
+            pl = placement(t)
+            if values is not None:
+                w = torch.zeros(pl.shape)
+                w[pl.index] = values[i].detach().float()
+                flat[at:at + w.numel()] = w.reshape(-1)
+            at += math.prod(pl.shape)
+        rows = torch.empty(zero.shards * flat.numel())
+        dist.all_gather_into_tensor(rows, flat, group=zero.group)
+        rows = rows.view(zero.shards, -1)
+        total = rows[0].clone()
+        for r in range(1, zero.shards):
+            total += rows[r]
+        return total
+
+    def mine_of(whole, n):
+        # this rank's n elements of a whole vector, zeros past its end
+        out = torch.zeros(n, dtype=whole.dtype)
+        got = whole[zero.rank * n:(zero.rank + 1) * n]
+        out[:got.numel()] = got
+        return out
+
+    def clone(tree):
+        return topt.tree_map(lambda x: None if x is None else (
+            [t.clone() for t in x] if isinstance(x, list) else x.clone()),
+            tree)
+
+    res = {}
+    for name in TRAIN_ARCHS:
+        cfg = reduced_config(name)
+        src = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=SEQ, global_batch=BATCH,
+                                         seed=0))
+        b = launch_train.make_batch(cfg, src.batch_at(0), "cpu")
+        for int8 in (False, True):
+            adam = AdamWConfig(int8_moments=int8, grad_clip=0.0)
+            m = get_model(cfg)(cfg, device="cpu", seed=0, mesh=mesh)
+            m.requires_grad_(True)
+            params = lm_param_tree(m)
+            leaves = list(tree_leaves(params))
+            st = init_state(params, adam, mesh=mesh)
+            owner = [not any(mesh.coords[a] for a in placement(
+                parts_of(p)[0]).replicated_over()) for p in leaves]
+            init = all(torch.equal(s, mine_of(widened_sum(
+                p, parts_of(p) if o else None), s.numel()))
+                for p, s, o in zip(leaves, tree_leaves(st.master), owner))
+            with active_rules(rules):
+                g, _ = rank_grads(m, params, b, mesh, 1,
+                                  dict(q_chunk=Q_CHUNK))
+            given = list(tree_leaves(g))
+            want = [widened_sum(p, parts_of(x)) / dp
+                    for p, x in zip(leaves, given)]
+            got = reduce_scatter_grads(params, clone(g), zero, dp)
+            grads = all(torch.equal(s, mine_of(w, s.numel()))
+                        for s, w in zip(got, want))
+            sent = 4 * sum(t.numel() for x in given if x is not None
+                           for t in parts_of(x))
+            sent += sum(t.numel() * t.element_size() for t in m.parameters())
+            with CollectiveLog() as log:
+                _, st, _ = apply_updates(params, g, st, adam, mesh=mesh)
+            one = get_model(cfg)(cfg, device="cpu", seed=0)
+            p1 = lm_param_tree(one)
+            st1 = init_state(p1, adam)
+            it = iter(want)
+
+            def cut(leaf):
+                flat, at, out = next(it), 0, []
+                for t in parts_of(leaf):
+                    out.append(flat[at:at + t.numel()].view(t.shape))
+                    at += t.numel()
+                return out if isinstance(leaf, list) else out[0]
+            _, st1, _ = apply_updates(p1, topt.tree_map(cut, p1), st1, adam)
+            state = True
+            for f in ("master", "m", "v"):
+                for a, w in zip(tree_leaves(getattr(st, f)),
+                                tree_leaves(getattr(st1, f))):
+                    pair = isinstance(a, tuple)
+                    for x, y in zip(a if pair else (a,), w if pair else (w,)):
+                        state &= torch.equal(x, mine_of(y, x.numel()))
+            whole = dict(one.named_parameters())
+            weights = all(torch.equal(t, whole[k][placement(t).index])
+                          for k, t in m.named_parameters())
+            res[f"{name}_{int(int8)}"] = dict(
+                init=init, grads=grads, state=bool(state), weights=weights,
+                a2a=log.bytes.get("all_to_all", 0), sent=sent,
+                others=sorted(k for k in log.bytes
+                              if k not in ("all_to_all", "all_reduce")))
+    return res
+
 def config_of(name):
     # a reduced config, or BLOCK_VARIANTS' one
     if name in dict(BLOCK_VARIANTS):
@@ -709,9 +822,10 @@ def failure():
 """
 CASES = {"2x2": ["collectives", "compressed", "moe", "train_jax",
                  "zero_steps", "grads", "blocks", "block_grads", "vocab",
-                 "coll_bytes"],
+                 "coll_bytes", "exchange"],
          "4x1": ["collectives", "zero_steps", "grads", "train_jax", "blocks",
-                 "block_grads", "kill", "kill_reverse", "failure"],
+                 "block_grads", "exchange", "kill", "kill_reverse",
+                 "failure"],
          "1x1": ["world_one", "cli"]}
 
 
@@ -1041,6 +1155,28 @@ def test_train_matches_jax_run_training_on_2x2(runs, name):
 @pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
 @pytest.mark.parametrize("name", TRAIN_ARCHS)
 @pytest.mark.parametrize("tag", ["2x2", "4x1"])
+def test_zero_exchange_equals_plain_reference(runs, tag, name, int8):
+    """The exchange between blocks and ZeRO ranges on a model that keeps
+    blocks (`optimizer._blocks_in` / `_blocks_out`, one uneven all_to_all
+    a bucket) against the plain reference, bit for bit (level 1): the
+    init's master ranges and the reduced gradient's ranges equal every
+    rank's part widened to the leaf's flat vector, all-gathered, summed
+    in rank order and sliced; after one step (no clip), master, m and v
+    equal one process's `apply_updates` on that gradient, sliced, and
+    every weight block its block of one process's new weights. Summed
+    over the group, the all_to_all sends each gradient element once a
+    contributor (float32) and each weight block's elements once (its
+    dtype), and nothing moves by reduce-scatter or all-gather."""
+    outs = [o["exchange"][f"{name}_{int(int8)}"] for o in runs[tag]]
+    for o in outs:
+        assert o["init"] and o["grads"] and o["state"] and o["weights"], o
+        assert o["others"] == [], o
+    assert sum(o["a2a"] for o in outs) == sum(o["sent"] for o in outs)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+@pytest.mark.parametrize("tag", ["2x2", "4x1"])
 def test_zero_step_matches_single_device(runs, tag, name, int8):
     """Two steps from the port's seeded init: losses, parameters (equal on
     every rank) and each leaf's update of the gathered masters against
@@ -1222,9 +1358,9 @@ def test_block_gradient_is_the_single_device_one(runs, tag, name):
     """The gradient invariant on blocks, at 1 and 2 microbatches, the aux
     loss weighted 1.0: each rank's block gradients (already summed over
     the data ranks by the FSDP gathers' backward where the data axes
-    split them) handed on once, reduce-scattered into the flat ZeRO
-    ranges, gathered, against the single-device gradient of the global
-    batch, each leaf."""
+    split them) handed on once, summed into the flat ZeRO ranges by the
+    optimizer's exchange, gathered, against the single-device gradient
+    of the global batch, each leaf."""
     for nm in (1, 2):
         got = runs[tag][0]["block_grads"][f"{name}_{nm}"]
         assert max(got["errs"]) <= TOL_GRAD, got["errs"]

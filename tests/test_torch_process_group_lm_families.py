@@ -314,8 +314,8 @@ def sharded_steps():
     return res
 
 def block_grads():
-    # each rank's block gradients handed on once, reduce-scattered into
-    # the ZeRO ranges and gathered, against the single-device gradient of
+    # each rank's block gradients handed on once, summed into the ZeRO
+    # ranges by the optimizer's exchange and gathered, against the single-device gradient of
     # the global batch (8 rows, random extra inputs), at 1 and 2
     # microbatches
     res = {}
@@ -592,8 +592,8 @@ def test_block_gradient_is_the_single_device_one(runs, tag, name):
     """The gradient invariant on blocks, at 1 and 2 microbatches: each
     rank's block gradients handed on once (a leaf the model ranks hold
     alike, such as MLA's latent projections and norms or the VLM's
-    `vision_proj`, by model rank 0), reduce-scattered into the flat ZeRO
-    ranges and gathered, against the single-device gradient of the
+    `vision_proj`, by model rank 0), summed into the flat ZeRO ranges by
+    the optimizer's exchange and gathered, against the single-device gradient of the
     global batch, each leaf; the reported loss is the global batch's."""
     for nm in (1, 2):
         got = runs[tag][0]["block_grads"][f"{name}_{nm}"]

@@ -23,6 +23,10 @@ from a seed and rounded to bf16:
   the sum to float32 rounding (level 2, `TOL_NORM`).
 - A port `AdamState` saved by the port's `Checkpointer` has the JAX
   package's keys, shapes and dtypes (level 1).
+- The port's own exchange between weight blocks and ZeRO ranges (no JAX
+  counterpart: GSPMD reshards there): its algebra against the widened
+  flat vector (level 1), and one fake rank of reduced DBRX at (data 4,
+  model 4) held to its peak and all_to_all bytes.
 """
 import jax
 import jax.numpy as jnp
@@ -279,63 +283,196 @@ def test_adam_state_checkpoint_has_jax_keys(tmp_path):
                                         else torch.float32)
 
 
-@pytest.mark.parametrize("rows,per,bucket", [(4, 384, 128), (3, 640, 256),
-                                             (8, 136, 128)])
-def test_whole_rows_of_blocks_equal_the_flat_leaf(rows, per, bucket):
-    """The ZeRO exchange's reader and writer of a leaf whose parts are
-    blocks (`sharding.layout`), a whole tensor, or non-contiguous values:
-    every bucket's rows read as the leaf's flat vector of whole tensors
-    (zeros outside this rank's blocks, and past the end) reads them, and
-    writing the flat vector back by rows leaves each part its own block
-    of it (level 1). Rows lying whole inside a part take the strided
-    path, the others the per-row one."""
-    from repro_torch.sharding.layout import Placement
-    from repro_torch.sharding.rules import PartitionSpec
-    gen = torch.Generator().manual_seed(rows)
-    shapes = [(6, 40), (6, 40), (5, 7), (300,), (6, 40)]
-    parts, wholes = [], []
-    for k, shape in enumerate(shapes):
-        full = torch.randn(shape, generator=gen)
-        if k == 2:                       # whole, read through a transpose
-            t = full.t().contiguous().t()
-            wholes.append(full)
-        else:
-            index = ((slice(2, 4), slice(8, 16)) if len(shape) == 2
-                     else (slice(100, 200),))
-            t = full[index].clone()
-            t.placement = Placement(None, PartitionSpec(), shape, index)
-            w = torch.zeros(shape)
-            w[index] = t
-            wholes.append(w)
+# leaves on a (data 2, model 3) mesh: (the parts' shapes, their logical
+# axes, None for whole untagged parts)
+EXCHANGE_MESH = {"data": 2, "model": 3}
+EXCHANGE_LEAVES = {
+    "1d": ([(1536,)], ("embed",)),                    # replicated on model
+    "2d": ([(24, 36)], ("embed", "ffn")),
+    "3d": ([(6, 8, 27)], ("experts", "embed", "ffn")),  # ffn stays whole
+    "layers": ([(4, 6, 18)] * 3, ("embed", "q_heads", "head_dim")),
+    "whole": ([(5, 7), (300,), (6, 40), (20, 40)], None),
+}
+
+
+def widened_offsets(shape, index, at):
+    """The leaf offsets of a block's elements, in the block's order, read
+    off the widened flat vector."""
+    return at + np.arange(int(np.prod(shape))).reshape(shape)[index].ravel()
+
+
+def box_offsets(bx):
+    """The flat offsets of each box (j, shape, offset, strides), row-major
+    over its shape, concatenated."""
+    out = []
+    for _, shape, off, strides in bx:
+        pos = np.full(shape, off, dtype=np.int64)
+        for d, (n, st) in enumerate(zip(shape, strides)):
+            pos += (np.arange(n) * st).reshape(
+                (1,) * d + (n,) + (1,) * (len(shape) - d - 1))
+        out += list(pos.ravel())
+    return np.asarray(out, dtype=np.int64)
+
+
+@pytest.mark.parametrize("bucket", [768, 1 << 25], ids=["buckets", "one"])
+@pytest.mark.parametrize("leaf", list(EXCHANGE_LEAVES))
+def test_block_runs_land_where_the_widened_leaf_has_them(leaf, bucket,
+                                                         monkeypatch):
+    """The algebra of the exchange between blocks and ZeRO ranges
+    (`sharding.layout.below` and `boxes`, `optimizer._Plan`), level 1:
+    for each ZeRO rank's block of each part and each rank's bucket of
+    the ranges, the run the plan sends is the one whose offsets in the
+    widened flat vector lie in that bucket, and its boxes land on those
+    offsets; a leaf of whole parts' bucket rows (`_row_boxes`) meet the
+    parts where the flat vector has them. ZeRO rank s is (data s // 3,
+    model s % 3), as the ZeRO group numbers its ranks."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding.layout import Placement, boxes, mesh_rules
+    monkeypatch.setattr(topt, "BUCKET", bucket)
+    shapes, axes = EXCHANGE_LEAVES[leaf]
+    Z = 6
+    coords = [dict(data=s // 3, model=s % 3) for s in range(Z)]
+    mesh = Mesh(dict(EXCHANGE_MESH), None, coords=coords[0])
+    rules = mesh_rules(mesh)
+    at = np.cumsum([0] + [int(np.prod(sh)) for sh in shapes])
+    n = int(at[-1])
+    per = topt.zero_share(topt._pad_len(n), Z)
+    chunks = topt._chunks(per, Z)
+    assert len(chunks) == (1 if bucket > 1 << 20 else per // 128) and \
+        per == 256
+    if axes is None:
+        parts = [torch.zeros(sh) for sh in shapes]
+        for lo, m in chunks:
+            got = np.full(Z * m, -1, dtype=np.int64)
+            for i, j, shape, off, strides in topt._row_boxes(parts, per, Z,
+                                                             lo, m):
+                k = int(np.prod(shape))
+                assert (got[j:j + k] == -1).all()
+                got[j:j + k] = at[i] + box_offsets(
+                    [(j, shape, off, strides)])
+            q = np.arange(Z * m)
+            flat = (q // m) * per + lo + q % m
+            assert np.array_equal(got, np.where(flat < n, flat, -1))
+        return
+    parts = []
+    for sh in shapes:
+        spec = rules.spec(axes, sh)
+        index = rules.block(sh, spec, coords[0])
+        t = torch.zeros(tuple(sl.stop - sl.start for sl in index))
+        t.placement = Placement(mesh, spec, sh, index)
         parts.append(t)
-    flat = torch.cat([w.reshape(-1) for w in wholes])
-    assert rows * per >= flat.numel()
-    ref = torch.zeros(rows * per)
-    ref[:flat.numel()] = flat
-    whole = topt._Whole(parts)
-    for lo in range(0, per, bucket):
-        m = min(bucket, per - lo)
-        out = torch.empty(rows, m)
-        whole.read_rows(lo, per, out)
-        want = ref.view(rows, per)[:, lo:lo + m]
-        assert torch.equal(out, want)
-    assert not whole.open
-    targets = [torch.zeros_like(t) if k != 2 else torch.zeros(shapes[2])
-               for k, t in enumerate(parts)]
-    for t, p in zip(targets, parts):
-        if hasattr(p, "placement"):
-            t.placement = p.placement
-    new = torch.randn(rows * per, generator=gen)
-    writer = topt._Whole(targets)
-    for lo in range(0, per, bucket):
-        m = min(bucket, per - lo)
-        writer.write_rows(lo, per, new.view(rows, per)[:, lo:lo + m]
-                          .contiguous())
-    assert not writer.open
-    at = 0
-    for k, (t, shape) in enumerate(zip(targets, shapes)):
-        n = int(np.prod(shape))
-        piece = new[at:at + n].reshape(shape)
-        want = piece if k == 2 else piece[t.placement.index]
-        assert torch.equal(t, want), k
-        at += n
+    plan = topt._Plan(parts, Z)
+    assert plan.coords == [dict(c) for c in coords]
+    for s in range(Z):
+        offs = [widened_offsets(sh, rules.block(sh, p.placement.spec,
+                                                coords[s]), at[i])
+                for i, (sh, p) in enumerate(zip(shapes, parts))]
+        for lo, m in chunks:
+            for r in range(Z):
+                a, b = r * per + lo, r * per + lo + m
+                want = []
+                for i, o in enumerate(offs):
+                    j = np.nonzero((o >= a) & (o < b))[0]
+                    if j.size:
+                        assert np.array_equal(j, np.arange(j[0], j[-1] + 1))
+                        want.append((i, int(j[0]), int(j[-1]) + 1))
+                runs = plan.runs(s, a, b)
+                assert runs == want, (s, r, lo)
+                for i, j0, j1 in runs:
+                    bx = boxes(plan.grids[i][s], j0, j1)
+                    assert [x[0] for x in bx] == sorted(x[0] for x in bx)
+                    assert bx[0][0] == j0
+                    assert np.array_equal(at[i] + box_offsets(bx),
+                                          offs[i][j0:j1])
+
+
+FAKE_MESH = {"data": 4, "model": 4}
+FAKE_BUCKET = 4096           # floats: a bucket of 256 a rank at Z = 16
+
+
+@pytest.mark.parametrize("rank", [0, 6])
+def test_apply_updates_on_a_fake_rank_moves_blocks_not_leaves(rank,
+                                                              monkeypatch):
+    """One rank of reduced DBRX on blocks at (data 4, model 4), without
+    processes (`make_rank_mesh`: `FakeGroup`s, fake tensors): its
+    `apply_updates` (gradients of its blocks' shapes, None where the model
+    ranks hold a block alike and it is off model rank 0, as
+    `train_step.rank_grads` gives them) under `LiveBytes` and
+    `CollectiveLog`. Its peak over its arguments stays below the largest
+    leaf's whole float32 bytes and within the bound of its ranges and a
+    bucket: the gradient ranges it holds until the update (4 B an
+    element of its ZeRO ranges), one leaf's update temporaries (m / bc1,
+    v / bc2 and the CPU's float64 sqrt of it: 24 B an element of the
+    largest range) and one bucket's send and receive buffers (4 B each a
+    float of `BUCKET`). It sends by all_to_all, and by nothing else, each
+    element of the blocks it hands on once in float32, and to each rank
+    the elements of its ZeRO ranges that lie in that rank's blocks in
+    the weights' dtype, as the placements give them: every ZeRO rank's
+    block (ZeRO rank s is (data s // 4, model s % 4)) read off the
+    widened flat vector. Rank 0 hands on every leaf; rank 6 (data 1,
+    model 2) none that the model ranks hold alike. An exchange that
+    widens each block to its whole tensor fails both checks."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import reduced_config
+    from repro_torch.convert import lm_param_tree
+    from repro_torch.launch.dryrun import LiveBytes
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import get_model
+    from repro_torch.sharding.collectives import CollectiveLog
+    from repro_torch.sharding.layout import mesh_rules, placement
+    from repro_torch.train.train_step import _varying_leaves
+    monkeypatch.setattr(topt, "BUCKET", FAKE_BUCKET)
+    cfg = reduced_config("dbrx-132b")
+    mesh = make_rank_mesh(FAKE_MESH, rank, "cpu")
+    Z = FAKE_MESH["data"] * FAKE_MESH["model"]
+    adam = AdamWConfig()
+    with FakeTensorMode():
+        model = get_model(cfg)(cfg, device="cpu", seed=None, mesh=mesh)
+        params = lm_param_tree(model)
+        state = init_state(params, adam, mesh=mesh)
+        leaves = list(topt.tree_leaves(params))
+        hands_on = [v or mesh.coords["model"] == 0
+                    for v in _varying_leaves(model, params)]
+        it = iter(hands_on)
+
+        def grad(leaf):
+            if not next(it):
+                return None
+            gs = [torch.zeros(t.shape, dtype=t.dtype)
+                  for t in topt._parts(leaf)]
+            return gs if isinstance(leaf, list) else gs[0]
+        grads = topt.tree_map(grad, params)
+        tensors = list(model.parameters()) + [
+            t for f in (state.master, state.m, state.v)
+            for leaf in topt.tree_leaves(f) for t in topt._parts(leaf)] + [
+            t for leaf in topt.tree_leaves(grads) if leaf is not None
+            for t in topt._parts(leaf)]
+        args = sum(t.numel() * t.element_size() for t in tensors)
+        live = LiveBytes(baseline=args)
+        with live, CollectiveLog() as log:
+            apply_updates(params, grads, state, adam, mesh=mesh)
+    temp = live.peak - args
+    pers = [topt.zero_share(topt._pad_len(topt.leaf_size(p)), Z)
+            for p in leaves]
+    largest = 4 * max(topt.leaf_size(p) for p in leaves)
+    bound = 4 * sum(pers) + 24 * max(pers) + 8 * FAKE_BUCKET
+    assert 0 < temp < largest and temp <= bound, (temp, largest, bound)
+
+    rules = mesh_rules(mesh)
+    coords = [dict(data=s // 4, model=s % 4) for s in range(Z)]
+    want = 0
+    for p, per, gives in zip(leaves, pers, hands_on):
+        parts = topt._parts(p)
+        if gives:
+            want += 4 * sum(t.numel() for t in parts)
+        lo, hi, at = rank * per, (rank + 1) * per, 0
+        for t in parts:
+            pl = placement(t)
+            for c in coords:
+                offs = widened_offsets(pl.shape, rules.block(
+                    pl.shape, pl.spec, c), at)
+                want += t.element_size() * int(((offs >= lo)
+                                                 & (offs < hi)).sum())
+            at += int(np.prod(pl.shape))
+    assert log.bytes == {"all_to_all": want, "all_reduce": 4}, \
+        (log.bytes, want)
